@@ -1,0 +1,134 @@
+"""Dataclass configuration with dotted CLI overrides.
+
+The sections and defaults are the JAX package's (``euromillioner_tpu/
+config.py``), cut to the fields the ported path reads, so a command line
+written for one package means the same to the other. ``apply_overrides``
+walks dotted keys (``serve.precision=fused``) exactly as there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any
+
+from euromillioner_tpu_torch.utils.errors import ConfigError
+
+# serve.scheduler / serve.precision values this port serves so far; the
+# JAX package's other values are valid there and rejected here by name
+PORTED_SCHEDULERS = ("batch",)
+PORTED_PRECISIONS = ("f32", "fused")
+
+
+@dataclass
+class ModelConfig:
+    """Neural models (the lstm family is the one ported)."""
+
+    name: str = "mlp"                   # the JAX default; serving sets lstm
+    lstm_hidden: int = 512
+    lstm_layers: int = 2
+    seq_len: int = 64
+    dropout: float = 0.0
+    graves_peepholes: bool = True       # GravesLSTM parity (dl4j 0.9.1)
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass
+class TrainConfig:
+    """The trainer fields that restore reads."""
+
+    seed: int = 0
+
+
+@dataclass
+class ServeConfig:
+    """Whole-sequence serving (serve/continuous.py WholeSequenceScheduler)."""
+
+    # Flush a micro-batch when it reaches the largest row bucket or when
+    # the OLDEST queued request has waited max_wait_ms (serve/batcher.py).
+    max_wait_ms: float = 2.0
+    # Row buckets: a micro-batch pads up to the smallest that fits.
+    buckets: tuple[int, ...] = (8, 32, 128)
+    # In-flight micro-batch window (>= 2 overlaps the next batch's upload
+    # with the current batch's compute).
+    inflight: int = 2
+    # Accepted so overrides shared with the JAX package parse; an eager
+    # PyTorch program keeps no compiled-executable cache to bound.
+    max_executables: int = 16
+    # "batch" is ported; "continuous" (the step scheduler) is not yet.
+    scheduler: str = "batch"
+    # Time buckets: a micro-batch pads to the smallest fitting length;
+    # the largest caps admissible sequence length.
+    seq_buckets: tuple[int, ...] = (8, 16, 32, 64)
+    # "f32" (the oracle profile) or "fused" (the CUDA sequence kernel for
+    # the padded zero-carry programs, behind the (lstm, fused) envelope);
+    # bf16 and int8w are not ported yet.
+    precision: str = "f32"
+    # Run every (row bucket, time bucket) program once before serving.
+    warmup: bool = True
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+
+
+def check_ported(cfg: Config) -> None:
+    """Reject serve settings that are valid in the JAX package but not
+    ported yet — a :class:`ConfigError` (exit 17) naming the setting,
+    before any restore or device work."""
+    if cfg.serve.scheduler == "continuous":
+        raise ConfigError(
+            f"serve.scheduler={cfg.serve.scheduler!r} is not ported yet; "
+            f"this port serves {list(PORTED_SCHEDULERS)}")
+    prec = str(cfg.serve.precision).strip().lower()
+    if prec in ("bf16", "int8w"):
+        raise ConfigError(
+            f"serve.precision={prec!r} is not ported yet; this port "
+            f"serves {list(PORTED_PRECISIONS)}")
+
+
+def _coerce(current: Any, value: str) -> Any:
+    """Coerce a CLI string to the type of the current field value."""
+    if isinstance(current, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    if isinstance(current, int):
+        return int(value)
+    if isinstance(current, float):
+        return float(value)
+    if isinstance(current, tuple):
+        return tuple(int(v) if v.strip().isdigit() else v.strip()
+                     for v in value.split(",") if v.strip())
+    return value
+
+
+def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
+    """Apply ``section.field=value`` overrides (e.g. ``serve.warmup=false``);
+    keys walk nested dataclass sections."""
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be section.field=value: {ov!r}")
+        key, value = ov.split("=", 1)
+        parts = key.strip().lstrip("-").split(".")
+        if len(parts) < 2:
+            raise ValueError(f"override key must be section.field: {key!r}")
+        sub: Any = cfg
+        for section in parts[:-1]:
+            sub = getattr(sub, section, None)
+            if sub is None or not dataclasses.is_dataclass(sub):
+                raise ValueError(f"unknown config section: {section!r}")
+        fieldname = parts[-1]
+        if not hasattr(sub, fieldname):
+            raise ValueError(
+                f"unknown field {fieldname!r} in section "
+                f"{'.'.join(parts[:-1])!r}")
+        current = getattr(sub, fieldname)
+        if dataclasses.is_dataclass(current):
+            raise ValueError(
+                f"{key!r} names a config section, not a field — "
+                f"override one of its fields instead")
+        setattr(sub, fieldname, _coerce(current, value))
+    return cfg

@@ -1,0 +1,165 @@
+"""Peephole (GravesLSTM-style) LSTM.
+
+The JAX package's ``nn/recurrent.py`` in PyTorch: the same leaf names,
+shapes and gate order — ``wx (F, 4H)``, ``wh (H, 4H)``, ``bias (4H)`` with
+the forget bias in ``[H:2H]``, peepholes ``p_i``/``p_f``/``p_o`` (i and f
+see c_prev, o sees the new c), gates ordered i, f, g, o. The input
+projection for all timesteps is hoisted into one ``(T·B, F) @ (F, 4H)``
+product; the recurrence is either a Python loop of :meth:`LSTMCell.step`
+(the scan, the f32 oracle) or the sequence kernel of ops/fused_lstm.py
+(:meth:`LSTM.fused_sequence`, zero initial carry only).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from euromillioner_tpu_torch.nn import initializers as init
+from euromillioner_tpu_torch.nn.module import Module
+
+
+def lstm_cell(x_proj: torch.Tensor, h_prev: torch.Tensor,
+              c_prev: torch.Tensor, wh: torch.Tensor, peep=None):
+    """One peephole-LSTM step: ``(h, c, (i, f, g, o))`` from the
+    precomputed ``x_proj = x @ wx + bias`` (B, 4H). ``peep`` is
+    ``(p_i, p_f, p_o)`` or None for a vanilla LSTM. THE step math: the
+    layer's scan and the fused kernel's plain version both run it."""
+    hdim = wh.shape[0]
+    gates = x_proj + h_prev @ wh
+    i, f, g, o = gates.split(hdim, dim=-1)
+    if peep is not None:
+        i = i + c_prev * peep[0]
+        f = f + c_prev * peep[1]
+    i = torch.sigmoid(i)
+    f = torch.sigmoid(f)
+    g = torch.tanh(g)
+    c = f * c_prev + i * g
+    if peep is not None:
+        o = o + c * peep[2]
+    o = torch.sigmoid(o)
+    h = o * torch.tanh(c)
+    return h, c, (i, f, g, o)
+
+
+class LSTMCell(Module):
+    """Single-step LSTM cell holding the layer's parameters."""
+
+    def __init__(self, in_features: int, hidden: int, peepholes: bool = True,
+                 forget_bias: float = 1.0, *, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        h = hidden
+        self.hidden = hidden
+        self.peepholes = peepholes
+        self.forget_bias = forget_bias  # DL4J forgetGateBiasInit default 1.0
+        bias = torch.zeros(4 * h, device=device)
+        bias[h:2 * h] = forget_bias
+        P = torch.nn.Parameter
+        self.wx = P(init.glorot_uniform((in_features, 4 * h), generator,
+                                        device))
+        self.wh = P(init.orthogonal((h, 4 * h), generator, device))
+        self.bias = P(bias)
+        if peepholes:
+            gauss = init.normal(0.01)
+            self.p_i = P(gauss((h,), generator, device))
+            self.p_f = P(gauss((h,), generator, device))
+            self.p_o = P(gauss((h,), generator, device))
+
+    def peep_vectors(self, dtype):
+        """``(p_i, p_f, p_o)`` in ``dtype``, or None without peepholes."""
+        if not self.peepholes:
+            return None
+        return (self.p_i.to(dtype), self.p_f.to(dtype), self.p_o.to(dtype))
+
+    def step(self, carry, x_proj):
+        """One timestep: ``((h, c), x_proj (B, 4H)) → ((h, c), h)``."""
+        h_prev, c_prev = carry
+        h, c, _ = lstm_cell(x_proj, h_prev, c_prev,
+                            self.wh.to(x_proj.dtype),
+                            self.peep_vectors(x_proj.dtype))
+        return (h, c), h
+
+    def apply(self, x):
+        """Single-step apply: x is (carry, x_t) → (carry, h)."""
+        carry, x_t = x
+        x_proj = x_t @ self.wx.to(x_t.dtype) + self.bias.to(x_t.dtype)
+        return self.step(carry, x_proj)
+
+
+class LSTM(LSTMCell):
+    """LSTM over a sequence: ``[B, T, F] → [B, T, H]`` (return_sequences)
+    or ``[B, H]`` (last step). The parameters are the cell's, so the
+    ``state_dict`` keys sit directly under the layer (``0_LSTM.wx``) as in
+    the JAX package's params tree."""
+
+    def __init__(self, in_features: int, hidden: int,
+                 return_sequences: bool = True, peepholes: bool = True,
+                 forget_bias: float = 1.0, *, generator: torch.Generator,
+                 device=None):
+        super().__init__(in_features, hidden, peepholes=peepholes,
+                         forget_bias=forget_bias, generator=generator,
+                         device=device)
+        self.return_sequences = return_sequences
+
+    def initial_state(self, batch: int, dtype=torch.float32):
+        """Zero (h, c) carry for a batch, on the layer's device."""
+        z = torch.zeros((batch, self.hidden), dtype=dtype,
+                        device=self.wh.device)
+        return z, z.clone()
+
+    def scan_with_state(self, x, carry, unroll=None):
+        """Run the sequence from an explicit (h, c) carry:
+        ``([B, T, F], (h0, c0)) → ((hT, cT), [B, T, H])``. ``unroll`` is
+        the JAX package's scan-unroll knob, accepted and ignored (a Python
+        loop has no loop lowering to tune)."""
+        del unroll
+        x_proj = self._input_proj(x)
+        carry_out, hs = self._scan(x_proj, carry)
+        return carry_out, hs.transpose(0, 1)
+
+    def fused_sequence(self, x):
+        """Zero-carry whole-sequence apply through the fused sequence
+        kernel (ops/fused_lstm.py): ``[B, T, F] → [B, T, H]``. On a CUDA
+        tensor the CUDA kernel runs (f32 only; anything else raises); on a
+        CPU tensor its plain version does."""
+        from euromillioner_tpu_torch.ops.fused_lstm import lstm_sequence
+
+        x_proj = self._input_proj(x)  # [T, B, 4H], contiguous
+        f32 = torch.float32
+        if self.peepholes:
+            peep = torch.stack([self.p_i, self.p_f, self.p_o,
+                                torch.zeros_like(self.p_i)]).to(f32)
+        else:
+            peep = torch.zeros((4, self.hidden), dtype=f32,
+                               device=x.device)
+        hs = lstm_sequence(x_proj, self.wh.to(x.dtype).contiguous(), peep,
+                           self.peepholes)
+        return hs.transpose(0, 1)
+
+    def _input_proj(self, x):
+        """Hoisted input projection, time-major: ``[B, T, F] → [T, B, 4H]``
+        (transposing the narrow input first leaves the product
+        contiguous)."""
+        b, t, f = x.shape
+        xt = x.transpose(0, 1).reshape(t * b, f)
+        x_proj = xt @ self.wx.to(x.dtype) + self.bias.to(x.dtype)
+        return x_proj.reshape(t, b, 4 * self.hidden)
+
+    def _scan(self, x_proj, carry):
+        hs = []
+        for t in range(x_proj.shape[0]):
+            carry, h = self.step(carry, x_proj[t])
+            hs.append(h)
+        return carry, torch.stack(hs)
+
+    def apply(self, x):
+        b = x.shape[0]
+        (h_last, _), hs = self._scan(self._input_proj(x),
+                                     self.initial_state(b, x.dtype))
+        if self.return_sequences:
+            return hs.transpose(0, 1)  # back to [B, T, H]
+        return h_last
+
+    @property
+    def name(self) -> str:
+        return "LSTM"

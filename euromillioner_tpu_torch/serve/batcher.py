@@ -1,0 +1,139 @@
+"""Dynamic micro-batching (the JAX package's ``serve/batcher.py``).
+
+Requests queue on the host and flush as one micro-batch when EITHER the
+queued row count reaches ``max_batch`` OR the oldest request's deadline
+(its submit time plus ``max_wait_s``, or its own shorter ``deadline``)
+passes. Every micro-batch pads up to the smallest bucket that fits
+(:func:`pick_bucket`), so the device sees a few fixed shapes. SLO classes
+and trace spans are not ported yet: requests cut in deadline order.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Sequence
+
+import numpy as np
+
+from euromillioner_tpu_torch.utils.errors import ServeError
+
+
+def validate_buckets(buckets: Sequence[int]) -> tuple[int, ...]:
+    """Sorted, deduplicated, all-positive bucket sizes."""
+    out = tuple(sorted(set(int(b) for b in buckets)))
+    if not out or out[0] < 1:
+        raise ServeError(f"buckets must be positive ints, got {buckets!r}")
+    return out
+
+
+def pick_bucket(rows: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket that fits ``rows`` (buckets sorted ascending)."""
+    for b in buckets:
+        if rows <= b:
+            return b
+    raise ServeError(
+        f"batch of {rows} rows exceeds the largest bucket {buckets[-1]}")
+
+
+@dataclass
+class Request:
+    """One queued request: ``x`` is (rows, *feat). ``deadline`` (absolute
+    monotonic) shortens the batcher's flush deadline for this request;
+    ``seq`` is the arrival ordinal (the tie-break)."""
+
+    x: np.ndarray
+    future: Future = field(default_factory=Future)
+    t_submit: float = field(default_factory=time.monotonic)
+    deadline: float | None = None
+    seq: int = 0
+
+    @property
+    def rows(self) -> int:
+        return len(self.x)
+
+
+class MicroBatcher:
+    """Thread-safe request queue with the dual flush rule: ``submit``
+    from any thread, ``next_batch`` from the one dispatcher thread."""
+
+    def __init__(self, max_batch: int, max_wait_s: float):
+        if max_batch < 1:
+            raise ServeError(f"max_batch must be >= 1, got {max_batch}")
+        if max_wait_s < 0:
+            raise ServeError(f"max_wait_s must be >= 0, got {max_wait_s}")
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_s
+        self._q: collections.deque[Request] = collections.deque()
+        self._rows = 0
+        self._n_submitted = 0
+        self._cond = threading.Condition()
+        self._closed = False
+
+    def submit(self, req: Request) -> None:
+        with self._cond:
+            if self._closed:
+                raise ServeError("engine is closed; request rejected")
+            req.seq = self._n_submitted
+            self._n_submitted += 1
+            self._q.append(req)
+            self._rows += req.rows
+            self._cond.notify_all()
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests queued and not yet cut into a micro-batch."""
+        with self._cond:
+            return len(self._q)
+
+    def close(self) -> None:
+        """Stop accepting requests; queued work still drains."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def _deadline(self, req: Request) -> float:
+        return (req.deadline if req.deadline is not None
+                else req.t_submit + self.max_wait_s)
+
+    def _earliest_deadline(self) -> float:
+        return min(self._deadline(r) for r in self._q)
+
+    def next_batch(self, timeout: float | None = None) -> list[Request] | None:
+        """Block until a flush is due, then cut one micro-batch (whole
+        requests, up to ``max_batch`` rows). ``None`` when closed and
+        drained; ``[]`` when ``timeout`` elapses with no flush due."""
+        give_up = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while True:
+                now = time.monotonic()
+                if self._q:
+                    if (self._rows >= self.max_batch or self._closed
+                            or now >= self._earliest_deadline()):
+                        break
+                    wake = self._earliest_deadline()
+                else:
+                    if self._closed:
+                        return None
+                    wake = None
+                if give_up is not None:
+                    if now >= give_up:
+                        return []
+                    wake = give_up if wake is None else min(wake, give_up)
+                self._cond.wait(None if wake is None else wake - now)
+            order = sorted(self._q, key=lambda r: (self._deadline(r), r.seq))
+            batch: list[Request] = []
+            rows = 0
+            for req in order:
+                if rows + req.rows > self.max_batch:
+                    break  # whole requests only
+                batch.append(req)
+                rows += req.rows
+            picked = {id(r) for r in batch}
+            self._q = collections.deque(
+                r for r in self._q if id(r) not in picked)
+            self._rows -= rows
+            return batch

@@ -1,0 +1,172 @@
+"""The port as a package: it stands without jax and without the JAX
+package, its entry points refuse to run without a card unless asked for
+the CPU, and its CLI serves a checkpoint the JAX package wrote."""
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from euromillioner_tpu.core.precision import from_names
+from euromillioner_tpu.models.lstm import build_lstm as jax_build_lstm
+from euromillioner_tpu.train.checkpoint import \
+    save_checkpoint as jax_save_checkpoint
+from euromillioner_tpu.train.optim import from_config
+from euromillioner_tpu.train.trainer import Trainer
+from euromillioner_tpu_torch import cli
+from euromillioner_tpu_torch.config import Config, apply_overrides
+from euromillioner_tpu_torch.core.device import resolve_device
+from euromillioner_tpu_torch.models.convert import params_from_jax
+from euromillioner_tpu_torch.models.lstm import build_lstm
+from euromillioner_tpu_torch.models.registry import restore_for_inference
+from euromillioner_tpu_torch.serve.continuous import load_recurrent_backend
+from euromillioner_tpu_torch.utils.errors import ConfigError
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "euromillioner_tpu_torch"
+TINY = ["model.lstm_hidden=8", "model.lstm_layers=1", "model.seq_len=8",
+        "model.compute_dtype=float32"]
+
+# imports every port module and every module chip_smoke.py imports (at
+# top level or inside its functions), then reports what got loaded
+_PROBE = r"""
+import ast, importlib, json, pkgutil, sys
+import euromillioner_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    if not m.name.endswith("__main__"):
+        importlib.import_module(m.name)
+tree = ast.parse(open("chip_smoke.py").read())
+for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+        for a in node.names:
+            importlib.import_module(a.name)
+    elif isinstance(node, ast.ImportFrom) and node.module:
+        importlib.import_module(node.module)
+import chip_smoke
+print(json.dumps(sorted(sys.modules)))
+"""
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    env.pop("JAX_PLATFORMS", None)
+    return env
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib") or root == "euromillioner_tpu"
+
+
+def test_forbidden_predicate():
+    assert _forbidden("euromillioner_tpu")
+    assert _forbidden("euromillioner_tpu.ops.fused_lstm")
+    assert _forbidden("jax.numpy") and _forbidden("jaxlib")
+    assert not _forbidden("euromillioner_tpu_torch")
+    assert not _forbidden("euromillioner_tpu_torch.ops.fused_lstm")
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         env=_child_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "euromillioner_tpu_torch.serve.continuous" in loaded
+    assert "chip_smoke" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"),
+                                       ROOT / "chip_smoke.py"]))
+def test_source_names_no_jax_module(path):
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert [n for n in names if _forbidden(n)] == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def jax_ckpt(tmp_path_factory):
+    d = tmp_path_factory.mktemp("jax_ck")
+    model = jax_build_lstm(hidden=8, num_layers=1)
+    tr = Trainer(model, from_config("adam", 1e-3),
+                 precision=from_names("float32", "float32"))
+    jax_save_checkpoint(str(d), tr.init_state(jax.random.PRNGKey(0),
+                                              (8, 11)), step=1)
+    return str(d)
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "build_lstm",
+                                   "params_from_jax", "restore",
+                                   "load_recurrent_backend"])
+def test_entry_points_default_to_cuda_and_refuse_without_it(
+        no_cuda, jax_ckpt, entry):
+    cfg = apply_overrides(Config(), TINY)
+    calls = {
+        "resolve_device": lambda: resolve_device(),
+        "build_lstm": lambda: build_lstm(8, 1, 7),
+        "params_from_jax": lambda: params_from_jax(
+            {"w": np.zeros(2, np.float32)}),
+        "restore": lambda: restore_for_inference(cfg, jax_ckpt),
+        "load_recurrent_backend": lambda: load_recurrent_backend(
+            cfg, jax_ckpt),
+    }
+    with pytest.raises(ConfigError, match="--device cpu"):
+        calls[entry]()
+
+
+def test_cli_without_cuda_exits_17(no_cuda, jax_ckpt):
+    rc = cli.main(["serve", "--checkpoint", jax_ckpt, "--smoke", "2",
+                   *TINY])
+    assert rc == 17
+
+
+def test_cli_serves_jax_checkpoint_on_cpu(jax_ckpt):
+    """The documented command, as a user runs it, in its own process."""
+    out = subprocess.run(
+        [sys.executable, "-m", "euromillioner_tpu_torch", "serve",
+         "--model-type", "lstm", "--checkpoint", jax_ckpt, "--smoke", "6",
+         "--device", "cpu", "serve.precision=fused", *TINY],
+        cwd=ROOT, env=_child_env(), capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["failed"] == 0 and summary["ok"] == 6
+    assert np.isfinite(np.asarray(summary["predictions"])).all()
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["serve.scheduler=continuous"], 17),
+    (["serve.precision=bf16"], 17),
+    (["serve.precision=fp8"], 17),
+    (["serve.no_such_field=1"], 2),
+])
+def test_cli_exit_codes(jax_ckpt, argv, rc):
+    assert cli.main(["serve", "--checkpoint", jax_ckpt, "--smoke", "2",
+                     "--device", "cpu", *TINY, *argv]) == rc
+
+
+def test_cli_without_smoke_is_a_serve_error(jax_ckpt):
+    assert cli.main(["serve", "--checkpoint", jax_ckpt, "--device", "cpu",
+                     *TINY]) == 16
