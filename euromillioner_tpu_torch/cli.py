@@ -1,10 +1,12 @@
-"""CLI: ``python -m euromillioner_tpu_torch serve ...``.
+"""CLI: ``python -m euromillioner_tpu_torch train|serve ...``.
 
-The JAX package's ``serve`` subcommand for the lstm family, with the same
-flags, dotted config overrides and exit codes (the error taxonomy's
-``exit_code``; 2 for bad arguments). ``--device`` picks ``cuda`` (the
-default) or ``cpu``. Only the in-process ``--smoke N`` front end is ported;
-the HTTP server is not yet.
+The JAX package's ``train`` and ``serve`` subcommands for the lstm family,
+with the same flags, dotted config overrides and exit codes (the error
+taxonomy's ``exit_code``; 2 for bad arguments). ``--device`` picks
+``cuda`` (the default) or ``cpu``. ``train`` reads a saved results page
+(``--html-file``) or a featurized CSV (``--csv``); fetching the live page
+is not ported yet. ``serve`` has only the in-process ``--smoke N`` front
+end; the HTTP server is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,10 +16,72 @@ import json
 import sys
 
 from euromillioner_tpu_torch.config import Config, apply_overrides, check_ported
-from euromillioner_tpu_torch.utils.errors import EuromillionerError, ServeError
+from euromillioner_tpu_torch.utils.errors import (ConfigError,
+                                                  EuromillionerError,
+                                                  ServeError)
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
 logger = get_logger("cli")
+
+
+def _load_datasets(args, cfg: Config):
+    """(train, validation) Datasets from --csv or --html-file, with the
+    reference's chronological split."""
+    from euromillioner_tpu_torch.data.dataset import Dataset, chronological_split
+    from euromillioner_tpu_torch.data.pipeline import pipeline_from_html
+
+    if args.csv:
+        ds = Dataset.from_csv(args.csv, label_column=cfg.data.label_column)
+        return chronological_split(ds, cfg.data.train_percent)
+    if args.html_file:
+        with open(args.html_file, encoding="utf-8") as fh:
+            return pipeline_from_html(fh.read(), cfg.data)
+    raise ConfigError("fetching the results page is not ported yet; pass "
+                      "--html-file PAGE or --csv FILE")
+
+
+def cmd_train(args, cfg: Config) -> int:
+    """Train the LSTM on sliding windows of the draw history with the
+    {train, test} watches, then save the TrainState (``--save`` or
+    ``train.checkpoint_dir``)."""
+    import torch
+
+    from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.core.precision import from_names
+    from euromillioner_tpu_torch.data.dataset import Dataset
+    from euromillioner_tpu_torch.models.lstm import make_sequences
+    from euromillioner_tpu_torch.models.registry import build_model
+    from euromillioner_tpu_torch.train.checkpoint import save_checkpoint
+    from euromillioner_tpu_torch.train.optim import from_train_config
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    device = resolve_device(args.device)
+    train_ds, val_ds = _load_datasets(args, cfg)
+    cfg.model.name = args.model
+    precision = from_names(cfg.model.param_dtype, cfg.model.compute_dtype)
+    x, y = make_sequences(train_ds.full_rows(), cfg.model.seq_len)
+    xv, yv = make_sequences(val_ds.full_rows(), cfg.model.seq_len)
+    train_seq, val_seq = Dataset(x=x, y=y), Dataset(x=xv, y=yv)
+    model = build_model(
+        cfg.model, in_features=x.shape[-1],
+        generator=torch.Generator().manual_seed(cfg.train.seed),
+        device=device)
+    trainer = Trainer(model, from_train_config(cfg.train), loss="mse",
+                      precision=precision,
+                      metrics_jsonl=cfg.train.metrics_jsonl or None)
+    state = trainer.fit(
+        trainer.init_state(), train_seq, epochs=cfg.train.epochs,
+        batch_size=cfg.data.batch_size,
+        watches={"train": train_seq, "test": val_seq},
+        seed=cfg.train.seed, shuffle=cfg.data.shuffle,
+        log_every=cfg.train.log_every,
+        checkpoint_dir=cfg.train.checkpoint_dir or None,
+        checkpoint_every=cfg.train.checkpoint_every)
+    if args.save or cfg.train.checkpoint_dir:
+        out = save_checkpoint(args.save or cfg.train.checkpoint_dir, state,
+                              step=cfg.train.epochs)
+        logger.info("saved checkpoint to %s", out)
+    return 0
 
 
 def cmd_serve(args, cfg: Config) -> int:
@@ -56,6 +120,17 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m euromillioner_tpu_torch",
         description="PyTorch/CUDA port of the Euromillioner CLI")
     sub = p.add_subparsers(dest="command", required=True)
+    tr = sub.add_parser("train", help="train the LSTM with {train, test} "
+                                      "watches and save its TrainState")
+    tr.add_argument("--model", default="lstm", choices=["lstm"])
+    tr.add_argument("--csv", help="featurized CSV input")
+    tr.add_argument("--html-file", help="saved results page")
+    tr.add_argument("--save", help="checkpoint output directory")
+    tr.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help="training device (default: cuda; the CPU runs only "
+                         "when asked for)")
+    tr.add_argument("overrides", nargs="*", default=[],
+                    help="config overrides: section.field=value")
     sv = sub.add_parser(
         "serve", help="serve an LSTM checkpoint behind the whole-sequence "
                       "scheduler (serve.precision=f32|fused)")
@@ -74,7 +149,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-_COMMANDS = {"serve": cmd_serve}
+_COMMANDS = {"train": cmd_train, "serve": cmd_serve}
 
 
 def main(argv: list[str] | None = None) -> int:

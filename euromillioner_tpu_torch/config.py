@@ -19,6 +19,30 @@ from euromillioner_tpu_torch.utils.errors import ConfigError
 PORTED_SCHEDULERS = ("batch",)
 PORTED_PRECISIONS = ("f32", "fused")
 
+# the featurized row: 4 date columns, then the 7 balls
+FEATURE_COLUMNS = (
+    "day_of_week", "month", "day", "year",
+    "first", "second", "third", "fourth", "fifth",
+    "special_1", "special_2",
+)
+FIXED_CSV_HEADER = ",".join(FEATURE_COLUMNS)
+
+
+@dataclass
+class DataConfig:
+    """ETL from a saved results page or a featurized CSV (fetching the
+    live page is not ported yet)."""
+
+    # Bootstrap-table class string of the results table.
+    table_class: str = (
+        "table table-bordered table-condensed table-striped text-center table-hover"
+    )
+    date_format: str = "%a, %b %d, %Y"  # "E, MMM d, yyyy"
+    train_percent: int = 70             # chronological split
+    label_column: int = 0               # DMatrix "?label_column=0"
+    batch_size: int = 64
+    shuffle: bool = False               # the split is chronological, unshuffled
+
 
 @dataclass
 class ModelConfig:
@@ -36,8 +60,19 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """The trainer fields that restore reads."""
+    """Trainer + optimizer + checkpointing."""
 
+    optimizer: str = "adam"             # sgd | momentum | rmsprop | adam
+    learning_rate: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+    epochs: int = 20
+    log_every: int = 1
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 0           # epochs; 0 disables
+    metrics_jsonl: str = ""
     seed: int = 0
 
 
@@ -71,6 +106,7 @@ class ServeConfig:
 
 @dataclass
 class Config:
+    data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)

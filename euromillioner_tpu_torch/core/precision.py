@@ -1,6 +1,11 @@
-"""Serving precision profiles (``serve.precision``).
+"""Mixed precision: the compute policy and the serving profiles.
 
-The names and pinned envelopes are the JAX package's
+A :class:`Precision` bundles the param and compute dtypes, as the JAX
+package's does: the default keeps f32 params with bf16 compute, and
+``PARITY`` is full f32. ``from_names`` maps the config's dtype names to
+torch dtypes.
+
+Serving precision profiles (``serve.precision``): the names and pinned envelopes are the JAX package's
 (``euromillioner_tpu/core/precision.py``): a profile is servable only when
 its (family, profile) max-rel-error envelope against the f32 oracle is
 pinned. This port serves ``f32`` and ``fused`` (``config.PORTED_
@@ -10,6 +15,8 @@ summation order, so it rides the (lstm, fused) envelope, not a bit pin.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -62,6 +69,21 @@ def dtype_from_name(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ConfigError(f"unknown dtype name {name!r}")
     return dt
+
+
+@dataclass(frozen=True)
+class Precision:
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+
+
+DEFAULT_PRECISION = Precision()
+PARITY = Precision(compute_dtype=torch.float32)
+
+
+def from_names(param: str = "float32", compute: str = "bfloat16") -> Precision:
+    return Precision(param_dtype=dtype_from_name(param),
+                     compute_dtype=dtype_from_name(compute))
 
 
 def rel_error(got, ref) -> float:

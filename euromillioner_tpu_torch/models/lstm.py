@@ -20,13 +20,15 @@ def build_lstm(
     peepholes: bool = True,
     dropout: float = 0.0,
     head_activation: str = "identity",
+    fused: str = "auto",
     *,
     in_features: int = 11,
     generator: torch.Generator | None = None,
     device=None,
 ) -> Sequential:
     """The stacked model with weights drawn from ``generator`` (seed 0
-    when None) on ``device`` (the card when None)."""
+    when None) on ``device`` (the card when None). ``fused`` is each LSTM
+    layer's auto | on | off (nn/recurrent.LSTM)."""
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     layers = []
@@ -34,7 +36,8 @@ def build_lstm(
     for i in range(num_layers):
         last = i == num_layers - 1
         layers.append(LSTM(width, hidden, return_sequences=not last,
-                           peepholes=peepholes, generator=gen, device=dev))
+                           peepholes=peepholes, fused=fused, generator=gen,
+                           device=dev))
         width = hidden
         if dropout > 0 and not last:
             layers.append(Dropout(dropout))

@@ -12,7 +12,7 @@ from euromillioner_tpu_torch.utils.errors import CheckpointError
 
 
 def build_model(cfg: ModelConfig, *, in_features: int = 11,
-                generator: torch.Generator | None = None,
+                fused: str = "auto", generator: torch.Generator | None = None,
                 device=None) -> Sequential:
     if cfg.name != "lstm":
         raise ValueError(f"model {cfg.name!r} is not ported yet (lstm)")
@@ -20,8 +20,8 @@ def build_model(cfg: ModelConfig, *, in_features: int = 11,
 
     return build_lstm(hidden=cfg.lstm_hidden, num_layers=cfg.lstm_layers,
                       peepholes=cfg.graves_peepholes, dropout=cfg.dropout,
-                      in_features=in_features, generator=generator,
-                      device=device)
+                      fused=fused, in_features=in_features,
+                      generator=generator, device=device)
 
 
 def default_in_shape(cfg: ModelConfig,

@@ -39,7 +39,7 @@ class Dense(Module):
             self.bias = torch.nn.Parameter(
                 torch.zeros(units, device=device))
 
-    def apply(self, x):
+    def apply(self, x, *, train=False, generator=None):
         y = x @ self.kernel.to(x.dtype)
         if self.use_bias:
             y = y + self.bias.to(x.dtype)
@@ -47,12 +47,22 @@ class Dense(Module):
 
 
 class Dropout(Module):
-    """Dropout at inference: the identity (training, and with it the
-    dropout masks, is not ported yet)."""
+    """Inverted dropout: the identity unless ``train``; then each element
+    is kept with probability ``1 - rate`` (a uniform draw below it, as
+    ``jax.random.bernoulli`` decides) and scaled by ``1 / (1 - rate)``.
+    The mask is drawn on x's device from ``generator``, which must live on
+    that device (the trainer makes one per epoch there), so no mask
+    crosses from the host."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def apply(self, x):
-        return x
+    def apply(self, x, *, train=False, generator=None):
+        if not train or self.rate <= 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout needs a generator when train=True")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)

@@ -1,0 +1,46 @@
+"""Losses and eval metrics (the JAX package's ``nn/losses.py``).
+
+``logloss`` and ``error_rate`` are xgboost's eval metrics on
+probabilities (logloss with a float32 clip). Every reducer takes an
+optional ``mask`` so padded fixed-shape batches score only real rows: the
+masked mean divides by ``sum(mask) * (values.numel() // mask.numel())``,
+floored at 1, exactly as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# xgboost clips at 1e-16 in double; 1 - 1e-16 rounds to 1.0 in float32,
+# so the clip is the nearest value that keeps both log terms finite
+_EPS = 1e-7
+
+
+def _mean(values, mask=None):
+    if mask is None:
+        return values.mean()
+    mask = mask.reshape(mask.shape + (1,) * (values.dim() - mask.dim()))
+    denom = torch.clamp(mask.sum() * (values.numel() // mask.numel()),
+                        min=1.0)
+    return (values * mask).sum() / denom
+
+
+def mse(pred, target, mask=None):
+    return _mean((pred - target) ** 2, mask)
+
+
+def rmse(pred, target, mask=None):
+    return torch.sqrt(mse(pred, target, mask))
+
+
+def logloss(prob, label, mask=None):
+    """Negative log-likelihood on probabilities (xgboost eval parity)."""
+    p = torch.clamp(prob, _EPS, 1.0 - _EPS)
+    nll = -(label * torch.log(p) + (1.0 - label) * torch.log1p(-p))
+    return _mean(nll, mask)
+
+
+def error_rate(prob, label, mask=None, threshold: float = 0.5):
+    """xgboost ``error``: the fraction misclassified at ``threshold``."""
+    wrong = ((prob > threshold).to(torch.float32) != label).to(torch.float32)
+    return _mean(wrong, mask)

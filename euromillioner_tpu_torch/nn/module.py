@@ -4,11 +4,12 @@ In the JAX package a ``Module`` is a hyperparameter record whose pure
 ``init``/``apply`` take a params pytree. Here a layer is a
 ``torch.nn.Module`` that owns its parameters under the same leaf names
 (``wx``, ``wh``, ``kernel``, ...), built with its input width known, and
-``apply(x)`` is its inference forward pass (the JAX package's name; it
-shadows ``torch.nn.Module.apply(fn)``, which this package never calls).
-Parameters are created on the caller's ``device`` from a
-``torch.Generator``. Training is not ported yet, so no layer takes a
-``train`` flag.
+``apply(x, *, train=False, generator=None)`` is its forward pass (the JAX
+package's name; it shadows ``torch.nn.Module.apply(fn)``, which this
+package never calls). ``train`` and ``generator`` take the place of the
+JAX package's ``train``/``rng``: stochastic layers (Dropout) draw from the
+explicit ``torch.Generator`` when ``train`` is set. Parameters are created
+on the caller's ``device`` from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -21,11 +22,13 @@ import torch
 class Module(torch.nn.Module):
     """Base class: ``forward`` is ``apply``."""
 
-    def apply(self, x):
+    def apply(self, x, *, train: bool = False,
+              generator: torch.Generator | None = None):
         raise NotImplementedError
 
-    def forward(self, x):
-        return self.apply(x)
+    def forward(self, x, *, train: bool = False,
+                generator: torch.Generator | None = None):
+        return self.apply(x, train=train, generator=generator)
 
     @property
     def name(self) -> str:
@@ -47,9 +50,9 @@ class Sequential(Module):
         scheme."""
         return list(self.named_children())
 
-    def apply(self, x):
+    def apply(self, x, *, train=False, generator=None):
         for _, layer in self.named_layers():
-            x = layer.apply(x)
+            x = layer.apply(x, train=train, generator=generator)
         return x
 
     @property

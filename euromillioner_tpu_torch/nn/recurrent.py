@@ -6,8 +6,10 @@ the forget bias in ``[H:2H]``, peepholes ``p_i``/``p_f``/``p_o`` (i and f
 see c_prev, o sees the new c), gates ordered i, f, g, o. The input
 projection for all timesteps is hoisted into one ``(T·B, F) @ (F, 4H)``
 product; the recurrence is either a Python loop of :meth:`LSTMCell.step`
-(the scan, the f32 oracle) or the sequence kernel of ops/fused_lstm.py
-(:meth:`LSTM.fused_sequence`, zero initial carry only).
+(the scan, the f32 oracle) or the sequence kernels of ops/fused_lstm.py
+(zero initial carry only): ``LSTM.apply`` under ``fused`` (the K1+K2
+autograd Function, for training and evaluation) and
+:meth:`LSTM.fused_sequence` (K1 alone, for the serving ``fused`` tier).
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ import torch
 
 from euromillioner_tpu_torch.nn import initializers as init
 from euromillioner_tpu_torch.nn.module import Module
+from euromillioner_tpu_torch.utils.errors import ConfigError
+
+FUSED_MODES = ("auto", "on", "off")
 
 
 def lstm_cell(x_proj: torch.Tensor, h_prev: torch.Tensor,
@@ -79,7 +84,7 @@ class LSTMCell(Module):
                             self.peep_vectors(x_proj.dtype))
         return (h, c), h
 
-    def apply(self, x):
+    def apply(self, x, *, train=False, generator=None):
         """Single-step apply: x is (carry, x_t) → (carry, h)."""
         carry, x_t = x
         x_proj = x_t @ self.wx.to(x_t.dtype) + self.bias.to(x_t.dtype)
@@ -90,16 +95,45 @@ class LSTM(LSTMCell):
     """LSTM over a sequence: ``[B, T, F] → [B, T, H]`` (return_sequences)
     or ``[B, H]`` (last step). The parameters are the cell's, so the
     ``state_dict`` keys sit directly under the layer (``0_LSTM.wx``) as in
-    the JAX package's params tree."""
+    the JAX package's params tree.
+
+    ``fused`` picks how :meth:`apply` runs the recurrence, as in the JAX
+    package: ``"auto"`` runs the K1+K2 Function on a CUDA tensor and the
+    scan on a CPU tensor; ``"on"`` always runs the Function — its plain
+    versions on a CPU tensor, as the JAX package runs interpret mode;
+    ``"off"`` always scans. On the card, ``auto`` and ``on`` both raise a
+    :class:`ConfigError` where the kernels cannot run the layer (a compute
+    dtype other than float32, a hidden width above their shared-memory
+    cap) rather than fall back to the scan."""
 
     def __init__(self, in_features: int, hidden: int,
                  return_sequences: bool = True, peepholes: bool = True,
-                 forget_bias: float = 1.0, *, generator: torch.Generator,
-                 device=None):
+                 forget_bias: float = 1.0, fused: str = "auto", *,
+                 generator: torch.Generator, device=None):
         super().__init__(in_features, hidden, peepholes=peepholes,
                          forget_bias=forget_bias, generator=generator,
                          device=device)
+        if fused not in FUSED_MODES:
+            raise ValueError(f"fused must be auto|on|off, got {fused!r}")
         self.return_sequences = return_sequences
+        self.fused = fused
+
+    def _use_fused(self, x) -> bool:
+        """Whether :meth:`apply` runs the K1+K2 Function. On a CUDA tensor
+        the kernels run, or this raises a :class:`ConfigError` naming why
+        they cannot — under ``auto`` as under ``on``: only ``off`` scans
+        on the card."""
+        if self.fused == "off":
+            return False
+        if x.device.type != "cuda":
+            return self.fused == "on"
+        from euromillioner_tpu_torch.ops.fused_lstm import kernel_refusal
+
+        why = kernel_refusal(x.dtype, self.hidden)
+        if why:
+            raise ConfigError(f"LSTM(hidden={self.hidden}, fused="
+                              f"{self.fused!r}) on {x.device}: {why}")
+        return True
 
     def initial_state(self, batch: int, dtype=torch.float32):
         """Zero (h, c) carry for a batch, on the layer's device."""
@@ -122,19 +156,31 @@ class LSTM(LSTMCell):
         kernel (ops/fused_lstm.py): ``[B, T, F] → [B, T, H]``. On a CUDA
         tensor the CUDA kernel runs (f32 only; anything else raises); on a
         CPU tensor its plain version does."""
-        from euromillioner_tpu_torch.ops.fused_lstm import lstm_sequence
+        return self._fused_hs(self._input_proj(x)).transpose(0, 1)
 
-        x_proj = self._input_proj(x)  # [T, B, 4H], contiguous
+    def _fused_hs(self, x_proj):
+        """The sequence kernels over ``x_proj`` [T, B, 4H] → hs [T, B, H]:
+        the K1+K2 Function when there is something to differentiate, else
+        K1 alone without its residual writes."""
+        from euromillioner_tpu_torch.ops.fused_lstm import (LSTMSequence,
+                                                            lstm_sequence)
+
+        wh = self.wh.to(x_proj.dtype).contiguous()
+        peep = self._peep_rows()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x_proj, wh, peep)):
+            return LSTMSequence.apply(x_proj, wh, peep, self.peepholes)
+        return lstm_sequence(x_proj, wh, peep, self.peepholes)
+
+    def _peep_rows(self):
+        """The kernels' (4, H) f32 peephole operand: rows i, f, o and a
+        zero row (all zeros without peepholes)."""
         f32 = torch.float32
         if self.peepholes:
-            peep = torch.stack([self.p_i, self.p_f, self.p_o,
+            return torch.stack([self.p_i, self.p_f, self.p_o,
                                 torch.zeros_like(self.p_i)]).to(f32)
-        else:
-            peep = torch.zeros((4, self.hidden), dtype=f32,
-                               device=x.device)
-        hs = lstm_sequence(x_proj, self.wh.to(x.dtype).contiguous(), peep,
-                           self.peepholes)
-        return hs.transpose(0, 1)
+        return torch.zeros((4, self.hidden), dtype=f32,
+                           device=self.wh.device)
 
     def _input_proj(self, x):
         """Hoisted input projection, time-major: ``[B, T, F] → [T, B, 4H]``
@@ -152,10 +198,15 @@ class LSTM(LSTMCell):
             hs.append(h)
         return carry, torch.stack(hs)
 
-    def apply(self, x):
+    def apply(self, x, *, train=False, generator=None):
         b = x.shape[0]
-        (h_last, _), hs = self._scan(self._input_proj(x),
-                                     self.initial_state(b, x.dtype))
+        x_proj = self._input_proj(x)
+        if self._use_fused(x):
+            hs = self._fused_hs(x_proj)
+            if self.return_sequences:
+                return hs.transpose(0, 1)
+            return hs[-1]
+        (h_last, _), hs = self._scan(x_proj, self.initial_state(b, x.dtype))
         if self.return_sequences:
             return hs.transpose(0, 1)  # back to [B, T, H]
         return h_last

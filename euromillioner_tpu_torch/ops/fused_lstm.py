@@ -1,16 +1,24 @@
-"""Fused LSTM sequence kernel: the whole forward time loop in one launch.
+"""Fused LSTM sequence kernels: the whole time loop in one launch each way.
 
-The CUDA kernel (``csrc/fused_lstm.cu``, its note gives the design and the
-bound) replaces the JAX package's Pallas TPU kernel
-``euromillioner_tpu/ops/fused_lstm.py:88 _fwd_kernel``: a peephole LSTM
-over ``x_proj`` (T, B, 4H) from a zero carry, with the recurrent product
-inside the kernel. Serving runs it forward-only; the backward kernel comes
-with training.
+Two CUDA kernels replace the JAX package's Pallas TPU pair in
+``euromillioner_tpu/ops/fused_lstm.py`` (each source's note gives its
+design and bound):
 
-The device rule: for a CPU tensor the wrappers take the plain version,
-:func:`lstm_sequence_reference`; for a CUDA tensor they launch the kernel
-or raise — no fallback. Only float32 is served (the ``fused`` profile
-serves f32); any other dtype on CUDA raises.
+* K1, ``csrc/fused_lstm.cu`` (``_fwd_kernel``, :88): a peephole LSTM over
+  ``x_proj`` (T, B, 4H) from a zero carry, with the recurrent product
+  inside the kernel; serving runs it forward-only, training also writes
+  the residuals (cs and the activated gates).
+* K2, ``csrc/fused_lstm_bwd.cu`` (``_bwd_kernel``, :175): the reverse-time
+  backward from those residuals — dxp, dwh and dpeep, all computed by
+  hand-written code.
+
+:class:`LSTMSequence` joins them as one ``torch.autograd.Function``, as
+``jax.custom_vjp`` joins the Pallas pair.
+
+The device rule: for a CPU tensor the wrappers take the plain versions,
+:func:`lstm_sequence_reference` and :func:`lstm_backward_reference`; for a
+CUDA tensor they launch the kernel or raise — no fallback. The kernels are
+float32 only; any other dtype on CUDA raises.
 """
 
 from __future__ import annotations
@@ -30,8 +38,32 @@ FUSED_LSTM_FWD = CudaKernel(
     "fused_lstm.cu", "emt_lstm_fwd_f32",
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
-# shared memory per CTA is 3 * 8 rows * H floats; the kernel's cap
+# K2's entry point: 11 pointers (inputs, outputs, two scratch buffers),
+# T, B, H, peepholes, device, stream
+FUSED_LSTM_BWD = CudaKernel(
+    "fused_lstm_bwd.cu", "emt_lstm_bwd_f32", [_P] * 11 + [_I] * 5 + [_P])
+
+# shared memory per CTA: K1 keeps 3 * 8 rows * H floats; K2 keeps
+# (6 * 8 rows + 3) * H (dgates, the two carries, the dpeep sums)
 MAX_HIDDEN = 232448 // (3 * 8 * 4)
+MAX_HIDDEN_BWD = 232448 // ((6 * 8 + 3) * 4)
+_ROWS = 8  # batch rows per CTA, both kernels
+
+
+def kernel_refusal(dtype, hidden: int) -> str | None:
+    """Why K1 and K2 together cannot run an LSTM layer of this compute
+    dtype and hidden width on the card, with what to change; None when
+    they can."""
+    if dtype != torch.float32:
+        return (f"the CUDA LSTM kernels take float32 only, not {dtype}: set "
+                f"model.compute_dtype=float32, or build the layer with "
+                f"fused='off' to scan")
+    cap = min(MAX_HIDDEN, MAX_HIDDEN_BWD)
+    if hidden > cap:
+        return (f"hidden {hidden} exceeds the CUDA LSTM kernels' "
+                f"shared-memory cap of {cap}: use a narrower layer, or "
+                f"build it with fused='off' to scan")
+    return None
 
 
 def lstm_sequence_reference(x_proj, wh, peep, peepholes: bool = True):
@@ -55,6 +87,54 @@ def lstm_sequence_reference(x_proj, wh, peep, peepholes: bool = True):
     return torch.stack(hs), torch.stack(cs), torch.stack(gates)
 
 
+def lstm_backward_reference(wh, peep, residuals, g_hs,
+                            peepholes: bool = True):
+    """The plain version of the backward, written out step by step as the
+    JAX package's ``_bwd`` is: walk time in reverse from zero dh/dc
+    carries, form the gate gradients from the residuals ``(hs, cs,
+    gates)``, carry ``dh = dgates . wh^T``, sum the peephole gradients,
+    then ``dwh = sum_t h_prev^T . dgates`` as one product. Returns
+    ``(dxp, dwh, dpeep)``: dxp (T, B, 4H) in hs's dtype, dwh and dpeep
+    accumulated in f32 and cast to wh's and peep's dtypes."""
+    hs, cs, gates = residuals
+    t, b, h = hs.shape
+    f32 = torch.float32
+    dev = hs.device
+    p = peep.to(f32)
+    wh_f = wh.to(f32)
+    dh_carry = torch.zeros((b, h), dtype=f32, device=dev)
+    dc_carry = torch.zeros_like(dh_carry)
+    dpeep = torch.zeros((4, h), dtype=f32, device=dev)
+    dxp = torch.empty((t, b, 4 * h), dtype=hs.dtype, device=dev)
+    for k in reversed(range(t)):
+        i, f, g, o = gates[k].to(f32).split(h, dim=-1)
+        c = cs[k].to(f32)
+        c_prev = cs[k - 1].to(f32) if k else torch.zeros_like(c)
+        tanh_c = torch.tanh(c)
+        dh = g_hs[k].to(f32) + dh_carry
+        do_pre = dh * tanh_c * o * (1.0 - o)
+        dc = dh * o * (1.0 - tanh_c * tanh_c) + dc_carry
+        if peepholes:
+            dc = dc + do_pre * p[2]
+        di_pre = dc * g * i * (1.0 - i)
+        df_pre = dc * c_prev * f * (1.0 - f)
+        dg_pre = dc * i * (1.0 - g * g)
+        dc_prev = dc * f
+        if peepholes:
+            dc_prev = dc_prev + di_pre * p[0] + df_pre * p[1]
+            dpeep[0] += (di_pre * c_prev).sum(dim=0)
+            dpeep[1] += (df_pre * c_prev).sum(dim=0)
+            dpeep[2] += (do_pre * c).sum(dim=0)
+        dgates = torch.cat([di_pre, df_pre, dg_pre, do_pre], dim=-1)
+        dxp[k] = dgates.to(dxp.dtype)
+        # operands rounded to wh's dtype, f32 accumulation
+        dh_carry = dgates.to(wh.dtype).to(f32) @ wh_f.T
+        dc_carry = dc_prev
+    h_prev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]])
+    dwh = h_prev.reshape(t * b, h).to(f32).T @ dxp.reshape(t * b, 4 * h).to(f32)
+    return dxp, dwh.to(wh.dtype), dpeep.to(peep.dtype)
+
+
 def _check(x_proj, wh, peep) -> tuple[int, int, int]:
     if x_proj.dim() != 3 or x_proj.shape[-1] % 4:
         raise ValueError(f"x_proj must be (T, B, 4H), got {tuple(x_proj.shape)}")
@@ -67,6 +147,18 @@ def _check(x_proj, wh, peep) -> tuple[int, int, int]:
     return t, b, h
 
 
+def _check_cuda(device, named) -> None:
+    """The kernels' contract for CUDA tensors: f32, one device, dense."""
+    for name, a in named:
+        if a.dtype != torch.float32:
+            raise TypeError(f"the fused LSTM kernels are f32 only; {name} "
+                            f"is {a.dtype}")
+        if a.device != device:
+            raise ValueError(f"{name} is on {a.device}, expected {device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _fwd(x_proj, wh, peep, peepholes: bool, residuals: bool):
     """Run the forward kernel; ``residuals`` also writes cs and gates.
     Returns ``(hs, cs, gates)`` with None for residuals not asked for."""
@@ -76,15 +168,8 @@ def _fwd(x_proj, wh, peep, peepholes: bool, residuals: bool):
         return (hs, cs, gates) if residuals else (hs, None, None)
     if x_proj.device.type != "cuda":
         raise ValueError(f"unsupported device {x_proj.device}")
-    for name, a in (("x_proj", x_proj), ("wh", wh), ("peep", peep)):
-        if a.dtype != torch.float32:
-            raise TypeError(f"the fused LSTM kernel is f32 only; {name} is "
-                            f"{a.dtype}")
-        if a.device != x_proj.device:
-            raise ValueError(f"{name} is on {a.device}, x_proj on "
-                             f"{x_proj.device}")
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cuda(x_proj.device,
+                (("x_proj", x_proj), ("wh", wh), ("peep", peep)))
     if h > MAX_HIDDEN:
         raise ValueError(f"hidden {h} exceeds the kernel's shared-memory "
                          f"cap {MAX_HIDDEN}")
@@ -114,3 +199,61 @@ def lstm_forward(x_proj, wh, peep, peepholes: bool = True):
     """As :func:`lstm_sequence`, returning ``(hs, cs, gates)`` — the
     residuals the backward pass keeps (the JAX package's ``_fwd``)."""
     return _fwd(x_proj, wh, peep, peepholes, residuals=True)
+
+
+def lstm_backward(wh, peep, residuals, g_hs, peepholes: bool = True):
+    """The backward of :func:`lstm_forward`: ``(dxp, dwh, dpeep)`` from its
+    residuals ``(hs, cs, gates)`` and the gradient ``g_hs`` (T, B, H) of
+    its hs (the JAX package's ``_bwd``). dxp (T, B, 4H), dwh (H, 4H) and
+    dpeep (4, H, row 3 zero) come back in the dtypes of hs, wh and peep."""
+    hs, cs, gates = residuals
+    t, b, h = _check(gates, wh, peep)
+    for name, a in (("hs", hs), ("cs", cs), ("g_hs", g_hs)):
+        if tuple(a.shape) != (t, b, h):
+            raise ValueError(f"{name} must be ({t}, {b}, {h}), got "
+                             f"{tuple(a.shape)}")
+    if gates.device.type == "cpu":
+        return lstm_backward_reference(wh, peep, residuals, g_hs, peepholes)
+    if gates.device.type != "cuda":
+        raise ValueError(f"unsupported device {gates.device}")
+    _check_cuda(gates.device, (("g_hs", g_hs), ("hs", hs), ("cs", cs),
+                               ("gates", gates), ("wh", wh),
+                               ("peep", peep)))
+    if h > MAX_HIDDEN_BWD:
+        raise ValueError(f"hidden {h} exceeds the backward kernel's "
+                         f"shared-memory cap {MAX_HIDDEN_BWD}")
+    dxp = torch.empty_like(gates)
+    dwh = torch.empty_like(wh)
+    dpeep = torch.empty_like(peep)
+    if not (t and b):
+        return dxp, dwh.zero_(), dpeep.zero_()
+    wh_t = torch.empty((4 * h, h), dtype=torch.float32, device=gates.device)
+    partials = torch.empty((-(-b // _ROWS), 3, h), dtype=torch.float32,
+                           device=gates.device)
+    FUSED_LSTM_BWD.launch(
+        g_hs.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
+        wh.data_ptr(), peep.data_ptr(), dxp.data_ptr(), dwh.data_ptr(),
+        dpeep.data_ptr(), wh_t.data_ptr(), partials.data_ptr(),
+        t, b, h, int(bool(peepholes)), gates.device.index)
+    return dxp, dwh, dpeep
+
+
+class LSTMSequence(torch.autograd.Function):
+    """K1 and K2 as one differentiable op (the JAX package's
+    ``jax.custom_vjp`` of ``lstm_sequence``): ``apply(x_proj, wh, peep,
+    peepholes) -> hs``. Forward runs K1 with residuals and saves them;
+    backward runs K2. On CPU tensors both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x_proj, wh, peep, peepholes):
+        hs, cs, gates = lstm_forward(x_proj, wh, peep, peepholes)
+        ctx.save_for_backward(hs, cs, gates, wh, peep)
+        ctx.peepholes = peepholes
+        return hs
+
+    @staticmethod
+    def backward(ctx, g_hs):
+        hs, cs, gates, wh, peep = ctx.saved_tensors
+        dxp, dwh, dpeep = lstm_backward(wh, peep, (hs, cs, gates),
+                                        g_hs.contiguous(), ctx.peepholes)
+        return dxp, dwh.to(wh.dtype), dpeep.to(peep.dtype), None

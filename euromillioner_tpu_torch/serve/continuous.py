@@ -87,8 +87,15 @@ class RecurrentBackend:
                  precision: str = "f32"):
         from euromillioner_tpu_torch.models.lstm import padded_apply
 
+        from euromillioner_tpu_torch.nn.recurrent import LSTM
+
         self.name = f"seq:{type(model).__name__}"
         self.model = model.requires_grad_(False)
+        # the oracle is the scan: the fused tier opts back in explicitly
+        # through padded_apply(fused=True)
+        for _name, layer in model.named_layers():
+            if isinstance(layer, LSTM):
+                layer.fused = "off"
         self.device = resolve_device(next(model.parameters()).device)
         self.feat_dim = int(feat_dim)
         self.out_dtype = np.float32

@@ -1,1 +1,2 @@
-"""Checkpoints (training itself is not ported yet)."""
+"""Training: optimizers, the Trainer with watch lists, metrics and
+checkpoints (the JAX package's ``train/``)."""

@@ -4,11 +4,16 @@ A checkpoint is a directory ``step_{step:08d}/`` holding
 ``arrays-00000.emt`` (EMT1, one entry ``leaf_{i:06d}`` per leaf) and
 ``manifest.json`` with ``step``, ``num_leaves``, ``num_processes``,
 ``leaf_paths`` (jax keystr of each leaf, in flatten order) and per-array
-crc32 ``checksums``. Restore needs no jax treedef: the port takes the
-leaves under ``.params`` by their ``leaf_paths`` — so it restores the
-parameters of a checkpoint the JAX package wrote (a full TrainState:
-params, optimizer state, step). The port's own :func:`save_checkpoint`
-writes params and step, single-process, visible only once complete
+crc32 ``checksums``. Leaves are in jax's flatten order: the TrainState's
+fields in order (``.params``, ``.opt_state``, ``.step``), dict keys sorted
+at every level — ``.params['0_LSTM']['bias']``, ...,
+``.opt_state['count']``, ``.opt_state['mu'][...]``,
+``.opt_state['nu'][...]``, ``.step``. Restore needs no jax treedef:
+:func:`load_checkpoint` takes the leaves under ``.params`` by their
+``leaf_paths`` (serving), and :func:`load_train_state` restores a whole
+TrainState — optimizer state included — into the structure of a ``like``
+state, so either package resumes the other's training. The port's
+:func:`save_checkpoint` writes single-process, visible only once complete
 (written into ``.tmp`` and renamed).
 """
 
@@ -19,7 +24,7 @@ import os
 import re
 import shutil
 import zlib
-from typing import Mapping
+from typing import Any, Callable, Mapping
 
 import torch
 
@@ -39,32 +44,56 @@ def _crc(value) -> int:
     return zlib.crc32(arr.tobytes()) & 0xFFFFFFFF
 
 
-def _keystr(path: str) -> str:
-    """``"0_LSTM.wx"`` → jax's keystr ``".params['0_LSTM']['wx']"``."""
-    return ".params" + "".join(f"['{p}']" for p in path.split("."))
+def _map_tree(prefix: str, tree: Any, fn: Callable[[str, Any], Any]) -> Any:
+    """Apply ``fn(keystr, leaf)`` to every leaf of ``tree`` (dicts, whose
+    dotted keys are paths — ``"0_LSTM.wx"`` → ``['0_LSTM']['wx']`` — and
+    tuples), keeping its structure."""
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(prefix + "".join(f"['{p}']" for p in k.split(".")),
+                             v, fn)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map_tree(f"{prefix}[{i}]", v, fn)
+                     for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def _section(prefix: str, tree: Any) -> list[tuple[str, Any]]:
+    """``(keystr, leaf)`` of one TrainState field in jax's order: dict keys
+    sorted at every level, i.e. by the key path."""
+    pairs: list[tuple[str, Any]] = []
+    _map_tree(prefix, tree, lambda k, v: pairs.append((k, v)))
+    return sorted(pairs, key=lambda kv: _KEY.findall(kv[0]))
+
+
+def _state_leaves(state) -> list[tuple[str, Any]]:
+    return (_section(".params", state.params)
+            + _section(".opt_state", state.opt_state)
+            + [(".step", state.step)])
 
 
 def _state_path(keystr: str) -> str | None:
-    """The inverse of :func:`_keystr`; None for leaves outside params."""
+    """``".params['0_LSTM']['wx']"`` → ``"0_LSTM.wx"``; None for leaves
+    outside params."""
     if not keystr.startswith(".params["):
         return None
     return ".".join(_KEY.findall(keystr[len(".params"):]))
 
 
-def save_checkpoint(directory: str, params: torch.nn.Module
-                    | Mapping[str, torch.Tensor], *, step: int) -> str:
-    """Write ``directory/step_{step:08d}/`` with the params (a module or
-    a ``state_dict``) and the step, in jax's leaf order (dict keys
-    sorted at every level)."""
-    flat = params.state_dict() if isinstance(params, torch.nn.Module) else params
-    keystrs = {_keystr(path): t for path, t in flat.items()}
-    # jax flattens dicts in sorted-key order at each level: sort by the
-    # key tuple, then the TrainState's trailing .step leaf
-    order = sorted(keystrs, key=lambda k: _KEY.findall(k))
-    leaves = [keystrs[k].detach().cpu() for k in order]
-    leaves.append(torch.tensor(step, dtype=torch.int32))
-    paths = order + [".step"]
-    arrays = {f"leaf_{i:06d}": t for i, t in enumerate(leaves)}
+def save_checkpoint(directory: str, state, *, step: int) -> str:
+    """Write ``directory/step_{step:08d}/``. ``state`` is a full
+    ``TrainState`` (params, optimizer state, step counter) or, for a
+    serving checkpoint, a module or ``state_dict`` (params, then ``step``
+    as the ``.step`` leaf)."""
+    if isinstance(state, (torch.nn.Module, Mapping)):
+        flat = state.state_dict() if isinstance(state, torch.nn.Module) else state
+        pairs = (_section(".params", flat)
+                 + [(".step", torch.tensor(step, dtype=torch.int32))])
+    else:
+        pairs = _state_leaves(state)
+    paths = [k for k, _ in pairs]
+    arrays = {f"leaf_{i:06d}": t.detach().cpu()
+              for i, (_, t) in enumerate(pairs)}
     target = os.path.join(directory, f"step_{step:08d}")
     tmp = target + ".tmp"
     os.makedirs(tmp, exist_ok=True)
@@ -175,3 +204,34 @@ def load_checkpoint(path: str) -> dict[str, torch.Tensor]:
         raise CheckpointError(f"checkpoint {path} holds no .params leaves")
     logger.info("restored checkpoint %s (step %d)", path, manifest["step"])
     return params
+
+
+def load_train_state(path: str, like):
+    """Restore the whole TrainState of the checkpoint at ``path`` (either
+    package's) into the structure of ``like`` (an initialised
+    ``TrainState``): the leaf paths must match ``like``'s exactly, and each
+    leaf takes ``like``'s shape, dtype and device."""
+    manifest = _read_manifest(path)
+    arrays = _load_shard(path, manifest, 0)
+    want = _state_leaves(like)
+    saved = manifest.get("leaf_paths")
+    paths = [k for k, _ in want]
+    if saved != paths:
+        diff = [(s, w) for s, w in zip(saved or [], paths) if s != w]
+        raise CheckpointError(
+            f"checkpoint {path} does not hold this TrainState "
+            f"({len(saved or [])} leaves for {len(paths)}; first "
+            f"difference: {diff[0] if diff else 'length'})")
+    values = {}
+    for i, (key, leaf) in enumerate(want):
+        arr = arrays[f"leaf_{i:06d}"]
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise CheckpointError(f"{key}: shape {tuple(arr.shape)} != "
+                                  f"expected {tuple(leaf.shape)}")
+        values[key] = arr.to(device=leaf.device, dtype=leaf.dtype)
+    logger.info("restored train state %s (step %d)", path, manifest["step"])
+    return type(like)(
+        params=_map_tree(".params", like.params, lambda k, _: values[k]),
+        opt_state=_map_tree(".opt_state", like.opt_state,
+                            lambda k, _: values[k]),
+        step=values[".step"])

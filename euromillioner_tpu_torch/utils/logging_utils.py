@@ -1,4 +1,4 @@
-"""Logging with the reference's log4j line shape.
+"""Logging with the reference's log4j line shape, plus JSONL metrics.
 
 ``timestamp LEVEL shortname - message`` (log4j pattern
 ``%d{yyyy-MM-dd HH:mm:ss} %-5p %c{1} - %m%n``) on Python ``logging``, the
@@ -8,9 +8,11 @@ for line. Loggers live under the ``euromillioner_tpu_torch`` namespace.
 
 from __future__ import annotations
 
+import json
 import logging
 import sys
-from typing import IO
+import time
+from typing import IO, Any
 
 _FORMAT = "%(asctime)s %(levelname)-5s %(shortname)s - %(message)s"
 _DATEFMT = "%Y-%m-%d %H:%M:%S"
@@ -44,3 +46,29 @@ def get_logger(name: str) -> logging.Logger:
     if not name.startswith(_ROOT):
         name = f"{_ROOT}.{name}"
     return logging.getLogger(name)
+
+
+class JsonlMetricsWriter:
+    """Append-only JSONL metrics sink: one JSON object per line, each
+    stamped with ``ts`` (the JAX package's writer, same records)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._fh: IO[str] | None = open(path, "a", encoding="utf-8")
+
+    def write(self, record: dict[str, Any]) -> None:
+        if self._fh is None:
+            raise ValueError("writer is closed")
+        self._fh.write(json.dumps({"ts": time.time(), **record}) + "\n")
+        self._fh.flush()
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+    def __enter__(self) -> "JsonlMetricsWriter":
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        self.close()
