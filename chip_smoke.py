@@ -33,7 +33,25 @@ Phases, each reported on its own lines:
    parameter agree;
 7. serve the trained checkpoint — ``serve --smoke 8`` under
    ``serve.precision=fused``, no failed request;
-8. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
+8. K3, the GBT histogram, against its plain version at the GBT paths'
+   level shapes (errors relative to each cell's sum of magnitudes, three
+   reruns bit-identical), then its times beside the plain version's, two
+   ``torch.bincount`` calls' and the card's bound;
+9. reference — ``reference --html-file tests/golden/euromillions.html``
+   through the CLI at the full 500 rounds: exit 0, the printed boolean,
+   K3 launched exactly 2 boosters x 500 rounds x 4 levels times (counts
+   reset just before, read just after); then the pipeline through the API
+   on the card and on the CPU, with their wall times: both boosters' trees
+   equal in structure, predictions close;
+10. golden trajectories — both 20-round configs of
+   ``tests/golden/gbt_trajectory.json`` on the card against the CPU: equal
+   tree structure, or a shown near-tie;
+11. scaled GBT — bench.py's GBT_SCALED recipe (200k x 28, depth 6, 60
+   rounds) on the card: K3 launched exactly 60 x 7 times, rounds/s, K3's
+   share of the wall time; its first 5 trees against the CPU's;
+12. ``fetch``, ``train --model gbt --save`` and ``predict --model-type gbt``
+   through the CLI: the CLI's predictions bit-equal to Booster.predict;
+13. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
@@ -46,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import math
 import shutil
 import statistics
@@ -100,6 +119,29 @@ FUNCTION_GRAD_TOL = 3e-5
 STEP_LOSS_TOL = 1e-6
 STEP_GRAD_TOL = 1.5e-5
 STEP_PARAM_TOL = 1e-4
+# K3 at the GBT paths' level shapes: the reference pipeline's levels
+# (1193 rows x 10 features, 44 bins, 1-8 nodes), the scaled GBT's levels
+# (200k x 28, 256 bins, 1-64 nodes) and one bin count above 256; timed at
+# the scaled GBT's deepest level
+K3_SHAPES = tuple((1193, 10, 44, 1 << d) for d in range(4)) + tuple(
+    (200_000, 28, 256, 1 << d) for d in range(7)) + ((50_000, 8, 300, 4),)
+K3_TIMED_SHAPE = (200_000, 28, 256, 64)
+# K3 vs its plain version, both f32 on the card: summation order only.
+# Each cell's error is taken relative to the sum of the magnitudes it adds
+# (sum |gw| or sum |hw| over its rows). Measured at most 1.15e-6 on an
+# H100 (200k rows, one node); pinned at ~10x.
+K3_TOL = 1e-5
+# two packages' or two devices' split gains closer than this (relative)
+# are a near-tie, which f32 summation order may decide either way
+NEAR_TIE = 1e-5
+# GBT predictions and logloss, card vs CPU (the sigmoid and log differ by
+# ulps between the devices; histogram sums by summation order)
+GBT_PRED_TOL = 1e-5
+GOLDEN_PIN = Path("tests") / "golden" / "gbt_trajectory.json"
+# bench.py's GBT_SCALED recipe; the CPU replays its first rounds
+SCALED = {"rows": 200_000, "features": 28, "rounds": 60, "max_depth": 6,
+          "eta": 0.3, "gamma": 0.0}
+SCALED_CPU_ROUNDS = 5
 # H100 SXM data-sheet peaks (dense): FP32 non-tensor and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES_S = 3.35e12
@@ -552,6 +594,380 @@ def phase_serve_trained(ckdir: Path) -> int:
     return launches
 
 
+# -- the GBT path (K3) ----------------------------------------------------------
+
+def k3_inputs(n: int, f: int, n_bins: int, n_nodes: int, seed: int):
+    """One level's K3 inputs on the card, from numpy: uniform bins and
+    nodes, normal gradients, uniform hessians, half the rows weighted."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2, size=n).astype(np.float32)
+    arrays = (rng.integers(0, n_bins, size=(n, f)).astype(np.int32),
+              rng.integers(0, n_nodes, size=n).astype(np.int32),
+              rng.normal(size=n).astype(np.float32) * w,
+              rng.uniform(0.05, 0.25, size=n).astype(np.float32) * w)
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+def k3_bound_ms(n: int, f: int, n_bins: int, n_nodes: int
+                ) -> tuple[float, float]:
+    """(bytes ms, operations ms): binned, local, gw and hw read once and
+    the (F, 2K, bins) output written once at HBM rate; one add per
+    (row, feature, stat) on the FP32 pipe."""
+    nbytes = 4 * (n * f + 3 * n + f * 2 * n_nodes * n_bins)
+    return (nbytes / PEAK_HBM_BYTES_S * 1e3,
+            2 * n * f / PEAK_FP32_FLOPS * 1e3)
+
+
+def phase_k3() -> dict:
+    """K3 against its plain version at the GBT paths' level shapes, three
+    reruns bit-identical; then times and bounds."""
+    from euromillioner_tpu_torch.ops import fused_histogram as K
+
+    worst_rel = worst_abs = 0.0
+    failures = []
+    for seed, (n, f, n_bins, n_nodes) in enumerate(K3_SHAPES):
+        binned, local, gw, hw = k3_inputs(n, f, n_bins, n_nodes, seed)
+        want = K.fused_histogram_reference(binned, local, gw, hw, n_bins,
+                                           n_nodes)
+        # each cell's scale: the sum of the magnitudes it adds up
+        scale = K.fused_histogram_reference(binned, local, gw.abs(),
+                                            hw.abs(), n_bins, n_nodes)
+        torch.cuda.synchronize()
+        runs = [K.fused_histogram(binned, local, gw, hw, n_bins, n_nodes)
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        err = (runs[0].double() - want.double()).abs()
+        rel = (err / scale.double().clamp_min(1e-30)).max().item()
+        same = all(torch.equal(runs[0], r) for r in runs[1:])
+        print(f"K3 N={n} F={f} bins={n_bins} nodes={n_nodes}: max_abs="
+              f"{err.max().item():.3e} rel_to_cell_scale={rel:.3e} (tol "
+              f"{K3_TOL:.0e}), bit-identical reruns {same}, plan "
+              f"{K.launch_plan(n, f, n_bins, n_nodes)}")
+        if rel > K3_TOL or not same:
+            failures.append(f"K3 at {(n, f, n_bins, n_nodes)}: rel {rel:.3e}"
+                            f", reruns equal {same}")
+        worst_rel = max(worst_rel, rel)
+        worst_abs = max(worst_abs, err.max().item())
+    check(not failures, "; ".join(failures))
+
+    timed = {}
+    for n, f, n_bins, n_nodes in K3_SHAPES:
+        binned, local, gw, hw = k3_inputs(n, f, n_bins, n_nodes, 0)
+        ms = time_ms(lambda: K.fused_histogram(binned, local, gw, hw, n_bins,
+                                               n_nodes))
+        plain_ms = time_ms(lambda: K.fused_histogram_reference(
+            binned, local, gw, hw, n_bins, n_nodes))
+        # the yardstick: one bincount per stat over the flat (node,
+        # feature, bin) index, the index built outside the timed call
+        flat = (local.long()[:, None] * (f * n_bins)
+                + torch.arange(f, device=binned.device)[None, :] * n_bins
+                + binned.long()).reshape(-1)
+        wg = gw[:, None].expand(n, f).reshape(-1)
+        wh = hw[:, None].expand(n, f).reshape(-1)
+        size = n_nodes * f * n_bins
+        library_ms = time_ms(lambda: (
+            torch.bincount(flat, weights=wg, minlength=size),
+            torch.bincount(flat, weights=wh, minlength=size)))
+        bytes_ms, ops_ms = k3_bound_ms(n, f, n_bins, n_nodes)
+        timed[n, f, n_bins, n_nodes] = (ms, plain_ms, library_ms, bytes_ms,
+                                        ops_ms)
+        print(f"K3 timing N={n} F={f} bins={n_bins} nodes={n_nodes}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bincount x2 "
+              f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+              f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})")
+    ms, plain_ms, library_ms, bytes_ms, ops_ms = timed[K3_TIMED_SHAPE]
+    return {"name": "fused_histogram", "route": "cuda",
+            "source": "euromillioner_tpu_torch/csrc/fused_histogram.cu",
+            "replaces": "euromillioner_tpu/ops/fused_histogram.py:140",
+            "launches": 0, "max_abs_err": worst_abs,
+            "max_rel_to_cell_scale": worst_rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "library_ms": library_ms,
+            "timed_shape": list(K3_TIMED_SHAPE),
+            "ms_by_shape": {"x".join(map(str, k)): v[0]
+                            for k, v in timed.items()}}
+
+
+def tree_structure(trees, r: int):
+    leaf = trees["is_leaf"][r]
+    return (tuple(leaf.tolist()), tuple(trees["feature"][r][~leaf].tolist()),
+            tuple(trees["split_bin"][r][~leaf].tolist()))
+
+
+def split_gain(booster, dtrain, r: int, node: int):
+    """Gain of every (feature, bin) split candidate at ``node`` of round r,
+    on the CPU from ``booster``'s margins after r rounds and its tree r's
+    routing down to that node."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.trees import binning, growth
+
+    p = booster.params
+    cuts = booster.cuts
+    x = torch.from_numpy(binning.apply_bins(dtrain.x, cuts))
+    margin = torch.full((len(dtrain),), booster.base_margin)
+    for t in range(r):
+        tree = {k: torch.from_numpy(v[t]) for k, v in booster.trees.items()}
+        leaf = growth.route(x, tree["feature"], tree["split_bin"],
+                            tree["is_leaf"], max_depth=booster.max_depth)
+        margin = margin + tree["leaf_value"][leaf]
+    grad, hess = booster.objective.grad_hess(margin,
+                                             torch.from_numpy(dtrain.y))
+    tree = {k: torch.from_numpy(v[r]) for k, v in booster.trees.items()}
+    depth = int(np.log2(node + 1))
+    at = growth.route(x, tree["feature"], tree["split_bin"],
+                      tree["is_leaf"], max_depth=depth) == node
+    w = at.float()
+    hg, hh = growth.node_histograms(x, torch.zeros_like(at, dtype=torch.int32),
+                                    grad * w, hess * w, 1,
+                                    binning.num_bins(cuts))
+    return growth.split_gains(hg, hh, float(p["lambda"]),
+                              float(p["gamma"]))[0][0]
+
+
+def same_trees_or_near_tie(card, cpu, dtrain, rounds: int, what: str) -> int:
+    """Rounds whose tree structure is equal on the card and the CPU, up
+    to the first that differs; a differing round must be a near-tie: the
+    two splits' gains at the first differing node within NEAR_TIE of each
+    other (a leaf counts as gain 0). Returns the equal-round count."""
+    differ = next((r for r in range(rounds) if tree_structure(card.trees, r)
+                   != tree_structure(cpu.trees, r)), rounds)
+    print(f"{what}: trees equal in structure for {differ} of {rounds} "
+          f"rounds")
+    if differ < rounds:
+        r = differ
+        cols = [card.trees[k][r] for k in ("is_leaf", "feature", "split_bin")]
+        ref = [cpu.trees[k][r] for k in ("is_leaf", "feature", "split_bin")]
+        node = next(i for i in range(len(cols[0]))
+                    if [c[i] for c in cols] != [c[i] for c in ref])
+        gains = split_gain(cpu, dtrain, r, node)
+
+        def gain(trees):
+            if trees["is_leaf"][r][node]:
+                return 0.0
+            return float(gains[trees["feature"][r][node],
+                               trees["split_bin"][r][node]])
+        a, b = gain(card.trees), gain(cpu.trees)
+        tie = abs(a - b) <= NEAR_TIE * max(abs(a), abs(b))
+        print(f"{what}: round {r} node {node} differs; split gains card "
+              f"{a!r} cpu {b!r}: near-tie (within {NEAR_TIE:.0e}) {tie}")
+        check(tie, f"{what}: round {r} differs without a near-tie")
+    return differ
+
+
+def golden_matrices(root: Path, binary: bool):
+    """(train, test) DMatrices of the golden page as the reference splits
+    it; ``binary`` thresholds the label at its mean (the pin's binary
+    config)."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.data.pipeline import draws_from_html
+    from euromillioner_tpu_torch.trees import DMatrix
+
+    rows = np.asarray(draws_from_html((root / GOLDEN_HTML).read_text()),
+                      np.float32)
+    cut = int(0.7 * len(rows))
+    y = rows[:, 0]
+    if binary:
+        y = (y > y.mean()).astype(np.float32)
+    x = np.delete(rows, 0, axis=1)
+    return DMatrix(x[:cut], y[:cut]), DMatrix(x[cut:], y[cut:])
+
+
+def phase_reference(root: Path) -> int:
+    """The reference pipeline through the CLI at the full 500 rounds (the
+    main path; returns K3's launches during it), then through the API on
+    the card and on the CPU: trees equal in structure, predictions close."""
+    import numpy as np
+
+    from euromillioner_tpu_torch import cli
+    from euromillioner_tpu_torch.app import run_reference_pipeline
+    from euromillioner_tpu_torch.config import Config
+    from euromillioner_tpu_torch.ops.fused_histogram import FUSED_HISTOGRAM
+
+    cfg = Config()
+    levels = cfg.gbt.max_depth + 1
+    argv = ["reference", "--html-file", str(root / GOLDEN_HTML)]
+    buf = io.StringIO()
+    FUSED_HISTOGRAM.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FUSED_HISTOGRAM.launches
+    out = buf.getvalue().strip().splitlines()
+    want = 2 * cfg.gbt.nround * levels
+    print(f"reference (CLI, {cfg.gbt.nround} rounds, 2 boosters): exit {rc}, "
+          f"printed {out[-1] if out else None!r}, K3 launches {launches} "
+          f"(expected 2 x {cfg.gbt.nround} x {levels} = {want}), wall "
+          f"{wall:.3f} s")
+    check(rc == 0, f"reference exited {rc}")
+    check(bool(out) and out[-1] in ("True", "False"), "no boolean printed")
+    check(launches == want, f"K3 launched {launches} times, expected {want}")
+
+    html = (root / GOLDEN_HTML).read_text()
+    runs, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[device] = run_reference_pipeline(cfg, html, device=device)
+        walls[device] = time.perf_counter() - t0
+    print(f"reference (API) wall: card {walls['cuda']:.3f} s, CPU "
+          f"{walls['cpu']:.3f} s")
+    dtrain, dtest = golden_matrices(root, binary=False)
+    card, cpu = runs["cuda"], runs["cpu"]
+    for name, dmat in (("booster", dtrain), ("booster_test", dtest)):
+        rounds = same_trees_or_near_tie(getattr(card, name),
+                                        getattr(cpu, name), dmat,
+                                        cfg.gbt.nround, f"reference {name}")
+        check(rounds == cfg.gbt.nround,
+              f"reference {name}: trees differ from the CPU's at round "
+              f"{rounds}")
+    for got, ref in ((card.predictions, cpu.predictions),
+                     (card.predictions_test, cpu.predictions_test)):
+        rel = float(np.max(np.abs(got - ref) / np.maximum(np.abs(ref),
+                                                          1e-30)))
+        print(f"reference predictions card vs CPU: max rel {rel:.3e} (tol "
+              f"{GBT_PRED_TOL:.0e})")
+        check(rel <= GBT_PRED_TOL, f"predictions differ by {rel:.3e}")
+    check(card.predicts_equal == cpu.predicts_equal, "printed booleans differ")
+    return launches
+
+
+def phase_golden_trajectories(root: Path) -> None:
+    """Both 20-round golden configs on the card against the CPU: equal
+    structure, or a shown near-tie; logloss close up to the first
+    differing round."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.trees import train
+
+    pin = json.loads((root / GOLDEN_PIN).read_text())
+    for key in ("reference", "binary"):
+        dtrain, dtest = golden_matrices(root, binary=key == "binary")
+        boosters, results = {}, {}
+        for device in ("cuda", "cpu"):
+            res = {}
+            boosters[device] = train(
+                dict(pin[key]["params"], device=device), dtrain,
+                pin["n_rounds"], evals={"train": dtrain, "test": dtest},
+                verbose_eval=False, evals_result=res)
+            results[device] = res
+        equal = same_trees_or_near_tie(boosters["cuda"], boosters["cpu"],
+                                       dtrain, pin["n_rounds"],
+                                       f"golden {key}")
+        for name in ("train", "test"):
+            a = np.asarray(results["cuda"][name]["logloss"][:equal])
+            b = np.asarray(results["cpu"][name]["logloss"][:equal])
+            rel = float(np.max(np.abs(a - b) / np.abs(b))) if equal else 0.0
+            print(f"golden {key} {name}-logloss card vs CPU over {equal} "
+                  f"rounds: max rel {rel:.3e} (tol {GBT_PRED_TOL:.0e})")
+            check(rel <= GBT_PRED_TOL, f"golden {key} {name} logloss drifts")
+
+
+def scaled_data():
+    """bench.py's GBT_SCALED recipe: numpy seed 0, 200k x 28 normal
+    features, labels from a random linear score plus noise."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.trees import DMatrix
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(SCALED["rows"], SCALED["features"])).astype(
+        np.float32)
+    w = rng.normal(size=(SCALED["features"],)).astype(np.float32)
+    y = (x @ w + 0.5 * rng.normal(size=SCALED["rows"]) > 0).astype(
+        np.float32)
+    return DMatrix(x, y)
+
+
+def phase_scaled(k3_ms_by_shape: dict) -> int:
+    """The scaled GBT on the card (returns K3's launches); its first
+    rounds against the CPU."""
+    from euromillioner_tpu_torch.ops.fused_histogram import FUSED_HISTOGRAM
+    from euromillioner_tpu_torch.trees import train
+
+    dtrain = scaled_data()
+    dtrain.quantized(256)  # binning is set-up, outside the timed run
+    params = {"objective": "binary:logistic", "eta": SCALED["eta"],
+              "max_depth": SCALED["max_depth"], "gamma": SCALED["gamma"]}
+    rounds, depth = SCALED["rounds"], SCALED["max_depth"]
+    train(dict(params, device="cuda"), dtrain, 2, verbose_eval=False)
+    FUSED_HISTOGRAM.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = train(dict(params, device="cuda"), dtrain, rounds,
+                 verbose_eval=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FUSED_HISTOGRAM.launches
+    want = rounds * (depth + 1)
+    # K3's share: the per-level kernel times measured in the K3 phase at
+    # these shapes, times the rounds, over the wall time
+    n, f = SCALED["rows"], SCALED["features"]
+    k3_s = rounds * sum(k3_ms_by_shape[f"{n}x{f}x256x{1 << d}"]
+                        for d in range(depth + 1)) / 1e3
+    print(f"scaled GBT ({n} x {f}, depth {depth}, {rounds} rounds) on the "
+          f"card: wall {wall:.3f} s, {rounds / wall:.2f} rounds/s; K3 "
+          f"launches {launches} (expected {rounds} x {depth + 1} = {want}); "
+          f"K3 share of wall (from the K3 phase's per-level times) "
+          f"{k3_s / wall:.3f}")
+    check(launches == want, f"K3 launched {launches} times, expected {want}")
+    cpu = train(dict(params, device="cpu"), dtrain, SCALED_CPU_ROUNDS,
+                verbose_eval=False)
+    same_trees_or_near_tie(card, cpu, dtrain, SCALED_CPU_ROUNDS,
+                           "scaled GBT")
+    return launches
+
+
+def phase_cli_train_predict(root: Path) -> int:
+    """``fetch``, ``train --model gbt --save``, ``predict --model-type
+    gbt`` through the CLI on the card; the CLI's predictions bit-equal to
+    the in-process Booster.predict. Returns K3's launches in train."""
+    import numpy as np
+
+    from euromillioner_tpu_torch import cli
+    from euromillioner_tpu_torch.config import Config
+    from euromillioner_tpu_torch.data.csvio import read_csv
+    from euromillioner_tpu_torch.ops.fused_histogram import FUSED_HISTOGRAM
+    from euromillioner_tpu_torch.trees import Booster, DMatrix
+
+    out = root / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    csv, model = out / "draws.csv", out / "gbt.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(cli.main(["fetch", "--html-file", str(root / GOLDEN_HTML),
+                        "--output", str(csv)]) == 0, "fetch failed")
+    FUSED_HISTOGRAM.launches = 0
+    rc = cli.main(["train", "--model", "gbt", "--csv", str(csv), "--save",
+                   str(model)])
+    launches = FUSED_HISTOGRAM.launches
+    cfg = Config()
+    want = cfg.gbt.nround * (cfg.gbt.max_depth + 1)
+    check(rc == 0, f"train --model gbt exited {rc}")
+    check(launches == want, f"K3 launched {launches} times in train, "
+          f"expected {want}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["predict", "--model-type", "gbt", "--model-file",
+                       str(model), "--csv", str(csv), "--has-label"])
+    check(rc == 0, f"predict exited {rc}")
+    got = np.asarray([float(v) for v in buf.getvalue().split()], np.float32)
+    x, _, _ = read_csv(str(csv), label_column=0)
+    ref = Booster.load_model(str(model)).predict(DMatrix(x))
+    same = got.shape == ref.shape and np.array_equal(got, ref)
+    print(f"CLI train --model gbt ({cfg.gbt.nround} rounds, K3 launches "
+          f"{launches}) -> predict on {len(got)} rows: bit-equal to "
+          f"Booster.predict {same}")
+    check(same, "CLI predictions differ from Booster.predict")
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -562,6 +978,7 @@ def main() -> int:
               "(euromillioner_tpu_torch/ not found)", file=sys.stderr)
         return 1
     from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.ops.fused_histogram import FUSED_HISTOGRAM
     from euromillioner_tpu_torch.ops.fused_lstm import (FUSED_LSTM_BWD,
                                                         FUSED_LSTM_FWD)
 
@@ -570,7 +987,7 @@ def main() -> int:
     smi = nvidia_smi("name,power.limit")
     print(f"device: {name} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}); {nvidia_smi('clocks.sm,clocks.max.sm')}")
-    kernels = (FUSED_LSTM_FWD, FUSED_LSTM_BWD)
+    kernels = (FUSED_LSTM_FWD, FUSED_LSTM_BWD, FUSED_HISTOGRAM)
     try:
         with ThreadPoolExecutor(len(kernels)) as pool:
             seconds = list(pool.map(lambda k: k.build(), kernels))
@@ -581,11 +998,19 @@ def main() -> int:
                     print(f"build: {kernel.source}: {ln.strip()}")
         k1 = phase_k1()
         k2 = phase_k2()
+        k3 = phase_k3()
         serve_k1 = phase_serve(root)
         train_k1, train_k2, ckdir = phase_train(root)
         phase_step(root)
         phase_serve_trained(ckdir)
         shutil.rmtree(ckdir.parent, ignore_errors=True)
+        # the boosters' per-round eval lines: 3,000 lines of stdout
+        logging.getLogger("euromillioner_tpu_torch.trees.gbt").setLevel(
+            logging.WARNING)
+        reference_k3 = phase_reference(root)
+        phase_golden_trajectories(root)
+        scaled_k3 = phase_scaled(k3["ms_by_shape"])
+        cli_k3 = phase_cli_train_predict(root)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -593,7 +1018,10 @@ def main() -> int:
     k1["launches_by_path"] = {"serve": serve_k1, "train": train_k1}
     k2["launches"] = train_k2
     k2["launches_by_path"] = {"train": train_k2}
-    print(json.dumps({"kernels": [k1, k2]}))
+    k3["launches"] = reference_k3 + scaled_k3 + cli_k3
+    k3["launches_by_path"] = {"reference": reference_k3,
+                              "scaled_gbt": scaled_k3, "cli_train": cli_k3}
+    print(json.dumps({"kernels": [k1, k2, k3]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -14,6 +14,9 @@ Serving (``serve --model-type lstm``): whole-sequence batching under the
 ``f32`` and ``fused`` profiles. The fused LSTM's forward and backward
 kernels are written in CUDA (``csrc/fused_lstm.cu``,
 ``csrc/fused_lstm_bwd.cu``) and joined as one autograd Function.
+Gradient-boosted trees (``trees/``, ``app.py``, ``train --model gbt``,
+``predict``, ``reference``): the reference's Main.java pipeline, with the
+per-level split histogram in a CUDA kernel (``csrc/fused_histogram.cu``).
 """
 
 __version__ = "0.1.0"

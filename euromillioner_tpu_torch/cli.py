@@ -1,9 +1,13 @@
-"""CLI: ``python -m euromillioner_tpu_torch train|serve ...``.
+"""CLI: ``python -m euromillioner_tpu_torch fetch|train|predict|reference|serve``.
 
-The JAX package's ``train`` and ``serve`` subcommands for the lstm family,
-with the same flags, dotted config overrides and exit codes (the error
-taxonomy's ``exit_code``; 2 for bad arguments). ``--device`` picks
-``cuda`` (the default) or ``cpu``. ``train`` reads a saved results page
+The JAX package's subcommands for the ported paths, with the same flags,
+dotted config overrides and exit codes (the error taxonomy's
+``exit_code``; 2 for bad arguments): ``fetch --html-file`` writes the
+featurized CSV; ``train --model gbt|lstm`` trains a booster (``--save``
+writes its model JSON) or the LSTM; ``predict --model-type gbt`` predicts
+with a saved model JSON; ``reference`` runs the Main.java pipeline;
+``serve --model-type lstm`` serves an LSTM checkpoint. ``--device`` picks
+``cuda`` (the default) or ``cpu``. Data comes from a saved results page
 (``--html-file``) or a featurized CSV (``--csv``); fetching the live page
 is not ported yet. ``serve`` has only the in-process ``--smoke N`` front
 end; the HTTP server is not ported yet.
@@ -15,6 +19,8 @@ import argparse
 import json
 import sys
 
+import numpy as np
+
 from euromillioner_tpu_torch.config import Config, apply_overrides, check_ported
 from euromillioner_tpu_torch.utils.errors import (ConfigError,
                                                   EuromillionerError,
@@ -22,6 +28,20 @@ from euromillioner_tpu_torch.utils.errors import (ConfigError,
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
 logger = get_logger("cli")
+
+
+def _load_html(args) -> str:
+    if args.html_file:
+        with open(args.html_file, encoding="utf-8") as fh:
+            return fh.read()
+    raise ConfigError("fetching the results page is not ported yet; pass "
+                      "--html-file PAGE")
+
+
+def _gbt_device(args, cfg: Config) -> None:
+    """``--device`` sets where the boosters run (``gbt.device``)."""
+    if args.device:
+        cfg.gbt.device = args.device
 
 
 def _load_datasets(args, cfg: Config):
@@ -40,7 +60,48 @@ def _load_datasets(args, cfg: Config):
                       "--html-file PAGE or --csv FILE")
 
 
+def cmd_fetch(args, cfg: Config) -> int:
+    """Parse a saved results page and write the featurized CSV."""
+    from euromillioner_tpu_torch.data.csvio import write_csv
+    from euromillioner_tpu_torch.data.pipeline import draws_from_html
+
+    rows = draws_from_html(_load_html(args), cfg.data)
+    write_csv(args.output, rows, compat=cfg.data.compat_csv)
+    logger.info("wrote %d rows to %s", len(rows), args.output)
+    print(args.output)
+    return 0
+
+
 def cmd_train(args, cfg: Config) -> int:
+    """Train a booster (``--model gbt``, the default) or the LSTM with the
+    {train, test} watches, then save it (``--save``)."""
+    if args.model == "gbt":
+        return _train_gbt(args, cfg)
+    if args.model != "lstm":
+        raise ConfigError(f"--model {args.model} is not ported yet; this "
+                          f"port trains gbt and lstm")
+    return _train_lstm(args, cfg)
+
+
+def _train_gbt(args, cfg: Config) -> int:
+    from euromillioner_tpu_torch.trees import DMatrix, train
+    from euromillioner_tpu_torch.trees.gbt import resolve_train_device
+
+    _gbt_device(args, cfg)
+    resolve_train_device(cfg.gbt.device)  # no card: fail before any work
+    train_ds, val_ds = _load_datasets(args, cfg)
+    dtrain = DMatrix(train_ds.x, train_ds.y)
+    dval = DMatrix(val_ds.x, val_ds.y)
+    booster = train(cfg.gbt.xgb_params(), dtrain, cfg.gbt.nround,
+                    evals={"train": dtrain, "test": dval},
+                    fuse_rounds=cfg.gbt.fuse_rounds)
+    if args.save:
+        booster.save_model(args.save)
+        logger.info("saved model to %s", args.save)
+    return 0
+
+
+def _train_lstm(args, cfg: Config) -> int:
     """Train the LSTM on sliding windows of the draw history with the
     {train, test} watches, then save the TrainState (``--save`` or
     ``train.checkpoint_dir``)."""
@@ -84,6 +145,29 @@ def cmd_train(args, cfg: Config) -> int:
     return 0
 
 
+def cmd_predict(args, cfg: Config) -> int:
+    """Predict with a saved GBT model JSON on a CSV of featurized rows;
+    one value per line."""
+    from euromillioner_tpu_torch.data.csvio import read_csv
+    from euromillioner_tpu_torch.trees import Booster, DMatrix
+
+    model = Booster.load_model(args.model_file, device=args.device)
+    x, _, _ = read_csv(args.csv, label_column=(
+        cfg.data.label_column if args.has_label else None))
+    for v in np.asarray(model.predict(DMatrix(x))).reshape(-1):
+        print(v)
+    return 0
+
+
+def cmd_reference(args, cfg: Config) -> int:
+    """The full Main.java-equivalent run (prints the reference's boolean)."""
+    from euromillioner_tpu_torch.app import run_reference_pipeline
+
+    _gbt_device(args, cfg)
+    run_reference_pipeline(cfg, html=_load_html(args))
+    return 0
+
+
 def cmd_serve(args, cfg: Config) -> int:
     """Serve an LSTM checkpoint behind the whole-sequence scheduler;
     ``--smoke N`` pushes N synthetic requests through the in-process
@@ -120,17 +204,34 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m euromillioner_tpu_torch",
         description="PyTorch/CUDA port of the Euromillioner CLI")
     sub = p.add_subparsers(dest="command", required=True)
-    tr = sub.add_parser("train", help="train the LSTM with {train, test} "
-                                      "watches and save its TrainState")
-    tr.add_argument("--model", default="lstm", choices=["lstm"])
+    device_help = "default: cuda; the CPU runs only when asked for"
+    fe = sub.add_parser("fetch", help="parse a saved results page and write "
+                                      "the featurized CSV")
+    fe.add_argument("--html-file", help="saved results page")
+    fe.add_argument("--output", default="euromillions.csv")
+    tr = sub.add_parser("train", help="train a booster (gbt) or the LSTM "
+                                      "with {train, test} watches")
+    tr.add_argument("--model", default="gbt",
+                    choices=["gbt", "rf", "mlp", "lstm", "wide_deep"])
     tr.add_argument("--csv", help="featurized CSV input")
     tr.add_argument("--html-file", help="saved results page")
-    tr.add_argument("--save", help="checkpoint output directory")
+    tr.add_argument("--save", help="model JSON (gbt) or checkpoint "
+                                   "directory (lstm)")
     tr.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                    help="training device (default: cuda; the CPU runs only "
-                         "when asked for)")
-    tr.add_argument("overrides", nargs="*", default=[],
-                    help="config overrides: section.field=value")
+                    help=f"training device ({device_help})")
+    pr = sub.add_parser("predict", help="predict with a saved model")
+    pr.add_argument("--model-type", default="gbt", choices=["gbt"])
+    pr.add_argument("--model-file", required=True, help="model JSON")
+    pr.add_argument("--csv", required=True)
+    pr.add_argument("--has-label", action="store_true",
+                    help="the CSV still holds the label column")
+    pr.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help=f"prediction device ({device_help})")
+    rf = sub.add_parser("reference",
+                        help="run the full Main.java-equivalent pipeline")
+    rf.add_argument("--html-file", help="saved results page")
+    rf.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help=f"device of both boosters ({device_help})")
     sv = sub.add_parser(
         "serve", help="serve an LSTM checkpoint behind the whole-sequence "
                       "scheduler (serve.precision=f32|fused)")
@@ -144,12 +245,14 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="serving device (default: cuda; the CPU runs only "
                          "when asked for)")
-    sv.add_argument("overrides", nargs="*", default=[],
-                    help="config overrides: section.field=value")
+    for s in (fe, tr, pr, rf, sv):
+        s.add_argument("overrides", nargs="*", default=[],
+                       help="config overrides: section.field=value")
     return p
 
 
-_COMMANDS = {"train": cmd_train, "serve": cmd_serve}
+_COMMANDS = {"fetch": cmd_fetch, "train": cmd_train, "predict": cmd_predict,
+             "reference": cmd_reference, "serve": cmd_serve}
 
 
 def main(argv: list[str] | None = None) -> int:

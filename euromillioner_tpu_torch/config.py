@@ -26,6 +26,12 @@ FEATURE_COLUMNS = (
     "special_1", "special_2",
 )
 FIXED_CSV_HEADER = ",".join(FEATURE_COLUMNS)
+# The reference writer's header, typos (`fift`, `,;`) included — written
+# only under data.compat_csv.
+REFERENCE_CSV_HEADER = (
+    "day_of_week, month, day, year, first, second, third, fourth, fift,;"
+    " special_1, special_2,"
+)
 
 
 @dataclass
@@ -40,8 +46,61 @@ class DataConfig:
     date_format: str = "%a, %b %d, %Y"  # "E, MMM d, yyyy"
     train_percent: int = 70             # chronological split
     label_column: int = 0               # DMatrix "?label_column=0"
+    # compat=True reproduces the reference CSV writer's bytes: no
+    # newlines, header typos, a trailing ", " after every value.
+    compat_csv: bool = False
     batch_size: int = 64
     shuffle: bool = False               # the split is chronological, unshuffled
+
+
+@dataclass
+class GBTConfig:
+    """XGBoost-parity gradient-boosted trees: the reference's literal
+    config (the JAX package's ``GBTConfig``, same fields and defaults)."""
+
+    booster: str = "gbtree"
+    eta: float = 1.0
+    max_depth: int = 3
+    objective: str = "reg:logistic"
+    subsample: float = 1.0
+    colsample_bytree: float = 1.0       # xgboost default
+    nthread: int = 6                    # accepted for parity, ignored
+    gamma: float = 1.0                  # min split loss
+    reg_lambda: float = 1.0             # xgboost default L2
+    eval_metric: str = "logloss"
+    nround: int = 500
+    # Boosting rounds between host syncs (trees/gbt._resolve_fuse_rounds);
+    # None = auto. Results are identical across settings.
+    fuse_rounds: int | None = None
+    max_bins: int = 256
+    base_score: float = 0.5
+    min_child_weight: float = 1.0       # xgboost default
+    seed: int = 0
+    hist_method: str = "auto"           # auto | scatter | pallas
+    # auto / cuda / gpu train on the card; cpu on the CPU
+    # (trees/gbt._resolve_device)
+    device: str = "auto"
+
+    def xgb_params(self) -> dict:
+        """The xgboost-style params dict for ``trees.train`` (nround and
+        fuse_rounds are call arguments, not params)."""
+        return {
+            "booster": self.booster,
+            "eta": self.eta,
+            "max_depth": self.max_depth,
+            "objective": self.objective,
+            "subsample": self.subsample,
+            "colsample_bytree": self.colsample_bytree,
+            "gamma": self.gamma,
+            "lambda": self.reg_lambda,
+            "eval_metric": self.eval_metric,
+            "max_bins": self.max_bins,
+            "base_score": self.base_score,
+            "min_child_weight": self.min_child_weight,
+            "seed": self.seed,
+            "device": self.device,
+            "hist_method": self.hist_method,
+        }
 
 
 @dataclass
@@ -107,6 +166,7 @@ class ServeConfig:
 @dataclass
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
+    gbt: GBTConfig = field(default_factory=GBTConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
@@ -127,8 +187,20 @@ def check_ported(cfg: Config) -> None:
             f"serves {list(PORTED_PRECISIONS)}")
 
 
-def _coerce(current: Any, value: str) -> Any:
-    """Coerce a CLI string to the type of the current field value."""
+def _coerce(current: Any, value: str, optional: bool = False) -> Any:
+    """Coerce a CLI string to the type of the current field value.
+    ``optional`` marks fields whose declared default is None
+    (``gbt.fuse_rounds``): "auto"/"none" restore the default, anything
+    else must be an integer."""
+    if optional and value.strip().lower() in ("auto", "none", ""):
+        return None
+    if current is None:
+        try:
+            return int(value)
+        except ValueError:
+            raise ValueError(
+                f"cannot coerce {value!r} for an optional int field "
+                f"(use an integer, or 'auto' for the default policy)")
     if isinstance(current, bool):
         return value.lower() in ("1", "true", "yes", "on")
     if isinstance(current, int):
@@ -166,5 +238,7 @@ def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
             raise ValueError(
                 f"{key!r} names a config section, not a field — "
                 f"override one of its fields instead")
-        setattr(sub, fieldname, _coerce(current, value))
+        declared = {f.name: f for f in dataclasses.fields(sub)}[fieldname]
+        setattr(sub, fieldname, _coerce(current, value,
+                                        optional=declared.default is None))
     return cfg

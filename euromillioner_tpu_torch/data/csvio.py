@@ -4,14 +4,17 @@ its pure-Python path; the native threaded parser is not ported yet).
 Reading implements xgboost's DMatrix URI semantics
 ``?format=csv&label_column=k``: column k is split out as the label and
 the remaining columns become features. Writing produces the fixed schema
-(one header line, one row per line, integers without a decimal point).
+(one header line, one row per line, integers without a decimal point), or
+under ``compat=True`` the reference writer's bytes: its header with the
+typos, no newline anywhere, and ``", "`` after every value. Both modes
+are byte-identical to the JAX package's writer.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from euromillioner_tpu_torch.config import FIXED_CSV_HEADER
+from euromillioner_tpu_torch.config import FIXED_CSV_HEADER, REFERENCE_CSV_HEADER
 from euromillioner_tpu_torch.utils.errors import DataError
 
 
@@ -23,12 +26,20 @@ def _format_value(v: float) -> str:
     return repr(float(v))
 
 
-def write_csv(path: str, rows) -> None:
-    """Write featurized rows to ``path`` in the fixed schema."""
+def write_csv(path: str, rows, *, header: str | None = None,
+              compat: bool = False) -> None:
+    """Write featurized rows to ``path``: the fixed schema, or with
+    ``compat=True`` the reference writer's bytes (see the module note)."""
     with open(path, "w", encoding="utf-8") as fh:
-        fh.write(FIXED_CSV_HEADER + "\n")
-        for row in rows:
-            fh.write(",".join(_format_value(v) for v in row) + "\n")
+        if compat:
+            fh.write(header if header is not None else REFERENCE_CSV_HEADER)
+            for row in rows:
+                fh.write("".join(f"{_format_value(v)}, " for v in row))
+        else:
+            fh.write((header if header is not None else FIXED_CSV_HEADER)
+                     + "\n")
+            for row in rows:
+                fh.write(",".join(_format_value(v) for v in row) + "\n")
 
 
 def split_label(data: np.ndarray, names: list[str], label_column: int

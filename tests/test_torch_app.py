@@ -1,0 +1,140 @@
+"""The port's reference pipeline (euromillioner_tpu_torch/app.py) and its
+GBT CLI subcommands against the JAX package's, on the CPU, on the golden
+results page."""
+
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from euromillioner_tpu.app import run_reference_pipeline as jax_pipeline
+from euromillioner_tpu.config import Config as JaxConfig
+from euromillioner_tpu.config import apply_overrides as jax_overrides
+from euromillioner_tpu.data.csvio import write_csv as jax_write_csv
+from euromillioner_tpu.data.pipeline import draws_from_html
+from euromillioner_tpu_torch import cli
+from euromillioner_tpu_torch.app import run_reference_pipeline
+from euromillioner_tpu_torch.config import Config, apply_overrides
+from euromillioner_tpu_torch.data.csvio import write_csv
+from euromillioner_tpu_torch.trees import Booster, DMatrix
+
+torch.set_num_threads(2)
+
+GOLDEN = pathlib.Path(__file__).parent / "golden" / "euromillions.html"
+ROUNDS = ["gbt.nround=20"]
+
+
+@pytest.fixture(scope="module")
+def html():
+    return GOLDEN.read_text()
+
+
+@pytest.fixture(scope="module")
+def jax_run(html):
+    return jax_pipeline(jax_overrides(JaxConfig(), ROUNDS), html)
+
+
+@pytest.mark.parametrize("compat", [False, True], ids=["fixed", "compat"])
+def test_pipeline_matches_jax(html, jax_run, compat):
+    """Both boosters' trees and predictions and the printed boolean against
+    the JAX package's run, and the CSV files byte for byte against its
+    writer in the same mode (the compat files cannot be read back, so both
+    modes train on the same rows)."""
+    port = run_reference_pipeline(
+        apply_overrides(Config(), ROUNDS + [f"data.compat_csv={compat}"]),
+        html, device="cpu")
+    for got, want in ((port.predictions, jax_run.predictions),
+                      (port.predictions_test, jax_run.predictions_test)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert port.predicts_equal == jax_run.predicts_equal
+    for bst, jbst in ((port.booster, jax_run.booster),
+                      (port.booster_test, jax_run.booster_test)):
+        assert bst.num_boosted_rounds == jbst.num_boosted_rounds == 20
+        for k in ("feature", "split_bin", "is_leaf"):
+            np.testing.assert_array_equal(bst.trees[k], jbst.trees[k])
+    rows = draws_from_html(html, JaxConfig().data)
+    cut = int(0.7 * len(rows))
+    for path, part in ((port.train_csv, rows[:cut]),
+                       (port.validation_csv, rows[cut:])):
+        jax_write_csv(path + ".jax", part, compat=compat)
+        assert pathlib.Path(path).read_bytes() == \
+            pathlib.Path(path + ".jax").read_bytes()
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_write_csv_byte_equal(tmp_path, html, compat):
+    rows = draws_from_html(html, JaxConfig().data)[:50] + [[1.5, 2, 3]]
+    write_csv(str(tmp_path / "p.csv"), rows, compat=compat)
+    jax_write_csv(str(tmp_path / "j.csv"), rows, compat=compat)
+    assert (tmp_path / "p.csv").read_bytes() == \
+        (tmp_path / "j.csv").read_bytes()
+
+
+# -- the CLI ---------------------------------------------------------------------
+
+def _floats(out: str) -> np.ndarray:
+    vals = []
+    for ln in out.splitlines():
+        try:
+            vals.append(float(ln))
+        except ValueError:
+            pass
+    return np.asarray(vals, np.float32)
+
+
+def test_cli_fetch_train_predict_on_cpu(tmp_path, capsys):
+    csv, model = str(tmp_path / "d.csv"), str(tmp_path / "m.json")
+    assert cli.main(["fetch", "--html-file", str(GOLDEN), "--output", csv]) == 0
+    assert capsys.readouterr().out.strip() == csv
+    assert cli.main(["train", "--model", "gbt", "--csv", csv, "--save", model,
+                     "--device", "cpu", "gbt.nround=4",
+                     "gbt.objective=binary:logistic", "gbt.eta=0.3"]) == 0
+    payload = json.loads(pathlib.Path(model).read_text())
+    assert len(payload["trees"]["feature"]) == 4
+    capsys.readouterr()
+    assert cli.main(["predict", "--model-type", "gbt", "--model-file", model,
+                     "--csv", csv, "--has-label", "--device", "cpu"]) == 0
+    got = _floats(capsys.readouterr().out)
+    from euromillioner_tpu_torch.data.csvio import read_csv
+
+    x, _, _ = read_csv(csv, label_column=0)
+    want = Booster.load_model(model, device="cpu").predict(DMatrix(x))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cli_reference_on_cpu(capsys):
+    assert cli.main(["reference", "--html-file", str(GOLDEN), "--device",
+                     "cpu", "gbt.nround=3"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] in ("True", "False")
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["reference"], 17),                               # fetching: not ported
+    (["fetch"], 17),
+    (["train", "--model", "rf", "--html-file", str(GOLDEN)], 17),
+    (["train", "--html-file", str(GOLDEN), "gbt.hist_method=matmul"], 13),
+    (["train", "--html-file", str(GOLDEN), "gbt.no_such=1"], 2),
+])
+def test_cli_exit_codes(argv, rc):
+    extra = [] if argv[0] == "fetch" else ["--device", "cpu"]
+    assert cli.main(argv + extra) == rc
+
+
+@pytest.mark.parametrize("cmd", ["train", "reference", "predict"])
+def test_cli_without_a_card_exits_17(monkeypatch, tmp_path, cmd):
+    model = str(tmp_path / "m.json")
+    x = np.arange(40, dtype=np.float32).reshape(20, 2)
+    from euromillioner_tpu_torch.trees import train
+
+    train({"device": "cpu"}, DMatrix(x, x[:, 0] > 9), 1,
+          verbose_eval=False).save_model(model)
+    write_csv(str(tmp_path / "x.csv"), x, header="a,b")
+    argv = {"train": ["train", "--html-file", str(GOLDEN)],
+            "reference": ["reference", "--html-file", str(GOLDEN)],
+            "predict": ["predict", "--model-file", model, "--csv",
+                        str(tmp_path / "x.csv")]}[cmd]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(argv) == 17

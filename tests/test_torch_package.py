@@ -21,12 +21,16 @@ from euromillioner_tpu.train.checkpoint import \
 from euromillioner_tpu.train.optim import from_config
 from euromillioner_tpu.train.trainer import Trainer
 from euromillioner_tpu_torch import cli
+from euromillioner_tpu_torch.app import run_reference_pipeline
 from euromillioner_tpu_torch.config import Config, apply_overrides
 from euromillioner_tpu_torch.core.device import resolve_device
 from euromillioner_tpu_torch.models.convert import params_from_jax
 from euromillioner_tpu_torch.models.lstm import build_lstm
 from euromillioner_tpu_torch.models.registry import restore_for_inference
 from euromillioner_tpu_torch.serve.continuous import load_recurrent_backend
+from euromillioner_tpu_torch.trees import DMatrix
+from euromillioner_tpu_torch.trees import train as gbt_train
+from euromillioner_tpu_torch.trees.gbt import Booster, booster_from_arrays
 from euromillioner_tpu_torch.utils.errors import ConfigError
 
 torch.set_num_threads(2)
@@ -82,7 +86,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "euromillioner_tpu_torch.serve.continuous" in loaded
+    for name in ("serve.continuous", "trees.gbt", "trees.growth", "app",
+                 "ops.fused_histogram"):
+        assert f"euromillioner_tpu_torch.{name}" in loaded
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -117,13 +123,33 @@ def jax_ckpt(tmp_path_factory):
     return str(d)
 
 
+@pytest.fixture(scope="module")
+def gbt_model(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("gbt") / "m.json")
+    x = np.arange(40, dtype=np.float32).reshape(20, 2)
+    gbt_train({"device": "cpu"}, DMatrix(x, x[:, 0] > 9), 2,
+              verbose_eval=False).save_model(path)
+    return path
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "build_lstm",
                                    "params_from_jax", "restore",
-                                   "load_recurrent_backend"])
+                                   "load_recurrent_backend", "gbt_train",
+                                   "gbt_load_model", "booster_from_arrays",
+                                   "run_reference_pipeline"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(
-        no_cuda, jax_ckpt, entry):
+        no_cuda, jax_ckpt, gbt_model, entry):
     cfg = apply_overrides(Config(), TINY)
+    x = np.zeros((4, 2), np.float32)
     calls = {
+        "gbt_train": lambda: gbt_train({}, DMatrix(x, x[:, 0]), 1),
+        "gbt_load_model": lambda: Booster.load_model(gbt_model),
+        "booster_from_arrays": lambda: booster_from_arrays(
+            {"max_depth": 1, "objective": "reg:logistic"}, [[0.5], [0.5]],
+            {k: [] for k in ("feature", "split_bin", "is_leaf",
+                             "leaf_value")}, 0.0),
+        "run_reference_pipeline": lambda: run_reference_pipeline(
+            html="<html></html>"),
         "resolve_device": lambda: resolve_device(),
         "build_lstm": lambda: build_lstm(8, 1, 7),
         "params_from_jax": lambda: params_from_jax(
@@ -140,6 +166,18 @@ def test_cli_without_cuda_exits_17(no_cuda, jax_ckpt):
     rc = cli.main(["serve", "--checkpoint", jax_ckpt, "--smoke", "2",
                    *TINY])
     assert rc == 17
+
+
+@pytest.mark.parametrize("cmd", ["train", "predict", "reference"])
+def test_gbt_cli_without_cuda_exits_17(no_cuda, gbt_model, tmp_path, cmd):
+    page = str(ROOT / "tests" / "golden" / "euromillions.html")
+    csv = tmp_path / "x.csv"
+    csv.write_text("a,b\n1,2\n")
+    argv = {"train": ["train", "--model", "gbt", "--html-file", page],
+            "predict": ["predict", "--model-type", "gbt", "--model-file",
+                        gbt_model, "--csv", str(csv)],
+            "reference": ["reference", "--html-file", page]}[cmd]
+    assert cli.main(argv) == 17
 
 
 def test_cli_serves_jax_checkpoint_on_cpu(jax_ckpt):
