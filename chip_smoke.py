@@ -51,7 +51,31 @@ Phases, each reported on its own lines:
    share of the wall time; its first 5 trees against the CPU's;
 12. ``fetch``, ``train --model gbt --save`` and ``predict --model-type gbt``
    through the CLI: the CLI's predictions bit-equal to Booster.predict;
-13. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
+13. K4a and K4b, the Wide&Deep one-hot contraction, against their plain
+   versions in f32 and bf16 at the serving buckets (8, 32, 128), the
+   training batch (64) and bench.py's batch (8192) at full width (21 x
+   4096 x 1040) and one odd shape (errors relative to each element's sum
+   of magnitudes, three reruns bit-identical), then their times beside the
+   plain versions', the library yardsticks' (``embedding_bag``,
+   ``index_add_``) and the bounds;
+14. serve Wide&Deep — the 100M model with seeded random weights, saved as
+   a TrainState checkpoint and served through the CLI (``serve
+   --model-type wide_deep --smoke 32``): no failed request, K4a launched
+   once per dispatched batch and bucket warmup (counts reset just before,
+   read just after); then bench.py's rows through the engine, each reply
+   bit-equal to a direct predict of the same bucket batch;
+15. train Wide&Deep — ``train --model wide_deep --html-file
+   tests/golden/euromillions.html`` at the defaults (B=64, bf16 towers,
+   Adam), 2 epochs: two finite watch lines, K4b launched once per step and
+   K4a that plus the watch evaluations, ms/step and examples/s; then
+   ``serve --smoke 8`` on the checkpoint it saved;
+16. bench.py's Wide&Deep step (B=8192, bf16, Adam): median ms/step,
+   rows/s, K4a+K4b's share of the step; then the step at the training
+   batch (B=64); a ``torch.profiler`` window of each (kernel time per
+   step, the device's busy share, the heaviest kernels);
+17. one full-width Wide&Deep step on the card against the CPU, with f32
+   towers and with the CLI's bf16 towers;
+18. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
@@ -142,6 +166,46 @@ GOLDEN_PIN = Path("tests") / "golden" / "gbt_trajectory.json"
 SCALED = {"rows": 200_000, "features": 28, "rounds": 60, "max_depth": 6,
           "eta": 0.3, "gamma": 0.0}
 SCALED_CPU_ROUNDS = 5
+# K4a/K4b at the Wide&Deep paths' (B, K, V, E): the serving buckets, the
+# training batch and bench.py's WD_SHAPE batch at full width (21 pair
+# tables of 4096 codes, E = 1040), and one odd shape with ids outside
+# [0, V); timed at the training batch
+K4_SHAPES = tuple((b, 21, 4096, 1040) for b in (8, 32, 128, 64, 8192)) + (
+    (5, 3, 300, 20),)
+K4_TIMED_B = 64
+# K4a/K4b against their plain versions (K4a's on the card, K4b's on CPU
+# copies, whose index_add_ adds in batch order): both add in the same
+# order, so bit-equal is expected; any error is taken relative to the sum
+# of the magnitudes each output element adds, and pinned here
+K4_TOL = 1e-6
+WD_SMOKE_REQUESTS = 32
+WD_TRAIN_SMOKE_REQUESTS = 8
+# replies to single rows coalesced by the engine against a direct predict
+# of the same rows in one batch of another shape: other cuBLAS algorithms
+# for the bf16 towers, so bf16 rounding only; held to the (wide_deep,
+# bf16) envelope
+WD_CROSS_SHAPE_TOL = 2e-2
+# one full-width step on the card against the CPU from the same params and
+# batch. The loss and the step's outputs are relative (max|got - ref| /
+# max|ref|), each gradient relative to its own scale, each updated param
+# absolute. f32 towers, measured on an H100: loss 0, gradients 4.1e-7 of
+# their scale; updated params 1.5e-6 — adam's first step is lr * g / (|g|
+# + 3.2e-7) per element, so an element whose gradient sits near that eps
+# moves by a visible fraction of lr = 1e-3 (as in the LSTM step); pinned
+# at 1% of lr. The CLI's bf16 towers: loss and outputs inside the
+# (wide_deep, bf16) envelope; gradients measured 3.8e-2 of their scale
+# (a date-field embedding; the deep tower's bf16 GEMMs round otherwise on
+# the card than on the CPU, while the wide table's gradient agrees to
+# 1.6e-8), pinned at 1e-1; the updated params are not compared: the first
+# adam step maps every gradient element to about +-lr, so a near-zero
+# element of opposite sign moves its param by 2 lr (measured 2.0e-3), which
+# says nothing the gradient check does not
+WD_STEP_TOL = {"float32": {"loss": 1e-6, "out": 1e-5, "grad": 1e-5,
+                           "param": 1e-5},
+               "bfloat16": {"loss": 2e-2, "out": 2e-2, "grad": 1e-1,
+                            "param": None}}
+# bench.py's _bench_wide_deep: B = WD_SHAPE["batch"], 15 timed steps
+WD_BENCH = {"batch": 8192, "warmup": 2, "steps": 15}
 # H100 SXM data-sheet peaks (dense): FP32 non-tensor and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES_S = 3.35e12
@@ -968,6 +1032,479 @@ def phase_cli_train_predict(root: Path) -> int:
     return launches
 
 
+# -- the Wide&Deep path (K4a, K4b) ---------------------------------------------
+
+def bench_rows(b: int, seed: int = 0):
+    """bench.py's Wide&Deep rows (``_bench_wide_deep``): numpy seed 0;
+    dow, month, day, year 2004-2020, five balls 1-50, two stars 1-12."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        np.stack([rng.integers(1, 8, b), rng.integers(1, 13, b),
+                  rng.integers(1, 29, b), rng.integers(2004, 2021, b)], 1),
+        rng.integers(1, 51, size=(b, 5)), rng.integers(1, 13, size=(b, 2)),
+    ], axis=1).astype(np.float32)
+
+
+def k4_inputs(b: int, k: int, v: int, e: int, dtype):
+    """One shape's K4 inputs on the card: at full width the pair codes of
+    bench.py's rows (what the model hands the kernels), else uniform ids
+    with a few outside [0, V); a seeded table and cotangent."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.models.wide_deep import WideDeep
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + b + e)
+    w = (0.01 * torch.randn((k, v, e), generator=gen, device="cuda")).to(
+        dtype)
+    dh = torch.randn((b, e), generator=gen, device="cuda").to(dtype)
+    if (k, v) == (21, 4096):
+        codes = WideDeep(wide_embed_dim=8, embed_dim=8, hidden_sizes=(8,),
+                         device="cpu")  # ball_vocab 64: 21 x 4096 pair codes
+        ids = codes._cross_ids(torch.from_numpy(bench_rows(b)))[1]
+    else:
+        rng = np.random.default_rng(b + e)
+        raw = rng.integers(-2, v + 2, size=(b, k)).astype(np.int32)
+        ids = torch.from_numpy(raw)
+    return w, ids.contiguous().cuda(), dh
+
+
+def k4_bound_ms(ids, w, dh) -> dict:
+    """Bytes and operations bounds (ms) of both kernels on these inputs:
+    K4a reads the ids and the distinct table rows they name and writes
+    (B, E) f32; K4b reads the ids and dH and writes the dense (K, V, E)
+    block; one f32 add per element either way."""
+    b, k = ids.shape
+    _, v, e = w.shape
+    it = w.element_size()
+    valid = (ids >= 0) & (ids < v)
+    flat = (ids.long() + torch.arange(k, device=ids.device) * v)[valid]
+    rows = int(torch.unique(flat).numel())
+    adds = int(valid.sum()) * e
+    fwd = 4 * b * k + rows * e * it + 4 * b * e
+    dw = 4 * b * k + b * e * it + k * v * e * it
+    ops_ms = adds / PEAK_FP32_FLOPS * 1e3
+    return {"fwd": (fwd / PEAK_HBM_BYTES_S * 1e3, ops_ms),
+            "dw": (dw / PEAK_HBM_BYTES_S * 1e3, ops_ms)}
+
+
+def phase_k4() -> tuple[dict, dict]:
+    """K4a and K4b against their plain versions in f32 and bf16 at the
+    paths' shapes, three reruns bit-identical; then times beside the plain
+    versions', the library yardsticks' and the bounds."""
+    from euromillioner_tpu_torch.ops import wide_onehot as K
+
+    failures = []
+    worst = {"fwd": 0.0, "dw": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, k, v, e in K4_SHAPES:
+            w, ids, dh = k4_inputs(b, k, v, e, dtype)
+            want_f = K.wide_onehot_fwd_reference(w, ids)
+            scale_f = K.wide_onehot_fwd_reference(w.abs(), ids)
+            cpu_ids, cpu_dh = ids.cpu(), dh.cpu()
+            want_d = K.wide_onehot_dw_reference(cpu_ids, cpu_dh, v).float()
+            scale_d = K.wide_onehot_dw_reference(
+                cpu_ids, cpu_dh.float().abs(), v)
+            torch.cuda.synchronize()
+            fwd = [K.wide_onehot_fwd(w, ids) for _ in range(3)]
+            dw = [K.wide_onehot_dw(ids, dh, v) for _ in range(3)]
+            torch.cuda.synchronize()
+            for name, runs, want, scale in (
+                    ("K4a", fwd, want_f, scale_f),
+                    ("K4b", dw, want_d.cuda(), scale_d.cuda())):
+                err = (runs[0].double() - want.double()).abs()
+                rel = (err / scale.double().clamp_min(1e-30)).max().item()
+                same = all(torch.equal(runs[0], r) for r in runs[1:])
+                exact = torch.equal(runs[0].float(), want.float())
+                print(f"{name} B={b} K={k} V={v} E={e} {str(dtype)[6:]}: "
+                      f"max_abs={err.max().item():.3e} rel_to_scale={rel:.3e}"
+                      f" (tol {K4_TOL:.0e}), bit-equal to plain {exact}, "
+                      f"bit-identical reruns {same}")
+                if rel > K4_TOL or not same:
+                    failures.append(f"{name} at {(b, k, v, e)} {dtype}: rel "
+                                    f"{rel:.3e}, reruns equal {same}")
+                key = "fwd" if name == "K4a" else "dw"
+                worst[key] = max(worst[key], err.max().item())
+    check(not failures, "; ".join(failures))
+
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, k, v, e in K4_SHAPES[:-1]:
+            w, ids, dh = k4_inputs(b, k, v, e, dtype)
+            fwd_ms = time_ms(lambda: K.wide_onehot_fwd(w, ids))
+            fwd_plain = time_ms(lambda: K.wide_onehot_fwd_reference(w, ids))
+            dw_ms = time_ms(lambda: K.wide_onehot_dw(ids, dh, v))
+            dw_plain = time_ms(lambda: K.wide_onehot_dw_reference(ids, dh, v))
+            # yardsticks, built outside the timed calls: one embedding_bag
+            # over the ids offset into the flat (K*V, E) table, and one
+            # index_add_ of dH's rows into a zeroed f32 (K*V, E) + the cast
+            flat = (ids.long() + torch.arange(k, device="cuda") * v)
+            table = w.view(k * v, e)
+            src = dh.float()[:, None, :].expand(b, k, e).reshape(b * k, e)
+            idx = flat.reshape(-1)
+            fwd_lib = time_ms(lambda: torch.nn.functional.embedding_bag(
+                flat, table, mode="sum"))
+            dw_lib = time_ms(lambda: torch.zeros(
+                (k * v, e), device="cuda").index_add_(0, idx, src).to(dtype))
+            bounds = k4_bound_ms(ids, w, dh)
+            timed[b, str(dtype)[6:]] = {
+                "fwd": (fwd_ms, fwd_plain, fwd_lib, *bounds["fwd"]),
+                "dw": (dw_ms, dw_plain, dw_lib, *bounds["dw"])}
+            for name, key in (("K4a", "fwd"), ("K4b", "dw")):
+                ms, plain, lib, bytes_ms, ops_ms = timed[b, str(dtype)[6:]][key]
+                print(f"{name} timing B={b} K={k} V={v} E={e} "
+                      f"{str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
+                      f"{plain:.4f} ms, library {lib:.4f} ms, bound "
+                      f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f},"
+                      f" operations {ops_ms:.4f})")
+
+    def entry(name, key, source_line):
+        ms, plain, lib, bytes_ms, ops_ms = timed[K4_TIMED_B, "bfloat16"][key]
+        return {"name": name, "route": "cuda",
+                "source": "euromillioner_tpu_torch/csrc/wide_onehot.cu",
+                "replaces": f"euromillioner_tpu/ops/wide_onehot.py:"
+                            f"{source_line}",
+                "launches": 0, "max_abs_err": worst[key], "ms": ms,
+                "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                "library_ms": lib,
+                "timed_shape": [K4_TIMED_B, 21, 4096, 1040, "bfloat16"],
+                "ms_by_shape": {f"{b}x21x4096x1040 {dt}": t[key][0]
+                                for (b, dt), t in timed.items()}}
+
+    return (entry("wide_onehot_fwd", "fwd", 86),
+            entry("wide_onehot_dw", "dw", 97))
+
+
+def wd_cli(argv: list[str]) -> tuple[int, str]:
+    """One in-process CLI call; (exit code, its stdout)."""
+    from euromillioner_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def wd_serve_cli(ckdir: Path, requests: int) -> tuple[dict, int]:
+    """``serve --model-type wide_deep --smoke N`` on the card; returns the
+    summary and K4a's launches during it (reset just before)."""
+    from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
+                                                         WIDE_ONEHOT_FWD)
+
+    WIDE_ONEHOT_FWD.launches = WIDE_ONEHOT_DW.launches = 0
+    rc, out = wd_cli(["serve", "--model-type", "wide_deep", "--checkpoint",
+                      str(ckdir), "--smoke", str(requests)])
+    launches = WIDE_ONEHOT_FWD.launches
+    check(rc == 0, f"serve --model-type wide_deep exited {rc}")
+    check(WIDE_ONEHOT_DW.launches == 0, "serving launched K4b")
+    summary = json.loads(out.strip().splitlines()[-1])
+    shown = {k: v for k, v in summary.items() if k != "predictions"}
+    print(f"serve wide_deep: {json.dumps(shown)}")
+    check(summary["failed"] == 0, "wide_deep serve: requests failed")
+    got = torch.tensor(summary["predictions"])
+    check(tuple(got.shape) == (requests, 1, OUTPUTS), "reply shapes")
+    check(bool(torch.isfinite(got).all()), "non-finite replies")
+    return summary, launches
+
+
+def phase_wd_serve(root: Path) -> int:
+    """The serving main path at full width: a seeded Wide&Deep (100M) as a
+    TrainState checkpoint, served through the CLI; then bench.py's rows
+    through the engine against direct predicts. Returns K4a's launches in
+    the CLI run."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config
+    from euromillioner_tpu_torch.core.precision import rel_error
+    from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
+    from euromillioner_tpu_torch.serve.engine import make_row_engine
+    from euromillioner_tpu_torch.serve.session import load_backend
+    from euromillioner_tpu_torch.train.checkpoint import save_checkpoint
+    from euromillioner_tpu_torch.train.optim import adam
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    model = build_wide_deep(generator=torch.Generator().manual_seed(SEED),
+                            device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    ckdir = root / "build" / "chip_smoke" / "wd"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(str(ckdir), Trainer(model, adam(1e-3)).init_state(),
+                    step=0)
+    print(f"wide_deep: {n_params:,} parameters (E={model.wide_embed_dim}); "
+          f"TrainState checkpoint written in {time.perf_counter() - t0:.2f} s")
+    del model
+    torch.cuda.empty_cache()
+
+    summary, launches = wd_serve_cli(ckdir, WD_SMOKE_REQUESTS)
+    cfg = Config()
+    want = summary["stats"]["batches"] + (
+        len(cfg.serve.buckets) if cfg.serve.warmup else 0)
+    print(f"serve wide_deep: K4a launches {launches} (expected "
+          f"{summary['stats']['batches']} batches + "
+          f"{len(cfg.serve.buckets)} bucket warmups = {want})")
+    check(launches >= 1, "the wide_deep serve never launched K4a")
+    check(launches == want, f"K4a launched {launches} times, expected {want}")
+
+    backend = load_backend("wide_deep", str(ckdir), cfg)
+    rows = bench_rows(max(cfg.serve.buckets))
+    engine = make_row_engine(backend, cfg)
+    try:
+        for b in cfg.serve.buckets:
+            got = engine.predict(rows[:b])
+            same = np.array_equal(got, backend.predict(rows[:b]))
+            print(f"serve wide_deep engine vs direct predict, one request "
+                  f"of {b} rows (bucket {b}): bit-equal {same}")
+            check(same, f"engine reply differs from predict at bucket {b}")
+        futures = [engine.submit(r) for r in rows[:WD_SMOKE_REQUESTS]]
+        single = np.concatenate([f.result() for f in futures])
+        stats = engine.stats()
+    finally:
+        engine.close()
+    direct = backend.predict(rows[:WD_SMOKE_REQUESTS])
+    err = rel_error(single, direct)
+    print(f"serve wide_deep: {WD_SMOKE_REQUESTS} single-row requests in "
+          f"{stats['batches']} batches vs one direct predict: rel {err:.3e} "
+          f"(tol {WD_CROSS_SHAPE_TOL:.0e}); p50 {stats['p50_ms']} ms, p99 "
+          f"{stats['p99_ms']} ms")
+    check(bool(np.isfinite(single).all()), "non-finite engine replies")
+    check(err <= WD_CROSS_SHAPE_TOL, "engine replies outside the tolerance")
+    del backend
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def wd_golden_frames(root: Path):
+    """The training path's (train, test) Datasets, as ``cli train --model
+    wide_deep`` frames them: each full row predicts the next row's balls."""
+    from euromillioner_tpu_torch.data.dataset import Dataset
+    from euromillioner_tpu_torch.data.pipeline import pipeline_from_html
+
+    tr, va = pipeline_from_html((root / GOLDEN_HTML).read_text())
+    out = []
+    for ds in (tr, va):
+        full = ds.full_rows()
+        out.append(Dataset(x=full[:-1], y=full[1:, 4:11]))
+    return tuple(out)
+
+
+def phase_wd_train(root: Path) -> tuple[int, int]:
+    """The training main path at full width through the CLI (defaults:
+    B=64, bf16 towers, Adam), then ``serve --smoke 8`` on its checkpoint.
+    Returns K4a's and K4b's launches in the train run."""
+    from euromillioner_tpu_torch.config import DataConfig
+    from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
+                                                         WIDE_ONEHOT_FWD)
+
+    out = root / "build" / "chip_smoke"
+    ckdir, jsonl = out / "wd_train", out / "wd_train.jsonl"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out.mkdir(parents=True, exist_ok=True)
+    jsonl.unlink(missing_ok=True)
+    WIDE_ONEHOT_FWD.launches = WIDE_ONEHOT_DW.launches = 0
+    t0 = time.perf_counter()
+    rc, _ = wd_cli(["train", "--model", "wide_deep", "--html-file",
+                    str(root / GOLDEN_HTML), f"train.epochs={TRAIN_EPOCHS}",
+                    f"train.metrics_jsonl={jsonl}", "--save", str(ckdir)])
+    wall = time.perf_counter() - t0
+    k4a, k4b = WIDE_ONEHOT_FWD.launches, WIDE_ONEHOT_DW.launches
+    check(rc == 0, f"train --model wide_deep exited {rc}")
+    records = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+    rounds = [r for r in records if "round" in r]
+    for r in rounds:
+        print(f"wide_deep train watch line [{r['round']}]: train-rmse "
+              f"{r['train-rmse']:.6f} test-rmse {r['test-rmse']:.6f}")
+    check(len(rounds) == TRAIN_EPOCHS, f"{len(rounds)} watch lines")
+    check(all(math.isfinite(r[k]) for r in rounds
+              for k in ("train-rmse", "test-rmse")), "non-finite rmse")
+    train_ds, test_ds = wd_golden_frames(root)
+    batch = DataConfig().batch_size
+    steps = -(-len(train_ds) // batch)
+    evals = steps + -(-len(test_ds) // batch)
+    want_b = steps * TRAIN_EPOCHS
+    want_a = want_b + evals * TRAIN_EPOCHS
+    print(f"wide_deep train: {len(train_ds)} rows -> {steps} steps/epoch of "
+          f"B={batch}; K4b launches {k4b} (expected {steps} x {TRAIN_EPOCHS} "
+          f"= {want_b}); K4a launches {k4a} (expected {want_b} + {evals} "
+          f"watch chunks x {TRAIN_EPOCHS} = {want_a}); CLI wall {wall:.2f} s")
+    check(k4b == want_b, f"K4b launched {k4b} times, expected {want_b}")
+    check(k4a == want_a, f"K4a launched {k4a} times, expected {want_a}")
+    stats = [r for r in records if r.get("event") == "fit_summary"][0]
+    print(f"wide_deep train timing (device-synchronised steps, "
+          f"{stats['steps']} timed): {stats['mean_step_ms']:.4f} ms/step, "
+          f"{stats['examples_per_sec']:.1f} examples/s")
+    summary, launches = wd_serve_cli(ckdir, WD_TRAIN_SMOKE_REQUESTS)
+    print(f"serve trained wide_deep checkpoint: K4a launches {launches}")
+    check(launches > 0, "serving the trained checkpoint never launched K4a")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return k4a, k4b
+
+
+def phase_wd_step(root: Path) -> None:
+    """One full-width training step on the card against the same step on
+    the CPU, from the same params and batch: f32 towers, then the CLI's
+    bf16 towers. Both are measured and printed before either is checked."""
+    from euromillioner_tpu_torch.core.precision import Precision, rel_error
+    from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
+    from euromillioner_tpu_torch.train.optim import adam
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    train_ds, _ = wd_golden_frames(root)
+    host_batch = next(iter(train_ds.batches(64)))
+    failures = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        tol = WD_STEP_TOL[name]
+        results, params = {}, None
+        for device in ("cpu", "cuda"):
+            model = build_wide_deep(
+                compute_dtype=dtype, device=device,
+                generator=torch.Generator().manual_seed(SEED + 5))
+            trainer = Trainer(model, adam(1e-3),
+                              precision=Precision(compute_dtype=dtype))
+            state = trainer.init_state(params)
+            params = {k: v.cpu() for k, v in state.params.items()}
+            del model
+            batch = trainer._place(host_batch)
+            out = trainer._predict(state.params, batch.x).cpu()
+            new, loss = trainer.train_step(state, batch)
+            results[device] = (float(loss), out, {
+                k: v.cpu() for k, v in new.opt_state["mu"].items()},
+                {k: v.cpu() for k, v in new.params.items()})
+            del trainer, state, new
+            torch.cuda.empty_cache()
+        (loss_c, out_c, mu_c, p_c), (loss_g, out_g, mu_g, p_g) = (
+            results["cpu"], results["cuda"])
+        loss_err = abs(loss_g - loss_c) / abs(loss_c)
+        out_err = rel_error(out_g, out_c)
+        print(f"wide_deep step {name}: loss card {loss_g:.7f} cpu "
+              f"{loss_c:.7f} rel {loss_err:.3e} (tol {tol['loss']:.0e}); "
+              f"outputs rel {out_err:.3e} (tol {tol['out']:.0e})")
+        worst_g = worst_p = 0.0
+        for k in mu_c:
+            # after one adam step mu = (1 - b1) * grad, on both sides
+            _, g_err = max_errors(mu_g[k], mu_c[k])
+            p_abs, p_rel = max_errors(p_g[k], p_c[k])
+            print(f"wide_deep step {name} {k}: grad rel_to_scale "
+                  f"{g_err:.3e}; updated param max_abs {p_abs:.3e}, "
+                  f"rel_to_scale {p_rel:.3e}")
+            worst_g, worst_p = max(worst_g, g_err), max(worst_p, p_abs)
+        print(f"wide_deep step {name}: worst grad rel_to_scale {worst_g:.3e} "
+              f"(tol {tol['grad']:.0e}), worst updated param max_abs "
+              f"{worst_p:.3e} (tol {tol['param'] or 'not compared'})")
+        for what, err in (("loss", loss_err), ("out", out_err),
+                          ("grad", worst_g), ("param", worst_p)):
+            if tol[what] is not None and err > tol[what]:
+                failures.append(f"{name} step {what} differs by {err:.3e}")
+    check(not failures, "; ".join(failures))
+
+
+def profile_steps(label: str, step, step_ms: float, steps: int = 3) -> None:
+    """Where a step's device time goes: ``torch.profiler`` over ``steps``
+    steps; prints the kernel time per step, its share of the unprofiled
+    median ``step_ms`` (the device's busy share; the rest is idle), and the
+    heaviest kernels. A measurement only: it checks nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        # kernels only: an aten op's entry repeats its kernels' time
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3 / steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(ms for ms, _ in rows)
+    if not rows:
+        print(f"profile {label}: the profiler recorded no device time")
+        return
+    print(f"profile {label}: device kernels {busy:.4f} ms/step = "
+          f"{busy / step_ms:.3f} of the {step_ms:.4f} ms step (busy share)")
+    for ms, name in rows[:10]:
+        print(f"profile {label}:   {ms:.4f} ms/step  {name[:90]}")
+
+
+def phase_wd_bench(k4: tuple[dict, dict]) -> dict:
+    """bench.py's _bench_wide_deep on the card: the 100M model, B=8192,
+    bf16 towers, Adam 1e-3; median ms/step after the warm-up steps, rows/s
+    and K4a+K4b's share of the step from their own times."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import Precision
+    from euromillioner_tpu_torch.data.dataset import Batch
+    from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
+    from euromillioner_tpu_torch.train.optim import adam
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    b = WD_BENCH["batch"]
+    model = build_wide_deep(generator=torch.Generator().manual_seed(SEED),
+                            device="cuda")
+    trainer = Trainer(model, adam(1e-3),
+                      precision=Precision(compute_dtype=torch.bfloat16))
+    state = trainer.init_state()
+    x = bench_rows(b)
+    y = np.random.default_rng(0).normal(size=(b, 7)).astype(np.float32)
+    batch = trainer._place(Batch(x=x, y=y, mask=np.ones(b, np.float32)))
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(WD_BENCH["warmup"] + WD_BENCH["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        if i >= WD_BENCH["warmup"]:
+            times.append((time.perf_counter() - t0) * 1e3)
+    check(math.isfinite(float(loss)), "bench step loss is not finite")
+    ms = statistics.median(times)
+    key = f"{b}x21x4096x1040 bfloat16"
+    k4_ms = k4[0]["ms_by_shape"][key] + k4[1]["ms_by_shape"][key]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"wide_deep bench step (B={b}, bf16 towers, Adam): median "
+          f"{ms:.4f} ms/step over {len(times)} steps (min {min(times):.4f}, "
+          f"max {max(times):.4f}), {b / ms * 1e3:.1f} rows/s; K4a+K4b "
+          f"{k4_ms:.4f} ms = {k4_ms / ms:.3f} of the step (from their own "
+          f"times); peak device memory {peak:.2f} GiB")
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, batch)
+
+    profile_steps(f"bench step B={b}", step, ms)
+    # the training path's batch (B=64) on the same state: its step alone,
+    # without the CLI's host staging, and where it goes
+    small = trainer._place(Batch(x=x[:64], y=y[:64],
+                                 mask=np.ones(64, np.float32)))
+    times = []
+    for i in range(WD_BENCH["warmup"] + WD_BENCH["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = trainer.train_step(state, small)
+        torch.cuda.synchronize()
+        if i >= WD_BENCH["warmup"]:
+            times.append((time.perf_counter() - t0) * 1e3)
+    small_ms = statistics.median(times)
+    print(f"wide_deep step B=64 (bf16 towers, Adam): median {small_ms:.4f} "
+          f"ms/step (min {min(times):.4f}, max {max(times):.4f})")
+    batch = small
+    profile_steps("step B=64", step, small_ms)
+    del trainer, state, model, batch, small
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "rows_per_s": b / ms * 1e3,
+            "k4_share": k4_ms / ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -981,13 +1518,16 @@ def main() -> int:
     from euromillioner_tpu_torch.ops.fused_histogram import FUSED_HISTOGRAM
     from euromillioner_tpu_torch.ops.fused_lstm import (FUSED_LSTM_BWD,
                                                         FUSED_LSTM_FWD)
+    from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
+                                                         WIDE_ONEHOT_FWD)
 
     resolve_device("cuda")  # TF32 off for the plain versions' GEMMs
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi("name,power.limit")
     print(f"device: {name} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}); {nvidia_smi('clocks.sm,clocks.max.sm')}")
-    kernels = (FUSED_LSTM_FWD, FUSED_LSTM_BWD, FUSED_HISTOGRAM)
+    kernels = (FUSED_LSTM_FWD, FUSED_LSTM_BWD, FUSED_HISTOGRAM,
+               WIDE_ONEHOT_FWD)  # WIDE_ONEHOT_DW shares K4a's library
     try:
         with ThreadPoolExecutor(len(kernels)) as pool:
             seconds = list(pool.map(lambda k: k.build(), kernels))
@@ -1011,6 +1551,12 @@ def main() -> int:
         phase_golden_trajectories(root)
         scaled_k3 = phase_scaled(k3["ms_by_shape"])
         cli_k3 = phase_cli_train_predict(root)
+        WIDE_ONEHOT_DW.build()  # loads the library K4a's build made
+        k4a, k4b = phase_k4()
+        serve_k4a = phase_wd_serve(root)
+        train_k4a, train_k4b = phase_wd_train(root)
+        phase_wd_bench((k4a, k4b))
+        phase_wd_step(root)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1021,7 +1567,11 @@ def main() -> int:
     k3["launches"] = reference_k3 + scaled_k3 + cli_k3
     k3["launches_by_path"] = {"reference": reference_k3,
                               "scaled_gbt": scaled_k3, "cli_train": cli_k3}
-    print(json.dumps({"kernels": [k1, k2, k3]}))
+    k4a["launches"] = serve_k4a + train_k4a
+    k4a["launches_by_path"] = {"serve": serve_k4a, "train": train_k4a}
+    k4b["launches"] = train_k4b
+    k4b["launches_by_path"] = {"train": train_k4b}
+    print(json.dumps({"kernels": [k1, k2, k3, k4a, k4b]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

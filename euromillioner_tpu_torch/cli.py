@@ -3,10 +3,11 @@
 The JAX package's subcommands for the ported paths, with the same flags,
 dotted config overrides and exit codes (the error taxonomy's
 ``exit_code``; 2 for bad arguments): ``fetch --html-file`` writes the
-featurized CSV; ``train --model gbt|lstm`` trains a booster (``--save``
-writes its model JSON) or the LSTM; ``predict --model-type gbt`` predicts
-with a saved model JSON; ``reference`` runs the Main.java pipeline;
-``serve --model-type lstm`` serves an LSTM checkpoint. ``--device`` picks
+featurized CSV; ``train --model gbt|lstm|wide_deep`` trains a booster
+(``--save`` writes its model JSON), the LSTM or Wide&Deep (``--save``
+writes the TrainState); ``predict --model-type gbt`` predicts with a saved
+model JSON; ``reference`` runs the Main.java pipeline; ``serve
+--model-type lstm|wide_deep`` serves a checkpoint. ``--device`` picks
 ``cuda`` (the default) or ``cpu``. Data comes from a saved results page
 (``--html-file``) or a featurized CSV (``--csv``); fetching the live page
 is not ported yet. ``serve`` has only the in-process ``--smoke N`` front
@@ -77,10 +78,10 @@ def cmd_train(args, cfg: Config) -> int:
     {train, test} watches, then save it (``--save``)."""
     if args.model == "gbt":
         return _train_gbt(args, cfg)
-    if args.model != "lstm":
+    if args.model not in ("lstm", "wide_deep"):
         raise ConfigError(f"--model {args.model} is not ported yet; this "
-                          f"port trains gbt and lstm")
-    return _train_lstm(args, cfg)
+                          f"port trains gbt, lstm and wide_deep")
+    return _train_nn(args, cfg)
 
 
 def _train_gbt(args, cfg: Config) -> int:
@@ -101,10 +102,11 @@ def _train_gbt(args, cfg: Config) -> int:
     return 0
 
 
-def _train_lstm(args, cfg: Config) -> int:
-    """Train the LSTM on sliding windows of the draw history with the
-    {train, test} watches, then save the TrainState (``--save`` or
-    ``train.checkpoint_dir``)."""
+def _train_nn(args, cfg: Config) -> int:
+    """Train a neural family with the {train, test} watches, then save the
+    TrainState (``--save`` or ``train.checkpoint_dir``): the LSTM on
+    sliding windows of the draw history, Wide&Deep on each full 11-column
+    row predicting the next draw's balls."""
     import torch
 
     from euromillioner_tpu_torch.core.device import resolve_device
@@ -120,20 +122,24 @@ def _train_lstm(args, cfg: Config) -> int:
     train_ds, val_ds = _load_datasets(args, cfg)
     cfg.model.name = args.model
     precision = from_names(cfg.model.param_dtype, cfg.model.compute_dtype)
-    x, y = make_sequences(train_ds.full_rows(), cfg.model.seq_len)
-    xv, yv = make_sequences(val_ds.full_rows(), cfg.model.seq_len)
-    train_seq, val_seq = Dataset(x=x, y=y), Dataset(x=xv, y=yv)
+    full, fullv = train_ds.full_rows(), val_ds.full_rows()
+    if args.model == "lstm":
+        train_ds = Dataset(*make_sequences(full, cfg.model.seq_len))
+        val_ds = Dataset(*make_sequences(fullv, cfg.model.seq_len))
+    else:
+        train_ds = Dataset(x=full[:-1], y=full[1:, 4:11])
+        val_ds = Dataset(x=fullv[:-1], y=fullv[1:, 4:11])
     model = build_model(
-        cfg.model, in_features=x.shape[-1],
+        cfg.model, in_features=train_ds.x.shape[-1],
         generator=torch.Generator().manual_seed(cfg.train.seed),
         device=device)
     trainer = Trainer(model, from_train_config(cfg.train), loss="mse",
                       precision=precision,
                       metrics_jsonl=cfg.train.metrics_jsonl or None)
     state = trainer.fit(
-        trainer.init_state(), train_seq, epochs=cfg.train.epochs,
+        trainer.init_state(), train_ds, epochs=cfg.train.epochs,
         batch_size=cfg.data.batch_size,
-        watches={"train": train_seq, "test": val_seq},
+        watches={"train": train_ds, "test": val_ds},
         seed=cfg.train.seed, shuffle=cfg.data.shuffle,
         log_every=cfg.train.log_every,
         checkpoint_dir=cfg.train.checkpoint_dir or None,
@@ -169,29 +175,40 @@ def cmd_reference(args, cfg: Config) -> int:
 
 
 def cmd_serve(args, cfg: Config) -> int:
-    """Serve an LSTM checkpoint behind the whole-sequence scheduler;
-    ``--smoke N`` pushes N synthetic requests through the in-process
-    transport, prints one JSON summary line and exits (0 iff none
-    failed)."""
+    """Serve a checkpoint: an LSTM behind the whole-sequence scheduler, or
+    a Wide&Deep behind the row micro-batching engine. ``--smoke N`` pushes
+    N synthetic requests through the in-process transport, prints one JSON
+    summary line and exits (0 iff none failed)."""
     from euromillioner_tpu_torch.core.precision import resolve_serve_precision
     from euromillioner_tpu_torch.serve import transport
-    from euromillioner_tpu_torch.serve.continuous import (
-        load_recurrent_backend, make_sequence_engine)
 
     resolve_serve_precision(cfg.serve.precision)
     check_ported(cfg)
     if not args.smoke:
         raise ServeError("the HTTP transport is not ported yet; run with "
                          "--smoke N")
-    backend = load_recurrent_backend(cfg, args.checkpoint,
-                                     args.num_features, device=args.device)
-    engine = make_sequence_engine(backend, cfg)
+    if args.model_type == "lstm":
+        from euromillioner_tpu_torch.serve.continuous import (
+            load_recurrent_backend, make_sequence_engine)
+
+        backend = load_recurrent_backend(cfg, args.checkpoint,
+                                         args.num_features,
+                                         device=args.device)
+        engine = make_sequence_engine(backend, cfg)
+        shape = (f"row_buckets={list(engine.row_buckets)}, "
+                 f"time_buckets={list(engine.time_buckets)}")
+    else:
+        from euromillioner_tpu_torch.serve.engine import make_row_engine
+        from euromillioner_tpu_torch.serve.session import load_backend
+
+        backend = load_backend(args.model_type, args.checkpoint, cfg,
+                               args.num_features, device=args.device)
+        engine = make_row_engine(backend, cfg)
+        shape = f"buckets={list(engine.buckets)}"
     try:
-        logger.info(
-            "serving %s on %s (scheduler=batch, precision=%s, envelope=%s, "
-            "row_buckets=%s, time_buckets=%s)", backend.name, backend.device,
-            backend.precision, backend.envelope or "oracle",
-            list(engine.row_buckets), list(engine.time_buckets))
+        logger.info("serving %s on %s (%s engine, precision=%s, envelope=%s, "
+                    "%s)", backend.name, backend.device, engine.kind,
+                    backend.precision, backend.envelope or "oracle", shape)
         summary = transport.run_smoke(engine, args.smoke)
         print(json.dumps(summary))
         return 0 if summary["failed"] == 0 else 1
@@ -209,14 +226,14 @@ def build_parser() -> argparse.ArgumentParser:
                                       "the featurized CSV")
     fe.add_argument("--html-file", help="saved results page")
     fe.add_argument("--output", default="euromillions.csv")
-    tr = sub.add_parser("train", help="train a booster (gbt) or the LSTM "
-                                      "with {train, test} watches")
+    tr = sub.add_parser("train", help="train a booster (gbt), the LSTM or "
+                                      "Wide&Deep with {train, test} watches")
     tr.add_argument("--model", default="gbt",
                     choices=["gbt", "rf", "mlp", "lstm", "wide_deep"])
     tr.add_argument("--csv", help="featurized CSV input")
     tr.add_argument("--html-file", help="saved results page")
     tr.add_argument("--save", help="model JSON (gbt) or checkpoint "
-                                   "directory (lstm)")
+                                   "directory (lstm, wide_deep)")
     tr.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help=f"training device ({device_help})")
     pr = sub.add_parser("predict", help="predict with a saved model")
@@ -234,8 +251,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help=f"device of both boosters ({device_help})")
     sv = sub.add_parser(
         "serve", help="serve an LSTM checkpoint behind the whole-sequence "
-                      "scheduler (serve.precision=f32|fused)")
-    sv.add_argument("--model-type", default="lstm", choices=["lstm"])
+                      "scheduler (serve.precision=f32|fused) or a Wide&Deep "
+                      "checkpoint behind the row engine (f32)")
+    sv.add_argument("--model-type", default="lstm",
+                    choices=["gbt", "rf", "mlp", "lstm", "wide_deep",
+                             "classic"])
     sv.add_argument("--checkpoint",
                     help="checkpoint dir (latest intact step is used)")
     sv.add_argument("--num-features", type=int, default=0,

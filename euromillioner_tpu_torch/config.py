@@ -105,13 +105,17 @@ class GBTConfig:
 
 @dataclass
 class ModelConfig:
-    """Neural models (the lstm family is the one ported)."""
+    """Neural models (the lstm and wide_deep families are ported)."""
 
-    name: str = "mlp"                   # the JAX default; serving sets lstm
+    name: str = "mlp"                   # the JAX default; lstm | wide_deep
     lstm_hidden: int = 512
     lstm_layers: int = 2
     seq_len: int = 64
+    embed_dim: int = 0                  # 0 = the model family's default
     dropout: float = 0.0
+    # Wide&Deep total parameter target (BASELINE config 5's 100M stretch
+    # by default; turn down for small runs/tests)
+    wide_deep_target_params: int = 100_000_000
     graves_peepholes: bool = True       # GravesLSTM parity (dl4j 0.9.1)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

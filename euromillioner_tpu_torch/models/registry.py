@@ -1,4 +1,5 @@
-"""Model registry: config → model (the lstm family is the one ported)."""
+"""Model registry: config → model (the lstm and wide_deep families are
+ported)."""
 
 from __future__ import annotations
 
@@ -7,30 +8,47 @@ import torch
 from euromillioner_tpu_torch.config import ModelConfig
 from euromillioner_tpu_torch.core.device import resolve_device
 from euromillioner_tpu_torch.core.precision import dtype_from_name
-from euromillioner_tpu_torch.nn.module import Sequential
+from euromillioner_tpu_torch.nn.module import Module
 from euromillioner_tpu_torch.utils.errors import CheckpointError
+
+PORTED_MODELS = ("lstm", "wide_deep")
 
 
 def build_model(cfg: ModelConfig, *, in_features: int = 11,
                 fused: str = "auto", generator: torch.Generator | None = None,
-                device=None) -> Sequential:
-    if cfg.name != "lstm":
-        raise ValueError(f"model {cfg.name!r} is not ported yet (lstm)")
-    from euromillioner_tpu_torch.models.lstm import build_lstm
+                device=None) -> Module:
+    """The model ``cfg.name`` names. Wide&Deep is built as the JAX
+    package builds it: sized by ``wide_deep_target_params`` and
+    ``embed_dim`` only, with its own default compute dtype (bfloat16)
+    whatever ``cfg.compute_dtype`` says."""
+    if cfg.name == "lstm":
+        from euromillioner_tpu_torch.models.lstm import build_lstm
 
-    return build_lstm(hidden=cfg.lstm_hidden, num_layers=cfg.lstm_layers,
-                      peepholes=cfg.graves_peepholes, dropout=cfg.dropout,
-                      fused=fused, in_features=in_features,
-                      generator=generator, device=device)
+        return build_lstm(hidden=cfg.lstm_hidden, num_layers=cfg.lstm_layers,
+                          peepholes=cfg.graves_peepholes, dropout=cfg.dropout,
+                          fused=fused, in_features=in_features,
+                          generator=generator, device=device)
+    if cfg.name == "wide_deep":
+        from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
+
+        kw = {"embed_dim": cfg.embed_dim} if cfg.embed_dim else {}
+        return build_wide_deep(target_params=cfg.wide_deep_target_params,
+                               generator=generator, device=device, **kw)
+    raise ValueError(f"model {cfg.name!r} is not ported yet "
+                     f"({' | '.join(PORTED_MODELS)})")
 
 
 def default_in_shape(cfg: ModelConfig,
                      num_features: int = 0) -> tuple[int, ...]:
     """Family-standard input shape for rebuilding a trained model: lstm
-    consumes ``(seq_len, 11)`` full-row windows."""
-    if cfg.name != "lstm":
-        raise ValueError(f"model {cfg.name!r} is not ported yet (lstm)")
-    return (cfg.seq_len, num_features or 11)
+    consumes ``(seq_len, 11)`` full-row windows, wide_deep the full
+    11-column featurized row."""
+    if cfg.name == "lstm":
+        return (cfg.seq_len, num_features or 11)
+    if cfg.name == "wide_deep":
+        return (num_features or 11,)
+    raise ValueError(f"model {cfg.name!r} is not ported yet "
+                     f"({' | '.join(PORTED_MODELS)})")
 
 
 def restore_for_inference(cfg, checkpoint: str, num_features: int = 0,
@@ -52,16 +70,18 @@ def restore_for_inference(cfg, checkpoint: str, num_features: int = 0,
     ck = latest_checkpoint(checkpoint) or checkpoint
     saved = load_checkpoint(ck)
     want = model.state_dict()
+    flags = ("model.lstm_hidden / lstm_layers / graves_peepholes"
+             if cfg.model.name == "lstm"
+             else "model.wide_deep_target_params / embed_dim")
     if set(saved) != set(want):
         raise CheckpointError(
             f"checkpoint params {sorted(set(saved) ^ set(want))} do not "
-            f"match the configured model (check model.lstm_hidden / "
-            f"lstm_layers / graves_peepholes)")
+            f"match the configured model (check {flags})")
     for key, t in saved.items():
         if tuple(t.shape) != tuple(want[key].shape):
             raise CheckpointError(
                 f"{key}: shape {tuple(t.shape)} != expected "
-                f"{tuple(want[key].shape)}")
+                f"{tuple(want[key].shape)} (check {flags})")
     model.to(dtype=dtype_from_name(cfg.model.param_dtype))
     model.load_state_dict(saved)  # copies into the params, casting
     return model, dtype_from_name(cfg.model.compute_dtype), in_shape, ck

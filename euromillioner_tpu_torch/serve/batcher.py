@@ -13,13 +13,37 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
 
 from euromillioner_tpu_torch.utils.errors import ServeError
+
+# ring size for the latency percentile window
+LATENCY_WINDOW = 4096
+
+
+def resolve_future(future: Future, value=None,
+                   exc: BaseException | None = None) -> None:
+    """Resolve a request future; a client cancel() may have won the race."""
+    try:
+        if exc is not None:
+            future.set_exception(exc)
+        else:
+            future.set_result(value)
+    except InvalidStateError:
+        pass  # client cancelled: it no longer wants the answer
+
+
+def percentile(sorted_vals: list[float], q: float) -> float:
+    """Nearest-rank percentile over an already sorted list (the JAX
+    package's obs/metrics.percentile)."""
+    if not sorted_vals:
+        return 0.0
+    idx = min(int(q * (len(sorted_vals) - 1) + 0.5), len(sorted_vals) - 1)
+    return sorted_vals[idx]
 
 
 def validate_buckets(buckets: Sequence[int]) -> tuple[int, ...]:
@@ -37,6 +61,17 @@ def pick_bucket(rows: int, buckets: Sequence[int]) -> int:
             return b
     raise ServeError(
         f"batch of {rows} rows exceeds the largest bucket {buckets[-1]}")
+
+
+def pad_rows(x: np.ndarray, bucket: int) -> np.ndarray:
+    """Pad axis 0 with zero rows up to ``bucket``. Every row family is
+    row-independent, so pad rows never change real rows' values; the
+    engine drops them before replying."""
+    n = len(x)
+    if n == bucket:
+        return x
+    pad = np.zeros((bucket - n, *x.shape[1:]), x.dtype)
+    return np.concatenate([x, pad])
 
 
 @dataclass

@@ -26,7 +26,6 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from concurrent.futures import Future, InvalidStateError
 from typing import Sequence
 
 import numpy as np
@@ -37,37 +36,15 @@ from euromillioner_tpu_torch.core.device import resolve_device
 from euromillioner_tpu_torch.core.precision import (resolve_serve_precision,
                                                     serve_envelope)
 from euromillioner_tpu_torch.core.prefetch import DoubleBuffer
-from euromillioner_tpu_torch.serve.batcher import (MicroBatcher, Request,
-                                                   pick_bucket,
+from euromillioner_tpu_torch.serve.batcher import (LATENCY_WINDOW,
+                                                   MicroBatcher, Request,
+                                                   percentile, pick_bucket,
+                                                   resolve_future,
                                                    validate_buckets)
 from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
 logger = get_logger("serve.continuous")
-
-# ring size for the latency percentile window
-_LATENCY_WINDOW = 4096
-
-
-def _resolve(future: Future, value=None, exc: BaseException | None = None
-             ) -> None:
-    """Resolve a request future; a client cancel() may have won the race."""
-    try:
-        if exc is not None:
-            future.set_exception(exc)
-        else:
-            future.set_result(value)
-    except InvalidStateError:
-        pass  # client cancelled: it no longer wants the answer
-
-
-def _percentile(sorted_vals: list[float], q: float) -> float:
-    """Nearest-rank percentile over an already sorted list (the JAX
-    package's obs/metrics.percentile)."""
-    if not sorted_vals:
-        return 0.0
-    idx = min(int(q * (len(sorted_vals) - 1) + 0.5), len(sorted_vals) - 1)
-    return sorted_vals[idx]
 
 
 class RecurrentBackend:
@@ -143,6 +120,8 @@ class WholeSequenceScheduler:
     are zero padding, and each row's output is read at its true last
     step."""
 
+    kind = "sequence"  # transport: a request is one ordered sequence
+
     def __init__(self, backend: RecurrentBackend, *,
                  row_buckets: Sequence[int] = (8, 32),
                  time_buckets: Sequence[int] = (8, 16, 32, 64),
@@ -158,7 +137,7 @@ class WholeSequenceScheduler:
         self._buffer = DoubleBuffer(depth=inflight)
         self._lock = threading.Lock()
         self._latencies: collections.deque = collections.deque(
-            maxlen=_LATENCY_WINDOW)
+            maxlen=LATENCY_WINDOW)
         self._batches = self._sequences = self._errors = 0
         self._row_fill = self._time_fill = 0.0
         self._closed = False
@@ -242,7 +221,7 @@ class WholeSequenceScheduler:
         with self._lock:
             self._errors += 1
         for req in batch:
-            _resolve(req.future, exc=exc)
+            resolve_future(req.future, exc=exc)
 
     def _complete(self, item) -> None:
         batch, rb, tb, lens, t0, y_dev = item
@@ -261,7 +240,7 @@ class WholeSequenceScheduler:
             self._row_fill += len(batch) / rb
             self._time_fill += sum(lens) / (len(batch) * tb)
         for i, req in enumerate(batch):
-            _resolve(req.future, y[i].copy())
+            resolve_future(req.future, y[i].copy())
 
     # -- introspection / lifecycle --------------------------------------
     def stats(self) -> dict:
@@ -278,8 +257,8 @@ class WholeSequenceScheduler:
                 "mean_row_fill": round(self._row_fill / n, 4) if n else 0.0,
                 "mean_time_fill": round(self._time_fill / n, 4) if n else 0.0,
             }
-        out["p50_ms"] = round(_percentile(lat, 0.50) * 1e3, 3)
-        out["p99_ms"] = round(_percentile(lat, 0.99) * 1e3, 3)
+        out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
+        out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
         return out
 
     def close(self) -> None:

@@ -22,8 +22,10 @@ _UNPORTED_KEYS = ("class", "profile", "tag")
 
 def handle_request(engine, payload: Any) -> tuple[int, dict]:
     """(status, reply) for one predict payload ``{"rows": [[...], ...]}``:
-    a sequence engine treats ``rows`` as one ordered sequence of per-step
-    rows and replies with its single prediction. Optional ``max_wait_s``
+    a row engine (``engine.kind == "rows"``) treats ``rows`` as a batch of
+    independent feature rows and replies with one prediction each; a
+    sequence engine treats them as one ordered sequence of per-step rows
+    and replies with its single prediction. Optional ``max_wait_s``
     shortens the request's flush deadline."""
     if not isinstance(payload, dict) or "rows" not in payload:
         return 400, {"error": 'payload must be {"rows": [[...], ...]}'}
@@ -48,7 +50,9 @@ def handle_request(engine, payload: Any) -> tuple[int, dict]:
         return 400, {"error": str(e)}
     except Exception as e:  # noqa: BLE001 — engine faults → 500, not crash
         return 500, {"error": f"{type(e).__name__}: {e}"}
-    return 200, {"predictions": np.asarray(pred).tolist(), "rows": 1}
+    pred = np.asarray(pred)
+    n = 1 if getattr(engine, "kind", "rows") == "sequence" else len(pred)
+    return 200, {"predictions": pred.tolist(), "rows": int(n)}
 
 
 def smoke_payloads(n: int, feat_dim: int, max_steps: int) -> list[list]:
@@ -62,13 +66,25 @@ def smoke_payloads(n: int, feat_dim: int, max_steps: int) -> list[list]:
             for _ in range(n)]
 
 
+def row_payloads(n: int, feat_shape: tuple[int, ...]) -> list[list]:
+    """The ``n`` single-row requests :func:`run_smoke` sends a row engine:
+    normal rows from numpy seed 0 (the JAX package's smoke traffic)."""
+    rows = np.random.default_rng(0).normal(
+        size=(n, *feat_shape)).astype(np.float32)
+    return [rows[i:i + 1].tolist() for i in range(n)]
+
+
 def run_smoke(engine, n: int, concurrency: int = 4) -> dict:
-    """In-process smoke: ``n`` synthetic sequences pushed through
-    :func:`handle_request` from ``concurrency`` threads. The summary
+    """In-process smoke: ``n`` synthetic requests pushed through
+    :func:`handle_request` from ``concurrency`` threads — single rows for
+    a row engine, 4-16-step sequences for a sequence engine. The summary
     carries each reply's predictions in request order (None where the
     request failed)."""
-    payloads = smoke_payloads(n, engine.backend.feat_dim,
-                              engine.time_buckets[-1])
+    if getattr(engine, "kind", "rows") == "sequence":
+        payloads = smoke_payloads(n, engine.backend.feat_dim,
+                                  engine.time_buckets[-1])
+    else:
+        payloads = row_payloads(n, engine.backend.feat_shape)
     statuses: list[int] = [0] * n
     preds: list = [None] * n
 

@@ -121,8 +121,15 @@ class Trainer:
         return functional_call(self.model, params, (x,),
                                {"train": train, "generator": generator})
 
+    def _cast_x(self, x):
+        # Models reading categorical ids from float inputs opt out of the
+        # input cast (WideDeep.cast_inputs) and cast after the lookup.
+        if getattr(self.model, "cast_inputs", True):
+            return x.to(self.precision.compute_dtype)
+        return x
+
     def _loss(self, params, batch: Batch, generator):
-        x = batch.x.to(self.precision.compute_dtype)
+        x = self._cast_x(batch.x)
         pred = self._apply(params, x, train=True, generator=generator)
         pred = pred.to(torch.float32)
         y = batch.y
@@ -150,7 +157,7 @@ class Trainer:
 
     def _predict(self, params, x):
         with torch.no_grad():
-            return self._apply(params, x.to(self.precision.compute_dtype),
+            return self._apply(params, self._cast_x(x),
                                train=False).to(torch.float32)
 
     # -- public API ------------------------------------------------------

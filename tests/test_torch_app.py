@@ -138,3 +138,42 @@ def test_cli_without_a_card_exits_17(monkeypatch, tmp_path, cmd):
                         str(tmp_path / "x.csv")]}[cmd]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(argv) == 17
+
+
+# -- Wide&Deep through the CLI -------------------------------------------------
+
+WD_SMALL = ["model.wide_deep_target_params=200000"]
+
+
+def test_cli_wide_deep_trains_then_serves_on_cpu(tmp_path, capsys):
+    """``train --model wide_deep`` as tests/test_app_cli.py drives the JAX
+    CLI (one epoch, a 200k-parameter target), then ``serve --model-type
+    wide_deep --smoke 8`` on the checkpoint it saved."""
+    ck, jsonl = str(tmp_path / "ck"), tmp_path / "train.jsonl"
+    assert cli.main(["train", "--model", "wide_deep", "--html-file",
+                     str(GOLDEN), "--device", "cpu", "train.epochs=1",
+                     f"train.metrics_jsonl={jsonl}", *WD_SMALL, "--save",
+                     ck]) == 0
+    rounds = [r for r in map(json.loads, jsonl.read_text().splitlines())
+              if "round" in r]
+    assert len(rounds) == 1
+    assert all(np.isfinite(rounds[0][k]) for k in ("train-rmse",
+                                                   "test-rmse"))
+    capsys.readouterr()
+    assert cli.main(["serve", "--model-type", "wide_deep", "--checkpoint",
+                     ck, "--smoke", "8", "--device", "cpu", *WD_SMALL]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["failed"] == 0 and summary["ok"] == 8
+    assert summary["stats"]["rows"] == 8
+    assert np.isfinite(np.asarray(summary["predictions"])).all()
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["serve", "--model-type", "gbt", "--checkpoint", "x", "--smoke", "2"],
+     17),
+    (["serve", "--model-type", "wide_deep", "--smoke", "2",
+      "serve.precision=int8w"], 17),
+    (["serve", "--model-type", "wide_deep", "--smoke", "2"], 16),
+])
+def test_cli_wide_deep_serve_exit_codes(argv, rc):
+    assert cli.main(argv + ["--device", "cpu"]) == rc

@@ -26,8 +26,10 @@ from euromillioner_tpu_torch.config import Config, apply_overrides
 from euromillioner_tpu_torch.core.device import resolve_device
 from euromillioner_tpu_torch.models.convert import params_from_jax
 from euromillioner_tpu_torch.models.lstm import build_lstm
+from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
 from euromillioner_tpu_torch.models.registry import restore_for_inference
 from euromillioner_tpu_torch.serve.continuous import load_recurrent_backend
+from euromillioner_tpu_torch.serve.session import load_backend
 from euromillioner_tpu_torch.trees import DMatrix
 from euromillioner_tpu_torch.trees import train as gbt_train
 from euromillioner_tpu_torch.trees.gbt import Booster, booster_from_arrays
@@ -87,7 +89,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("serve.continuous", "trees.gbt", "trees.growth", "app",
-                 "ops.fused_histogram"):
+                 "ops.fused_histogram", "ops.wide_onehot", "models.wide_deep",
+                 "serve.engine", "serve.session"):
         assert f"euromillioner_tpu_torch.{name}" in loaded
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -136,7 +139,8 @@ def gbt_model(tmp_path_factory):
                                    "params_from_jax", "restore",
                                    "load_recurrent_backend", "gbt_train",
                                    "gbt_load_model", "booster_from_arrays",
-                                   "run_reference_pipeline"])
+                                   "run_reference_pipeline",
+                                   "build_wide_deep", "load_backend"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(
         no_cuda, jax_ckpt, gbt_model, entry):
     cfg = apply_overrides(Config(), TINY)
@@ -157,6 +161,9 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(
         "restore": lambda: restore_for_inference(cfg, jax_ckpt),
         "load_recurrent_backend": lambda: load_recurrent_backend(
             cfg, jax_ckpt),
+        "build_wide_deep": lambda: build_wide_deep(
+            target_params=200_000),
+        "load_backend": lambda: load_backend("wide_deep", jax_ckpt, cfg),
     }
     with pytest.raises(ConfigError, match="--device cpu"):
         calls[entry]()
@@ -166,6 +173,17 @@ def test_cli_without_cuda_exits_17(no_cuda, jax_ckpt):
     rc = cli.main(["serve", "--checkpoint", jax_ckpt, "--smoke", "2",
                    *TINY])
     assert rc == 17
+
+
+@pytest.mark.parametrize("argv", [
+    ["train", "--model", "wide_deep", "--html-file",
+     str(ROOT / "tests" / "golden" / "euromillions.html"),
+     "model.wide_deep_target_params=200000"],
+    ["serve", "--model-type", "wide_deep", "--checkpoint", "unused",
+     "--smoke", "2"],
+], ids=["train", "serve"])
+def test_wide_deep_cli_without_cuda_exits_17(no_cuda, argv):
+    assert cli.main(argv) == 17
 
 
 @pytest.mark.parametrize("cmd", ["train", "predict", "reference"])

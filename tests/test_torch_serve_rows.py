@@ -1,0 +1,167 @@
+"""Row serving in the port (euromillioner_tpu_torch/serve/{session,engine,
+transport}.py) on the CPU: the engine's replies against a direct predict
+at the same bucket shape (the port's mirror of tests/test_serve_quant.py's
+Wide&Deep f32 pin), the JAX package's NNBackend against the port's, the
+smoke path, and the profiles and families not ported yet."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from euromillioner_tpu.models.wide_deep import WideDeep as JaxWideDeep
+from euromillioner_tpu.serve.session import NNBackend as JaxNNBackend
+from euromillioner_tpu_torch.config import Config, apply_overrides
+from euromillioner_tpu_torch.models.convert import params_from_jax
+from euromillioner_tpu_torch.models.wide_deep import WideDeep
+from euromillioner_tpu_torch.serve.engine import InferenceEngine
+from euromillioner_tpu_torch.serve.session import NNBackend, load_backend
+from euromillioner_tpu_torch.serve.transport import (handle_request,
+                                                     row_payloads, run_smoke)
+from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
+
+torch.set_num_threads(2)
+
+BUCKET = 8
+# tests/test_serve_quant.py's small exact-vocabulary Wide&Deep
+SMALL = {"wide_embed_dim": 16, "embed_dim": 8, "ball_vocab": 16,
+         "hidden_sizes": (32,), "out_dim": 7}
+# replies to single rows coalesced into one bucket against a direct predict
+# of each row alone: other GEMM shapes, so rounding only. Measured at most
+# 3.6e-7 relative to the outputs' scale over 20 seeded models on the CPU;
+# pinned at ~10x.
+CROSS_SHAPE_TOL = 4e-6
+
+
+@pytest.fixture(scope="module")
+def jax_backend():
+    model = JaxWideDeep(compute_dtype=jnp.float32, **SMALL)
+    params, _ = model.init(jax.random.PRNGKey(0), (11,))
+    return JaxNNBackend(model, params, (11,), compute_dtype=np.float32)
+
+
+@pytest.fixture(scope="module")
+def backend(jax_backend):
+    model = WideDeep(compute_dtype=torch.float32, device="cpu", **SMALL)
+    model.load_state_dict(params_from_jax(jax.device_get(jax_backend.params),
+                                          device="cpu"))
+    return NNBackend(model, (11,), compute_dtype=torch.float32)
+
+
+@pytest.fixture(scope="module")
+def rows():
+    rng = np.random.default_rng(3)
+    n = 2 * BUCKET
+    return np.concatenate([
+        np.stack([rng.integers(1, 8, n), rng.integers(1, 13, n),
+                  rng.integers(1, 29, n), rng.integers(2004, 2021, n)], 1),
+        rng.integers(1, 51, size=(n, 5)), rng.integers(1, 13, size=(n, 2)),
+    ], axis=1).astype(np.float32)
+
+
+def _engine(backend, **kw):
+    return InferenceEngine(backend, buckets=(BUCKET,), max_wait_ms=2.0,
+                           **kw)
+
+
+def test_backend_matches_jax_backend(backend, jax_backend, rows):
+    np.testing.assert_allclose(backend.predict(rows),
+                               jax_backend.predict(rows), rtol=1e-5,
+                               atol=1e-6)
+    assert backend.family == "wide_deep" and backend.cast_inputs is False
+    assert backend.name == "nn:WideDeep" and backend.envelope == 0.0
+
+
+def test_engine_replies_bit_equal_to_predict_at_the_bucket(backend, rows):
+    want = backend.predict(rows[:BUCKET])
+    with _engine(backend) as eng:
+        got = eng.predict(rows[:BUCKET])
+        assert np.array_equal(got, want)
+        st = eng.stats()
+    assert st["batches"] == 1 and st["rows"] == BUCKET
+    assert st["mean_fill_ratio"] == 1.0
+
+
+def test_bf16_towers_reply_bit_equal_to_predict(backend, rows):
+    model = WideDeep(compute_dtype=torch.bfloat16, device="cpu", **SMALL)
+    model.load_state_dict(backend.model.state_dict())
+    bf16 = NNBackend(model, (11,))
+    with _engine(bf16) as eng:
+        assert np.array_equal(eng.predict(rows[:BUCKET]),
+                              bf16.predict(rows[:BUCKET]))
+
+
+def test_single_rows_coalesce_and_pad(backend, rows):
+    with _engine(backend, warmup=False) as eng:
+        futs = [eng.submit(r) for r in rows[:5]]
+        got = np.concatenate([f.result(timeout=60) for f in futs])
+        st = eng.stats()
+    want = np.concatenate([backend.predict(r[None]) for r in rows[:5]])
+    assert got.shape == (5, 7)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= CROSS_SHAPE_TOL, err
+    assert st["requests"] == 5 and st["rows"] == 5 and st["errors"] == 0
+    assert 0 < st["mean_fill_ratio"] <= 1
+    assert set(st) == {"requests", "rows", "batches", "errors",
+                       "queue_depth", "mean_fill_ratio", "p50_ms", "p99_ms"}
+
+
+def test_handle_request_and_smoke(backend, rows):
+    with _engine(backend) as eng:
+        status, reply = handle_request(eng, {"rows": rows[:3].tolist()})
+        assert status == 200 and reply["rows"] == 3
+        np.testing.assert_array_equal(np.asarray(reply["predictions"],
+                                                 np.float32),
+                                      eng.predict(rows[:3]))
+        summary = run_smoke(eng, 6)
+    assert summary["failed"] == 0 and summary["ok"] == 6
+    preds = np.asarray(summary["predictions"], np.float32)
+    assert preds.shape == (6, 1, 7) and np.isfinite(preds).all()
+    assert np.asarray(row_payloads(6, (11,))).shape == (6, 1, 11)
+
+
+def test_bad_requests_rejected(backend):
+    with _engine(backend, warmup=False) as eng:
+        with pytest.raises(ServeError, match="feature shape"):
+            eng.submit(np.zeros((2, 10), np.float32))
+        with pytest.raises(ServeError, match="largest bucket"):
+            eng.submit(np.zeros((BUCKET + 1, 11), np.float32))
+        assert eng.predict(np.zeros((0, 11), np.float32)).shape == (0,)
+        assert handle_request(eng, {"rows": "abc"})[0] == 400
+        assert handle_request(eng, {"rows": [[0.0] * 11],
+                                    "max_wait_s": -1})[0] == 400
+        status, body = handle_request(eng, {"rows": [[0.0] * 11],
+                                            "class": "bulk"})
+        assert status == 400 and "not ported" in body["error"]
+    with pytest.raises(ServeError, match="closed"):
+        eng.submit(np.zeros((1, 11), np.float32))
+
+
+@pytest.mark.parametrize("profile", ["bf16", "int8w"])
+def test_narrow_profiles_refused_by_name(backend, profile):
+    with pytest.raises(ConfigError, match=profile):
+        NNBackend(backend.model, (11,), precision=profile)
+    cfg = apply_overrides(Config(), [f"serve.precision={profile}"])
+    with pytest.raises(ConfigError, match=profile):
+        load_backend("wide_deep", "unused", cfg, device="cpu")
+
+
+def test_fused_profile_has_no_wide_deep_envelope(backend):
+    with pytest.raises(ConfigError, match="wide_deep"):
+        NNBackend(backend.model, (11,), precision="fused")
+
+
+@pytest.mark.parametrize("family", ["gbt", "rf", "mlp", "classic"])
+def test_other_families_refused_by_name(family):
+    with pytest.raises(ConfigError, match=f"{family} is not ported"):
+        load_backend(family, "unused", Config(), device="cpu")
+
+
+def test_lstm_and_unknown_families_are_serve_errors():
+    with pytest.raises(ServeError, match="sequence family"):
+        load_backend("lstm", "unused", Config(), device="cpu")
+    with pytest.raises(ServeError, match="unknown model type"):
+        load_backend("nope", "unused", Config(), device="cpu")
+    with pytest.raises(ServeError, match="--checkpoint"):
+        load_backend("wide_deep", None, Config(), device="cpu")
