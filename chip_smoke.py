@@ -11,7 +11,11 @@ Phases, each reported on its own lines:
    the shapes its path gives it (K1: the serving buckets and the training
    batch; K2: the training batches, with K1's residuals; then the K1+K2
    Function's gradients against autograd through the scan), then its
-   median time beside the plain version's and the card's bound;
+   median time beside the plain version's and the card's bound; then bf16
+   K1 and K2 the same way at the serving buckets (8, 32) and the training
+   batches (64, and bench.py's 2048) at T=64, with three reruns
+   bit-identical, and their times beside the f32 kernels' at B=64 and
+   2048;
 4. serve — the flagship LSTM at full width (hidden 512, 2 layers, 64-step
    windows, 11 features, 7 outputs) with seeded random weights, saved as a
    checkpoint and served through the port's CLI (``serve --smoke 32``)
@@ -25,14 +29,28 @@ Phases, each reported on its own lines:
    2 epochs of B=64, f32) from seeded weights: two finite watch lines, K2
    launched exactly layers x steps x epochs times and K1 that plus the
    watch evaluations (counts reset just before, read just after), its
-   ms/step and examples/s; then the same command at the default bfloat16
-   compute dtype, which the kernels do not take, must exit 17 (refused,
-   never scanned);
+   ms/step and examples/s; then the same command at a float16 compute
+   dtype, which the kernels do not take, must exit 17 (refused, never
+   scanned);
 6. step — one training step on the card against the same step on the CPU
    through the plain versions: the loss, every gradient and every updated
    parameter agree;
 7. serve the trained checkpoint — ``serve --smoke 8`` under
    ``serve.precision=fused``, no failed request;
+7a. train at the default bfloat16 compute dtype through the CLI (the
+   same command without ``model.compute_dtype=float32``): two finite watch
+   lines, bf16 K2 launched exactly layers x steps x epochs times and bf16
+   K1 that plus the watch chunks, the f32 kernels never; ms/step and
+   examples/s;
+7b. serve that checkpoint at its bfloat16 compute dtype through ``serve
+   --smoke 32`` at ``f32``, ``bf16``, ``fused`` and ``int8w``: no failed
+   request, each tier inside its envelope of the direct predict; fused and
+   int8w serve float32, as the JAX package does, so they launch f32 K1
+   once per layer per program and bf16 K1 never;
+7c. bench.py's LSTM training step (B=2048, T=64, H=512, 2 layers, bf16,
+   fused=auto, Adam 1e-3, mse): median ms/step, draws/s, bf16 K1+K2's
+   share, a ``torch.profiler`` window and the peak memory;
+7d. one bf16 training step at B=64 on the card against the CPU;
 8. K3, the GBT histogram, against its plain version at the GBT paths'
    level shapes (errors relative to each cell's sum of magnitudes, three
    reruns bit-identical), then its times beside the plain version's, two
@@ -143,6 +161,30 @@ FUNCTION_GRAD_TOL = 3e-5
 STEP_LOSS_TOL = 1e-6
 STEP_GRAD_TOL = 1.5e-5
 STEP_PARAM_TOL = 1e-4
+# bf16 K1/K2 at H=512: the serving buckets (8, 32) at T=64, the training
+# batch (64) and bench.py's batch (2048); timed at the training batch and
+# at bench.py's
+BF16_SHAPES = ((8, 64), (32, 64), (64, 64), (2048, 64))
+BF16_TIMED = ((64, 64), (2048, 64))
+# bf16 K1/K2 vs their plain versions on the card, both bf16 with f32
+# carries and sums: a rounding flipped by another summation order moves
+# an element by one bf16 ulp, and the carry passes it on. Each error is
+# relative to the output's scale, max|ref|; one ulp at the scale is
+# 2^-8..2^-7 of it. Measured on an H100 at BF16_SHAPES: K1 at most 4.9e-3
+# (hs, B=32), K2 5.1e-3 (dwh, B=2048), dpeep (f32) 9.5e-5; pinned at two
+# ulps at the bottom of the scale's binade, 2^-6.
+BF16_KERNEL_TOL = 2.0 ** -6
+# bench.py's _bench_lstm at WORKLOAD on an accelerator: B=2048, bf16,
+# fused=auto, Adam 1e-3, mse
+LSTM_BENCH = {"batch": 2048, "warmup": 2, "steps": 10}
+# one bf16 step at B=64 on the card (bf16 K1+K2) against the CPU (their
+# plain versions), from the same params and batch. Loss relative, measured
+# 1.3e-6 on an H100; each gradient (adam's mu) relative to its scale,
+# measured at most 2.9e-3 (1_LSTM.wh: bf16 roundings flipped by the
+# card's other summation orders); pinned at ~10x each. The updated params
+# are not compared (adam's first step maps a gradient element to about
+# +-lr, so a near-zero element of opposite sign moves its param by 2 lr)
+LSTM_BF16_STEP_TOL = {"loss": 1e-5, "grad": 3e-2}
 # K3 at the GBT paths' level shapes: the reference pipeline's levels
 # (1193 rows x 10 features, 44 bins, 1-8 nodes), the scaled GBT's levels
 # (200k x 28, 256 bins, 1-64 nodes) and one bin count above 256; timed at
@@ -206,8 +248,10 @@ WD_STEP_TOL = {"float32": {"loss": 1e-6, "out": 1e-5, "grad": 1e-5,
                             "param": None}}
 # bench.py's _bench_wide_deep: B = WD_SHAPE["batch"], 15 timed steps
 WD_BENCH = {"batch": 8192, "warmup": 2, "steps": 15}
-# H100 SXM data-sheet peaks (dense): FP32 non-tensor and HBM3
+# H100 SXM data-sheet peaks (dense): FP32 non-tensor, bf16 tensor cores
+# and HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_S = 3.35e12
 
 
@@ -427,11 +471,12 @@ def phase_k2() -> dict:
 
 
 def serve_cli(ckdir: Path, precision: str,
-              requests: int = SMOKE_REQUESTS) -> dict:
+              requests: int = SMOKE_REQUESTS,
+              compute_dtype: str = "float32") -> dict:
     from euromillioner_tpu_torch import cli
 
     argv = ["serve", "--model-type", "lstm", "--checkpoint", str(ckdir),
-            "--smoke", str(requests), "model.compute_dtype=float32",
+            "--smoke", str(requests), f"model.compute_dtype={compute_dtype}",
             f"serve.precision={precision}"]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -512,38 +557,59 @@ def golden_windows(root: Path):
                  for ds in (tr, va))
 
 
-def phase_train(root: Path) -> tuple[int, int, Path]:
-    """The training main path through the CLI; returns K1's and K2's
-    launches during it and the checkpoint directory."""
+def lstm_counts() -> dict:
+    from euromillioner_tpu_torch.ops import fused_lstm as K
+
+    return {"K1.f32": K.FUSED_LSTM_FWD.launches,
+            "K1.bf16": K.FUSED_LSTM_FWD_BF16.launches,
+            "K2.f32": K.FUSED_LSTM_BWD.launches,
+            "K2.bf16": K.FUSED_LSTM_BWD_BF16.launches}
+
+
+def reset_lstm_counts() -> None:
+    from euromillioner_tpu_torch.ops import fused_lstm as K
+
+    for kernel in (K.FUSED_LSTM_FWD, K.FUSED_LSTM_FWD_BF16, K.FUSED_LSTM_BWD,
+                   K.FUSED_LSTM_BWD_BF16):
+        kernel.launches = 0
+
+
+def train_cli(root: Path, name: str, dtype_args: list[str]
+              ) -> tuple[dict, int, int, Path]:
+    """The flagship trained through the CLI (``train --model lstm`` on the
+    golden page, TRAIN_EPOCHS epochs, plus ``dtype_args``), every LSTM
+    launch counter reset just before and read just after. Checks the exit
+    code, two finite watch lines and the fit summary, and prints ms/step
+    and examples/s. Returns the counts, the expected K1 and K2 launches
+    of one kernel pair, and the checkpoint directory."""
     from euromillioner_tpu_torch import cli
     from euromillioner_tpu_torch.config import DataConfig
-    from euromillioner_tpu_torch.ops.fused_lstm import (FUSED_LSTM_BWD,
-                                                        FUSED_LSTM_FWD)
 
     out = root / "build" / "chip_smoke"
-    ckdir = out / "train"
-    jsonl = out / "train.jsonl"
+    ckdir = out / name
+    jsonl = out / f"{name}.jsonl"
     shutil.rmtree(ckdir, ignore_errors=True)
     out.mkdir(parents=True, exist_ok=True)
     jsonl.unlink(missing_ok=True)
     argv = ["train", "--model", "lstm", "--html-file",
             str(root / GOLDEN_HTML), f"train.epochs={TRAIN_EPOCHS}",
-            "model.compute_dtype=float32", f"train.metrics_jsonl={jsonl}",
-            "--save", str(ckdir)]
-    FUSED_LSTM_FWD.launches = FUSED_LSTM_BWD.launches = 0
+            *dtype_args, f"train.metrics_jsonl={jsonl}", "--save",
+            str(ckdir)]
+    reset_lstm_counts()
     rc = cli.main(argv)
-    k1, k2 = FUSED_LSTM_FWD.launches, FUSED_LSTM_BWD.launches
-    check(rc == 0, f"train exited {rc}")
+    counts = lstm_counts()
+    check(rc == 0, f"{name} exited {rc}")
     records = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
     rounds = [r for r in records if "round" in r]
     summary = [r for r in records if r.get("event") == "fit_summary"]
     for r in rounds:
-        print(f"train watch line [{r['round']}]: train-rmse "
+        print(f"{name} watch line [{r['round']}]: train-rmse "
               f"{r['train-rmse']:.6f} test-rmse {r['test-rmse']:.6f}")
-    check(len(rounds) == TRAIN_EPOCHS, f"{len(rounds)} watch lines, "
-          f"expected {TRAIN_EPOCHS}")
+    check(len(rounds) == TRAIN_EPOCHS, f"{name}: {len(rounds)} watch "
+          f"lines, expected {TRAIN_EPOCHS}")
     check(all(math.isfinite(r[k]) for r in rounds
-              for k in ("train-rmse", "test-rmse")), "non-finite rmse")
+              for k in ("train-rmse", "test-rmse")), f"{name}: non-finite "
+          f"rmse")
 
     train_ds, test_ds = golden_windows(root)
     batch = DataConfig().batch_size
@@ -551,24 +617,41 @@ def phase_train(root: Path) -> tuple[int, int, Path]:
     evals = -(-len(train_ds) // batch) + -(-len(test_ds) // batch)
     want_k2 = LAYERS * steps * TRAIN_EPOCHS
     want_k1 = want_k2 + LAYERS * evals * TRAIN_EPOCHS
-    print(f"train: {len(train_ds)} windows -> {steps} steps/epoch of "
-          f"B={batch}; K2 launches {k2} (expected {LAYERS} layers x {steps} "
-          f"x {TRAIN_EPOCHS} epochs = {want_k2}); K1 launches {k1} (expected "
+    print(f"{name}: {len(train_ds)} windows -> {steps} steps/epoch of "
+          f"B={batch}; launches {json.dumps(counts)}; expected K2 {LAYERS} "
+          f"layers x {steps} x {TRAIN_EPOCHS} epochs = {want_k2}, K1 "
           f"{want_k2} + {LAYERS} x {evals} watch chunks x {TRAIN_EPOCHS} = "
-          f"{want_k1})")
-    check(k2 == want_k2, f"K2 launched {k2} times, expected {want_k2}")
-    check(k1 == want_k1, f"K1 launched {k1} times, expected {want_k1}")
-    check(len(summary) == 1, "no fit summary")
+          f"{want_k1}")
+    check(len(summary) == 1, f"{name}: no fit summary")
     stats = summary[0]
-    print(f"train timing (device-synchronised steps, {stats['steps']} "
+    print(f"{name} timing (device-synchronised steps, {stats['steps']} "
           f"timed): {stats['mean_step_ms']:.4f} ms/step, "
           f"{stats['examples_per_sec']:.1f} examples/s")
-    # the default compute dtype (bfloat16) is one the kernels do not take:
-    # the card refuses it by name (ConfigError, exit 17) and never scans
-    rc = cli.main(argv[:5] + ["train.epochs=1"])
-    print(f"train at the default bfloat16 compute dtype: exit {rc} "
-          f"(expected 17)")
-    check(rc == 17, f"a bfloat16 train on the card exited {rc}, not 17")
+    return counts, want_k1, want_k2, ckdir
+
+
+def phase_train(root: Path) -> tuple[int, int, Path]:
+    """The training main path through the CLI in f32; returns K1's and
+    K2's launches during it and the checkpoint directory."""
+    from euromillioner_tpu_torch import cli
+    from euromillioner_tpu_torch.ops.fused_lstm import kernel_refusal
+
+    counts, want_k1, want_k2, ckdir = train_cli(
+        root, "train", ["model.compute_dtype=float32"])
+    k1, k2 = counts["K1.f32"], counts["K2.f32"]
+    check(k2 == want_k2, f"K2 launched {k2} times, expected {want_k2}")
+    check(k1 == want_k1, f"K1 launched {k1} times, expected {want_k1}")
+    check(counts["K1.bf16"] == counts["K2.bf16"] == 0,
+          "an f32 train launched the bf16 kernels")
+    # float16 is a compute dtype the kernels do not take: the card refuses
+    # it by name (ConfigError, exit 17) and never scans
+    check(kernel_refusal(torch.float16, HIDDEN) is not None,
+          "kernel_refusal passes float16")
+    rc = cli.main(["train", "--model", "lstm", "--html-file",
+                   str(root / GOLDEN_HTML), "train.epochs=1",
+                   "model.compute_dtype=float16"])
+    print(f"train at a float16 compute dtype: exit {rc} (expected 17)")
+    check(rc == 17, f"a float16 train on the card exited {rc}, not 17")
     return k1, k2, ckdir
 
 
@@ -659,6 +742,311 @@ def phase_serve_trained(ckdir: Path) -> int:
 
 
 # -- the GBT path (K3) ----------------------------------------------------------
+
+def bf16_inputs(batch: int, steps: int):
+    """bf16 K1/K2 inputs at one shape: the flagship layer's x_proj and wh
+    in bf16 (peep f32), K1's bf16 residuals and a seeded bf16 g_hs."""
+    from euromillioner_tpu_torch.ops import fused_lstm as K
+
+    x_proj, wh, peep = k1_inputs(batch, steps, True)
+    x_proj = x_proj.to(torch.bfloat16)
+    wh = wh.to(torch.bfloat16)
+    residuals = K.lstm_forward(x_proj, wh, peep, True)
+    gen = torch.Generator().manual_seed(SEED + 7 * batch + steps)
+    g_hs = torch.randn((steps, batch, HIDDEN), generator=gen).cuda().to(
+        torch.bfloat16)
+    return x_proj, wh, peep, residuals, g_hs
+
+
+def bf16_bounds(batch: int, steps: int) -> dict:
+    """The least time the card could take for bf16 K1 (residuals written)
+    and K2 at one shape: bf16 elements read and written once, peep and
+    dpeep in f32, the products at the bf16 tensor-core rate."""
+    tbh = steps * batch * HIDDEN
+    wh = HIDDEN * 4 * HIDDEN
+    out = {}
+    for name, nbytes, flops in (
+            # x_proj in; hs, cs, gates out
+            ("K1", 2 * (4 * tbh + wh + tbh + tbh + 4 * tbh) + 4 * 4 * HIDDEN,
+             2 * steps * batch * HIDDEN * 4 * HIDDEN),
+            # g_hs, hs, cs, gates in; dxp, dwh out; the dh carry and dwh
+            ("K2", 2 * (3 * tbh + 4 * tbh + wh + 4 * tbh + wh)
+             + 2 * 4 * 4 * HIDDEN,
+             2 * 2 * (steps - 1) * batch * HIDDEN * 4 * HIDDEN)):
+        bytes_ms = nbytes / PEAK_HBM_BYTES_S * 1e3
+        ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        out[name] = (max(bytes_ms, ops_ms),
+                     "bytes" if bytes_ms > ops_ms else "operations",
+                     nbytes, flops)
+    return out
+
+
+def phase_bf16_kernels() -> tuple[dict, dict]:
+    """bf16 K1 and K2 against their plain versions on the card at
+    BF16_SHAPES (three reruns bit-identical), then their median times
+    beside the f32 kernels' at the same shapes, the plain versions' and
+    the bounds."""
+    from euromillioner_tpu_torch.ops import fused_lstm as K
+
+    worst = {"K1": 0.0, "K2": 0.0}
+    failures = []
+    for batch, steps in BF16_SHAPES:
+        x_proj, wh, peep, res, g_hs = bf16_inputs(batch, steps)
+        ref = K.lstm_sequence_reference(x_proj, wh, peep, True)
+        ref_b = K.lstm_backward_reference(wh, peep, ref, g_hs, True)
+        torch.cuda.synchronize()
+        runs = [(K.lstm_forward(x_proj, wh, peep, True),
+                 K.lstm_backward(wh, peep, ref, g_hs, True),
+                 K.lstm_sequence(x_proj, wh, peep, True))
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        (fwd, bwd, hs_only) = runs[0]
+        checks = [("K1", n, fwd[i], ref[i], [r[0][i] for r in runs])
+                  for i, n in enumerate(("hs", "cs", "gates"))]
+        checks.append(("K1", "hs(no residuals)", hs_only, ref[0],
+                       [r[2] for r in runs]))
+        checks += [("K2", n, bwd[i], ref_b[i], [r[1][i] for r in runs])
+                   for i, n in enumerate(("dxp", "dwh", "dpeep"))]
+        for kern, name, got, want, reruns in checks:
+            abs_err, rel_err = max_errors(got, want)
+            same = all(torch.equal(reruns[0], r) for r in reruns[1:])
+            print(f"{kern} bf16 B={batch} T={steps} H={HIDDEN} {name} "
+                  f"({got.dtype}): max_abs={abs_err:.3e} "
+                  f"rel_to_scale={rel_err:.3e} (tol {BF16_KERNEL_TOL:.2e}), "
+                  f"3 runs bit-identical {same}")
+            if rel_err > BF16_KERNEL_TOL or not same:
+                failures.append(f"{kern} bf16 {name} at B={batch}: rel "
+                                f"{rel_err:.3e}, reruns equal {same}")
+            worst[kern] = max(worst[kern], abs_err)
+        check(fwd[0].dtype == torch.bfloat16 and bwd[0].dtype == torch.bfloat16
+              and bwd[1].dtype == torch.bfloat16
+              and bwd[2].dtype == torch.float32, "bf16 output dtypes")
+        del x_proj, wh, res, g_hs, ref, ref_b, runs, fwd, bwd, hs_only
+        torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+
+    timed = {}
+    for batch, steps in BF16_TIMED:
+        x_proj, wh, peep, res, g_hs = bf16_inputs(batch, steps)
+        x32, wh32 = x_proj.float(), wh.float()
+        res32 = K.lstm_forward(x32, wh32, peep, True)
+        g32 = g_hs.float()
+        runs = 10 if batch > 64 else 20
+        t = {"K1": time_ms(lambda: K.lstm_forward(x_proj, wh, peep, True),
+                           runs=runs),
+             "K1.f32": time_ms(lambda: K.lstm_forward(x32, wh32, peep, True),
+                               runs=runs),
+             "K1.plain": time_ms(lambda: K.lstm_sequence_reference(
+                 x_proj, wh, peep, True), runs=runs),
+             "K2": time_ms(lambda: K.lstm_backward(wh, peep, res, g_hs,
+                                                   True), runs=runs),
+             "K2.f32": time_ms(lambda: K.lstm_backward(wh32, peep, res32,
+                                                       g32, True), runs=runs),
+             "K2.plain": time_ms(lambda: K.lstm_backward_reference(
+                 wh, peep, res, g_hs, True), runs=runs)}
+        bounds = bf16_bounds(batch, steps)
+        for kern in ("K1", "K2"):
+            bound, by, nbytes, flops = bounds[kern]
+            print(f"{kern} bf16 timing B={batch} T={steps} H={HIDDEN}: kernel "
+                  f"{t[kern]:.4f} ms, f32 kernel {t[kern + '.f32']:.4f} ms, "
+                  f"plain {t[kern + '.plain']:.4f} ms, bound {bound:.4f} ms "
+                  f"by {by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        timed[batch, steps] = (t, bounds)
+        del x_proj, wh, res, g_hs, x32, wh32, res32, g32
+        torch.cuda.empty_cache()
+
+    entries = []
+    for kern, kernel, src, line in (
+            ("K1", K.FUSED_LSTM_FWD_BF16, "fused_lstm.cu", 88),
+            ("K2", K.FUSED_LSTM_BWD_BF16, "fused_lstm_bwd.cu", 175)):
+        t, bounds = timed[LSTM_BENCH["batch"], SEQ_LEN]
+        entries.append({
+            "name": f"{kern}.bf16", "route": "cuda",
+            "source": f"euromillioner_tpu_torch/csrc/{src}",
+            "replaces": f"euromillioner_tpu/ops/fused_lstm.py:{line}",
+            "symbol": kernel.symbol, "launches": 0,
+            "max_abs_err": worst[kern], "ms": t[kern],
+            "plain_ms": t[kern + ".plain"], "bound_ms": bounds[kern][0],
+            "bound_by": bounds[kern][1], "library_ms": None,
+            "shape": f"B={LSTM_BENCH['batch']} T={SEQ_LEN} H={HIDDEN}",
+            "ms_by_shape": {f"B={b} T={s}": timed[b, s][0][kern]
+                            for b, s in BF16_TIMED},
+            "f32_ms_by_shape": {f"B={b} T={s}": timed[b, s][0][kern + ".f32"]
+                                for b, s in BF16_TIMED}})
+    return entries[0], entries[1]
+
+
+def phase_train_bf16(root: Path) -> tuple[dict, Path]:
+    """The flagship trained through the CLI at its default bfloat16
+    compute dtype: bf16 K2 launched exactly layers x steps x epochs times
+    and bf16 K1 that plus the watch chunks, the f32 kernels never. Returns
+    the counts and the checkpoint directory."""
+    from euromillioner_tpu_torch.config import ModelConfig
+
+    check(ModelConfig().compute_dtype == "bfloat16",
+          "the default compute dtype is not bfloat16")
+    counts, want_k1, want_k2, ckdir = train_cli(root, "train_bf16", [])
+    check(counts["K2.bf16"] == want_k2,
+          f"bf16 K2 launched {counts['K2.bf16']} times, expected {want_k2}")
+    check(counts["K1.bf16"] == want_k1,
+          f"bf16 K1 launched {counts['K1.bf16']} times, expected {want_k1}")
+    check(counts["K1.f32"] == counts["K2.f32"] == 0,
+          "a bf16 train launched the f32 kernels")
+    return counts, ckdir
+
+
+def phase_serve_bf16_trained(ckdir: Path) -> dict:
+    """Serve the bf16-trained checkpoint at its default compute dtype
+    through ``serve --smoke 32`` at every profile: no failed request, the
+    launch counts of each tier (fused and int8w serve float32, as the JAX
+    package does: f32 K1 once per layer per program, bf16 K1 never), and
+    each tier's replies inside its envelope of the direct predict.
+    Returns the fused and int8w tiers' K1 launches."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config, ServeConfig
+    from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
+                                                        rel_error)
+    from euromillioner_tpu_torch.serve.continuous import \
+        load_recurrent_backend
+    from euromillioner_tpu_torch.serve.transport import smoke_payloads
+
+    oracle = load_recurrent_backend(Config(), str(ckdir), device="cuda")
+    check(oracle.compute_dtype == torch.bfloat16, "checkpoint dtype")
+    payloads = smoke_payloads(SMOKE_REQUESTS, FEATURES, SEQ_LEN)
+    direct = torch.from_numpy(np.stack([oracle.predict(p)
+                                        for p in payloads]))
+    serve = ServeConfig()
+    programs = LAYERS * (len(serve.buckets) * len(serve.seq_buckets)
+                         if serve.warmup else 0)
+    launches = {}
+    failures = []
+    for profile in ("f32", "bf16", "fused", "int8w"):
+        reset_lstm_counts()
+        summary = serve_cli(ckdir, profile, compute_dtype="bfloat16")
+        counts = lstm_counts()
+        got = torch.tensor(summary["predictions"])
+        check(tuple(got.shape) == (SMOKE_REQUESTS, OUTPUTS)
+              and bool(torch.isfinite(got).all()), f"{profile} replies")
+        # f32 serves the checkpoint's bf16 through the scan at the bucket
+        # shapes, the oracle at one row: bf16 rounding, held to (lstm, bf16)
+        env = SERVE_ENVELOPES[("lstm", "bf16" if profile == "f32"
+                               else profile)]
+        err = rel_error(got, direct)
+        want = (LAYERS * summary["stats"]["batches"] + programs
+                if profile in ("fused", "int8w") else 0)
+        print(f"serve bf16 checkpoint {profile}: rel to direct predict "
+              f"{err:.3e} (envelope {env:.0e}); launches {json.dumps(counts)} "
+              f"(expected K1.f32 {want}, others 0)")
+        if err > env:
+            failures.append(f"{profile} replies {err:.3e} outside {env}")
+        if counts != {"K1.f32": want, "K1.bf16": 0, "K2.f32": 0,
+                      "K2.bf16": 0}:
+            failures.append(f"{profile} launches {counts}")
+        launches[profile] = counts["K1.f32"]
+    check(not failures, "; ".join(failures))
+    return launches
+
+
+def phase_lstm_bench(k1: dict, k2: dict) -> dict:
+    """bench.py's _bench_lstm on the card: B=2048, T=64, H=512, 2 layers,
+    bf16, fused=auto, Adam 1e-3, mse; median ms/step, draws/s, K1+K2's
+    share of the step from their own times, a profiler window and the
+    peak memory. Returns its bf16 K1/K2 launches."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import Precision
+    from euromillioner_tpu_torch.data.dataset import Batch
+    from euromillioner_tpu_torch.models.lstm import build_lstm
+    from euromillioner_tpu_torch.train.optim import adam
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    b = LSTM_BENCH["batch"]
+    model = build_lstm(HIDDEN, LAYERS, OUTPUTS, fused="auto",
+                       in_features=FEATURES,
+                       generator=torch.Generator().manual_seed(SEED),
+                       device="cuda")
+    trainer = Trainer(model, adam(1e-3), loss="mse",
+                      precision=Precision(compute_dtype=torch.bfloat16))
+    state = trainer.init_state()
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(b, SEQ_LEN, FEATURES)).astype(np.float32)
+    y = rng.normal(size=(b, OUTPUTS)).astype(np.float32)
+    batch = trainer._place(Batch(x=x, y=y, mask=np.ones(b, np.float32)))
+    torch.cuda.reset_peak_memory_stats()
+    reset_lstm_counts()
+    times = []
+    for i in range(LSTM_BENCH["warmup"] + LSTM_BENCH["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        if i >= LSTM_BENCH["warmup"]:
+            times.append((time.perf_counter() - t0) * 1e3)
+    counts = lstm_counts()
+    check(math.isfinite(float(loss)), "lstm bench step loss is not finite")
+    n = LSTM_BENCH["warmup"] + LSTM_BENCH["steps"]
+    check(counts == {"K1.f32": 0, "K1.bf16": LAYERS * n, "K2.f32": 0,
+                     "K2.bf16": LAYERS * n},
+          f"bench step launches {counts}, expected {LAYERS} x {n} bf16")
+    ms = statistics.median(times)
+    kern_ms = LAYERS * (k1["ms"] + k2["ms"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"lstm bench step (B={b} T={SEQ_LEN} H={HIDDEN} {LAYERS} layers, "
+          f"bf16, fused=auto, Adam, mse): median {ms:.4f} ms/step over "
+          f"{len(times)} steps (min {min(times):.4f}, max {max(times):.4f}), "
+          f"{b / ms * 1e3:.1f} draws/s; K1+K2 {kern_ms:.4f} ms = "
+          f"{kern_ms / ms:.3f} of the step (from their own times); peak "
+          f"device memory {peak:.2f} GiB; launches {json.dumps(counts)}")
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, batch)
+
+    profile_steps(f"lstm bench step B={b}", step, ms)
+    del trainer, state, model, batch
+    torch.cuda.empty_cache()
+    return {"K1.bf16": counts["K1.bf16"], "K2.bf16": counts["K2.bf16"],
+            "step_ms": ms}
+
+
+def phase_step_bf16(root: Path) -> None:
+    """One bf16 training step at B=64 on the card (bf16 K1+K2) against the
+    same step on the CPU (their plain versions through the Function)."""
+    from euromillioner_tpu_torch.core.precision import DEFAULT_PRECISION
+    from euromillioner_tpu_torch.models.lstm import build_lstm
+    from euromillioner_tpu_torch.train.optim import adam
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    check(DEFAULT_PRECISION.compute_dtype == torch.bfloat16, "default dtype")
+    train_ds, _ = golden_windows(root)
+    host_batch = next(iter(train_ds.batches(64)))
+    results, params = {}, None
+    for device, fused in (("cpu", "on"), ("cuda", "auto")):
+        model = build_lstm(HIDDEN, LAYERS, OUTPUTS, fused=fused,
+                           in_features=FEATURES,
+                           generator=torch.Generator().manual_seed(SEED + 3),
+                           device=device)
+        trainer = Trainer(model, adam(1e-3), precision=DEFAULT_PRECISION)
+        state = trainer.init_state(params)
+        params = state.params
+        new, loss = trainer.train_step(state, trainer._place(host_batch))
+        results[device] = (float(loss), {k: v.cpu() for k, v in
+                                         new.opt_state["mu"].items()})
+    (loss_c, mu_c), (loss_g, mu_g) = results["cpu"], results["cuda"]
+    tol = LSTM_BF16_STEP_TOL
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    worst = 0.0
+    for k in mu_c:
+        _, err = max_errors(mu_g[k], mu_c[k])
+        print(f"step bf16 grad {k}: rel_to_scale {err:.3e}")
+        worst = max(worst, err)
+    print(f"step bf16 B=64: loss card {loss_g:.6f} cpu {loss_c:.6f} rel "
+          f"{loss_err:.3e} (tol {tol['loss']:.0e}); worst grad rel_to_scale "
+          f"{worst:.3e} (tol {tol['grad']:.0e})")
+    check(loss_err <= tol["loss"], f"bf16 step loss differs by {loss_err}")
+    check(worst <= tol["grad"], f"bf16 step gradients differ by {worst}")
+
 
 def k3_inputs(n: int, f: int, n_bins: int, n_nodes: int, seed: int):
     """One level's K3 inputs on the card, from numpy: uniform bins and
@@ -1517,7 +1905,9 @@ def main() -> int:
     from euromillioner_tpu_torch.core.device import resolve_device
     from euromillioner_tpu_torch.ops.fused_histogram import FUSED_HISTOGRAM
     from euromillioner_tpu_torch.ops.fused_lstm import (FUSED_LSTM_BWD,
-                                                        FUSED_LSTM_FWD)
+                                                        FUSED_LSTM_BWD_BF16,
+                                                        FUSED_LSTM_FWD,
+                                                        FUSED_LSTM_FWD_BF16)
     from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
                                                          WIDE_ONEHOT_FWD)
 
@@ -1536,13 +1926,21 @@ def main() -> int:
             for ln in kernel.build_log.splitlines():
                 if "registers" in ln or "spill" in ln:
                     print(f"build: {kernel.source}: {ln.strip()}")
+        # the bf16 entry points load the libraries the f32 builds made
+        FUSED_LSTM_FWD_BF16.build()
+        FUSED_LSTM_BWD_BF16.build()
         k1 = phase_k1()
         k2 = phase_k2()
+        k1b, k2b = phase_bf16_kernels()
         k3 = phase_k3()
         serve_k1 = phase_serve(root)
         train_k1, train_k2, ckdir = phase_train(root)
         phase_step(root)
-        phase_serve_trained(ckdir)
+        trained_k1 = phase_serve_trained(ckdir)
+        bf16_train, bf16_ckdir = phase_train_bf16(root)
+        bf16_serve_k1 = phase_serve_bf16_trained(bf16_ckdir)
+        bench = phase_lstm_bench(k1b, k2b)
+        phase_step_bf16(root)
         shutil.rmtree(ckdir.parent, ignore_errors=True)
         # the boosters' per-round eval lines: 3,000 lines of stdout
         logging.getLogger("euromillioner_tpu_torch.trees.gbt").setLevel(
@@ -1560,10 +1958,19 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    k1["launches"] = serve_k1 + train_k1
-    k1["launches_by_path"] = {"serve": serve_k1, "train": train_k1}
+    k1["launches_by_path"] = {
+        "serve": serve_k1, "train": train_k1, "serve_trained": trained_k1,
+        "serve_bf16_ckpt_fused": bf16_serve_k1["fused"],
+        "serve_bf16_ckpt_int8w": bf16_serve_k1["int8w"]}
+    k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches"] = train_k2
     k2["launches_by_path"] = {"train": train_k2}
+    k1b["launches_by_path"] = {"train": bf16_train["K1.bf16"],
+                               "bench_step": bench["K1.bf16"]}
+    k1b["launches"] = sum(k1b["launches_by_path"].values())
+    k2b["launches_by_path"] = {"train": bf16_train["K2.bf16"],
+                               "bench_step": bench["K2.bf16"]}
+    k2b["launches"] = sum(k2b["launches_by_path"].values())
     k3["launches"] = reference_k3 + scaled_k3 + cli_k3
     k3["launches_by_path"] = {"reference": reference_k3,
                               "scaled_gbt": scaled_k3, "cli_train": cli_k3}
@@ -1571,7 +1978,7 @@ def main() -> int:
     k4a["launches_by_path"] = {"serve": serve_k4a, "train": train_k4a}
     k4b["launches"] = train_k4b
     k4b["launches_by_path"] = {"train": train_k4b}
-    print(json.dumps({"kernels": [k1, k2, k3, k4a, k4b]}))
+    print(json.dumps({"kernels": [k1, k2, k1b, k2b, k3, k4a, k4b]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -251,7 +251,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help=f"device of both boosters ({device_help})")
     sv = sub.add_parser(
         "serve", help="serve an LSTM checkpoint behind the whole-sequence "
-                      "scheduler (serve.precision=f32|fused) or a Wide&Deep "
+                      "scheduler (serve.precision=f32|bf16|fused|int8w) or "
+                      "a Wide&Deep "
                       "checkpoint behind the row engine (f32)")
     sv.add_argument("--model-type", default="lstm",
                     choices=["gbt", "rf", "mlp", "lstm", "wide_deep",

@@ -14,10 +14,11 @@ from typing import Any
 
 from euromillioner_tpu_torch.utils.errors import ConfigError
 
-# serve.scheduler / serve.precision values this port serves so far; the
-# JAX package's other values are valid there and rejected here by name
+# serve.scheduler values this port serves so far; the JAX package's other
+# values are valid there and rejected here by name. Every serve.precision
+# profile is ported for the sequence family; the row families serve f32
+# (serve/session.py).
 PORTED_SCHEDULERS = ("batch",)
-PORTED_PRECISIONS = ("f32", "fused")
 
 # the featurized row: 4 date columns, then the 7 balls
 FEATURE_COLUMNS = (
@@ -159,10 +160,16 @@ class ServeConfig:
     # Time buckets: a micro-batch pads to the smallest fitting length;
     # the largest caps admissible sequence length.
     seq_buckets: tuple[int, ...] = (8, 16, 32, 64)
-    # "f32" (the oracle profile) or "fused" (the CUDA sequence kernel for
-    # the padded zero-carry programs, behind the (lstm, fused) envelope);
-    # bf16 and int8w are not ported yet.
+    # "f32" (the oracle profile), "bf16" (params cast once, served in
+    # bfloat16), "fused" (the CUDA sequence kernel for the padded
+    # zero-carry programs) or "int8w" (weight-only int8 params through the
+    # same kernel), each behind its pinned envelope (core/precision.py).
     precision: str = "f32"
+    # int8w tier: fake-quantize the input block to the per-tensor int8 grid
+    act_quant: bool = False
+    # Accepted and validated (>= 2) so commands shared with the JAX
+    # package mean the same; an eager loop has no unroll to tune.
+    fused_unroll: int = 8
     # Run every (row bucket, time bucket) program once before serving.
     warmup: bool = True
 
@@ -184,11 +191,6 @@ def check_ported(cfg: Config) -> None:
         raise ConfigError(
             f"serve.scheduler={cfg.serve.scheduler!r} is not ported yet; "
             f"this port serves {list(PORTED_SCHEDULERS)}")
-    prec = str(cfg.serve.precision).strip().lower()
-    if prec in ("bf16", "int8w"):
-        raise ConfigError(
-            f"serve.precision={prec!r} is not ported yet; this port "
-            f"serves {list(PORTED_PRECISIONS)}")
 
 
 def _coerce(current: Any, value: str, optional: bool = False) -> Any:

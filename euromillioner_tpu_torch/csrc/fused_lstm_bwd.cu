@@ -1,4 +1,5 @@
-// Fused peephole-LSTM backward over a whole sequence, f32, for sm_90a.
+// Fused peephole-LSTM backward over a whole sequence, f32 or bf16, for
+// sm_90a.
 //
 // Replaces the Pallas TPU kernel euromillioner_tpu/ops/fused_lstm.py:175
 // (_bwd_kernel, pallas_call at :270, driven by _bwd at :245). From the
@@ -16,6 +17,15 @@
 // (T, B, 4H); dwh = sum_t h_prev^T . dxp[t] (H, 4H) with h_prev = hs[t-1]
 // (zero at t = 0); dpeep (4, H) = sum over (t, b) of di * c_prev,
 // df * c_prev, do * c, and a zero fourth row.
+//
+// Element type E (float or __nv_bfloat16) is that of g_hs, hs, cs, gates,
+// wh, dxp and dwh; peep and dpeep are always f32. As in the Pallas kernel
+// (:175-242): the residuals and g_hs are read up to f32, the gate
+// gradients, the dc carry and the dpeep sums are f32, dxp is stored
+// rounded to E, the dh carry is dgates rounded to E times wh^T summed in
+// f32, and dwh is the f32 sum of h_prev^T . dxp over the STORED (rounded)
+// dxp, rounded to E at the end. Two C entry points, emt_lstm_bwd_f32 and
+// emt_lstm_bwd_bf16, one per E.
 //
 // Bound at the training main-path shape B=64, T=64, H=512, f32: the dh
 // carry is 2*(T-1)*B*H*4H = 8.46 GFLOP and dwh the same again (the t = 0
@@ -52,15 +62,24 @@
 // No float atomics anywhere: every sum has one fixed order, so two runs
 // give bit-identical gradients.
 //
+// In bf16 at bench.py's B=2048, T=64, H=512: the bytes (g_hs, hs, cs
+// 134 MB each and gates 537 MB in, dxp 537 MB out, wh and dwh 2 MiB
+// each) take 0.44 ms at 3.35 TB/s, the 2 x 270 GFLOP of the dh carry and
+// dwh 0.55 ms at the 989 TFLOP/s bf16 tensor-core rate: operations bound
+// it. This design runs both products on the FP32 pipe (dwh as a plain
+// tiled product): expect tens of milliseconds at that shape.
+//
 // Expected: the recurrence costs what the forward kernel does, since each
 // CTA again streams 4 MiB of weights from L2 per step with B/kRows CTAs
 // on the card's 132 SMs — milliseconds, not the bound. The fast design (a
 // later change) splits wh across a thread-block cluster so it stays on
 // chip, and uses the tensor cores for the dh carry and dwh.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -71,10 +90,31 @@ constexpr int kTile = 64;         // dwh output tile (units x gate columns)
 constexpr int kSlab = 16;         // dwh rows staged per step
 constexpr int kGemmThreads = 256;
 
-__global__ void transpose_kernel(const float* __restrict__ in,
-                                 float* __restrict__ out, int rows,
-                                 int cols) {
-  __shared__ float tile[kTr][kTr + 1];
+// element loads and stores in f32, through the conversion intrinsics
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+// v rounded to the element type of `like`
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// moves raw element bits (float, or unsigned short for bf16)
+template <typename Bits>
+__global__ void transpose_kernel(const Bits* __restrict__ in,
+                                 Bits* __restrict__ out, int rows, int cols) {
+  __shared__ Bits tile[kTr][kTr + 1];
   const int c0 = blockIdx.x * kTr;
   const int r0 = blockIdx.y * kTr;
   for (int i = threadIdx.y; i < kTr; i += blockDim.y) {
@@ -88,17 +128,19 @@ __global__ void transpose_kernel(const float* __restrict__ in,
   }
 }
 
+template <typename E>
 __global__ void __launch_bounds__(kMaxThreads)
-lstm_bwd_recurrence_kernel(const float* __restrict__ g_hs,   // (T, B, H)
-                           const float* __restrict__ cs,     // (T, B, H)
-                           const float* __restrict__ gates,  // (T, B, 4H)
-                           const float* __restrict__ wh_t,   // (4H, H)
+lstm_bwd_recurrence_kernel(const E* __restrict__ g_hs,       // (T, B, H)
+                           const E* __restrict__ cs,         // (T, B, H)
+                           const E* __restrict__ gates,      // (T, B, 4H)
+                           const E* __restrict__ wh_t,       // (4H, H)
                            const float* __restrict__ peep,   // (4, H)
-                           float* __restrict__ dxp,          // (T, B, 4H)
+                           E* __restrict__ dxp,              // (T, B, 4H)
                            float* __restrict__ dpeep_part,   // (tiles, 3, H)
                            int T, int B, int H, int peepholes) {
   extern __shared__ __align__(16) float smem[];
-  float* dgs = smem;                       // [4H][kRows] this step's dgates
+  // [4H][kRows] this step's dgates, rounded to E: the dh carry's operand
+  float* dgs = smem;
   float* dhc = smem + 4 * kRows * H;       // [kRows][H] dh carry
   float* dcc = dhc + kRows * H;            // [kRows][H] dc carry
   float* dps = dcc + kRows * H;            // [3][H] this tile's dpeep sums
@@ -122,15 +164,15 @@ lstm_bwd_recurrence_kernel(const float* __restrict__ g_hs,   // (T, B, H)
         float di = 0.f, df = 0.f, dg = 0.f, dout = 0.f;
         if (r < rows) {
           const size_t hr = (row0 + r) * H + j;
-          const float* gt = gates + (row0 + r) * H4;
-          const float ig = gt[j];
-          const float fg = gt[H + j];
-          const float gg = gt[2 * H + j];
-          const float og = gt[3 * H + j];
-          const float c = cs[hr];
-          const float c_prev = t > 0 ? cs[hr - step] : 0.f;
+          const E* gt = gates + (row0 + r) * H4;
+          const float ig = ld(gt + j);
+          const float fg = ld(gt + H + j);
+          const float gg = ld(gt + 2 * H + j);
+          const float og = ld(gt + 3 * H + j);
+          const float c = ld(cs + hr);
+          const float c_prev = t > 0 ? ld(cs + hr - step) : 0.f;
           const float tc = tanhf(c);
-          const float dh = g_hs[hr] + dhc[r * H + j];
+          const float dh = ld(g_hs + hr) + dhc[r * H + j];
           dout = dh * tc * og * (1.f - og);
           float dc = dh * og * (1.f - tc * tc) + dcc[r * H + j];
           if (peepholes) dc += dout * p_o;
@@ -145,16 +187,16 @@ lstm_bwd_recurrence_kernel(const float* __restrict__ g_hs,   // (T, B, H)
             s_o += dout * c;
           }
           dcc[r * H + j] = dc_prev;
-          float* dx = dxp + (row0 + r) * H4;
-          dx[j] = di;
-          dx[H + j] = df;
-          dx[2 * H + j] = dg;
-          dx[3 * H + j] = dout;
+          E* dx = dxp + (row0 + r) * H4;
+          st(dx + j, di);
+          st(dx + H + j, df);
+          st(dx + 2 * H + j, dg);
+          st(dx + 3 * H + j, dout);
         }
-        dgs[(size_t)j * kRows + r] = di;
-        dgs[(size_t)(H + j) * kRows + r] = df;
-        dgs[(size_t)(2 * H + j) * kRows + r] = dg;
-        dgs[(size_t)(3 * H + j) * kRows + r] = dout;
+        dgs[(size_t)j * kRows + r] = round_as(di, wh_t);
+        dgs[(size_t)(H + j) * kRows + r] = round_as(df, wh_t);
+        dgs[(size_t)(2 * H + j) * kRows + r] = round_as(dg, wh_t);
+        dgs[(size_t)(3 * H + j) * kRows + r] = round_as(dout, wh_t);
       }
       if (peepholes) {
         dps[j] += s_i;
@@ -168,10 +210,10 @@ lstm_bwd_recurrence_kernel(const float* __restrict__ g_hs,   // (T, B, H)
       float acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-      const float* w = wh_t + k;
+      const E* w = wh_t + k;
 #pragma unroll 4
       for (int n = 0; n < (int)H4; ++n) {
-        const float wk = __ldg(w + (size_t)n * H);
+        const float wk = ldg(w + (size_t)n * H);
         const float4 d03 = *reinterpret_cast<const float4*>(dgs + n * kRows);
         const float4 d47 =
             *reinterpret_cast<const float4*>(dgs + n * kRows + 4);
@@ -195,10 +237,12 @@ lstm_bwd_recurrence_kernel(const float* __restrict__ g_hs,   // (T, B, H)
 }
 
 // dwh[k][n] = sum_{r < R} hs[r][k] * dxp[B + r][n], R = (T-1) * B: the
-// rows of step t >= 1 against h_prev = hs[t-1], both read in place.
+// rows of step t >= 1 against h_prev = hs[t-1], both read in place and
+// summed in f32; the sum is rounded to E when stored.
+template <typename E>
 __global__ void __launch_bounds__(kGemmThreads)
-lstm_bwd_dwh_kernel(const float* __restrict__ hs, const float* __restrict__ dxp,
-                    float* __restrict__ dwh, int R, int B, int H) {
+lstm_bwd_dwh_kernel(const E* __restrict__ hs, const E* __restrict__ dxp,
+                    E* __restrict__ dwh, int R, int B, int H) {
   __shared__ __align__(16) float as[kSlab][kTile];
   __shared__ __align__(16) float ds[kSlab][kTile];
   const int H4 = 4 * H;
@@ -206,7 +250,7 @@ lstm_bwd_dwh_kernel(const float* __restrict__ hs, const float* __restrict__ dxp,
   const int k0 = blockIdx.y * kTile;
   const int tn = threadIdx.x % (kTile / 4);
   const int tk = threadIdx.x / (kTile / 4);
-  const float* d = dxp + (size_t)B * H4;
+  const E* d = dxp + (size_t)B * H4;
   float acc[4][4];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -215,8 +259,10 @@ lstm_bwd_dwh_kernel(const float* __restrict__ hs, const float* __restrict__ dxp,
   for (int r0 = 0; r0 < R; r0 += kSlab) {
     for (int e = threadIdx.x; e < kSlab * kTile; e += kGemmThreads) {
       const int rr = e / kTile, cc = e % kTile, r = r0 + rr;
-      as[rr][cc] = (r < R && k0 + cc < H) ? hs[(size_t)r * H + k0 + cc] : 0.f;
-      ds[rr][cc] = (r < R && n0 + cc < H4) ? d[(size_t)r * H4 + n0 + cc] : 0.f;
+      as[rr][cc] =
+          (r < R && k0 + cc < H) ? ld(hs + (size_t)r * H + k0 + cc) : 0.f;
+      ds[rr][cc] =
+          (r < R && n0 + cc < H4) ? ld(d + (size_t)r * H4 + n0 + cc) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -239,7 +285,7 @@ lstm_bwd_dwh_kernel(const float* __restrict__ hs, const float* __restrict__ dxp,
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int n = n0 + tn * 4 + jj;
-      if (k < H && n < H4) dwh[(size_t)k * H4 + n] = acc[i][jj];
+      if (k < H && n < H4) st(dwh + (size_t)k * H4 + n, acc[i][jj]);
     }
   }
 }
@@ -257,51 +303,81 @@ __global__ void lstm_bwd_dpeep_kernel(const float* __restrict__ part,
   dpeep[n] = s;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the four kernels on `stream` of CUDA device `device`; wh_t
-// (4H * H floats) and dpeep_part (ceil(B / 8) * 3 * H floats) are scratch
-// the caller allocates. Returns cudaGetLastError() (0 = ok).
-int emt_lstm_bwd_f32(const float* g_hs, const float* hs, const float* cs,
-                     const float* gates, const float* wh, const float* peep,
-                     float* dxp, float* dwh, float* dpeep, float* wh_t,
-                     float* dpeep_part, int T, int B, int H, int peepholes,
-                     int device, void* stream) {
+// Launches the four kernels for element type E on `stream` of CUDA device
+// `device`; wh_t (4H * H elements of E) and dpeep_part (ceil(B / 8) * 3 *
+// H floats) are scratch the caller allocates. Returns cudaGetLastError()
+// (0 = ok).
+template <typename E>
+int launch_bwd(const E* g_hs, const E* hs, const E* cs, const E* gates,
+               const E* wh, const float* peep, E* dxp, E* dwh, float* dpeep,
+               E* wh_t, float* dpeep_part, int T, int B, int H, int peepholes,
+               int device, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = (cudaStream_t)stream;
   const int H4 = 4 * H;
 
-  transpose_kernel<<<dim3((H4 + kTr - 1) / kTr, (H + kTr - 1) / kTr),
-                     dim3(kTr, 8), 0, s>>>(wh, wh_t, H, H4);
+  using Bits = typename std::conditional<sizeof(E) == 2, unsigned short,
+                                         float>::type;
+  transpose_kernel<Bits><<<dim3((H4 + kTr - 1) / kTr, (H + kTr - 1) / kTr),
+                           dim3(kTr, 8), 0, s>>>(
+      reinterpret_cast<const Bits*>(wh), reinterpret_cast<Bits*>(wh_t), H, H4);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   const size_t smem = (6 * (size_t)kRows + 3) * H * sizeof(float);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(lstm_bwd_recurrence_kernel,
+    e = cudaFuncSetAttribute(lstm_bwd_recurrence_kernel<E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int tiles = (B + kRows - 1) / kRows;
   const int threads = std::min(kMaxThreads, ((H + 31) / 32) * 32);
-  lstm_bwd_recurrence_kernel<<<tiles, threads, smem, s>>>(
+  lstm_bwd_recurrence_kernel<E><<<tiles, threads, smem, s>>>(
       g_hs, cs, gates, wh_t, peep, dxp, dpeep_part, T, B, H, peepholes);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  lstm_bwd_dwh_kernel<<<dim3((H4 + kTile - 1) / kTile, (H + kTile - 1) / kTile),
-                        kGemmThreads, 0, s>>>(hs, dxp, dwh, (T - 1) * B, B, H);
+  lstm_bwd_dwh_kernel<E>
+      <<<dim3((H4 + kTile - 1) / kTile, (H + kTile - 1) / kTile),
+         kGemmThreads, 0, s>>>(hs, dxp, dwh, (T - 1) * B, B, H);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   lstm_bwd_dpeep_kernel<<<(H4 + 255) / 256, 256, 0, s>>>(dpeep_part, dpeep,
                                                          tiles, H);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int emt_lstm_bwd_f32(const float* g_hs, const float* hs, const float* cs,
+                     const float* gates, const float* wh, const float* peep,
+                     float* dxp, float* dwh, float* dpeep, float* wh_t,
+                     float* dpeep_part, int T, int B, int H, int peepholes,
+                     int device, void* stream) {
+  return launch_bwd(g_hs, hs, cs, gates, wh, peep, dxp, dwh, dpeep, wh_t,
+                    dpeep_part, T, B, H, peepholes, device, stream);
+}
+
+// g_hs, hs, cs, gates, wh, dxp, dwh and wh_t are bf16; peep, dpeep and
+// dpeep_part are f32
+int emt_lstm_bwd_bf16(const void* g_hs, const void* hs, const void* cs,
+                      const void* gates, const void* wh, const float* peep,
+                      void* dxp, void* dwh, float* dpeep, void* wh_t,
+                      float* dpeep_part, int T, int B, int H, int peepholes,
+                      int device, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return launch_bwd(
+      static_cast<const bf16*>(g_hs), static_cast<const bf16*>(hs),
+      static_cast<const bf16*>(cs), static_cast<const bf16*>(gates),
+      static_cast<const bf16*>(wh), peep, static_cast<bf16*>(dxp),
+      static_cast<bf16*>(dwh), dpeep, static_cast<bf16*>(wh_t), dpeep_part,
+      T, B, H, peepholes, device, stream);
 }
 
 const char* emt_cuda_error_string(int code) {

@@ -62,9 +62,11 @@ def padded_apply(model: Sequential, x, last_idx, unroll=None, fused=False):
     returns its hidden sequence; the head applies per step and each row's
     output is gathered at its true last step (outputs at step t depend
     only on steps <= t, so padding never reaches them). ``fused=True``
-    runs every LSTM layer through the fused sequence kernel — legal here
-    because each starts from the zero carry the kernel assumes; on CUDA it
-    always runs and takes f32 only. ``unroll`` is accepted and ignored."""
+    runs every LSTM layer through the fused sequence kernel at ``x``'s
+    dtype — legal here because each starts from the zero carry the kernel
+    assumes. On CUDA it runs at every row bucket: the JAX package's
+    ``_pallas_eligible`` gate is the TPU's (8|16, 128) tiling, which the
+    card does not have. ``unroll`` is accepted and ignored."""
     del unroll
     b = x.shape[0]
     h = x

@@ -103,8 +103,8 @@ class LSTM(LSTMCell):
     versions on a CPU tensor, as the JAX package runs interpret mode;
     ``"off"`` always scans. On the card, ``auto`` and ``on`` both raise a
     :class:`ConfigError` where the kernels cannot run the layer (a compute
-    dtype other than float32, a hidden width above their shared-memory
-    cap) rather than fall back to the scan."""
+    dtype other than float32 or bfloat16, a hidden width above their
+    shared-memory cap) rather than fall back to the scan."""
 
     def __init__(self, in_features: int, hidden: int,
                  return_sequences: bool = True, peepholes: bool = True,
@@ -153,15 +153,16 @@ class LSTM(LSTMCell):
 
     def fused_sequence(self, x):
         """Zero-carry whole-sequence apply through the fused sequence
-        kernel (ops/fused_lstm.py): ``[B, T, F] → [B, T, H]``. On a CUDA
-        tensor the CUDA kernel runs (f32 only; anything else raises); on a
-        CPU tensor its plain version does."""
+        kernel (ops/fused_lstm.py): ``[B, T, F] → [B, T, H]`` in ``x``'s
+        dtype. On a CUDA tensor the CUDA kernel runs (float32 or bfloat16;
+        anything else raises); on a CPU tensor its plain version does."""
         return self._fused_hs(self._input_proj(x)).transpose(0, 1)
 
     def _fused_hs(self, x_proj):
         """The sequence kernels over ``x_proj`` [T, B, 4H] → hs [T, B, H]:
         the K1+K2 Function when there is something to differentiate, else
-        K1 alone without its residual writes."""
+        K1 alone without its residual writes. wh runs in x_proj's dtype,
+        the peepholes in f32 (the JAX package's ``LSTM.apply``)."""
         from euromillioner_tpu_torch.ops.fused_lstm import (LSTMSequence,
                                                             lstm_sequence)
 

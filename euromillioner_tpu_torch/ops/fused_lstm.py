@@ -17,8 +17,15 @@ design and bound):
 
 The device rule: for a CPU tensor the wrappers take the plain versions,
 :func:`lstm_sequence_reference` and :func:`lstm_backward_reference`; for a
-CUDA tensor they launch the kernel or raise — no fallback. The kernels are
-float32 only; any other dtype on CUDA raises.
+CUDA tensor they launch the kernel or raise — no fallback.
+
+The dtype contract is the Pallas pair's: x_proj, wh and the residuals
+share one dtype, float32 or bfloat16; peep is always float32; the (h, c)
+carry, the accumulation, dwh's sum and dpeep are float32; dxp comes back
+in the residuals' dtype and dwh in wh's. Each dtype has its own C entry
+point and launch counter (``FUSED_LSTM_FWD`` / ``FUSED_LSTM_FWD_BF16``,
+``FUSED_LSTM_BWD`` / ``FUSED_LSTM_BWD_BF16``), so a run can show which
+instantiation its path launched. Any other dtype on CUDA raises.
 """
 
 from __future__ import annotations
@@ -33,18 +40,30 @@ from euromillioner_tpu_torch.ops.common import CudaKernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# the kernel's C entry point and launch counter (``FUSED_LSTM_FWD.launches``)
-FUSED_LSTM_FWD = CudaKernel(
-    "fused_lstm.cu", "emt_lstm_fwd_f32",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+# K1's entry points and launch counters (``FUSED_LSTM_FWD.launches``): 6
+# pointers, T, B, H, peepholes, device, stream
+_FWD_ARGS = [_P] * 6 + [_I] * 5 + [_P]
+FUSED_LSTM_FWD = CudaKernel("fused_lstm.cu", "emt_lstm_fwd_f32", _FWD_ARGS)
+FUSED_LSTM_FWD_BF16 = CudaKernel("fused_lstm.cu", "emt_lstm_fwd_bf16",
+                                 _FWD_ARGS)
 
-# K2's entry point: 11 pointers (inputs, outputs, two scratch buffers),
-# T, B, H, peepholes, device, stream
-FUSED_LSTM_BWD = CudaKernel(
-    "fused_lstm_bwd.cu", "emt_lstm_bwd_f32", [_P] * 11 + [_I] * 5 + [_P])
+# K2's: 11 pointers (inputs, outputs, two scratch buffers), T, B, H,
+# peepholes, device, stream
+_BWD_ARGS = [_P] * 11 + [_I] * 5 + [_P]
+FUSED_LSTM_BWD = CudaKernel("fused_lstm_bwd.cu", "emt_lstm_bwd_f32",
+                            _BWD_ARGS)
+FUSED_LSTM_BWD_BF16 = CudaKernel("fused_lstm_bwd.cu", "emt_lstm_bwd_bf16",
+                                 _BWD_ARGS)
 
-# shared memory per CTA: K1 keeps 3 * 8 rows * H floats; K2 keeps
-# (6 * 8 rows + 3) * H (dgates, the two carries, the dpeep sums)
+# the instantiation each compute dtype launches
+_FWD_KERNELS = {torch.float32: FUSED_LSTM_FWD,
+                torch.bfloat16: FUSED_LSTM_FWD_BF16}
+_BWD_KERNELS = {torch.float32: FUSED_LSTM_BWD,
+                torch.bfloat16: FUSED_LSTM_BWD_BF16}
+
+# shared memory per CTA, in floats whatever the dtype: K1 keeps 3 * 8
+# rows * H; K2 keeps (6 * 8 rows + 3) * H (dgates, the two carries, the
+# dpeep sums)
 MAX_HIDDEN = 232448 // (3 * 8 * 4)
 MAX_HIDDEN_BWD = 232448 // ((6 * 8 + 3) * 4)
 _ROWS = 8  # batch rows per CTA, both kernels
@@ -54,10 +73,10 @@ def kernel_refusal(dtype, hidden: int) -> str | None:
     """Why K1 and K2 together cannot run an LSTM layer of this compute
     dtype and hidden width on the card, with what to change; None when
     they can."""
-    if dtype != torch.float32:
-        return (f"the CUDA LSTM kernels take float32 only, not {dtype}: set "
-                f"model.compute_dtype=float32, or build the layer with "
-                f"fused='off' to scan")
+    if dtype not in _FWD_KERNELS:
+        return (f"the CUDA LSTM kernels take float32 or bfloat16, not "
+                f"{dtype}: set model.compute_dtype to one of them, or build "
+                f"the layer with fused='off' to scan")
     cap = min(MAX_HIDDEN, MAX_HIDDEN_BWD)
     if hidden > cap:
         return (f"hidden {hidden} exceeds the CUDA LSTM kernels' "
@@ -68,22 +87,31 @@ def kernel_refusal(dtype, hidden: int) -> str | None:
 
 def lstm_sequence_reference(x_proj, wh, peep, peepholes: bool = True):
     """The plain version: a Python loop of the cell step over ``x_proj``
-    (T, B, 4H) from a zero carry. Returns ``(hs, cs, gates)`` — (T, B, H),
-    (T, B, H) and the activated gates [i, f, g, o] (T, B, 4H) — in
-    ``x_proj``'s dtype, as the JAX package's ``_fwd`` does."""
+    (T, B, 4H) from a zero carry, with the kernels' arithmetic in either
+    dtype (the JAX package's ``_fwd_kernel``): the (h, c) carry in f32,
+    ``x_proj[t]`` read up to f32, h rounded to wh's dtype as the operand
+    of the recurrent product, which sums in f32, and f32 peepholes.
+    Returns ``(hs, cs, gates)`` — (T, B, H), (T, B, H) and the activated
+    gates [i, f, g, o] (T, B, 4H) — rounded to ``x_proj``'s dtype. In f32
+    every cast is a no-op and this is the scan's step."""
     t, b, four_h = x_proj.shape
     h = four_h // 4
-    dt = x_proj.dtype
-    p = (peep[0].to(dt), peep[1].to(dt), peep[2].to(dt)) if peepholes else None
-    h_prev = torch.zeros((b, h), dtype=dt, device=x_proj.device)
+    dt, f32 = x_proj.dtype, torch.float32
+    p = peep.to(f32)
+    p = (p[0], p[1], p[2]) if peepholes else None
+    wh_f = wh.to(f32)
+    h_prev = torch.zeros((b, h), dtype=f32, device=x_proj.device)
     c_prev = torch.zeros_like(h_prev)
     hs, cs, gates = [], [], []
     for k in range(t):
-        h_prev, c_prev, act = lstm_cell(x_proj[k], h_prev, c_prev,
-                                        wh.to(dt), p)
-        hs.append(h_prev)
-        cs.append(c_prev)
-        gates.append(torch.cat(act, dim=-1))
+        # bf16 operands are exact in f32, so the f32 product of the
+        # rounded h and wh is the kernels' bf16 product with f32 sums
+        h_prev, c_prev, act = lstm_cell(x_proj[k].to(f32),
+                                        h_prev.to(wh.dtype).to(f32), c_prev,
+                                        wh_f, p)
+        hs.append(h_prev.to(dt))
+        cs.append(c_prev.to(dt))
+        gates.append(torch.cat(act, dim=-1).to(dt))
     return torch.stack(hs), torch.stack(cs), torch.stack(gates)
 
 
@@ -147,16 +175,27 @@ def _check(x_proj, wh, peep) -> tuple[int, int, int]:
     return t, b, h
 
 
-def _check_cuda(device, named) -> None:
-    """The kernels' contract for CUDA tensors: f32, one device, dense."""
+def _check_cuda(device, named) -> torch.dtype:
+    """The kernels' contract for CUDA tensors: ``named`` is ``(name,
+    tensor)`` pairs, the first setting the compute dtype (float32 or
+    bfloat16) that every other tensor shares except ``peep``, which is
+    float32; all on one device, dense. Raises; never casts. Returns the
+    compute dtype."""
+    dtype = named[0][1].dtype
+    if dtype not in _FWD_KERNELS:
+        raise TypeError(f"the fused LSTM kernels take float32 or bfloat16; "
+                        f"{named[0][0]} is {dtype}")
     for name, a in named:
-        if a.dtype != torch.float32:
-            raise TypeError(f"the fused LSTM kernels are f32 only; {name} "
-                            f"is {a.dtype}")
+        want = torch.float32 if name == "peep" else dtype
+        if a.dtype != want:
+            raise TypeError(f"{name} is {a.dtype}; the fused LSTM kernels "
+                            f"take it as {want} with {named[0][0]} in "
+                            f"{dtype}")
         if a.device != device:
             raise ValueError(f"{name} is on {a.device}, expected {device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return dtype
 
 
 def _fwd(x_proj, wh, peep, peepholes: bool, residuals: bool):
@@ -168,18 +207,18 @@ def _fwd(x_proj, wh, peep, peepholes: bool, residuals: bool):
         return (hs, cs, gates) if residuals else (hs, None, None)
     if x_proj.device.type != "cuda":
         raise ValueError(f"unsupported device {x_proj.device}")
-    _check_cuda(x_proj.device,
-                (("x_proj", x_proj), ("wh", wh), ("peep", peep)))
+    dtype = _check_cuda(x_proj.device,
+                        (("x_proj", x_proj), ("wh", wh), ("peep", peep)))
     if h > MAX_HIDDEN:
         raise ValueError(f"hidden {h} exceeds the kernel's shared-memory "
                          f"cap {MAX_HIDDEN}")
-    hs = torch.empty((t, b, h), dtype=torch.float32, device=x_proj.device)
+    hs = torch.empty((t, b, h), dtype=dtype, device=x_proj.device)
     cs = gates = None
     if residuals:
         cs = torch.empty_like(hs)
         gates = torch.empty_like(x_proj)
     if t and b:
-        FUSED_LSTM_FWD.launch(
+        _FWD_KERNELS[dtype].launch(
             x_proj.data_ptr(), wh.data_ptr(), peep.data_ptr(), hs.data_ptr(),
             cs.data_ptr() if residuals else None,
             gates.data_ptr() if residuals else None,
@@ -216,9 +255,9 @@ def lstm_backward(wh, peep, residuals, g_hs, peepholes: bool = True):
         return lstm_backward_reference(wh, peep, residuals, g_hs, peepholes)
     if gates.device.type != "cuda":
         raise ValueError(f"unsupported device {gates.device}")
-    _check_cuda(gates.device, (("g_hs", g_hs), ("hs", hs), ("cs", cs),
-                               ("gates", gates), ("wh", wh),
-                               ("peep", peep)))
+    dtype = _check_cuda(gates.device, (("gates", gates), ("g_hs", g_hs),
+                                       ("hs", hs), ("cs", cs), ("wh", wh),
+                                       ("peep", peep)))
     if h > MAX_HIDDEN_BWD:
         raise ValueError(f"hidden {h} exceeds the backward kernel's "
                          f"shared-memory cap {MAX_HIDDEN_BWD}")
@@ -227,10 +266,10 @@ def lstm_backward(wh, peep, residuals, g_hs, peepholes: bool = True):
     dpeep = torch.empty_like(peep)
     if not (t and b):
         return dxp, dwh.zero_(), dpeep.zero_()
-    wh_t = torch.empty((4 * h, h), dtype=torch.float32, device=gates.device)
+    wh_t = torch.empty((4 * h, h), dtype=dtype, device=gates.device)
     partials = torch.empty((-(-b // _ROWS), 3, h), dtype=torch.float32,
                            device=gates.device)
-    FUSED_LSTM_BWD.launch(
+    _BWD_KERNELS[dtype].launch(
         g_hs.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
         wh.data_ptr(), peep.data_ptr(), dxp.data_ptr(), dwh.data_ptr(),
         dpeep.data_ptr(), wh_t.data_ptr(), partials.data_ptr(),

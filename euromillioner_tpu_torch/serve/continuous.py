@@ -13,17 +13,23 @@ and rows to the smallest row bucket, and runs ``padded_fn`` on a
 dispatcher thread, keeping up to ``inflight`` batches enqueued on the
 device while the oldest one's reply is read back.
 
-Profiles: ``f32`` serves in the checkpoint's compute dtype through the
-Python-loop scan (the oracle's arithmetic); ``fused`` serves float32
-through the fused CUDA sequence kernel (ops/fused_lstm.py), one launch per
-LSTM layer per micro-batch, behind the pinned (lstm, fused) envelope. The
-step scheduler, telemetry, SLO classes, traces, the AOT store, drift
-sampling and fault points are not ported yet.
+Profiles, as the JAX package's: ``f32`` serves in the checkpoint's
+compute dtype through the Python-loop scan (the oracle's arithmetic);
+``bf16`` casts the params to bfloat16 once and scans in bfloat16;
+``fused`` serves float32 through the fused CUDA sequence kernel
+(ops/fused_lstm.py), one launch per LSTM layer per micro-batch; ``int8w``
+keeps weight-only int8 params and their scales resident, dequantizes them
+to float32 at each call and runs the same kernel. Each but ``f32`` serves
+behind its pinned envelope of the oracle. The step scheduler, telemetry,
+SLO classes, traces, the AOT store, drift sampling and fault points are
+not ported yet: where the JAX package's ``serve.quant`` fault point falls
+back to f32 when a cast or quantization fails, this port raises.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import threading
 import time
 from typing import Sequence
@@ -31,11 +37,16 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from euromillioner_tpu_torch.config import PORTED_PRECISIONS, check_ported
+from euromillioner_tpu_torch.config import check_ported
 from euromillioner_tpu_torch.core.device import resolve_device
-from euromillioner_tpu_torch.core.precision import (resolve_serve_precision,
+from euromillioner_tpu_torch.core.precision import (cast_floats,
+                                                    dequantize_int8w,
+                                                    fake_quant_int8,
+                                                    quantize_int8w,
+                                                    resolve_serve_precision,
                                                     serve_envelope)
 from euromillioner_tpu_torch.core.prefetch import DoubleBuffer
+from euromillioner_tpu_torch.models.lstm import padded_apply
 from euromillioner_tpu_torch.serve.batcher import (LATENCY_WINDOW,
                                                    MicroBatcher, Request,
                                                    percentile, pick_bucket,
@@ -47,6 +58,19 @@ from euromillioner_tpu_torch.utils.logging_utils import get_logger
 logger = get_logger("serve.continuous")
 
 
+class _PaddedProgram(torch.nn.Module):
+    """``padded_apply`` as a module, so ``torch.func.functional_call`` can
+    run it on params held outside the model (the bf16 and int8w tiers')."""
+
+    def __init__(self, model, fused: bool):
+        super().__init__()
+        self.model = model
+        self.fused = fused
+
+    def forward(self, x, last_idx):
+        return padded_apply(self.model, x, last_idx, fused=self.fused)
+
+
 class RecurrentBackend:
     """Serving backend for a stacked-LSTM model whose parameters already
     sit on the serving device.
@@ -55,20 +79,24 @@ class RecurrentBackend:
       host, ``last_idx`` (rows,) → (rows, out) float32 on the device: the
       batch scheduler's program, at this backend's profile.
     * ``predict(x)`` — (T, F) → (out,) through the scan in the compute
-      dtype: the oracle, whatever the profile.
-    """
+      dtype on the checkpoint's params: the oracle, whatever the profile.
+
+    ``serve_dtype`` is what the program computes in: the compute dtype
+    under ``f32``, bfloat16 under ``bf16``, float32 under ``fused`` and
+    ``int8w`` (the JAX package's ``sdt``). ``bf16`` and ``int8w`` run a
+    private skeleton of the model (its own params on the meta device) on
+    ``serve_params``: the bf16 cast, or the int8 values and scales."""
 
     family = "lstm"
 
     def __init__(self, model, feat_dim: int = 11, compute_dtype=None,
-                 precision: str = "f32"):
-        from euromillioner_tpu_torch.models.lstm import padded_apply
-
+                 precision: str = "f32", act_quant: bool = False,
+                 fused_unroll: int = 8):
         from euromillioner_tpu_torch.nn.recurrent import LSTM
 
         self.name = f"seq:{type(model).__name__}"
         self.model = model.requires_grad_(False)
-        # the oracle is the scan: the fused tier opts back in explicitly
+        # the oracle is the scan: the fused tiers opt back in explicitly
         # through padded_apply(fused=True)
         for _name, layer in model.named_layers():
             if isinstance(layer, LSTM):
@@ -77,31 +105,71 @@ class RecurrentBackend:
         self.feat_dim = int(feat_dim)
         self.out_dtype = np.float32
         self.compute_dtype = compute_dtype or torch.bfloat16
-        self.precision = resolve_serve_precision(precision)
-        if self.precision not in PORTED_PRECISIONS:
+        self._act_quant = bool(act_quant)
+        self._fused_unroll = int(fused_unroll)
+        if self._fused_unroll < 2:
             raise ConfigError(
-                f"serve.precision={self.precision!r} is not ported yet; "
-                f"this port serves {list(PORTED_PRECISIONS)}")
+                f"serve.fused_unroll must be >= 2 (the JAX package measures "
+                f"its fast tier's envelope at unroll >= 2), got "
+                f"{self._fused_unroll}")
+        self.precision = resolve_serve_precision(precision)
         self.envelope = serve_envelope(self.family, self.precision)
-        fused = self.precision == "fused"
-        # the fused profile serves f32 (the kernel's only dtype)
-        self.serve_dtype = torch.float32 if fused else self.compute_dtype
+        fused = self.precision in ("fused", "int8w")
+        self.serve_dtype = {"f32": self.compute_dtype,
+                            "bf16": torch.bfloat16}.get(self.precision,
+                                                        torch.float32)
+        # cast / quantize once, here; a failure raises
+        self.serve_params = None
+        if self.precision == "bf16":
+            self.serve_params = cast_floats(model.state_dict(),
+                                            torch.bfloat16)
+        elif self.precision == "int8w":
+            # min_size=16, as the JAX package: small models quantize too
+            self.serve_params = quantize_int8w(model.state_dict(),
+                                               min_size=16)
         if fused and self.device.type == "cuda":
             # build here, on the constructing thread — never lazily on
             # the scheduler's dispatcher thread
             from euromillioner_tpu_torch.ops.fused_lstm import FUSED_LSTM_FWD
 
             FUSED_LSTM_FWD.build()
+        program = _PaddedProgram(
+            model if self.serve_params is None
+            else copy.deepcopy(model).to("meta"), fused)
+        lock = threading.Lock()  # functional_call swaps the skeleton's params
+        quantized = self.precision == "int8w"
+        act_q = self._act_quant and quantized
         sdt = self.serve_dtype
         dev = self.device
 
         def padded(x, last_idx):
             with torch.inference_mode():
-                xt = torch.as_tensor(x, device=dev).to(sdt)
-                return padded_apply(model, xt, last_idx,
-                                    fused=fused).to(torch.float32)
+                h = torch.as_tensor(x, device=dev).to(sdt)
+                if act_q:
+                    h = fake_quant_int8(h)
+                if self.serve_params is None:
+                    y = program(h, last_idx)
+                else:
+                    params = self.serve_params
+                    if quantized:
+                        params = dequantize_int8w(params, torch.float32)
+                    with lock:
+                        y = torch.func.functional_call(
+                            program, {f"model.{k}": v
+                                      for k, v in params.items()},
+                            (h, last_idx))
+                return y.to(torch.float32)
 
         self.padded_fn = padded
+
+    def with_profile(self, precision: str) -> "RecurrentBackend":
+        """A sibling backend at another serving profile sharing this
+        model and its params (the oracle stays the same)."""
+        return RecurrentBackend(self.model, feat_dim=self.feat_dim,
+                                compute_dtype=self.compute_dtype,
+                                precision=precision,
+                                act_quant=self._act_quant,
+                                fused_unroll=self._fused_unroll)
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Direct whole-sequence path (the oracle): (T, F) → (out,)."""
@@ -304,4 +372,6 @@ def load_recurrent_backend(cfg, checkpoint: str, num_features: int = 0,
     model, compute_dtype, in_shape, _ck = restore_for_inference(
         cfg, checkpoint, num_features, device)
     return RecurrentBackend(model, feat_dim=in_shape[-1],
-                            compute_dtype=compute_dtype, precision=profile)
+                            compute_dtype=compute_dtype, precision=profile,
+                            act_quant=cfg.serve.act_quant,
+                            fused_unroll=cfg.serve.fused_unroll)

@@ -23,6 +23,15 @@ PORTED_ROW_FAMILIES = ("wide_deep",)
 _UNPORTED_FAMILIES = ("gbt", "rf", "classic", "mlp")
 
 
+def _refuse_narrow_profile(profile: str) -> None:
+    """The row families' bf16/int8w tiers wait for the port of
+    ``WideDeep.quantized_apply``: a ConfigError naming the profile."""
+    if profile in ("bf16", "int8w"):
+        raise ConfigError(
+            f"serve.precision={profile!r} is not ported yet for row "
+            f"families; this port serves them at 'f32'")
+
+
 class NNBackend:
     """Neural checkpoint serving: params on the serving device, forward in
     the model's own arithmetic, outputs in float32.
@@ -48,10 +57,7 @@ class NNBackend:
         self.compute_dtype = compute_dtype or torch.bfloat16
         self.cast_inputs = getattr(model, "cast_inputs", True)
         self.precision = resolve_serve_precision(precision)
-        if self.precision in ("bf16", "int8w"):
-            raise ConfigError(
-                f"serve.precision={self.precision!r} is not ported yet for "
-                f"row families; this port serves them at 'f32'")
+        _refuse_narrow_profile(self.precision)
         # no pinned (family, fused) pair: a ConfigError naming the pairs
         self.envelope = serve_envelope(self.family, self.precision)
         if self.family == "wide_deep" and self.device.type == "cuda":
@@ -97,6 +103,7 @@ def load_backend(model_type: str, checkpoint: str | None = None,
                          "serve.continuous.load_recurrent_backend")
     if model_type not in PORTED_ROW_FAMILIES:
         raise ServeError(f"unknown model type {model_type!r}")
+    _refuse_narrow_profile(profile)
     if not checkpoint:
         raise ServeError(f"serve --model-type {model_type} needs "
                          "--checkpoint")

@@ -107,3 +107,80 @@ def test_other_devices_raise_instead_of_falling_back():
                         for s in ((2, 4, 32), (8, 32), (4, 8))]
     with pytest.raises(ValueError, match="unsupported device"):
         port.lstm_sequence(x_proj, wh, peep, True)
+
+
+# bf16 on both sides with the kernels' semantics (f32 carry, h rounded to
+# bf16 as the dot operand, f32 sums): only the order of the H-long dots
+# differs, which flips a rounding now and then. Measured at B=16, H=128,
+# T=8 and 16: at most 2 of 131,072 elements differ, each by one bf16 ulp
+# (gates 3.9e-3 at 1.0). Pinned: each element within one ulp (2^-7 of its
+# value, the ulp's bound) and at most 1e-3 of the elements off at all.
+# Before the fix (a bf16 carry) 64% of hs differed by up to 7.8e-3.
+BF16_ULP_RTOL = 2.0 ** -7
+BF16_ATOL = 1e-6
+BF16_SHARE = 1e-3
+
+
+@pytest.mark.parametrize("steps,peepholes", [(16, True), (8, False)])
+def test_plain_version_matches_pallas_fwd_bf16(steps, peepholes):
+    """The plain K1 computes what the Pallas kernel computes in bf16:
+    hs, cs and gates at B=16, H=128 from the same bf16 inputs."""
+    x_proj, wh, peep = _inputs(16, steps, 128, peepholes)
+    bf = jnp.bfloat16
+    want = jax_ops._fwd(jnp.asarray(x_proj).astype(bf),
+                        jnp.asarray(wh).astype(bf), jnp.asarray(peep),
+                        peepholes=peepholes)
+    got = port.lstm_sequence_reference(
+        torch.from_numpy(x_proj).bfloat16(), torch.from_numpy(wh).bfloat16(),
+        torch.from_numpy(peep), peepholes)
+    for name, g, w in zip(("hs", "cs", "gates"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        g = g.float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(g, w, rtol=BF16_ULP_RTOL, atol=BF16_ATOL,
+                                   err_msg=name)
+        assert (g != w).mean() <= BF16_SHARE, f"{name}: {(g != w).mean()}"
+
+
+def test_plain_version_f32_is_the_scan_step():
+    """In f32 the plain K1 is the scan's cell step bit for bit."""
+    from euromillioner_tpu_torch.nn.recurrent import lstm_cell
+
+    x_proj, wh, peep = _torch(*_inputs(8, 6, 32, True, seed=5))
+    hs, cs, _ = port.lstm_sequence_reference(x_proj, wh, peep, True)
+    h = c = torch.zeros((8, 32))
+    for k in range(6):
+        h, c, _ = lstm_cell(x_proj[k], h, c, wh, (peep[0], peep[1], peep[2]))
+        assert torch.equal(hs[k], h) and torch.equal(cs[k], c)
+
+
+@pytest.mark.parametrize("case,error", [
+    ({"x_proj": torch.float16, "wh": torch.float16}, "float32 or bfloat16"),
+    ({"x_proj": torch.bfloat16}, "wh is torch.float32"),
+    ({"x_proj": torch.bfloat16, "wh": torch.bfloat16,
+      "peep": torch.bfloat16}, "peep is torch.bfloat16"),
+    ({"wh": torch.bfloat16}, "wh is torch.bfloat16"),
+])
+def test_cuda_contract_refuses_what_the_kernels_do_not_take(case, error):
+    """x_proj sets the dtype (f32 or bf16), wh shares it, peep is f32; a
+    mismatch raises, naming the tensor, and nothing is cast."""
+    dev = torch.device("meta")
+    shapes = {"x_proj": (2, 4, 32), "wh": (8, 32), "peep": (4, 8)}
+    named = [(n, torch.empty(s, dtype=case.get(n, torch.float32),
+                             device=dev)) for n, s in shapes.items()]
+    with pytest.raises(TypeError, match=error):
+        port._check_cuda(dev, named)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_contract_names_the_instantiation(dtype):
+    dev = torch.device("meta")
+    named = [("x_proj", torch.empty((2, 4, 32), dtype=dtype, device=dev)),
+             ("wh", torch.empty((8, 32), dtype=dtype, device=dev)),
+             ("peep", torch.empty((4, 8), device=dev))]
+    assert port._check_cuda(dev, named) == dtype
+    assert port._FWD_KERNELS[dtype].symbol.endswith(
+        {torch.float32: "_f32", torch.bfloat16: "_bf16"}[dtype])
+    assert (port._FWD_KERNELS[dtype].source,
+            port._BWD_KERNELS[dtype].source) == ("fused_lstm.cu",
+                                                 "fused_lstm_bwd.cu")

@@ -214,9 +214,11 @@ def test_cli_serves_jax_checkpoint_on_cpu(jax_ckpt):
 
 @pytest.mark.parametrize("argv,rc", [
     (["serve.scheduler=continuous"], 17),
-    (["serve.precision=bf16"], 17),
+    # the sequence family serves bf16; the row families refuse it by name
+    (["serve.precision=bf16"], 0),
     (["serve.precision=fp8"], 17),
     (["serve.no_such_field=1"], 2),
+    (["--model-type", "wide_deep", "serve.precision=bf16"], 17),
 ])
 def test_cli_exit_codes(jax_ckpt, argv, rc):
     assert cli.main(["serve", "--checkpoint", jax_ckpt, "--smoke", "2",

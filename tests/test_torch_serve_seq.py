@@ -10,11 +10,14 @@ import torch
 from euromillioner_tpu.models.lstm import build_lstm as jax_build_lstm
 from euromillioner_tpu.serve import RecurrentBackend as JaxBackend
 from euromillioner_tpu_torch.config import Config, apply_overrides
+from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
+                                                    is_quantized)
 from euromillioner_tpu_torch.models.convert import params_from_jax
 from euromillioner_tpu_torch.models.lstm import build_lstm
 from euromillioner_tpu_torch.serve.continuous import (RecurrentBackend,
                                                       WholeSequenceScheduler,
                                                       make_sequence_engine)
+from euromillioner_tpu_torch.serve.session import load_backend
 from euromillioner_tpu_torch.serve.transport import handle_request, run_smoke
 from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
 
@@ -178,8 +181,138 @@ def test_unported_or_unknown_scheduler(models, override, err):
         make_sequence_engine(_backend(tm, "f32"), cfg)
 
 
-@pytest.mark.parametrize("precision", ["bf16", "int8w", "fp8"])
+@pytest.mark.parametrize("precision", ["bf16", "int8w", "fp8",
+                                       "wide_deep:bf16"])
 def test_unported_or_unknown_precision(models, precision):
+    """The sequence family serves bf16 and int8w at their pinned
+    envelopes; fp8 is no profile; the row families still refuse bf16 by
+    name before any restore."""
     _, tm = models
-    with pytest.raises(ConfigError):
-        _backend(tm, precision)
+    if precision == "fp8":
+        with pytest.raises(ConfigError, match="fp8"):
+            _backend(tm, precision)
+    elif precision == "wide_deep:bf16":
+        cfg = apply_overrides(Config(), ["serve.precision=bf16"])
+        with pytest.raises(ConfigError, match="bf16"):
+            load_backend("wide_deep", "no-such-checkpoint", cfg,
+                         device="cpu")
+    else:
+        backend = _backend(tm, precision)
+        assert backend.envelope == SERVE_ENVELOPES[("lstm", precision)]
+
+
+@pytest.fixture(scope="module")
+def padded_batch(seqs):
+    x = np.zeros((4, 32, FEAT), np.float32)
+    last = np.zeros(4, np.int64)
+    for i, n in enumerate((3, 8, 17, 1)):
+        x[i, :n] = seqs[n]
+        last[i] = n - 1
+    return x, last
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+# compute dtype bfloat16 (the default) on both sides. fused and int8w
+# serve float32 in both packages, so they are held at the f32 pins above.
+# bf16 is the scan on both sides in bfloat16; XLA CPU keeps some fused
+# elementwise intermediates in f32 where eager PyTorch rounds each op to
+# bf16, so the two drift apart by a few ulps over the steps: measured
+# 9.1e-3 of the output's scale, pinned at 2e-2, well inside the (lstm,
+# bf16) envelope of 8e-2.
+BF16_VS_JAX = 2e-2
+
+
+@pytest.mark.parametrize("profile,act_quant", [
+    ("f32", False), ("bf16", False), ("fused", False), ("int8w", False),
+    ("int8w", True)])
+def test_tiers_match_the_jax_backend_at_the_default_dtype(
+        models, padded_batch, profile, act_quant):
+    """Each profile's padded program against the JAX RecurrentBackend's at
+    the same profile, compute dtype bfloat16, and inside the profile's
+    envelope of the f32 oracle program."""
+    jb, tm = models
+    x, last = padded_batch
+    jax_b = JaxBackend(jb.model, jb.params, feat_dim=FEAT,
+                       compute_dtype=jax.numpy.bfloat16, precision=profile,
+                       act_quant=act_quant)
+    want = np.asarray(jax.jit(jax_b.padded_fn)(jax_b.serve_params, x, last))
+    port_b = RecurrentBackend(tm, feat_dim=FEAT, compute_dtype=torch.bfloat16,
+                              precision=profile, act_quant=act_quant)
+    got = port_b.padded_fn(x, last).numpy()
+    if port_b.serve_dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert _rel(got, want) <= BF16_VS_JAX
+    oracle = _backend(tm, "f32").padded_fn(x, last).numpy()
+    assert _rel(got, oracle) <= max(port_b.envelope, BF16_VS_JAX)
+    if profile == "int8w":
+        assert _rel(got, oracle) > 0  # the weights really are int8
+
+
+@pytest.mark.parametrize("profile", ["f32", "bf16", "fused", "int8w"])
+def test_serve_dtype_is_the_jax_backends(models, profile):
+    """Each tier computes in the JAX package's serving dtype at the
+    default compute dtype: f32 and bf16 in bfloat16, fused and int8w in
+    float32 (its serve/continuous.py sets ``sdt`` to float32 for both)."""
+    jb, tm = models
+    jax_b = JaxBackend(jb.model, jb.params, feat_dim=FEAT,
+                       compute_dtype=jax.numpy.bfloat16, precision=profile)
+    port_b = RecurrentBackend(tm, feat_dim=FEAT, compute_dtype=torch.bfloat16,
+                              precision=profile)
+    assert str(port_b.serve_dtype).split(".")[-1] == np.dtype(
+        jax_b.serve_dtype).name
+
+
+def test_int8w_keeps_int8_and_scales_resident(models, seqs):
+    """Quantized once at construction (min_size 16: every matrix), dense
+    only inside a call; the shared model and the oracle are untouched."""
+    _, tm = models
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    backend = _backend(tm, "int8w")
+    for key, leaf in backend.serve_params.items():
+        assert is_quantized(leaf) == (before[key].dim() == 2), key
+    backend.padded_fn(np.zeros((4, 8, FEAT), np.float32),
+                      np.zeros(4, np.int64))
+    for key, value in tm.state_dict().items():
+        assert torch.equal(value, before[key]), key
+    np.testing.assert_array_equal(backend.predict(seqs[8]),
+                                  _backend(tm, "f32").predict(seqs[8]))
+
+
+def test_bf16_tier_casts_once_and_serves_bfloat16(models):
+    _, tm = models
+    backend = _backend(tm, "bf16")
+    assert backend.serve_dtype == torch.bfloat16
+    assert {v.dtype for v in backend.serve_params.values()} == {
+        torch.bfloat16}
+    assert next(tm.parameters()).dtype == torch.float32
+
+
+@pytest.mark.parametrize("profile", ["bf16", "fused", "int8w"])
+def test_scheduler_serves_each_tier_inside_its_envelope(models, seqs,
+                                                        profile):
+    """Through the scheduler, a sibling from ``with_profile``: every reply
+    inside the profile's envelope of the oracle ``predict``."""
+    _, tm = models
+    oracle = _backend(tm, "f32")
+    backend = oracle.with_profile(profile)
+    assert backend.model is oracle.model and backend.precision == profile
+    with WholeSequenceScheduler(backend, row_buckets=(4, 8),
+                                time_buckets=(8, 16, 32)) as eng:
+        got = {n: eng.predict(seqs[n]) for n in LENS}
+    for n in LENS:
+        assert _rel(got[n], oracle.predict(seqs[n])) <= backend.envelope
+
+
+def test_fused_unroll_is_validated(models):
+    _, tm = models
+    with pytest.raises(ConfigError, match="fused_unroll"):
+        RecurrentBackend(tm, feat_dim=FEAT, precision="fused",
+                         fused_unroll=1)
+    cfg = apply_overrides(Config(), ["serve.fused_unroll=4",
+                                     "serve.act_quant=true"])
+    assert cfg.serve.fused_unroll == 4 and cfg.serve.act_quant is True

@@ -234,6 +234,51 @@ def test_train_step_matches_jax_step(jax_pair, fused):
     assert int(new.opt_state["count"]) == 1
 
 
+# one bf16 step (the default compute dtype) with fused='on': the JAX side
+# runs the Pallas pair in interpret mode, the port the plain K1/K2 with the
+# kernels' semantics. Measured at H=128, B=16, T=8: loss 6.1e-8 relative;
+# adam's mu (0.1 x the gradient) at most 6.6e-3 of its scale (the biases,
+# whose sums round to bf16 at another place in XLA than in PyTorch: one
+# bf16 ulp), the LSTM weights 8.9e-5; updated params 3.8e-5 absolute.
+# Pinned as the Wide&Deep bf16 step is: loss 1e-6, mu two bf16 ulps
+# (2^-6) of its scale, params 1e-4 (adam's first step is about +-lr).
+BF16_STEP_TOL = {"loss": 1e-6, "mu": 2.0 ** -6, "params": 1e-4}
+
+
+def test_bf16_fused_train_step_matches_jax_step():
+    """Loss, gradients (through adam's first moment) and updated params of
+    one step at the default bfloat16 compute dtype, from JAX-initialised
+    params carried across."""
+    from euromillioner_tpu.core.precision import Precision as JaxPrecision
+    from euromillioner_tpu_torch.core.precision import DEFAULT_PRECISION
+
+    model = _rolled(jax_build_lstm(hidden=128, num_layers=1, fused="on"))
+    tr = JaxTrainer(model, jax_optim.adam(1e-3),
+                    precision=JaxPrecision(compute_dtype=jnp.bfloat16))
+    state = tr.init_state(jax.random.PRNGKey(4), (8, 11))
+    x, y, mask = _batch(0)
+    jnew, jloss = jax.jit(tr._step)(
+        state, JaxBatch(x=jnp.asarray(x), y=jnp.asarray(y),
+                        mask=jnp.asarray(mask)), jax.random.PRNGKey(0))
+    jnew = jax.device_get(jnew)
+    assert DEFAULT_PRECISION.compute_dtype == torch.bfloat16
+    trainer = Trainer(build_lstm(128, 1, 7, fused="on", device="cpu"),
+                      optim.adam(1e-3), precision=DEFAULT_PRECISION)
+    st = trainer.init_state(params_from_jax(jax.device_get(state.params),
+                                            "cpu"))
+    new, loss = trainer.train_step(st, trainer._place(Batch(x, y, mask)))
+    assert abs(float(loss) - float(jloss)) <= (BF16_STEP_TOL["loss"]
+                                               * abs(float(jloss)))
+    want_p, want_mu = _flat(jnew.params), _flat(jnew.opt_state["mu"])
+    assert set(new.params) == set(want_p)
+    for k in want_p:
+        mu = new.opt_state["mu"][k].numpy()
+        rel = np.abs(mu - want_mu[k]).max() / np.abs(want_mu[k]).max()
+        assert rel <= BF16_STEP_TOL["mu"], f"{k}: mu rel {rel}"
+        np.testing.assert_allclose(new.params[k].numpy(), want_p[k], rtol=0,
+                                   atol=BF16_STEP_TOL["params"], err_msg=k)
+
+
 def test_non_finite_loss_raises_before_checkpoint(tmp_path):
     model = build_lstm(8, 1, 7, device="cpu")
     trainer = Trainer(model, optim.sgd(1e30), precision=PARITY)
