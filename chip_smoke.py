@@ -93,7 +93,34 @@ Phases, each reported on its own lines:
    step, the device's busy share, the heaviest kernels);
 17. one full-width Wide&Deep step on the card against the CPU, with f32
    towers and with the CLI's bf16 towers;
-18. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
+18. K3's set form (the random forest's one launch per level for all
+   trees) at bench.py's RF_SHAPE level shapes (100k x 28, 32 bins, 20
+   trees; levels 0, 4 and 7 as sibling subtraction's left halves and 8
+   full), for the class pairs (20 sets) and the y-moments (40 sets): class
+   counts bit-equal to the plain version, moments within K3_TOL of each
+   cell's scale, each set bit-identical to a one-set launch, three reruns
+   bit-identical; then times beside the plain version's, a weighted
+   ``torch.bincount`` yardstick's and the bound;
+19. the RF_SHAPE classifier on the card: exactly 9 set-form K3 launches
+   per forest under ``hist_method=auto`` and 8 under ``pallas`` (counts
+   reset just before each forest, read just after), trees/s (median of 3
+   after 1 untimed), the wall time's host binning, host draws and K3
+   shares; its trees bit-equal to the same seed's CPU forest (the tree
+   count cut for that comparison when the CPU would take over a minute),
+   auto's reachable trees bit-equal to pallas's, and the card forest's
+   predictions bit-equal to the same trees predicted on the CPU;
+20. the regressor at the same shape: launches, trees/s, and each tree
+   equal to the CPU's in structure or a shown near-tie, leaf means close;
+   a ``pallas`` regressor (sibling subtraction): exactly 8 launches, each
+   reachable tree equal to auto's or a shown near-tie; the card forest's
+   predictions within one ulp of the same trees predicted on the CPU;
+21. ``train --model rf --num-classes 6 --save`` at the defaults (100
+   trees, depth 8) on the golden page through the CLI: 9 K3 set launches
+   of 300 sets; ``predict --model-type rf`` bit-equal to
+   RandomForestModel.predict; ``serve --model-type rf --smoke 32`` on that
+   model and ``serve --model-type gbt --smoke 32`` on phase 12's booster:
+   no failed request, every reply bit-equal to a direct predict;
+22. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
@@ -208,6 +235,35 @@ GOLDEN_PIN = Path("tests") / "golden" / "gbt_trajectory.json"
 SCALED = {"rows": 200_000, "features": 28, "rounds": 60, "max_depth": 6,
           "eta": 0.3, "gamma": 0.0}
 SCALED_CPU_ROUNDS = 5
+# bench.py's RF_SHAPE (BASELINE.json config 3) at train_classifier's other
+# defaults (Poisson bootstrap, sqrt features, seed as bench.py's first
+# timed run), timed as the median of RF_RUNS forests after one untimed
+RF_SHAPE = {"rows": 100_000, "features": 28, "trees": 20, "max_depth": 8,
+            "max_bins": 32, "num_classes": 2}
+RF_SEED = 1
+RF_RUNS = 3
+# the CPU forest the card's is compared with: its tree count is cut (for
+# the comparison only) so that it takes about this long
+RF_CPU_SECONDS = 60.0
+# K3's set form at RF_SHAPE's level shapes: (level, nodes per launch,
+# which): sibling subtraction's left halves and the direct path's full
+# levels, the deepest of each; timed at level 8 full, the main path's
+# costliest launch
+RF_LEVELS = ((0, 1, "full"), (4, 8, "left half"), (7, 64, "left half"),
+             (8, 256, "full"))
+# a regression forest's leaf means, card vs CPU (other summation orders of
+# the same sums), relative to the largest leaf magnitude: measured 1.0e-7
+# on an H100 at RF_SHAPE; pinned at ~10x
+RF_REG_LEAF_TOL = 1e-6
+# a regression forest's mean over trees, card vs CPU on the same trees:
+# the same ordered sum and reciprocal, so expected bit-equal; pinned at
+# one ulp of the largest prediction
+RF_REG_PRED_ULPS = 1
+# a regressor's leaf means, pallas (sibling subtraction) vs auto on the
+# card, relative to the largest leaf magnitude: parent − left rounds at
+# the parent's scale; pinned at the JAX package's own tree tolerance
+# (tests/test_random_forest.py, 1e-5) taken relative
+RF_SUB_LEAF_TOL = 1e-5
 # K4a/K4b at the Wide&Deep paths' (B, K, V, E): the serving buckets, the
 # training batch and bench.py's WD_SHAPE batch at full width (21 pair
 # tables of 4096 codes, E = 1040), and one odd shape with ids outside
@@ -1376,10 +1432,12 @@ def phase_scaled(k3_ms_by_shape: dict) -> int:
     return launches
 
 
-def phase_cli_train_predict(root: Path) -> int:
+def phase_cli_train_predict(root: Path) -> tuple[int, Path]:
     """``fetch``, ``train --model gbt --save``, ``predict --model-type
     gbt`` through the CLI on the card; the CLI's predictions bit-equal to
-    the in-process Booster.predict. Returns K3's launches in train."""
+    the in-process Booster.predict. Returns K3's launches in train and the
+    directory that holds the CSV and the booster (gbt.json), which phase
+    21 serves."""
     import numpy as np
 
     from euromillioner_tpu_torch import cli
@@ -1416,7 +1474,532 @@ def phase_cli_train_predict(root: Path) -> int:
           f"{launches}) -> predict on {len(got)} rows: bit-equal to "
           f"Booster.predict {same}")
     check(same, "CLI predictions differ from Booster.predict")
-    shutil.rmtree(out, ignore_errors=True)
+    return launches, out
+
+
+# -- the random forest (K3's set form) ----------------------------------------
+
+def rf_data():
+    """bench.py's _bench_rf recipe: numpy seed 0, 100k x 28 normal
+    features; the classifier's labels threshold a random linear score plus
+    noise at 0, the regressor's target is that score."""
+    import numpy as np
+
+    s = RF_SHAPE
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(s["rows"], s["features"])).astype(np.float32)
+    w = rng.normal(size=(s["features"],)).astype(np.float32)
+    score = x @ w + 0.5 * rng.normal(size=s["rows"])
+    return x, (score > 0).astype(np.float32), score.astype(np.float32)
+
+
+def rf_set_inputs(y_cls, y, n: int, n_nodes: int, form: str, seed: int):
+    """One level's K3 set-form inputs for RF_SHAPE's trees, as the forest
+    builds them (trees/random_forest.class_sets and reg_sets): each tree's
+    rows spread uniformly over the level's nodes, Poisson(1) weights."""
+    from euromillioner_tpu_torch.trees import random_forest as rf
+
+    gen = torch.Generator().manual_seed(seed)
+    local = torch.randint(0, n_nodes, (RF_SHAPE["trees"], n), generator=gen,
+                          dtype=torch.int32).cuda()
+    w = rf.poisson_bootstrap(gen, RF_SHAPE["trees"], n).cuda()
+    if form == "classes":
+        return rf.class_sets(y_cls, local, w, RF_SHAPE["num_classes"])
+    return rf.reg_sets(y, local, w)
+
+
+def k3_sets_bound_ms(n: int, f: int, n_bins: int, n_nodes: int, sets: int
+                     ) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one set-form launch: binned read once,
+    each set's local, gw and hw once, its (F, 2K, bins) output written
+    once; one add per (set, row, feature, stat) on the FP32 pipe."""
+    nbytes = 4 * (n * f + 3 * sets * n + sets * f * 2 * n_nodes * n_bins)
+    return (nbytes / PEAK_HBM_BYTES_S * 1e3,
+            2 * sets * n * f / PEAK_FP32_FLOPS * 1e3)
+
+
+def phase_k3_sets() -> tuple[dict, dict]:
+    """K3's set form at RF_SHAPE's level shapes, for the class pairs and
+    the y-moments: against its plain version (class counts bit-equal,
+    moments within K3_TOL of each cell's scale), each set bit-identical to
+    a one-set launch on its inputs, three reruns bit-identical; then its
+    times beside the plain version's, a weighted ``torch.bincount``
+    yardstick and the bound. Returns the two forms' kernel entries."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.ops import fused_histogram as K
+    from euromillioner_tpu_torch.trees import binning
+
+    x, y_cls, y = rf_data()
+    cuts = binning.quantile_cuts(x, RF_SHAPE["max_bins"])
+    n_bins = binning.num_bins(cuts)
+    binned = torch.from_numpy(binning.apply_bins(x, cuts)).cuda()
+    y_cls = torch.from_numpy(y_cls).int().cuda()
+    y = torch.from_numpy(y).cuda()
+    n, f = binned.shape
+    failures, entries = [], {}
+    for form, line, name in (("classes", 95, "rf_class_histograms"),
+                             ("moments", 183, "rf_reg_histograms")):
+        worst_abs = worst_rel = 0.0
+        timed = {}
+        for seed, (level, nodes, which) in enumerate(RF_LEVELS):
+            local, gw, hw = rf_set_inputs(y_cls, y, n, nodes, form, seed)
+            sets = local.shape[0]
+            want = K.fused_histogram_sets_reference(binned, local, gw, hw,
+                                                    n_bins, nodes)
+            scale = K.fused_histogram_sets_reference(
+                binned, local, gw.abs(), hw.abs(), n_bins, nodes)
+            runs = [K.fused_histogram_sets(binned, local, gw, hw, n_bins,
+                                           nodes) for _ in range(3)]
+            torch.cuda.synchronize()
+            reruns = all(torch.equal(runs[0], r) for r in runs[1:])
+            per_set = all(torch.equal(runs[0][s], K.fused_histogram(
+                binned, local[s], gw[s], hw[s], n_bins, nodes))
+                for s in range(sets))
+            err = (runs[0].double() - want.double()).abs()
+            rel = (err / scale.double().clamp_min(1e-30)).max().item()
+            exact = torch.equal(runs[0], want)
+            ok = reruns and per_set and (exact if form == "classes"
+                                         else rel <= K3_TOL)
+            print(f"K3 sets {form} level {level} ({which}, {nodes} nodes, "
+                  f"{sets} sets): max_abs={err.max().item():.3e} "
+                  f"rel_to_cell_scale={rel:.3e} bit-equal to plain {exact}, "
+                  f"each set bit-identical to a one-set launch {per_set}, "
+                  f"bit-identical reruns {reruns}, plan "
+                  f"{K.launch_plan(n, f, n_bins, nodes)}")
+            if not ok:
+                failures.append(f"K3 sets {form} level {level}")
+            worst_abs = max(worst_abs, err.max().item())
+            worst_rel = max(worst_rel, rel)
+            del want, scale, runs
+            ms = time_ms(lambda: K.fused_histogram_sets(
+                binned, local, gw, hw, n_bins, nodes))
+            plain_ms = time_ms(lambda: K.fused_histogram_sets_reference(
+                binned, local, gw, hw, n_bins, nodes), warmup=1, runs=5)
+            # the yardstick: one weighted bincount per stat over the flat
+            # (set, node, feature, bin) index, built outside the timed call
+            dev = binned.device
+            flat = ((((torch.arange(sets, device=dev)[:, None] * nodes
+                       + local.long()) * f)[:, :, None]
+                     + torch.arange(f, device=dev)) * n_bins
+                    + binned.long()[None]).reshape(-1)
+            wg = gw[:, :, None].expand(sets, n, f).reshape(-1)
+            wh = hw[:, :, None].expand(sets, n, f).reshape(-1)
+            size = sets * nodes * f * n_bins
+            library_ms = time_ms(lambda: (
+                torch.bincount(flat, weights=wg, minlength=size),
+                torch.bincount(flat, weights=wh, minlength=size)),
+                warmup=1, runs=5)
+            del flat, wg, wh
+            bytes_ms, ops_ms = k3_sets_bound_ms(n, f, n_bins, nodes, sets)
+            timed[level] = (ms, plain_ms, library_ms, bytes_ms, ops_ms, sets)
+            print(f"K3 sets timing {form} level {level} ({nodes} nodes, "
+                  f"{sets} sets): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, bincount x2 {library_ms:.4f} ms, bound "
+                  f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+                  f"operations {ops_ms:.4f})")
+            torch.cuda.empty_cache()
+        deepest, deepest_nodes = RF_LEVELS[-1][:2]
+        ms, plain_ms, library_ms, bytes_ms, ops_ms, sets = timed[deepest]
+        entries[form] = {
+            "name": name, "route": "cuda",
+            "source": "euromillioner_tpu_torch/csrc/fused_histogram.cu",
+            "replaces": f"euromillioner_tpu/trees/random_forest.py:{line}",
+            "launches": 0, "max_abs_err": worst_abs,
+            "max_rel_to_cell_scale": worst_rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "library_ms": library_ms,
+            "timed_shape": [n, f, n_bins, deepest_nodes, sets],
+            "ms_by_level": {str(k): v[0] for k, v in timed.items()}}
+    check(not failures, "; ".join(failures))
+    return entries["classes"], entries["moments"]
+
+
+def k3_sets_ms(run) -> float:
+    """Runs ``run`` with CUDA events around every set-form K3 launch (on
+    the launching stream); returns the kernel milliseconds summed."""
+    from euromillioner_tpu_torch.ops.fused_histogram import \
+        FUSED_HISTOGRAM_SETS as K
+
+    events = []
+    launch = K.launch
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(*args)
+        end.record()
+        events.append((start, end))
+
+    K.launch = timed
+    try:
+        run()
+    finally:
+        del K.launch
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events)
+
+
+def grow_forest(classification: bool, x, y, trees: int, device: str,
+                hist_method: str = "auto"):
+    """(model, wall seconds, set-form K3 launches) of one forest at
+    RF_SHAPE, the launch count reset just before and read just after."""
+    from euromillioner_tpu_torch.ops.fused_histogram import \
+        FUSED_HISTOGRAM_SETS
+    from euromillioner_tpu_torch.trees import random_forest as rf
+
+    kw = dict(num_trees=trees, max_depth=RF_SHAPE["max_depth"],
+              max_bins=RF_SHAPE["max_bins"], seed=RF_SEED,
+              hist_method=hist_method, device=device)
+    torch.cuda.synchronize()
+    FUSED_HISTOGRAM_SETS.launches = 0
+    t0 = time.perf_counter()
+    if classification:
+        model = rf.train_classifier(x, y, RF_SHAPE["num_classes"], **kw)
+    else:
+        model = rf.train_regressor(x, y, **kw)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, FUSED_HISTOGRAM_SETS.launches
+
+
+def rf_timed(classification: bool, x, y, what: str) -> tuple[object, float,
+                                                            int]:
+    """RF_RUNS forests of RF_SHAPE on the card after one untimed, each
+    with exactly one set-form K3 launch per level; returns (the first
+    timed model, the median wall seconds, launches per forest)."""
+    import numpy as np
+
+    depth, trees = RF_SHAPE["max_depth"], RF_SHAPE["trees"]
+    grow_forest(classification, x, y, trees, "cuda")
+    runs = [grow_forest(classification, x, y, trees, "cuda")
+            for _ in range(RF_RUNS)]
+    walls = [r[1] for r in runs]
+    wall = statistics.median(walls)
+    launches = [r[2] for r in runs]
+    print(f"{what} on the card ({RF_SHAPE['rows']} x "
+          f"{RF_SHAPE['features']}, {trees} trees, depth {depth}): walls "
+          f"{[round(w, 4) for w in walls]} s, median {wall:.4f} s, "
+          f"{trees / wall:.2f} trees/s; K3 set launches {launches} "
+          f"(expected {depth + 1} each)")
+    check(all(n == depth + 1 for n in launches),
+          f"{what}: K3 set launches {launches}, expected {depth + 1}")
+    for r in runs[1:]:
+        check(all(np.array_equal(runs[0][0].trees[k], r[0].trees[k])
+                  for k in runs[0][0].trees), f"{what}: reruns differ")
+    return runs[0][0], wall, launches[0]
+
+
+def rf_cpu_trees(classification: bool, x, y, what: str) -> int:
+    """The tree count of the card-vs-CPU comparison: all of RF_SHAPE's
+    trees when the CPU grows them in about RF_CPU_SECONDS (timed on a
+    2-tree forest), else as many as fit, at least 2."""
+    _, secs, _ = grow_forest(classification, x, y, 2, "cpu")
+    per_tree = secs / 2
+    trees = max(2, min(RF_SHAPE["trees"], int(RF_CPU_SECONDS / per_tree)))
+    print(f"{what}: a 2-tree forest takes {secs:.2f} s on the CPU; the "
+          f"card-vs-CPU comparison grows {trees} of {RF_SHAPE['trees']} "
+          f"trees on both" + (" (cut)" if trees < RF_SHAPE["trees"] else ""))
+    return trees
+
+
+def rf_breakdown(classification: bool, x, y, wall: float, what: str) -> None:
+    """Where a forest's wall time goes: host binning, the host draws, and
+    K3 (CUDA events around each set launch, in one more forest)."""
+    from euromillioner_tpu_torch.trees import binning
+    from euromillioner_tpu_torch.trees import random_forest as rf
+
+    t0 = time.perf_counter()
+    cuts = binning.quantile_cuts(x, RF_SHAPE["max_bins"])
+    binning.apply_bins(x, cuts)
+    t1 = time.perf_counter()
+    m = rf.resolve_feature_subset("auto", x.shape[1], classification)
+    rf.draw_forest(RF_SEED, RF_SHAPE["trees"], len(x), x.shape[1], m,
+                   RF_SHAPE["max_depth"], True)
+    t2 = time.perf_counter()
+    k3_ms = k3_sets_ms(lambda: grow_forest(classification, x, y,
+                                           RF_SHAPE["trees"], "cuda"))
+    print(f"{what} wall {wall:.4f} s: host binning {t1 - t0:.4f} s "
+          f"({(t1 - t0) / wall:.3f}), host draws {t2 - t1:.4f} s "
+          f"({(t2 - t1) / wall:.3f}), K3 {k3_ms:.3f} ms "
+          f"({k3_ms / 1e3 / wall:.3f}); the rest is split finding, routing "
+          f"and their launches")
+
+
+def phase_rf_classifier() -> dict:
+    """bench.py's RF_SHAPE classifier on the card: exactly max_depth + 1
+    set-form K3 launches per forest under auto and max_depth under pallas,
+    trees/s and where the wall time goes; its trees bit-equal to the same
+    seed's CPU forest, and auto's reachable trees bit-equal to
+    pallas's. Returns the K3 launches of its main-path runs."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.trees import random_forest as rf
+
+    x, y, _ = rf_data()
+    depth = RF_SHAPE["max_depth"]
+    card, wall, launches = rf_timed(True, x, y, "RF classifier")
+    grow_forest(True, x, y, RF_SHAPE["trees"], "cuda", "pallas")
+    sub, sub_wall, sub_launches = grow_forest(True, x, y, RF_SHAPE["trees"],
+                                              "cuda", "pallas")
+    print(f"RF classifier, pallas (sibling subtraction): wall "
+          f"{sub_wall:.4f} s, {RF_SHAPE['trees'] / sub_wall:.2f} trees/s; "
+          f"K3 set launches {sub_launches} (expected {depth})")
+    check(sub_launches == depth,
+          f"pallas forest: K3 set launches {sub_launches}, expected {depth}")
+    a, b = (rf.reachable_trees(m.trees, depth) for m in (card, sub))
+    same = all(np.array_equal(a[k], b[k]) for k in a)
+    same_pred = np.array_equal(card.predict(x), sub.predict(x))
+    print(f"RF classifier auto vs pallas: reachable trees bit-equal {same}, "
+          f"predictions on the {len(x)} rows bit-equal {same_pred}")
+    check(same and same_pred, "auto and pallas grow different classifiers")
+    rf_card_vs_cpu_predict(card, x, "RF classifier")
+    rf_breakdown(True, x, y, wall, "RF classifier")
+
+    trees = rf_cpu_trees(True, x, y, "RF classifier")
+    ref = card if trees == RF_SHAPE["trees"] else grow_forest(
+        True, x, y, trees, "cuda")[0]
+    cpu, cpu_wall, _ = grow_forest(True, x, y, trees, "cpu")
+    equal = {k: np.array_equal(ref.trees[k], cpu.trees[k])
+             for k in ref.trees}
+    print(f"RF classifier card vs CPU ({trees} trees; CPU wall "
+          f"{cpu_wall:.3f} s, {trees / cpu_wall:.2f} trees/s): arrays "
+          f"bit-equal {equal}")
+    check(all(equal.values()), "the card's classifier differs from the CPU's")
+    return {"auto": launches, "pallas": sub_launches}
+
+
+def rf_reg_first_difference(got, ref, x, y, trees: int,
+                            names: tuple[str, str]) -> tuple[int, int]:
+    """(trees equal in reachable structure, trees whose first differing
+    node is a shown near-tie) of forest ``got`` against ``ref``: at that
+    node, the variance gains on the CPU from ``ref``'s rows there, with
+    the seed's bootstrap weights and feature mask; the two choices' gains
+    within NEAR_TIE (a leaf counts as gain 0). ``names`` label the two
+    forests in the printout."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.trees import binning, growth
+    from euromillioner_tpu_torch.trees import random_forest as rf
+
+    depth, n_bins = RF_SHAPE["max_depth"], binning.num_bins(ref.cuts)
+    a, b = (rf.reachable_trees(m.trees, depth) for m in (got, ref))
+    m = rf.resolve_feature_subset("auto", x.shape[1], False)
+    boot, masks = rf.draw_forest(RF_SEED, trees, len(x), x.shape[1], m,
+                                 depth, True)
+    binned = torch.from_numpy(binning.apply_bins(x, ref.cuts))
+    yt = torch.from_numpy(y)
+    equal = ties = 0
+    for t in range(trees):
+        cols = [(a[k][t], b[k][t]) for k in ("is_leaf", "feature",
+                                              "split_bin")]
+        node = next((i for i in range(len(cols[0][0]))
+                     if any(u[i] != v[i] for u, v in cols)), None)
+        if node is None:
+            equal += 1
+            continue
+        d = int(np.log2(node + 1))
+        tree = {k: torch.from_numpy(ref.trees[k][t]) for k in ref.trees}
+        at = growth.route(binned, tree["feature"], tree["split_bin"],
+                          tree["is_leaf"], max_depth=d) == node
+        # one set on CPU tensors: K3's plain version, the node's rows
+        # weighted by the tree's bootstrap
+        s, s2, c = (h[0] for h in rf.reg_histograms_sets(
+            binned, yt, torch.zeros((1, len(x)), dtype=torch.int32),
+            (boot[t] * at.float())[None], 1, n_bins))
+        mask = masks[d][t, node - ((1 << d) - 1)][None]
+        gains = rf.variance_splits(s, s2, c, mask)[0]
+
+        def gain(arr):
+            if arr["is_leaf"][t][node]:
+                return 0.0
+            return float(gains[arr["feature"][t][node],
+                               arr["split_bin"][t][node]])
+        ga, gb = gain(a), gain(b)
+        tie = abs(ga - gb) <= NEAR_TIE * max(abs(ga), abs(gb))
+        print(f"RF regressor tree {t} node {node} differs: variance gains "
+              f"{names[0]} {ga!r} {names[1]} {gb!r}: near-tie (within "
+              f"{NEAR_TIE:.0e}) {tie}")
+        ties += tie
+    return equal, ties
+
+
+def rf_leaf_gap(got, ref, trees: int, reachable: bool = False) -> float:
+    """The largest leaf-mean difference over the trees whose structure is
+    identical, relative to ``ref``'s largest leaf magnitude (the
+    reachable form of both when ``reachable``)."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.trees import random_forest as rf
+
+    a, b = got.trees, ref.trees
+    if reachable:
+        a, b = (rf.reachable_trees(m.trees, RF_SHAPE["max_depth"])
+                for m in (got, ref))
+    same = [t for t in range(trees)
+            if all(np.array_equal(a[k][t], b[k][t])
+                   for k in ("is_leaf", "feature", "split_bin"))]
+    if not same:
+        return 0.0
+    return (max(float(np.max(np.abs(a["leaf_value"][t]
+                                    - b["leaf_value"][t]))) for t in same)
+            / max(float(np.max(np.abs(b["leaf_value"]))), 1e-30))
+
+
+def rf_card_vs_cpu_predict(card, x, what: str) -> None:
+    """The card forest's predictions on RF_SHAPE's rows against the same
+    trees loaded on the CPU: routing, the vote or the mean on each device.
+    A classifier's are bit-equal; a regressor's within RF_REG_PRED_ULPS
+    ulps of the largest prediction."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.trees import RandomForestModel
+
+    cpu = RandomForestModel(card.cuts, card.trees, card.max_depth,
+                            card.classification, card.num_classes,
+                            device="cpu")
+    got, want = card.predict(x), cpu.predict(x)
+    if card.classification:
+        same = np.array_equal(got, want)
+        print(f"{what}: predictions of the card's forest on the card and on "
+              f"the CPU, {len(x)} rows: bit-equal {same}")
+        check(same, f"{what}: card and CPU predictions differ")
+        return
+    gap = float(np.max(np.abs(got - want)))
+    pin = RF_REG_PRED_ULPS * float(np.spacing(np.max(np.abs(want))))
+    print(f"{what}: predictions of the card's forest on the card and on the "
+          f"CPU, {len(x)} rows: bit-equal {np.array_equal(got, want)}, "
+          f"largest gap {gap!r} (pin {RF_REG_PRED_ULPS} ulp = {pin!r})")
+    check(got.dtype == want.dtype and gap <= pin,
+          f"{what}: card and CPU predictions differ by {gap!r}")
+
+
+def phase_rf_regressor() -> dict:
+    """The regressor at RF_SHAPE on the card: exactly max_depth + 1 K3
+    set launches per forest under auto and max_depth under pallas,
+    trees/s; pallas's reachable trees equal to auto's or a shown
+    near-tie; the card forest's predictions against the same trees on
+    the CPU; against the same seed's CPU forest, each tree equal in
+    structure or a shown near-tie, and the leaf means of equal trees
+    within RF_REG_LEAF_TOL. Returns the K3 launches of its main-path
+    runs."""
+    x, _, y = rf_data()
+    depth, n_trees = RF_SHAPE["max_depth"], RF_SHAPE["trees"]
+    card, wall, launches = rf_timed(False, x, y, "RF regressor")
+    grow_forest(False, x, y, n_trees, "cuda", "pallas")
+    sub, sub_wall, sub_launches = grow_forest(False, x, y, n_trees, "cuda",
+                                              "pallas")
+    print(f"RF regressor, pallas (sibling subtraction): wall "
+          f"{sub_wall:.4f} s, {n_trees / sub_wall:.2f} trees/s; K3 set "
+          f"launches {sub_launches} (expected {depth})")
+    check(sub_launches == depth,
+          f"pallas regressor: K3 set launches {sub_launches}, expected "
+          f"{depth}")
+    equal, ties = rf_reg_first_difference(sub, card, x, y, n_trees,
+                                          ("pallas", "auto"))
+    leaf = rf_leaf_gap(sub, card, n_trees, reachable=True)
+    print(f"RF regressor pallas vs auto on the card: {equal} of {n_trees} "
+          f"trees equal in reachable structure, {ties} of the other "
+          f"{n_trees - equal} a near-tie at their first difference; leaf "
+          f"means of the identical trees within {leaf:.3e} of the largest "
+          f"(tol {RF_SUB_LEAF_TOL:.0e})")
+    check(equal + ties == n_trees,
+          "pallas and auto grow different regressors without a near-tie")
+    check(leaf <= RF_SUB_LEAF_TOL, f"pallas vs auto leaf means differ by "
+          f"{leaf:.3e}")
+    rf_card_vs_cpu_predict(card, x, "RF regressor")
+    rf_breakdown(False, x, y, wall, "RF regressor")
+    trees = rf_cpu_trees(False, x, y, "RF regressor")
+    ref = card if trees == n_trees else grow_forest(
+        False, x, y, trees, "cuda")[0]
+    cpu, cpu_wall, _ = grow_forest(False, x, y, trees, "cpu")
+    equal, ties = rf_reg_first_difference(ref, cpu, x, y, trees,
+                                          ("card", "cpu"))
+    leaf = rf_leaf_gap(ref, cpu, trees)
+    print(f"RF regressor card vs CPU ({trees} trees; CPU wall "
+          f"{cpu_wall:.3f} s): {equal} trees equal in reachable structure, "
+          f"{ties} of the other {trees - equal} a near-tie at their first "
+          f"difference; leaf means of the identical trees within "
+          f"{leaf:.3e} of the largest (tol {RF_REG_LEAF_TOL:.0e})")
+    check(equal + ties == trees, "the card's regressor differs from the "
+          "CPU's without a near-tie")
+    check(leaf <= RF_REG_LEAF_TOL, f"leaf means differ by {leaf:.3e}")
+    return {"auto": launches, "pallas": sub_launches}
+
+
+def tree_serve_cli(family: str, model: Path) -> None:
+    """``serve --model-type gbt|rf --model-file M --smoke 32`` on the card:
+    no failed request, every reply bit-equal to the backend's direct
+    predict of the same rows."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config
+    from euromillioner_tpu_torch.serve.session import load_backend
+    from euromillioner_tpu_torch.serve.transport import row_payloads
+
+    rc, out = wd_cli(["serve", "--model-type", family, "--model-file",
+                      str(model), "--smoke", str(SMOKE_REQUESTS)])
+    check(rc == 0, f"serve --model-type {family} exited {rc}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    stats = summary["stats"]
+    print(f"serve {family}: {summary['ok']} of {summary['requests']} ok, "
+          f"{stats['batches']} batches, p50 {stats['p50_ms']} ms, p99 "
+          f"{stats['p99_ms']} ms")
+    check(summary["failed"] == 0, f"{family} serve: requests failed")
+    backend = load_backend(family, cfg=Config(), model_file=str(model))
+    rows = np.concatenate([np.asarray(r, np.float32) for r in row_payloads(
+        SMOKE_REQUESTS, backend.feat_shape)])
+    want = backend.predict(rows)
+    got = np.asarray([p[0] for p in summary["predictions"]],
+                     backend.out_dtype)
+    same = np.array_equal(got, want)
+    print(f"serve {family}: replies bit-equal to a direct predict {same}")
+    check(same, f"{family} serve replies differ from predict")
+
+
+def phase_rf_cli(root: Path, out: Path) -> int:
+    """``train --model rf --num-classes 6 --save`` at the defaults (100
+    trees, depth 8) on the golden page through the CLI (returns its K3 set
+    launches, reset just before), ``predict --model-type rf`` bit-equal to
+    RandomForestModel.predict, then ``serve --model-type rf`` on that
+    model and ``serve --model-type gbt`` on phase 12's booster."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config
+    from euromillioner_tpu_torch.data.csvio import read_csv
+    from euromillioner_tpu_torch.ops.fused_histogram import \
+        FUSED_HISTOGRAM_SETS
+    from euromillioner_tpu_torch.trees import RandomForestModel
+
+    csv, model = out / "draws.csv", out / "rf.json"
+    cfg = Config()
+    FUSED_HISTOGRAM_SETS.launches = 0
+    t0 = time.perf_counter()
+    rc, _ = wd_cli(["train", "--model", "rf", "--num-classes", "6",
+                    "--html-file", str(root / GOLDEN_HTML), "--save",
+                    str(model)])
+    wall = time.perf_counter() - t0
+    launches = FUSED_HISTOGRAM_SETS.launches
+    want = cfg.forest.max_depth + 1
+    print(f"CLI train --model rf --num-classes 6 ({cfg.forest.num_trees} "
+          f"trees, depth {cfg.forest.max_depth}, 3 class pairs: "
+          f"{3 * cfg.forest.num_trees} sets a launch): exit {rc}, wall "
+          f"{wall:.3f} s, K3 set launches {launches} (expected {want})")
+    check(rc == 0, f"train --model rf exited {rc}")
+    check(launches == want, f"K3 set launches {launches}, expected {want}")
+    rc, printed = wd_cli(["predict", "--model-type", "rf", "--model-file",
+                          str(model), "--csv", str(csv), "--has-label"])
+    check(rc == 0, f"predict --model-type rf exited {rc}")
+    got = np.asarray([int(v) for v in printed.split()], np.int32)
+    x, _, _ = read_csv(str(csv), label_column=0)
+    ref = RandomForestModel.load_model(str(model)).predict(x)
+    same = got.shape == ref.shape and np.array_equal(got, ref)
+    print(f"CLI predict --model-type rf on {len(got)} rows: bit-equal to "
+          f"RandomForestModel.predict {same}")
+    check(same, "CLI rf predictions differ from RandomForestModel.predict")
+    tree_serve_cli("rf", model)
+    tree_serve_cli("gbt", out / "gbt.json")
     return launches
 
 
@@ -1903,7 +2486,8 @@ def main() -> int:
               "(euromillioner_tpu_torch/ not found)", file=sys.stderr)
         return 1
     from euromillioner_tpu_torch.core.device import resolve_device
-    from euromillioner_tpu_torch.ops.fused_histogram import FUSED_HISTOGRAM
+    from euromillioner_tpu_torch.ops.fused_histogram import (
+        FUSED_HISTOGRAM, FUSED_HISTOGRAM_SETS)
     from euromillioner_tpu_torch.ops.fused_lstm import (FUSED_LSTM_BWD,
                                                         FUSED_LSTM_BWD_BF16,
                                                         FUSED_LSTM_FWD,
@@ -1926,9 +2510,11 @@ def main() -> int:
             for ln in kernel.build_log.splitlines():
                 if "registers" in ln or "spill" in ln:
                     print(f"build: {kernel.source}: {ln.strip()}")
-        # the bf16 entry points load the libraries the f32 builds made
+        # the bf16 entry points and K3's set form load the libraries the
+        # builds above made
         FUSED_LSTM_FWD_BF16.build()
         FUSED_LSTM_BWD_BF16.build()
+        FUSED_HISTOGRAM_SETS.build()
         k1 = phase_k1()
         k2 = phase_k2()
         k1b, k2b = phase_bf16_kernels()
@@ -1948,7 +2534,12 @@ def main() -> int:
         reference_k3 = phase_reference(root)
         phase_golden_trajectories(root)
         scaled_k3 = phase_scaled(k3["ms_by_shape"])
-        cli_k3 = phase_cli_train_predict(root)
+        cli_k3, gbt_out = phase_cli_train_predict(root)
+        rf_cls, rf_reg = phase_k3_sets()
+        rf_cls_k3 = phase_rf_classifier()
+        rf_reg_k3 = phase_rf_regressor()
+        rf_cls_k3["cli_train"] = phase_rf_cli(root, gbt_out)
+        shutil.rmtree(gbt_out, ignore_errors=True)
         WIDE_ONEHOT_DW.build()  # loads the library K4a's build made
         k4a, k4b = phase_k4()
         serve_k4a = phase_wd_serve(root)
@@ -1978,7 +2569,12 @@ def main() -> int:
     k4a["launches_by_path"] = {"serve": serve_k4a, "train": train_k4a}
     k4b["launches"] = train_k4b
     k4b["launches_by_path"] = {"train": train_k4b}
-    print(json.dumps({"kernels": [k1, k2, k1b, k2b, k3, k4a, k4b]}))
+    rf_cls["launches_by_path"] = rf_cls_k3
+    rf_cls["launches"] = sum(rf_cls_k3.values())
+    rf_reg["launches_by_path"] = rf_reg_k3
+    rf_reg["launches"] = sum(rf_reg_k3.values())
+    print(json.dumps({"kernels": [k1, k2, k1b, k2b, k3, k4a, k4b, rf_cls,
+                                  rf_reg]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,12 +3,14 @@
 The JAX package's subcommands for the ported paths, with the same flags,
 dotted config overrides and exit codes (the error taxonomy's
 ``exit_code``; 2 for bad arguments): ``fetch --html-file`` writes the
-featurized CSV; ``train --model gbt|lstm|wide_deep`` trains a booster
-(``--save`` writes its model JSON), the LSTM or Wide&Deep (``--save``
-writes the TrainState); ``predict --model-type gbt`` predicts with a saved
+featurized CSV; ``train --model gbt|rf|lstm|wide_deep`` trains a booster
+or a random forest (``--save`` writes its model JSON; ``--num-classes C``
+makes the forest a classifier), the LSTM or Wide&Deep (``--save`` writes
+the TrainState); ``predict --model-type gbt|rf`` predicts with a saved
 model JSON; ``reference`` runs the Main.java pipeline; ``serve
---model-type lstm|wide_deep`` serves a checkpoint. ``--device`` picks
-``cuda`` (the default) or ``cpu``. Data comes from a saved results page
+--model-type gbt|rf`` serves a model JSON (``--model-file``) and ``serve
+--model-type lstm|wide_deep`` a checkpoint. ``--device`` picks ``cuda``
+(the default) or ``cpu``. Data comes from a saved results page
 (``--html-file``) or a featurized CSV (``--csv``); fetching the live page
 is not ported yet. ``serve`` has only the in-process ``--smoke N`` front
 end; the HTTP server is not ported yet.
@@ -74,13 +76,19 @@ def cmd_fetch(args, cfg: Config) -> int:
 
 
 def cmd_train(args, cfg: Config) -> int:
-    """Train a booster (``--model gbt``, the default) or the LSTM with the
-    {train, test} watches, then save it (``--save``)."""
+    """Train a booster (``--model gbt``, the default), a random forest or
+    a neural family with the {train, test} watches, then save it
+    (``--save``)."""
+    if args.distributed:
+        raise ConfigError("train --distributed is not ported yet; this port "
+                          "trains on one device")
     if args.model == "gbt":
         return _train_gbt(args, cfg)
+    if args.model == "rf":
+        return _train_rf(args, cfg)
     if args.model not in ("lstm", "wide_deep"):
         raise ConfigError(f"--model {args.model} is not ported yet; this "
-                          f"port trains gbt, lstm and wide_deep")
+                          f"port trains gbt, rf, lstm and wide_deep")
     return _train_nn(args, cfg)
 
 
@@ -98,6 +106,36 @@ def _train_gbt(args, cfg: Config) -> int:
                     fuse_rounds=cfg.gbt.fuse_rounds)
     if args.save:
         booster.save_model(args.save)
+        logger.info("saved model to %s", args.save)
+    return 0
+
+
+def _train_rf(args, cfg: Config) -> int:
+    """A random forest on the featurized rows: a classifier with
+    ``--num-classes C`` (logs validation accuracy), else a regressor (logs
+    validation rmse)."""
+    from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.trees import train_classifier, train_regressor
+
+    device = resolve_device(args.device)  # no card: fail before any work
+    train_ds, val_ds = _load_datasets(args, cfg)
+    fc = cfg.forest
+    kw = dict(num_trees=fc.num_trees, max_depth=fc.max_depth,
+              max_bins=fc.max_bins, feature_subset=fc.feature_subset,
+              bootstrap=fc.bootstrap, min_info_gain=fc.min_info_gain,
+              seed=fc.seed, hist_method=fc.hist_method, device=device)
+    if args.num_classes:
+        model = train_classifier(train_ds.x, train_ds.y, args.num_classes,
+                                 **kw)
+        acc = (model.predict(val_ds.x) == val_ds.y).mean()
+        logger.info("validation accuracy: %.4f", acc)
+    else:
+        model = train_regressor(train_ds.x, train_ds.y, **kw)
+        rmse = float(np.sqrt(np.mean((model.predict(val_ds.x)
+                                      - val_ds.y) ** 2)))
+        logger.info("validation rmse: %.4f", rmse)
+    if args.save:
+        model.save_model(args.save)
         logger.info("saved model to %s", args.save)
     return 0
 
@@ -152,15 +190,21 @@ def _train_nn(args, cfg: Config) -> int:
 
 
 def cmd_predict(args, cfg: Config) -> int:
-    """Predict with a saved GBT model JSON on a CSV of featurized rows;
-    one value per line."""
+    """Predict with a saved GBT or random-forest model JSON on a CSV of
+    featurized rows; one value per line."""
     from euromillioner_tpu_torch.data.csvio import read_csv
-    from euromillioner_tpu_torch.trees import Booster, DMatrix
+    from euromillioner_tpu_torch.trees import (Booster, DMatrix,
+                                               RandomForestModel)
 
-    model = Booster.load_model(args.model_file, device=args.device)
+    if args.model_type == "gbt":
+        model = Booster.load_model(args.model_file, device=args.device)
+    else:
+        model = RandomForestModel.load_model(args.model_file,
+                                             device=args.device)
     x, _, _ = read_csv(args.csv, label_column=(
         cfg.data.label_column if args.has_label else None))
-    for v in np.asarray(model.predict(DMatrix(x))).reshape(-1):
+    pred = model.predict(DMatrix(x) if args.model_type == "gbt" else x)
+    for v in np.asarray(pred).reshape(-1):
         print(v)
     return 0
 
@@ -175,8 +219,9 @@ def cmd_reference(args, cfg: Config) -> int:
 
 
 def cmd_serve(args, cfg: Config) -> int:
-    """Serve a checkpoint: an LSTM behind the whole-sequence scheduler, or
-    a Wide&Deep behind the row micro-batching engine. ``--smoke N`` pushes
+    """Serve a saved model: an LSTM checkpoint behind the whole-sequence
+    scheduler, or a tree model JSON (``--model-file``) or a Wide&Deep
+    checkpoint behind the row micro-batching engine. ``--smoke N`` pushes
     N synthetic requests through the in-process transport, prints one JSON
     summary line and exits (0 iff none failed)."""
     from euromillioner_tpu_torch.core.precision import resolve_serve_precision
@@ -202,7 +247,8 @@ def cmd_serve(args, cfg: Config) -> int:
         from euromillioner_tpu_torch.serve.session import load_backend
 
         backend = load_backend(args.model_type, args.checkpoint, cfg,
-                               args.num_features, device=args.device)
+                               args.num_features, device=args.device,
+                               model_file=args.model_file)
         engine = make_row_engine(backend, cfg)
         shape = f"buckets={list(engine.buckets)}"
     try:
@@ -232,12 +278,16 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["gbt", "rf", "mlp", "lstm", "wide_deep"])
     tr.add_argument("--csv", help="featurized CSV input")
     tr.add_argument("--html-file", help="saved results page")
-    tr.add_argument("--save", help="model JSON (gbt) or checkpoint "
+    tr.add_argument("--save", help="model JSON (gbt, rf) or checkpoint "
                                    "directory (lstm, wide_deep)")
+    tr.add_argument("--num-classes", type=int, default=0,
+                    help="rf: train a classifier with this many classes")
+    tr.add_argument("--distributed", action="store_true",
+                    help="train over a device mesh (not ported; refused)")
     tr.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help=f"training device ({device_help})")
     pr = sub.add_parser("predict", help="predict with a saved model")
-    pr.add_argument("--model-type", default="gbt", choices=["gbt"])
+    pr.add_argument("--model-type", default="gbt", choices=["gbt", "rf"])
     pr.add_argument("--model-file", required=True, help="model JSON")
     pr.add_argument("--csv", required=True)
     pr.add_argument("--has-label", action="store_true",
@@ -250,13 +300,14 @@ def build_parser() -> argparse.ArgumentParser:
     rf.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help=f"device of both boosters ({device_help})")
     sv = sub.add_parser(
-        "serve", help="serve an LSTM checkpoint behind the whole-sequence "
-                      "scheduler (serve.precision=f32|bf16|fused|int8w) or "
-                      "a Wide&Deep "
-                      "checkpoint behind the row engine (f32)")
-    sv.add_argument("--model-type", default="lstm",
+        "serve", help="serve a GBT or random-forest model JSON or a "
+                      "Wide&Deep checkpoint behind the row engine (f32), "
+                      "or an LSTM checkpoint behind the whole-sequence "
+                      "scheduler (serve.precision=f32|bf16|fused|int8w)")
+    sv.add_argument("--model-type", default="gbt",
                     choices=["gbt", "rf", "mlp", "lstm", "wide_deep",
                              "classic"])
+    sv.add_argument("--model-file", help="model JSON (gbt, rf)")
     sv.add_argument("--checkpoint",
                     help="checkpoint dir (latest intact step is used)")
     sv.add_argument("--num-features", type=int, default=0,

@@ -105,6 +105,21 @@ class GBTConfig:
 
 
 @dataclass
+class ForestConfig:
+    """Spark-MLlib-style random forest (BASELINE.json config 3; the JAX
+    package's ``ForestConfig``, same fields and defaults)."""
+
+    num_trees: int = 100
+    max_depth: int = 8
+    max_bins: int = 32                  # MLlib default
+    feature_subset: str = "sqrt"        # "auto"|"all"|"sqrt"|"log2"|fraction
+    bootstrap: bool = True
+    min_info_gain: float = 0.0
+    seed: int = 0
+    hist_method: str = "auto"           # auto | scatter | pallas
+
+
+@dataclass
 class ModelConfig:
     """Neural models (the lstm and wide_deep families are ported)."""
 
@@ -141,8 +156,19 @@ class TrainConfig:
 
 
 @dataclass
+class TreesServeConfig:
+    """The tree families' ensemble dispatch (``serve.trees.*``). Only
+    ``chunk=0`` (whole-ensemble programs, the default) is ported: a
+    positive chunk is refused by name (serve/session.py). The chunked
+    dispatch's other knobs come with it."""
+
+    chunk: int = 0
+
+
+@dataclass
 class ServeConfig:
-    """Whole-sequence serving (serve/continuous.py WholeSequenceScheduler)."""
+    """Serving: the whole-sequence scheduler (serve/continuous.py) and the
+    row engine (serve/engine.py)."""
 
     # Flush a micro-batch when it reaches the largest row bucket or when
     # the OLDEST queued request has waited max_wait_ms (serve/batcher.py).
@@ -172,12 +198,15 @@ class ServeConfig:
     fused_unroll: int = 8
     # Run every (row bucket, time bucket) program once before serving.
     warmup: bool = True
+    # Tree-ensemble serving (serve.trees.chunk=...).
+    trees: TreesServeConfig = field(default_factory=TreesServeConfig)
 
 
 @dataclass
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     gbt: GBTConfig = field(default_factory=GBTConfig)
+    forest: ForestConfig = field(default_factory=ForestConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)

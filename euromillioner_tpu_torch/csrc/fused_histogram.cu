@@ -1,4 +1,4 @@
-// Per-level split-finder histogram of the GBT trainer, f32, for sm_90a.
+// Per-level split-finder histogram of the tree trainers, f32, for sm_90a.
 //
 // Replaces the Pallas TPU kernel euromillioner_tpu/ops/fused_histogram.py:140
 // (_hist_kernel, driven by fused_histogram at :184). It computes
@@ -7,6 +7,17 @@
 // for every feature f, node in [0, n_nodes) and bin in [0, n_bins), as exact
 // f32 sums in a fixed order: two runs on the same inputs give the same bits.
 // Rows whose node or bin lies outside those ranges add nothing.
+//
+// Sets. The random forest calls the same histogram for every (tree, class
+// pair) or (tree, moment pair) of a level, on one shared `binned`
+// (euromillioner_tpu/trees/random_forest.py:95 and :183, which the JAX
+// package runs one tree after another). Here one launch does them all: set s
+// reads local, gw and hw at offset s * N and writes out at offset
+// s * F * 2K * bins. The set index is folded into grid.x (chunks * sets
+// blocks; grid.z caps at 65535, and a forest of 100 trees and 6 classes has
+// 300 sets). Chunks and tiles are those of one set, so set s adds in the same
+// order whatever the number of sets: it is bit-identical to a one-set launch
+// on its inputs. The GBT entry point is the one-set case of the same code.
 //
 // Why deterministic. A GBT tree is decided by the argmax of split gains, and
 // near-tied gains are common (the JAX package's own golden trajectory moved
@@ -18,7 +29,8 @@
 // Design. The TPU kernel zeroes its output at grid step 0 and accumulates
 // across a sequential row grid; here blocks run in no order, so the rows are
 // cut into `chunks` contiguous chunks and the work is two kernels:
-//  1. hist_partial_kernel, grid (chunks, F, node tiles x bin tiles), 4 warps.
+//  1. hist_partial_kernel, grid (chunks x sets, F, node tiles x bin tiles),
+//     4 warps.
 //     Each warp owns a private copy, in shared memory, of the block's tile of
 //     cells (node_tile nodes x 2 stats x bin_tile bins). A warp takes 32 rows
 //     at a time (rows warp, warp + 4, ... of the chunk, in 32-row groups);
@@ -26,9 +38,10 @@
 //     in lane order by the lowest such lane, which alone adds the group's
 //     sum into the warp's copy: no two threads ever write one shared-memory
 //     word at once, and the order is fixed. At the end the four copies are
-//     added in warp order and the tile is written to partial[chunk] (to out
-//     itself when chunks == 1).
-//  2. hist_reduce_kernel: out = sum over chunks of partial, in chunk order.
+//     added in warp order and the tile is written to partial[set][chunk] (to
+//     out[set] itself when chunks == 1).
+//  2. hist_reduce_kernel: out[set] = sum over chunks of partial[set], in
+//     chunk order.
 // No bf16 split and no one-hot: the TPU needed both for its matrix unit;
 // this kernel adds the f32 values themselves, and takes any bin count (a bin
 // count wider than the tile is cut into bin tiles).
@@ -41,7 +54,7 @@
 // simple design is bound by neither: each 32-row group costs a match, a
 // reduce and a few shuffles per (feature, node tile), binned is read with a
 // stride of F words across a warp, and every node tile re-reads the chunk's
-// rows.
+// rows. With sets, each set's rows are read apart, and binned once per set.
 
 #include <cuda_runtime.h>
 
@@ -52,14 +65,18 @@ constexpr int kThreads = 32 * kWarps;
 
 __global__ void __launch_bounds__(kThreads)
 hist_partial_kernel(const int* __restrict__ binned,  // (N, F)
-                    const int* __restrict__ local,   // (N,)
-                    const float* __restrict__ gw,    // (N,)
-                    const float* __restrict__ hw,    // (N,)
-                    float* __restrict__ partial,     // (chunks, F, 2K, bins)
+                    const int* __restrict__ local,   // (sets, N)
+                    const float* __restrict__ gw,    // (sets, N)
+                    const float* __restrict__ hw,    // (sets, N)
+                    float* __restrict__ partial,  // (sets, chunks, F, 2K, bins)
                     int N, int F, int n_bins, int n_nodes, int chunks,
                     int node_tile, int bin_tile) {
   extern __shared__ float smem[];  // [kWarps][node_tile * 2 * bin_tile]
-  const int chunk = blockIdx.x;
+  const int chunk = blockIdx.x % chunks;
+  const int set = blockIdx.x / chunks;
+  local += (size_t)set * N;
+  gw += (size_t)set * N;
+  hw += (size_t)set * N;
   const int f = blockIdx.y;
   const int bin_tiles = (n_bins + bin_tile - 1) / bin_tile;
   const int node0 = (blockIdx.z / bin_tiles) * node_tile;
@@ -117,7 +134,8 @@ hist_partial_kernel(const int* __restrict__ binned,  // (N, F)
   }
   __syncthreads();
 
-  float* dst = partial + (size_t)chunk * F * 2 * n_nodes * n_bins;
+  float* dst =
+      partial + ((size_t)set * chunks + chunk) * F * 2 * n_nodes * n_bins;
   for (int i = threadIdx.x; i < cells; i += kThreads) {
     float s = smem[i];
     for (int w = 1; w < kWarps; ++w) s += smem[w * cells + i];
@@ -129,14 +147,52 @@ hist_partial_kernel(const int* __restrict__ binned,  // (N, F)
   }
 }
 
+// out[set, i] = sum over c of partial[set, c, i], c in order; `size` is one
+// set's output size.
 __global__ void hist_reduce_kernel(const float* __restrict__ partial,
                                    float* __restrict__ out, size_t size,
-                                   int chunks) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= size) return;
-  float s = partial[i];
-  for (int c = 1; c < chunks; ++c) s += partial[(size_t)c * size + i];
-  out[i] = s;
+                                   int sets, int chunks) {
+  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= size * sets) return;
+  const size_t set = j / size;
+  const float* src = partial + set * chunks * size + j % size;
+  float s = src[0];
+  for (int c = 1; c < chunks; ++c) s += src[(size_t)c * size];
+  out[j] = s;
+}
+
+int launch_histogram(const int* binned, const int* local, const float* gw,
+                     const float* hw, float* out, float* partial, int N,
+                     int F, int n_bins, int n_nodes, int sets, int chunks,
+                     int node_tile, int bin_tile, int device, void* stream) {
+  if (F <= 0 || n_bins <= 0 || n_nodes <= 0 || sets <= 0) return 0;
+  if (chunks < 1 || node_tile < 1 || bin_tile < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  const size_t smem =
+      (size_t)kWarps * node_tile * 2 * bin_tile * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        hist_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int node_tiles = (n_nodes + node_tile - 1) / node_tile;
+  const int bin_tiles = (n_bins + bin_tile - 1) / bin_tile;
+  const dim3 grid((unsigned)chunks * sets, F, node_tiles * bin_tiles);
+  cudaStream_t s = (cudaStream_t)stream;
+  hist_partial_kernel<<<grid, kThreads, smem, s>>>(
+      binned, local, gw, hw, chunks == 1 ? out : partial, N, F, n_bins,
+      n_nodes, chunks, node_tile, bin_tile);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || chunks == 1) return (int)e;
+  const size_t size = (size_t)F * 2 * n_nodes * n_bins;
+  const int threads = 256;
+  hist_reduce_kernel<<<(unsigned)((size * sets + threads - 1) / threads),
+                       threads, 0, s>>>(partial, out, size, sets, chunks);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -153,34 +209,23 @@ int emt_fused_histogram_f32(const int* binned, const int* local,
                             float* partial, int N, int F, int n_bins,
                             int n_nodes, int chunks, int node_tile,
                             int bin_tile, int device, void* stream) {
-  if (F <= 0 || n_bins <= 0 || n_nodes <= 0) return 0;
-  if (chunks < 1 || node_tile < 1 || bin_tile < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
-  const size_t smem =
-      (size_t)kWarps * node_tile * 2 * bin_tile * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        hist_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int node_tiles = (n_nodes + node_tile - 1) / node_tile;
-  const int bin_tiles = (n_bins + bin_tile - 1) / bin_tile;
-  const dim3 grid(chunks, F, node_tiles * bin_tiles);
-  cudaStream_t s = (cudaStream_t)stream;
-  hist_partial_kernel<<<grid, kThreads, smem, s>>>(
-      binned, local, gw, hw, chunks == 1 ? out : partial, N, F, n_bins,
-      n_nodes, chunks, node_tile, bin_tile);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || chunks == 1) return (int)e;
-  const size_t size = (size_t)F * 2 * n_nodes * n_bins;
-  const int threads = 256;
-  hist_reduce_kernel<<<(unsigned)((size + threads - 1) / threads), threads, 0,
-                       s>>>(partial, out, size, chunks);
-  return (int)cudaGetLastError();
+  return launch_histogram(binned, local, gw, hw, out, partial, N, F, n_bins,
+                          n_nodes, 1, chunks, node_tile, bin_tile, device,
+                          stream);
+}
+
+// The same for `sets` sets on one `binned`: local, gw and hw are (sets, N),
+// out is (sets, F, 2 * n_nodes, n_bins) and `partial` holds sets times the
+// one-set size. `chunks`, `node_tile` and `bin_tile` are one set's plan.
+int emt_fused_histogram_sets_f32(const int* binned, const int* local,
+                                 const float* gw, const float* hw, float* out,
+                                 float* partial, int N, int F, int n_bins,
+                                 int n_nodes, int sets, int chunks,
+                                 int node_tile, int bin_tile, int device,
+                                 void* stream) {
+  return launch_histogram(binned, local, gw, hw, out, partial, N, F, n_bins,
+                          n_nodes, sets, chunks, node_tile, bin_tile, device,
+                          stream);
 }
 
 const char* emt_cuda_error_string(int code) {

@@ -39,8 +39,9 @@ logger = get_logger("serve.engine")
 
 
 class InferenceEngine:
-    """Dynamic micro-batching over one row backend (``serve.session.
-    NNBackend``): ``submit`` returns a future, ``predict`` blocks."""
+    """Dynamic micro-batching over one row backend (``serve.session``'s
+    ``NNBackend``, ``GBTBackend`` or ``RFBackend``): ``submit`` returns a
+    future, ``predict`` blocks."""
 
     kind = "rows"  # transport: a request is a batch of independent rows
 
@@ -78,7 +79,7 @@ class InferenceEngine:
         no kernel build, allocator growth or library initialisation."""
         for b in self.buckets:
             x = np.zeros((b, *self._feat_shape), np.float32)
-            self.backend.apply(self._put(x)).cpu()
+            self.backend.apply(self._put(self.backend.prepare(x))).cpu()
 
     # -- request side ---------------------------------------------------
     def submit(self, x: np.ndarray, max_wait_s: float | None = None

@@ -1,11 +1,14 @@
-"""Row-family serving backends (the JAX package's ``serve/session.py``,
-its neural half): :class:`NNBackend` and :func:`load_backend`.
+"""Row-family serving backends (the JAX package's ``serve/session.py``):
+:class:`NNBackend`, :class:`GBTBackend`, :class:`RFBackend` and
+:func:`load_backend`.
 
-Ported so far: the ``wide_deep`` family at the ``f32`` profile. The JAX
-package's tree (``gbt``, ``rf``), ``classic`` and ``mlp`` backends, its
-``bf16``/``int8w`` profiles, ``ModelSession`` (executable cache, AOT
-store, mesh placement) and the ``serve.quant`` fault point are not ported
-yet; asking for them is a :class:`ConfigError` that names them.
+Ported so far: the ``wide_deep`` family at the ``f32`` profile, and the
+tree families (``gbt``, ``rf``; f32 only, as in the JAX package) through
+whole-ensemble programs. The JAX package's chunked tree dispatch
+(``serve.trees.chunk``), its ``classic`` and ``mlp`` backends, the row
+families' ``bf16``/``int8w`` profiles, ``ModelSession`` (executable cache,
+AOT store, mesh placement) and the ``serve.quant`` fault point are not
+ported yet; asking for them is a :class:`ConfigError` that names them.
 """
 
 from __future__ import annotations
@@ -19,8 +22,9 @@ from euromillioner_tpu_torch.core.precision import (resolve_serve_precision,
 from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
 
 # row families this port serves, and the JAX package's others
-PORTED_ROW_FAMILIES = ("wide_deep",)
-_UNPORTED_FAMILIES = ("gbt", "rf", "classic", "mlp")
+PORTED_ROW_FAMILIES = ("gbt", "rf", "wide_deep")
+_UNPORTED_FAMILIES = ("classic", "mlp")
+_TREE_FAMILIES = ("gbt", "rf")
 
 
 def _refuse_narrow_profile(profile: str) -> None:
@@ -83,21 +87,104 @@ class NNBackend:
         return self.apply(xt).cpu().numpy().astype(self.out_dtype)
 
 
+class _TreeBackend:
+    """What the row engine reads of a tree backend: the model's
+    ``predict_program`` split — ``prepare`` bins the rows on the host,
+    ``apply`` runs the ensemble program on the device — so replies are
+    bit-identical to the model's direct ``predict`` by construction. f32
+    only: routing and leaf sums have no narrow-dtype profile."""
+
+    precision = "f32"
+    envelope = None
+
+    def __init__(self, model, program, out_dtype):
+        self.device = model.device
+        self.feat_shape = (len(model.cuts),)
+        self.out_dtype = out_dtype
+        self._params, self._apply, self.prepare = program
+
+    def apply(self, binned: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self._apply(self._params, binned)
+
+
+class GBTBackend(_TreeBackend):
+    """Booster serving via ``Booster.predict_program`` (whole ensemble):
+    transformed predictions, or raw margins with ``output_margin``."""
+
+    name = family = "gbt"
+
+    def __init__(self, booster, output_margin: bool = False):
+        super().__init__(booster, booster.predict_program(
+            len(booster.cuts), output_margin=output_margin), np.float32)
+        self.booster = booster
+        self._output_margin = output_margin
+
+    def predict(self, x) -> np.ndarray:
+        from euromillioner_tpu_torch.trees import DMatrix
+
+        return self.booster.predict(DMatrix(x),
+                                    output_margin=self._output_margin)
+
+
+class RFBackend(_TreeBackend):
+    """Random-forest serving via ``RandomForestModel.predict_program``
+    (whole forest): int32 majority votes, or f32 means for a regressor."""
+
+    name = family = "rf"
+
+    def __init__(self, model):
+        super().__init__(model, model.predict_program(len(model.cuts)),
+                         np.int32 if model.classification else np.float32)
+        self.model = model
+
+    def predict(self, x) -> np.ndarray:
+        return self.model.predict(np.asarray(x, np.float32))
+
+
+def _load_tree_backend(model_type: str, model_file: str | None, cfg: Config,
+                       device) -> _TreeBackend:
+    if not model_file:
+        raise ServeError(f"serve --model-type {model_type} needs "
+                         "--model-file")
+    if cfg.serve.trees.chunk > 0:
+        raise ConfigError(
+            f"serve.trees.chunk={cfg.serve.trees.chunk} (chunked tree "
+            f"dispatch) is not ported yet; this port serves whole-ensemble "
+            f"programs (serve.trees.chunk=0)")
+    if model_type == "gbt":
+        from euromillioner_tpu_torch.trees import Booster
+
+        return GBTBackend(Booster.load_model(model_file, device=device))
+    from euromillioner_tpu_torch.trees import RandomForestModel
+
+    return RFBackend(RandomForestModel.load_model(model_file, device=device))
+
+
 def load_backend(model_type: str, checkpoint: str | None = None,
                  cfg: Config | None = None, num_features: int = 0,
-                 device=None) -> NNBackend:
-    """A serving backend from a checkpoint directory of either package, on
-    ``device`` (the card when None). The family, the profile and the
-    scheduler are validated before any restore (ConfigError)."""
+                 device=None, *, model_file: str | None = None):
+    """A serving backend on ``device`` (the card when None): a tree model
+    JSON of either package (``gbt``, ``rf``; ``model_file``) or a
+    checkpoint directory of either package (``wide_deep``). The profile,
+    the scheduler and the family are validated before any load
+    (ConfigError), in the JAX package's order: a tree family at another
+    profile than f32 is refused before a missing ``model_file`` is."""
     from euromillioner_tpu_torch.models.registry import restore_for_inference
 
     cfg = cfg or Config()
     profile = resolve_serve_precision(cfg.serve.precision)
     check_ported(cfg)
+    if profile != "f32" and model_type in (*_TREE_FAMILIES, "classic"):
+        raise ConfigError(
+            f"serve.precision={profile} needs a neural model family; "
+            f"{model_type} serves f32 only")
+    if model_type in _TREE_FAMILIES:
+        return _load_tree_backend(model_type, model_file, cfg, device)
     if model_type in _UNPORTED_FAMILIES:
         raise ConfigError(
             f"serve --model-type {model_type} is not ported yet; this port "
-            f"serves lstm and {' | '.join(PORTED_ROW_FAMILIES)}")
+            f"serves lstm | {' | '.join(PORTED_ROW_FAMILIES)}")
     if model_type == "lstm":
         raise ServeError("lstm is a sequence family: load it with "
                          "serve.continuous.load_recurrent_backend")

@@ -267,6 +267,39 @@ class Booster:
                 f"{self.num_boosted_rounds} boosted rounds")
         return int(lo), int(hi)
 
+    def predict_program(self, num_col: int,
+                        iteration_range: tuple[int, int] | None = None,
+                        output_margin: bool = False):
+        """The pure-function split of :meth:`predict` for the serving
+        engine: ``(params, apply, prepare)`` — ``prepare(x)`` host-bins raw
+        feature rows, ``params`` holds the tree tensors of the range on
+        the booster's device and ``apply(params, binned)`` is the ensemble
+        program. :meth:`predict` runs through this split, so engine
+        outputs are bit-identical to direct prediction by construction."""
+        return self._program(num_col, *self._resolve_range(iteration_range),
+                             output_margin)
+
+    def _program(self, num_col: int, lo: int, hi: int, output_margin: bool):
+        if num_col != len(self.cuts):
+            raise DataError(f"the booster has {len(self.cuts)} features, "
+                            f"got {num_col}")
+        params = {k: torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(
+            self.device) for k, v in self.trees.items()}
+        transform = self.objective.transform
+        base_margin, max_depth = self.base_margin, self.max_depth
+        cuts = self.cuts
+
+        def prepare(x: np.ndarray) -> np.ndarray:
+            return binning.apply_bins(np.asarray(x, np.float32), cuts)
+
+        def apply(p, binned):
+            margin = predict_margin(binned, p["feature"], p["split_bin"],
+                                    p["is_leaf"], p["leaf_value"],
+                                    base_margin, max_depth=max_depth)
+            return margin if output_margin else transform(margin)
+
+        return params, apply, prepare
+
     def predict(self, dmat: DMatrix, output_margin: bool = False,
                 iteration_range: tuple[int, int] | None = None,
                 ntree_limit: int = 0) -> np.ndarray:
@@ -274,15 +307,9 @@ class Booster:
         uses trees [a, b); ``ntree_limit=N`` is the legacy spelling for
         (0, N). After early stopping, no range means the best iteration."""
         lo, hi = self._resolve_range(iteration_range, ntree_limit)
-        dev = self.device
-        binned = torch.from_numpy(binning.apply_bins(
-            np.asarray(dmat.x, np.float32), self.cuts)).to(dev)
-        t = {k: torch.from_numpy(np.ascontiguousarray(v[lo:hi])).to(dev)
-             for k, v in self.trees.items()}
-        margin = predict_margin(binned, t["feature"], t["split_bin"],
-                                t["is_leaf"], t["leaf_value"],
-                                self.base_margin, max_depth=self.max_depth)
-        out = margin if output_margin else self.objective.transform(margin)
+        params, apply, prepare = self._program(dmat.num_col, lo, hi,
+                                               output_margin)
+        out = apply(params, torch.from_numpy(prepare(dmat.x)).to(self.device))
         return out.cpu().numpy().astype(np.float32, copy=False)
 
     def eval_set(self, evals: Sequence[tuple[DMatrix, str]],

@@ -92,12 +92,13 @@ def node_histograms(binned, local, gw, hw, n_nodes: int, n_bins: int):
 def node_sums(local, gw, hw, n_nodes: int):
     """Per-node Σ gw and Σ hw without the per-(feature, bin) histogram —
     all a final level needs for leaf values. Exact f32 sums of masked
-    values, in a fixed order on every device."""
-    mask = local[:, None] == torch.arange(n_nodes, dtype=local.dtype,
-                                          device=local.device)[None, :]
+    values, in a fixed order on every device. ``local``, ``gw``, ``hw``:
+    (..., N) → two (..., n_nodes)."""
+    mask = local[..., None] == torch.arange(n_nodes, dtype=local.dtype,
+                                            device=local.device)
     zero = torch.zeros((), dtype=gw.dtype, device=gw.device)
-    return (torch.where(mask, gw[:, None], zero).sum(0),
-            torch.where(mask, hw[:, None], zero).sum(0))
+    return (torch.where(mask, gw[..., None], zero).sum(-2),
+            torch.where(mask, hw[..., None], zero).sum(-2))
 
 
 def split_gains(hist_g, hist_h, reg_lambda, gamma):
@@ -144,20 +145,25 @@ def route_one_level(binned, node_id, feature, split_bin, is_leaf,
                     offset: int, n_nodes: int):
     """Advance every row one level: rows in a non-leaf node of the
     [offset, offset+n_nodes) level move to child 2i+1 (bin ≤ split) or
-    2i+2 (bin > split); everything else stays."""
+    2i+2 (bin > split); everything else stays. ``node_id`` (N,) with
+    (n_nodes,) level tables for one tree, or (T, N) with (T, n_nodes)
+    tables for T trees."""
     local = torch.clamp(node_id - offset, 0, n_nodes - 1).long()
     in_level = (node_id >= offset) & (node_id < offset + n_nodes)
-    f_n, t_n, leaf_n = feature[local], split_bin[local], is_leaf[local]
-    go_right = binned.gather(1, f_n.long()[:, None])[:, 0] > t_n
+    f_n, t_n, leaf_n = (a.gather(-1, local)
+                        for a in (feature, split_bin, is_leaf))
+    rows = f_n.long().reshape(-1, binned.shape[0])
+    go_right = binned.t().gather(0, rows).reshape(f_n.shape) > t_n
     child = 2 * node_id + 1 + go_right.int()
     return torch.where(in_level & ~leaf_n, child, node_id)
 
 
-def interleave_siblings(left, right):
-    """(half, ...) left/right child stats → (2·half, ...) in local node
-    order: full[2p] = left[p], full[2p+1] = right[p]."""
-    return torch.stack([left, right], dim=1).reshape(
-        2 * left.shape[0], *left.shape[1:])
+def interleave_siblings(left, right, dim: int = 0):
+    """Left/right child stats with ``half`` nodes on axis ``dim`` → 2·half
+    nodes in local node order: full[2p] = left[p], full[2p+1] = right[p]."""
+    shape = list(left.shape)
+    shape[dim] *= 2
+    return torch.stack([left, right], dim=dim + 1).reshape(shape)
 
 
 def _level_rows(node_id, sampled, depth: int):

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from euromillioner_tpu import cli as jax_cli
 from euromillioner_tpu.app import run_reference_pipeline as jax_pipeline
 from euromillioner_tpu.config import Config as JaxConfig
 from euromillioner_tpu.config import apply_overrides as jax_overrides
@@ -18,7 +19,10 @@ from euromillioner_tpu_torch import cli
 from euromillioner_tpu_torch.app import run_reference_pipeline
 from euromillioner_tpu_torch.config import Config, apply_overrides
 from euromillioner_tpu_torch.data.csvio import write_csv
-from euromillioner_tpu_torch.trees import Booster, DMatrix
+from euromillioner_tpu_torch.serve.session import load_backend
+from euromillioner_tpu_torch.serve.transport import row_payloads
+from euromillioner_tpu_torch.trees import (Booster, DMatrix, train,
+                                           train_classifier, train_regressor)
 
 torch.set_num_threads(2)
 
@@ -114,7 +118,8 @@ def test_cli_reference_on_cpu(capsys):
 @pytest.mark.parametrize("argv,rc", [
     (["reference"], 17),                               # fetching: not ported
     (["fetch"], 17),
-    (["train", "--model", "rf", "--html-file", str(GOLDEN)], 17),
+    (["train", "--model", "rf", "--html-file", str(GOLDEN),
+      "--distributed"], 17),                           # a mesh: not ported
     (["train", "--html-file", str(GOLDEN), "gbt.hist_method=matmul"], 13),
     (["train", "--html-file", str(GOLDEN), "gbt.no_such=1"], 2),
 ])
@@ -138,6 +143,75 @@ def test_cli_without_a_card_exits_17(monkeypatch, tmp_path, cmd):
                         str(tmp_path / "x.csv")]}[cmd]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(argv) == 17
+
+
+# -- the random forest through the CLI ----------------------------------------
+
+RF_ARGV = ["train", "--model", "rf", "--num-classes", "6", "--html-file",
+           str(GOLDEN), "forest.bootstrap=false", "forest.feature_subset=all",
+           "forest.num_trees=3"]
+
+
+def test_cli_rf_train_predict_matches_jax_cli(tmp_path, capsys):
+    """``train --model rf --num-classes 6 ... --save`` then ``predict
+    --model-type rf`` through both CLIs on the same argv (the port's with
+    ``--device cpu``): the same trees, the same printed predictions."""
+    csv = str(tmp_path / "d.csv")
+    assert cli.main(["fetch", "--html-file", str(GOLDEN), "--output",
+                     csv]) == 0
+    printed = {}
+    for name, main, extra in (("port", cli.main, ["--device", "cpu"]),
+                              ("jax", jax_cli.main, [])):
+        model = str(tmp_path / f"{name}.json")
+        assert main(RF_ARGV + ["--save", model] + extra) == 0
+        capsys.readouterr()
+        assert main(["predict", "--model-type", "rf", "--model-file", model,
+                     "--csv", csv, "--has-label"] + extra) == 0
+        printed[name] = capsys.readouterr().out.split()
+    trees = [json.loads((tmp_path / f"{n}.json").read_text())["trees"]
+             for n in ("port", "jax")]
+    assert trees[0] == trees[1]
+    assert len(printed["port"]) == 1705
+    assert printed["port"] == printed["jax"]
+
+
+@pytest.fixture(scope="module")
+def tree_models(tmp_path_factory):
+    """A booster at the CLI's defaults, a forest classifier and a forest
+    regressor, saved as model JSON (10 features, as the golden rows)."""
+    d = tmp_path_factory.mktemp("trees")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(300, 10)).astype(np.float32)
+    y = (x[:, 0] + x[:, 3] > 0).astype(np.float32)
+    paths = {k: str(d / f"{k}.json") for k in ("gbt", "rf", "rf_reg")}
+    train({"device": "cpu"}, DMatrix(x, y), 5,
+          verbose_eval=False).save_model(paths["gbt"])
+    kw = dict(num_trees=5, max_depth=4, device="cpu")
+    train_classifier(x, y, 2, **kw).save_model(paths["rf"])
+    train_regressor(x, x[:, 1], **kw).save_model(paths["rf_reg"])
+    return paths
+
+
+@pytest.mark.parametrize("model", ["gbt", "rf", "rf_reg"])
+def test_cli_serves_tree_models_bit_equal_to_predict(tree_models, capsys,
+                                                     model):
+    """``serve --model-type gbt|rf --model-file M --smoke 8``: no failed
+    request, and every reply (one row each, coalesced and padded by the
+    engine) bit-equal to the backend's direct predict of the same rows."""
+    family = model.split("_")[0]
+    assert cli.main(["serve", "--model-type", family, "--model-file",
+                     tree_models[model], "--smoke", "8", "--device",
+                     "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["failed"] == 0 and summary["ok"] == 8
+    backend = load_backend(family, cfg=Config(), device="cpu",
+                           model_file=tree_models[model])
+    want = backend.predict(np.concatenate(
+        [np.asarray(r, np.float32) for r in row_payloads(8, (10,))]))
+    got = np.asarray([p[0] for p in summary["predictions"]],
+                     backend.out_dtype)
+    assert want.dtype == backend.out_dtype
+    np.testing.assert_array_equal(got, want)
 
 
 # -- Wide&Deep through the CLI -------------------------------------------------
@@ -169,8 +243,8 @@ def test_cli_wide_deep_trains_then_serves_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["serve", "--model-type", "gbt", "--checkpoint", "x", "--smoke", "2"],
-     17),
+    (["serve", "--model-type", "gbt", "--checkpoint", "x", "--smoke", "2",
+      "serve.precision=bf16"], 17),                    # trees serve f32
     (["serve", "--model-type", "wide_deep", "--smoke", "2",
       "serve.precision=int8w"], 17),
     (["serve", "--model-type", "wide_deep", "--smoke", "2"], 16),

@@ -160,3 +160,64 @@ def test_cuda_tensor_without_a_card_raises():
     with pytest.raises((RuntimeError, AssertionError)):
         port.fused_histogram(*args, 3, 1)
     assert port.FUSED_HISTOGRAM.launches == launches
+
+
+# -- the set form (the random forest's one launch per level) -----------------
+
+def _sets_case(n, f, n_bins, n_nodes, sets, seed=0):
+    rng = np.random.default_rng(seed)
+    binned = rng.integers(0, n_bins, size=(n, f)).astype(np.int32)
+    local = rng.integers(0, n_nodes, size=(sets, n)).astype(np.int32)
+    gw = (rng.poisson(1.0, size=(sets, n))
+          * rng.integers(0, 2, size=(sets, n))).astype(np.float32)
+    hw = rng.normal(size=(sets, n)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (binned, local, gw, hw)]
+
+
+@pytest.mark.parametrize("n,f,n_bins,n_nodes,sets", [
+    (1000, 6, 37, 4, 3), (1193, 10, 33, 8, 6), (100, 2, 5, 1, 1),
+    (300, 4, 300, 2, 5), (50, 3, 8, 2, 0)])
+def test_set_form_plain_version_equals_per_set_calls(n, f, n_bins, n_nodes,
+                                                     sets):
+    """Set s of the set form is fused_histogram on set s's inputs, bit for
+    bit (integer counts in one slot, normal values in the other)."""
+    binned, local, gw, hw = _sets_case(n, f, n_bins, n_nodes, sets)
+    got = port.fused_histogram_sets(binned, local, gw, hw, n_bins, n_nodes)
+    assert got.shape == (sets, f, 2 * n_nodes, n_bins)
+    assert got.dtype == torch.float32
+    for s in range(sets):
+        want = port.fused_histogram(binned, local[s], gw[s], hw[s], n_bins,
+                                    n_nodes)
+        assert torch.equal(got[s], want)
+
+
+@pytest.mark.parametrize("bad,err", [
+    ("one_set_local", ValueError), ("rows", ValueError),
+    ("gw_sets", ValueError), ("hw_dtype", TypeError)])
+def test_set_form_checks_its_inputs(bad, err):
+    binned, local, gw, hw = _sets_case(8, 2, 3, 1, 2)
+    if bad == "one_set_local":
+        local = local[0]
+    elif bad == "rows":
+        local, gw, hw = local[:, :7], gw[:, :7], hw[:, :7]
+    elif bad == "gw_sets":
+        gw = gw[:1]
+    else:
+        hw = hw.double()
+    with pytest.raises(err):
+        port.fused_histogram_sets(binned, local, gw, hw, 3, 1)
+
+
+def test_set_form_on_a_cuda_tensor_without_a_card_raises():
+    """The set form's CUDA tensors go to its kernel (its own launch
+    counter), never to the plain version."""
+    launches = (port.FUSED_HISTOGRAM_SETS.launches,
+                port.FUSED_HISTOGRAM.launches)
+    args = [_CudaTensorLike((4, 2), torch.int32),
+            _CudaTensorLike((3, 4), torch.int32),
+            _CudaTensorLike((3, 4), torch.float32),
+            _CudaTensorLike((3, 4), torch.float32)]
+    with pytest.raises((RuntimeError, AssertionError)):
+        port.fused_histogram_sets(*args, 3, 1)
+    assert (port.FUSED_HISTOGRAM_SETS.launches,
+            port.FUSED_HISTOGRAM.launches) == launches

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from euromillioner_tpu import cli as jax_cli
 from euromillioner_tpu.core.precision import from_names
 from euromillioner_tpu.models.lstm import build_lstm as jax_build_lstm
 from euromillioner_tpu.train.checkpoint import \
@@ -33,6 +34,8 @@ from euromillioner_tpu_torch.serve.session import load_backend
 from euromillioner_tpu_torch.trees import DMatrix
 from euromillioner_tpu_torch.trees import train as gbt_train
 from euromillioner_tpu_torch.trees.gbt import Booster, booster_from_arrays
+from euromillioner_tpu_torch.trees.random_forest import (RandomForestModel,
+                                                         train_classifier)
 from euromillioner_tpu_torch.utils.errors import ConfigError
 
 torch.set_num_threads(2)
@@ -89,6 +92,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("serve.continuous", "trees.gbt", "trees.growth", "app",
+                 "trees.random_forest",
                  "ops.fused_histogram", "ops.wide_onehot", "models.wide_deep",
                  "serve.engine", "serve.session"):
         assert f"euromillioner_tpu_torch.{name}" in loaded
@@ -135,14 +139,25 @@ def gbt_model(tmp_path_factory):
     return path
 
 
+@pytest.fixture(scope="module")
+def rf_model(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("rf") / "m.json")
+    x = np.arange(40, dtype=np.float32).reshape(20, 2)
+    train_classifier(x, x[:, 0] > 9, 2, num_trees=2, max_depth=2,
+                     device="cpu").save_model(path)
+    return path
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "build_lstm",
                                    "params_from_jax", "restore",
                                    "load_recurrent_backend", "gbt_train",
                                    "gbt_load_model", "booster_from_arrays",
                                    "run_reference_pipeline",
-                                   "build_wide_deep", "load_backend"])
+                                   "build_wide_deep", "load_backend",
+                                   "rf_train", "rf_load_model",
+                                   "load_backend_gbt", "load_backend_rf"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(
-        no_cuda, jax_ckpt, gbt_model, entry):
+        no_cuda, jax_ckpt, gbt_model, rf_model, entry):
     cfg = apply_overrides(Config(), TINY)
     x = np.zeros((4, 2), np.float32)
     calls = {
@@ -164,14 +179,20 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(
         "build_wide_deep": lambda: build_wide_deep(
             target_params=200_000),
         "load_backend": lambda: load_backend("wide_deep", jax_ckpt, cfg),
+        "rf_train": lambda: train_classifier(x, x[:, 0], 2),
+        "rf_load_model": lambda: RandomForestModel.load_model(rf_model),
+        "load_backend_gbt": lambda: load_backend("gbt", cfg=cfg,
+                                                 model_file=gbt_model),
+        "load_backend_rf": lambda: load_backend("rf", cfg=cfg,
+                                                model_file=rf_model),
     }
     with pytest.raises(ConfigError, match="--device cpu"):
         calls[entry]()
 
 
 def test_cli_without_cuda_exits_17(no_cuda, jax_ckpt):
-    rc = cli.main(["serve", "--checkpoint", jax_ckpt, "--smoke", "2",
-                   *TINY])
+    rc = cli.main(["serve", "--model-type", "lstm", "--checkpoint", jax_ckpt,
+                   "--smoke", "2", *TINY])
     assert rc == 17
 
 
@@ -213,11 +234,11 @@ def test_cli_serves_jax_checkpoint_on_cpu(jax_ckpt):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["serve.scheduler=continuous"], 17),
+    (["--model-type", "lstm", "serve.scheduler=continuous"], 17),
     # the sequence family serves bf16; the row families refuse it by name
-    (["serve.precision=bf16"], 0),
-    (["serve.precision=fp8"], 17),
-    (["serve.no_such_field=1"], 2),
+    (["--model-type", "lstm", "serve.precision=bf16"], 0),
+    (["--model-type", "lstm", "serve.precision=fp8"], 17),
+    (["--model-type", "lstm", "serve.no_such_field=1"], 2),
     (["--model-type", "wide_deep", "serve.precision=bf16"], 17),
 ])
 def test_cli_exit_codes(jax_ckpt, argv, rc):
@@ -226,5 +247,19 @@ def test_cli_exit_codes(jax_ckpt, argv, rc):
 
 
 def test_cli_without_smoke_is_a_serve_error(jax_ckpt):
-    assert cli.main(["serve", "--checkpoint", jax_ckpt, "--device", "cpu",
-                     *TINY]) == 16
+    assert cli.main(["serve", "--model-type", "lstm", "--checkpoint",
+                     jax_ckpt, "--device", "cpu", *TINY]) == 16
+
+
+@pytest.mark.parametrize("extra,rc", [([], 16),
+                                      (["serve.precision=bf16"], 17)],
+                         ids=["no_model_file", "bf16"])
+def test_serve_default_family_exits_as_the_jax_cli(monkeypatch, extra, rc):
+    """serve's default family is gbt in both CLIs: without --model-file
+    it is a ServeError (16), and at bf16 a ConfigError (17) first. The
+    JAX CLI's compile-cache set-up is stubbed out (it would write into the
+    working directory); its exit code is what is compared."""
+    monkeypatch.setattr("euromillioner_tpu.utils.compile_cache.enable",
+                        lambda *a, **k: None)
+    argv = ["serve", "--checkpoint", "/nonexistent", "--smoke", "2", *extra]
+    assert cli.main(argv) == jax_cli.main(argv) == rc

@@ -154,8 +154,25 @@ def test_fused_profile_has_no_wide_deep_envelope(backend):
 
 @pytest.mark.parametrize("family", ["gbt", "rf", "mlp", "classic"])
 def test_other_families_refused_by_name(family):
-    with pytest.raises(ConfigError, match=f"{family} is not ported"):
-        load_backend(family, "unused", Config(), device="cpu")
+    """mlp and classic are not ported; the tree families are, but not
+    their chunked dispatch (serve.trees.chunk > 0), refused before the
+    model file is read."""
+    cfg, match = Config(), f"{family} is not ported"
+    if family in ("gbt", "rf"):
+        cfg = apply_overrides(cfg, ["serve.trees.chunk=4"])
+        match = "serve.trees.chunk=4 .* is not ported"
+    with pytest.raises(ConfigError, match=match):
+        load_backend(family, "unused", cfg, device="cpu",
+                     model_file="unused")
+
+
+@pytest.mark.parametrize("knob", ["serve.trees.chunk_threshold=16",
+                                  "serve.trees.approx_mean=true"])
+def test_chunked_dispatch_knobs_are_not_accepted(knob):
+    """The chunked dispatch's other knobs are not ported with it: they
+    are unknown fields, never accepted and ignored."""
+    with pytest.raises(ValueError, match="unknown field"):
+        apply_overrides(Config(), [knob])
 
 
 def test_lstm_and_unknown_families_are_serve_errors():
