@@ -6,7 +6,8 @@ Phases, each reported on its own lines:
 
 1. device — the card's name, power limit and clocks;
 2. build — every hand-written kernel, from the checkout's sources, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together, with each kernel's
+   registers, static shared memory and spills (``nvcc -Xptxas -v``);
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (K1: the serving buckets and the training
    batch; K2: the training batches, with K1's residuals; then the K1+K2
@@ -52,9 +53,15 @@ Phases, each reported on its own lines:
    share, a ``torch.profiler`` window and the peak memory;
 7d. one bf16 training step at B=64 on the card against the CPU;
 8. K3, the GBT histogram, against its plain version at the GBT paths'
-   level shapes (errors relative to each cell's sum of magnitudes, three
-   reruns bit-identical), then its times beside the plain version's, two
-   ``torch.bincount`` calls' and the card's bound;
+   level shapes and at levels of depth 14 and 15 (errors relative to each
+   cell's sum of magnitudes, three reruns bit-identical) and against
+   float64 sums at two skewed shapes (90% of the rows in one node and four
+   bins, hessians from 1e-8 to 0.25), each with its launch plan and shared
+   memory; then its times beside the earlier node-tiled design's
+   (constants from PERF.md), the plain version's, two ``torch.bincount``
+   calls' and the card's bound, at the scaled GBT's deepest level also
+   with the L2 flushed between launches, and at two shapes beside another
+   plan (another way to add, K3_WAYS);
 9. reference — ``reference --html-file tests/golden/euromillions.html``
    through the CLI at the full 500 rounds: exit 0, the printed boolean,
    K3 launched exactly 2 boosters x 500 rounds x 4 levels times (counts
@@ -66,7 +73,10 @@ Phases, each reported on its own lines:
    tree structure, or a shown near-tie;
 11. scaled GBT — bench.py's GBT_SCALED recipe (200k x 28, depth 6, 60
    rounds) on the card: K3 launched exactly 60 x 7 times, rounds/s, K3's
-   share of the wall time; its first 5 trees against the CPU's;
+   share of the wall time (from phase 8's per-level times and from CUDA
+   events around its launches in one more run, beside the earlier
+   design's share from PERF.md); its
+   first 5 trees against the CPU's;
 12. ``fetch``, ``train --model gbt --save`` and ``predict --model-type gbt``
    through the CLI: the CLI's predictions bit-equal to Booster.predict;
 13. K4a and K4b, the Wide&Deep one-hot contraction, against their plain
@@ -99,14 +109,18 @@ Phases, each reported on its own lines:
    full), for the class pairs (20 sets) and the y-moments (40 sets): class
    counts bit-equal to the plain version, moments within K3_TOL of each
    cell's scale, each set bit-identical to a one-set launch, three reruns
-   bit-identical; then times beside the plain version's, a weighted
-   ``torch.bincount`` yardstick's and the bound;
+   bit-identical; the same at the skewed shapes, four sets each, against
+   float64 sums; then times beside the earlier design's (from PERF.md),
+   the plain version's, a weighted ``torch.bincount`` yardstick's and the
+   bound, at level 8 also with the L2 flushed between launches, and for
+   the class pairs at levels 4 and 8 beside another plan (K3_SETS_WAYS);
 19. the RF_SHAPE classifier on the card: exactly 9 set-form K3 launches
    per forest under ``hist_method=auto`` and 8 under ``pallas`` (counts
    reset just before each forest, read just after), trees/s (median of 3
    after 1 untimed), the wall time's host binning, host draws and K3
-   shares; its trees bit-equal to the same seed's CPU forest (the tree
-   count cut for that comparison when the CPU would take over a minute),
+   shares (K3's beside the earlier design's from PERF.md); its trees
+   bit-equal to the same seed's CPU forest (the tree count cut for that
+   comparison when the CPU would take over a minute),
    auto's reachable trees bit-equal to pallas's, and the card forest's
    predictions bit-equal to the same trees predicted on the CPU;
 20. the regressor at the same shape: launches, trees/s, and each tree
@@ -214,15 +228,59 @@ LSTM_BENCH = {"batch": 2048, "warmup": 2, "steps": 10}
 LSTM_BF16_STEP_TOL = {"loss": 1e-5, "grad": 3e-2}
 # K3 at the GBT paths' level shapes: the reference pipeline's levels
 # (1193 rows x 10 features, 44 bins, 1-8 nodes), the scaled GBT's levels
-# (200k x 28, 256 bins, 1-64 nodes) and one bin count above 256; timed at
-# the scaled GBT's deepest level
+# (200k x 28, 256 bins, 1-64 nodes), one bin count above 256, a depth-8
+# GBT's deepest level, whose tile of 128 nodes x 256 bins is cut into two
+# bin tiles, a depth-14 level (one-bin tiles) and a depth-15 level with 32
+# bins (node tiles); timed at the scaled GBT's deepest level
 K3_SHAPES = tuple((1193, 10, 44, 1 << d) for d in range(4)) + tuple(
-    (200_000, 28, 256, 1 << d) for d in range(7)) + ((50_000, 8, 300, 4),)
+    (200_000, 28, 256, 1 << d) for d in range(7)) + (
+    (50_000, 8, 300, 4), (50_000, 8, 256, 128), (50_000, 8, 256, 1 << 14),
+    (50_000, 8, 32, 1 << 15))
 K3_TIMED_SHAPE = (200_000, 28, 256, 64)
+# K3 where the scaled GBT's rows pile up: at its widths, 90% of the rows in
+# one node and in four bins of every feature, and the hessians of
+# saturated logistic rows, p (1 - p) for margins spread over +-18.4, so
+# from 1e-8 to 0.25; at the shallowest and the deepest level
+K3_SKEWED_SHAPES = ((200_000, 28, 256, 1), (200_000, 28, 256, 64))
+# The earlier K3 design's times (node tiles re-reading the rows, four warp
+# copies per block), ms per launch on an H100 80GB HBM3 at 700 W, as PERF.md
+# §6 records them: constants, printed beside this run's times and never
+# measured here
+NODE_TILED_K3_MS = {
+    "1193x10x44x1": 0.0486, "1193x10x44x2": 0.0427, "1193x10x44x4": 0.0411,
+    "1193x10x44x8": 0.0485, "200000x28x256x1": 0.1242,
+    "200000x28x256x2": 0.1300, "200000x28x256x4": 0.1404,
+    "200000x28x256x8": 0.2266, "200000x28x256x16": 0.5141,
+    "200000x28x256x32": 0.7493, "200000x28x256x64": 1.1871,
+    "50000x8x300x4": 0.0551}
+NODE_TILED_K3_SETS_MS = {
+    "classes_0": 0.4747, "classes_4": 0.5726, "classes_7": 1.4009,
+    "classes_8": 5.2103, "moments_0": 0.9052, "moments_4": 1.0919,
+    "moments_7": 2.8472, "moments_8": 10.6632}
+# K3's share of the scaled GBT's wall and of the RF_SHAPE forests' under
+# the earlier design (PERF.md §5): constants, printed beside this run's
+NODE_TILED_SCALED_K3_SHARE = "0.14-0.21"
+NODE_TILED_RF_K3_SHARE = {"RF classifier": "0.029", "RF regressor": "0.054"}
+# K3 under a plan that launch_plan passed over, beside the plan it chose:
+# each of the kernel's three ways to add (lanes on rows with one owner,
+# lanes on rows split among several owners, lanes on features) against
+# another way at a shape of the main paths where both fit a block. The
+# one-set form at the reference pipeline's deepest level and at the scaled
+# GBT's 8-node level; the set form at RF_LEVELS 4 and 8 (class pairs). The
+# values replace the chosen plan's fields.
+K3_WAYS = {(1193, 10, 44, 8): {"copies": 2, "owners": 8},
+           (200_000, 28, 256, 8): {"owners": 1}}
+K3_SETS_WAYS = {4: {"by_feature": 0}, 8: {"by_feature": 1}}
+# bytes written between two launches when a kernel is timed with a cold
+# L2 (50 MB on an H100)
+L2_FLUSH_BYTES = 128 << 20
 # K3 vs its plain version, both f32 on the card: summation order only.
 # Each cell's error is taken relative to the sum of the magnitudes it adds
 # (sum |gw| or sum |hw| over its rows). Measured at most 1.15e-6 on an
-# H100 (200k rows, one node); pinned at ~10x.
+# H100 (200k rows, one node); pinned at ~10x. At K3_SKEWED_SHAPES a cell
+# adds up to 45k rows, and the plain version's own f32 sum (index_add_'s
+# atomics, one long chain per cell) strays by more than this, so there K3
+# is held to the same sums taken in float64, with the same tolerance.
 K3_TOL = 1e-5
 # two packages' or two devices' split gains closer than this (relative)
 # are a near-tie, which f32 summation order may decide either way
@@ -1118,6 +1176,40 @@ def k3_inputs(n: int, f: int, n_bins: int, n_nodes: int, seed: int):
     return [torch.from_numpy(a).cuda() for a in arrays]
 
 
+def k3_skewed_inputs(n: int, f: int, n_bins: int, n_nodes: int, seed: int):
+    """K3_SKEWED_SHAPES' inputs on the card, from numpy: 90% of the rows in
+    node 0 and in bins 0-3 of every feature, the rest uniform; gradients
+    p - y and hessians p (1 - p) of logistic rows with margins uniform on
+    +-18.4 (hessians from 1e-8 to 0.25)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hot = rng.uniform(size=n) < 0.9
+    binned = rng.integers(0, n_bins, size=(n, f))
+    binned[hot] = rng.integers(0, 4, size=(int(hot.sum()), f))
+    local = np.where(hot, 0, rng.integers(0, n_nodes, size=n))
+    p = 1.0 / (1.0 + np.exp(-rng.uniform(-18.4, 18.4, size=n)))
+    y = rng.integers(0, 2, size=n)
+    arrays = (binned.astype(np.int32), local.astype(np.int32),
+              (p - y).astype(np.float32), (p * (1.0 - p)).astype(np.float32))
+    return [torch.from_numpy(a).cuda() for a in arrays]
+
+
+def k3_exact(binned, local, gw, hw, n_bins: int, n_nodes: int):
+    """K3's sums taken in float64 on the card: the plain version's
+    index_add_ over the flat (node, feature, bin) index, on doubles."""
+    n, f = binned.shape
+    flat = (local.long()[:, None] * (f * n_bins)
+            + torch.arange(f, device=binned.device)[None, :] * n_bins
+            + binned.long()).reshape(-1)
+    hists = [torch.zeros(n_nodes * f * n_bins, dtype=torch.float64,
+                         device=binned.device)
+             .index_add_(0, flat, w.double()[:, None].expand(n, f)
+                         .reshape(-1)) for w in (gw, hw)]
+    hist = torch.stack(hists).view(2, n_nodes, f, n_bins)
+    return hist.permute(2, 1, 0, 3).reshape(f, 2 * n_nodes, n_bins)
+
+
 def k3_bound_ms(n: int, f: int, n_bins: int, n_nodes: int
                 ) -> tuple[float, float]:
     """(bytes ms, operations ms): binned, local, gw and hw read once and
@@ -1128,41 +1220,119 @@ def k3_bound_ms(n: int, f: int, n_bins: int, n_nodes: int
             2 * n * f / PEAK_FP32_FLOPS * 1e3)
 
 
+def time_cold_ms(fn, runs: int = 10) -> float:
+    """Median milliseconds of ``fn`` on the card with a cold L2:
+    L2_FLUSH_BYTES written before each run, outside its CUDA events."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    times = []
+    for _ in range(runs):
+        flush.fill_(1.0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def k3_plan_line(n: int, f: int, n_bins: int, n_nodes: int,
+                 sets: int = 1) -> str:
+    """K3's launch plan at a shape and its shared memory per block of 16
+    warps."""
+    from euromillioner_tpu_torch.ops import fused_histogram as K
+
+    plan = K.launch_plan(n, f, n_bins, n_nodes, sets)
+    return f"{plan}, {K.smem_bytes(plan)} B shared per block of 16 warps"
+
+
+def k3_way(plan) -> str:
+    """How a K3 plan's warps add their rows."""
+    if plan.by_feature:
+        return f"lanes on features ({plan.features} features a block)"
+    if plan.owners == 1:
+        return f"lanes on rows, one owner ({plan.copies} copies)"
+    return f"lanes on rows split among {plan.owners} owners"
+
+
+def k3_ways_line(what: str, run, plan, alt, ok) -> bool:
+    """Times ``run(plan)`` and ``run(alt)`` (K3 under the chosen plan and
+    under another) and prints both; ``ok`` holds the other plan's result
+    to the chosen plan's check. Returns ``ok``'s verdict."""
+    ms = time_ms(lambda: run(plan))
+    alt_ms = time_ms(lambda: run(alt))
+    good = ok(run(alt))
+    print(f"K3 ways at {what}: {k3_way(plan)}, chosen, {ms:.4f} ms; "
+          f"{k3_way(alt)} {alt_ms:.4f} ms ({alt_ms / ms:.2f}x the chosen); "
+          f"{alt}: its sums pass the chosen plan's check {good}")
+    return good
+
+
+def versus(ms: float, earlier_ms, library_ms: float, bound_ms: float) -> str:
+    """A timed shape's kernel time beside the earlier design's (a constant
+    from PERF.md), the bincount yardstick's and the bound."""
+    earlier = ("node-tiled design not timed" if earlier_ms is None
+               else f"node-tiled design {earlier_ms:.4f} ms in PERF.md "
+               f"({earlier_ms / ms:.2f}x this run)")
+    return (f"{earlier}; bincount x2 / kernel {library_ms / ms:.2f}; bound "
+            f"share {bound_ms / ms:.4f}")
+
+
 def phase_k3() -> dict:
-    """K3 against its plain version at the GBT paths' level shapes, three
-    reruns bit-identical; then times and bounds."""
+    """K3 against its plain version at the GBT paths' level shapes, and
+    against float64 sums at the skewed shapes; three reruns bit-identical;
+    then times beside the earlier design's, the bincount yardstick's and
+    the bounds."""
     from euromillioner_tpu_torch.ops import fused_histogram as K
 
     worst_rel = worst_abs = 0.0
     failures = []
-    for seed, (n, f, n_bins, n_nodes) in enumerate(K3_SHAPES):
-        binned, local, gw, hw = k3_inputs(n, f, n_bins, n_nodes, seed)
-        want = K.fused_histogram_reference(binned, local, gw, hw, n_bins,
-                                           n_nodes)
+    shapes = [(s, False) for s in K3_SHAPES] + [
+        (s, True) for s in K3_SKEWED_SHAPES]
+    for seed, ((n, f, n_bins, n_nodes), skewed) in enumerate(shapes):
+        make = k3_skewed_inputs if skewed else k3_inputs
+        binned, local, gw, hw = make(n, f, n_bins, n_nodes, seed)
+        plain = K.fused_histogram_reference(binned, local, gw, hw, n_bins,
+                                            n_nodes)
+        want = (k3_exact(binned, local, gw, hw, n_bins, n_nodes) if skewed
+                else plain.double())
         # each cell's scale: the sum of the magnitudes it adds up
-        scale = K.fused_histogram_reference(binned, local, gw.abs(),
-                                            hw.abs(), n_bins, n_nodes)
+        scale = k3_exact(binned, local, gw.abs(), hw.abs(), n_bins,
+                         n_nodes).clamp_min(1e-30)
         torch.cuda.synchronize()
         runs = [K.fused_histogram(binned, local, gw, hw, n_bins, n_nodes)
                 for _ in range(3)]
         torch.cuda.synchronize()
-        err = (runs[0].double() - want.double()).abs()
-        rel = (err / scale.double().clamp_min(1e-30)).max().item()
+        err = (runs[0].double() - want).abs()
+        rel = (err / scale).max().item()
         same = all(torch.equal(runs[0], r) for r in runs[1:])
-        print(f"K3 N={n} F={f} bins={n_bins} nodes={n_nodes}: max_abs="
+        what = "float64 sums" if skewed else "plain"
+        extra = ""
+        if skewed:
+            plain_rel = ((plain.double() - want).abs() / scale).max().item()
+            extra = (f", the f32 plain version's own rel_to_cell_scale "
+                     f"{plain_rel:.3e}")
+        print(f"K3 N={n} F={f} bins={n_bins} nodes={n_nodes}"
+              f"{' skewed' if skewed else ''}: vs {what} max_abs="
               f"{err.max().item():.3e} rel_to_cell_scale={rel:.3e} (tol "
-              f"{K3_TOL:.0e}), bit-identical reruns {same}, plan "
-              f"{K.launch_plan(n, f, n_bins, n_nodes)}")
+              f"{K3_TOL:.0e}){extra}, bit-identical reruns {same}; "
+              f"{k3_plan_line(n, f, n_bins, n_nodes)}")
         if rel > K3_TOL or not same:
-            failures.append(f"K3 at {(n, f, n_bins, n_nodes)}: rel {rel:.3e}"
+            failures.append(f"K3 at {(n, f, n_bins, n_nodes)}"
+                            f"{' skewed' if skewed else ''}: rel {rel:.3e}"
                             f", reruns equal {same}")
         worst_rel = max(worst_rel, rel)
         worst_abs = max(worst_abs, err.max().item())
+        del plain, want, scale, runs, err
     check(not failures, "; ".join(failures))
 
     timed = {}
-    for n, f, n_bins, n_nodes in K3_SHAPES:
-        binned, local, gw, hw = k3_inputs(n, f, n_bins, n_nodes, 0)
+    for seed, ((n, f, n_bins, n_nodes), skewed) in enumerate(shapes):
+        make = k3_skewed_inputs if skewed else k3_inputs
+        binned, local, gw, hw = make(n, f, n_bins, n_nodes,
+                                     seed if skewed else 0)
         ms = time_ms(lambda: K.fused_histogram(binned, local, gw, hw, n_bins,
                                                n_nodes))
         plain_ms = time_ms(lambda: K.fused_histogram_reference(
@@ -1179,13 +1349,41 @@ def phase_k3() -> dict:
             torch.bincount(flat, weights=wg, minlength=size),
             torch.bincount(flat, weights=wh, minlength=size)))
         bytes_ms, ops_ms = k3_bound_ms(n, f, n_bins, n_nodes)
-        timed[n, f, n_bins, n_nodes] = (ms, plain_ms, library_ms, bytes_ms,
-                                        ops_ms)
-        print(f"K3 timing N={n} F={f} bins={n_bins} nodes={n_nodes}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bincount x2 "
-              f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-              f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})")
-    ms, plain_ms, library_ms, bytes_ms, ops_ms = timed[K3_TIMED_SHAPE]
+        bound = max(bytes_ms, ops_ms)
+        key = "x".join(map(str, (n, f, n_bins, n_nodes)))
+        if skewed:
+            key += "_skewed"
+        timed[key] = (ms, plain_ms, library_ms, bytes_ms, ops_ms)
+        print(f"K3 timing N={n} F={f} bins={n_bins} nodes={n_nodes}"
+              f"{' skewed' if skewed else ''}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bincount x2 {library_ms:.4f} ms, bound "
+              f"{bound:.4f} ms (bytes {bytes_ms:.4f}, operations "
+              f"{ops_ms:.4f}); "
+              f"{versus(ms, NODE_TILED_K3_MS.get(key), library_ms, bound)}")
+        if (n, f, n_bins, n_nodes) == K3_TIMED_SHAPE and not skewed:
+            cold_ms = time_cold_ms(lambda: K.fused_histogram(
+                binned, local, gw, hw, n_bins, n_nodes))
+            print(f"K3 timing at {key} with L2 flushed "
+                  f"({L2_FLUSH_BYTES >> 20} MB written between launches): "
+                  f"kernel {cold_ms:.4f} ms (warm {ms:.4f} ms)")
+        del flat, wg, wh
+    for (n, f, n_bins, n_nodes), fields in K3_WAYS.items():
+        binned, local, gw, hw = k3_inputs(n, f, n_bins, n_nodes, 0)
+        plain = K.fused_histogram_reference(binned, local, gw, hw, n_bins,
+                                            n_nodes).double()
+        scale = k3_exact(binned, local, gw.abs(), hw.abs(), n_bins,
+                         n_nodes).clamp_min(1e-30)
+        plan = K.launch_plan(n, f, n_bins, n_nodes)
+        good = k3_ways_line(
+            f"N={n} F={f} bins={n_bins} nodes={n_nodes}",
+            lambda p: K.fused_histogram(binned, local, gw, hw, n_bins,
+                                        n_nodes, plan=p),
+            plan, plan._replace(**fields),
+            lambda out: ((out.double() - plain).abs() / scale).max().item()
+            <= K3_TOL)
+        check(good, f"K3 under {fields} at {(n, f, n_bins, n_nodes)}")
+    key = "x".join(map(str, K3_TIMED_SHAPE))
+    ms, plain_ms, library_ms, bytes_ms, ops_ms = timed[key]
     return {"name": "fused_histogram", "route": "cuda",
             "source": "euromillioner_tpu_torch/csrc/fused_histogram.cu",
             "replaces": "euromillioner_tpu/ops/fused_histogram.py:140",
@@ -1193,10 +1391,9 @@ def phase_k3() -> dict:
             "max_rel_to_cell_scale": worst_rel, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": library_ms,
+            "library_ms": library_ms, "cold_ms": cold_ms,
             "timed_shape": list(K3_TIMED_SHAPE),
-            "ms_by_shape": {"x".join(map(str, k)): v[0]
-                            for k, v in timed.items()}}
+            "ms_by_shape": {k: v[0] for k, v in timed.items()}}
 
 
 def tree_structure(trees, r: int):
@@ -1415,15 +1612,21 @@ def phase_scaled(k3_ms_by_shape: dict) -> int:
     launches = FUSED_HISTOGRAM.launches
     want = rounds * (depth + 1)
     # K3's share: the per-level kernel times measured in the K3 phase at
-    # these shapes, times the rounds, over the wall time
+    # these shapes, times the rounds, over the wall time; and CUDA events
+    # around each K3 launch of one more run
     n, f = SCALED["rows"], SCALED["features"]
     k3_s = rounds * sum(k3_ms_by_shape[f"{n}x{f}x256x{1 << d}"]
                         for d in range(depth + 1)) / 1e3
+    k3_events_s = kernel_ms(FUSED_HISTOGRAM, lambda: train(
+        dict(params, device="cuda"), dtrain, rounds,
+        verbose_eval=False)) / 1e3
     print(f"scaled GBT ({n} x {f}, depth {depth}, {rounds} rounds) on the "
           f"card: wall {wall:.3f} s, {rounds / wall:.2f} rounds/s; K3 "
           f"launches {launches} (expected {rounds} x {depth + 1} = {want}); "
-          f"K3 share of wall (from the K3 phase's per-level times) "
-          f"{k3_s / wall:.3f}")
+          f"K3 share of wall {k3_s / wall:.3f} from the K3 phase's "
+          f"per-level times, {k3_events_s / wall:.3f} from CUDA events "
+          f"around its launches in one more run ({k3_events_s:.4f} s; the "
+          f"node-tiled design's in PERF.md: {NODE_TILED_SCALED_K3_SHARE})")
     check(launches == want, f"K3 launched {launches} times, expected {want}")
     cpu = train(dict(params, device="cpu"), dtrain, SCALED_CPU_ROUNDS,
                 verbose_eval=False)
@@ -1537,7 +1740,7 @@ def phase_k3_sets() -> tuple[dict, dict]:
     y_cls = torch.from_numpy(y_cls).int().cuda()
     y = torch.from_numpy(y).cuda()
     n, f = binned.shape
-    failures, entries = [], {}
+    failures, entries, cold = [], {}, {}
     for form, line, name in (("classes", 95, "rf_class_histograms"),
                              ("moments", 183, "rf_reg_histograms")):
         worst_abs = worst_rel = 0.0
@@ -1565,8 +1768,8 @@ def phase_k3_sets() -> tuple[dict, dict]:
                   f"{sets} sets): max_abs={err.max().item():.3e} "
                   f"rel_to_cell_scale={rel:.3e} bit-equal to plain {exact}, "
                   f"each set bit-identical to a one-set launch {per_set}, "
-                  f"bit-identical reruns {reruns}, plan "
-                  f"{K.launch_plan(n, f, n_bins, nodes)}")
+                  f"bit-identical reruns {reruns}; "
+                  f"{k3_plan_line(n, f, n_bins, nodes, sets)}")
             if not ok:
                 failures.append(f"K3 sets {form} level {level}")
             worst_abs = max(worst_abs, err.max().item())
@@ -1592,12 +1795,35 @@ def phase_k3_sets() -> tuple[dict, dict]:
                 warmup=1, runs=5)
             del flat, wg, wh
             bytes_ms, ops_ms = k3_sets_bound_ms(n, f, n_bins, nodes, sets)
+            bound = max(bytes_ms, ops_ms)
+            earlier_ms = NODE_TILED_K3_SETS_MS.get(f"{form}_{level}")
             timed[level] = (ms, plain_ms, library_ms, bytes_ms, ops_ms, sets)
             print(f"K3 sets timing {form} level {level} ({nodes} nodes, "
                   f"{sets} sets): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
                   f"ms, bincount x2 {library_ms:.4f} ms, bound "
-                  f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
-                  f"operations {ops_ms:.4f})")
+                  f"{bound:.4f} ms (bytes {bytes_ms:.4f}, operations "
+                  f"{ops_ms:.4f}); "
+                  f"{versus(ms, earlier_ms, library_ms, bound)}")
+            if level == RF_LEVELS[-1][0]:
+                cold[form] = time_cold_ms(lambda: K.fused_histogram_sets(
+                    binned, local, gw, hw, n_bins, nodes))
+                print(f"K3 sets timing {form} level {level} with L2 flushed "
+                      f"({L2_FLUSH_BYTES >> 20} MB written between "
+                      f"launches): kernel {cold[form]:.4f} ms (warm "
+                      f"{ms:.4f} ms)")
+            if form == "classes" and level in K3_SETS_WAYS:
+                plan = K.launch_plan(n, f, n_bins, nodes, sets)
+                want = K.fused_histogram_sets_reference(
+                    binned, local, gw, hw, n_bins, nodes)
+                if not k3_ways_line(
+                        f"{form} level {level} ({nodes} nodes, {sets} sets)",
+                        lambda p: K.fused_histogram_sets(
+                            binned, local, gw, hw, n_bins, nodes, plan=p),
+                        plan, plan._replace(**K3_SETS_WAYS[level]),
+                        lambda out: torch.equal(out, want)):
+                    failures.append(f"K3 sets {form} level {level} under "
+                                    f"{K3_SETS_WAYS[level]}")
+                del want
             torch.cuda.empty_cache()
         deepest, deepest_nodes = RF_LEVELS[-1][:2]
         ms, plain_ms, library_ms, bytes_ms, ops_ms, sets = timed[deepest]
@@ -1609,19 +1835,56 @@ def phase_k3_sets() -> tuple[dict, dict]:
             "max_rel_to_cell_scale": worst_rel, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": library_ms,
+            "library_ms": library_ms, "cold_ms": cold[form],
             "timed_shape": [n, f, n_bins, deepest_nodes, sets],
             "ms_by_level": {str(k): v[0] for k, v in timed.items()}}
+    failures += k3_sets_skewed()
     check(not failures, "; ".join(failures))
     return entries["classes"], entries["moments"]
 
 
-def k3_sets_ms(run) -> float:
-    """Runs ``run`` with CUDA events around every set-form K3 launch (on
-    the launching stream); returns the kernel milliseconds summed."""
-    from euromillioner_tpu_torch.ops.fused_histogram import \
-        FUSED_HISTOGRAM_SETS as K
+def k3_sets_skewed(sets: int = 4) -> list[str]:
+    """The set form at K3_SKEWED_SHAPES, each set drawn apart: within
+    K3_TOL of each cell's scale from the float64 sums, each set
+    bit-identical to a one-set launch, three reruns bit-identical. Returns
+    the failures."""
+    from euromillioner_tpu_torch.ops import fused_histogram as K
 
+    failures = []
+    for n, f, n_bins, n_nodes in K3_SKEWED_SHAPES:
+        draws = [k3_skewed_inputs(n, f, n_bins, n_nodes, 100 + s)
+                 for s in range(sets)]
+        binned = draws[0][0]
+        local, gw, hw = (torch.stack([d[i] for d in draws])
+                         for i in (1, 2, 3))
+        del draws
+        runs = [K.fused_histogram_sets(binned, local, gw, hw, n_bins,
+                                       n_nodes) for _ in range(3)]
+        reruns = all(torch.equal(runs[0], r) for r in runs[1:])
+        per_set = all(torch.equal(runs[0][s], K.fused_histogram(
+            binned, local[s], gw[s], hw[s], n_bins, n_nodes))
+            for s in range(sets))
+        rel = max(((runs[0][s].double() - k3_exact(
+            binned, local[s], gw[s], hw[s], n_bins, n_nodes)).abs()
+            / k3_exact(binned, local[s], gw[s].abs(), hw[s].abs(), n_bins,
+                       n_nodes).clamp_min(1e-30)).max().item()
+            for s in range(sets))
+        print(f"K3 sets skewed N={n} F={f} bins={n_bins} nodes={n_nodes} "
+              f"({sets} sets): vs float64 sums rel_to_cell_scale={rel:.3e} "
+              f"(tol {K3_TOL:.0e}), each set bit-identical to a one-set "
+              f"launch {per_set}, bit-identical reruns {reruns}; "
+              f"{k3_plan_line(n, f, n_bins, n_nodes, sets)}")
+        if rel > K3_TOL or not (reruns and per_set):
+            failures.append(f"K3 sets skewed at {(n, f, n_bins, n_nodes)}")
+        del runs, local, gw, hw
+        torch.cuda.empty_cache()
+    return failures
+
+
+def kernel_ms(K, run) -> float:
+    """Runs ``run`` with CUDA events around every launch of kernel ``K``
+    (a ``CudaKernel``, on the launching stream); returns the kernel
+    milliseconds summed."""
     events = []
     launch = K.launch
 
@@ -1718,13 +1981,17 @@ def rf_breakdown(classification: bool, x, y, wall: float, what: str) -> None:
     rf.draw_forest(RF_SEED, RF_SHAPE["trees"], len(x), x.shape[1], m,
                    RF_SHAPE["max_depth"], True)
     t2 = time.perf_counter()
-    k3_ms = k3_sets_ms(lambda: grow_forest(classification, x, y,
-                                           RF_SHAPE["trees"], "cuda"))
+    from euromillioner_tpu_torch.ops.fused_histogram import \
+        FUSED_HISTOGRAM_SETS
+
+    k3_ms = kernel_ms(FUSED_HISTOGRAM_SETS, lambda: grow_forest(
+        classification, x, y, RF_SHAPE["trees"], "cuda"))
     print(f"{what} wall {wall:.4f} s: host binning {t1 - t0:.4f} s "
           f"({(t1 - t0) / wall:.3f}), host draws {t2 - t1:.4f} s "
           f"({(t2 - t1) / wall:.3f}), K3 {k3_ms:.3f} ms "
-          f"({k3_ms / 1e3 / wall:.3f}); the rest is split finding, routing "
-          f"and their launches")
+          f"({k3_ms / 1e3 / wall:.3f}; the node-tiled design's in PERF.md: "
+          f"{NODE_TILED_RF_K3_SHARE[what]}); the "
+          f"rest is split finding, routing and their launches")
 
 
 def phase_rf_classifier() -> dict:
@@ -2507,8 +2774,11 @@ def main() -> int:
             seconds = list(pool.map(lambda k: k.build(), kernels))
         for kernel, secs in zip(kernels, seconds):
             print(f"build: {kernel.source} in {secs:.2f} s (parallel)")
+            # nvcc -Xptxas -v: each kernel's name, then its registers,
+            # static shared memory and spills
             for ln in kernel.build_log.splitlines():
-                if "registers" in ln or "spill" in ln:
+                if any(w in ln for w in ("entry function", "registers",
+                                         "spill")):
                     print(f"build: {kernel.source}: {ln.strip()}")
         # the bf16 entry points and K3's set form load the libraries the
         # builds above made

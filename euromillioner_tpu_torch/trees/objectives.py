@@ -9,6 +9,7 @@ transform from margin to prediction.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -33,6 +34,37 @@ def _logistic_grad_hess(margin, y):
     return p - y, torch.clamp_min(p * (1.0 - p), 1e-16)
 
 
+# exp(r) for |r| <= ln 2 / 2 by its Taylor polynomial of degree 11 (error
+# below 1e-14 relative); ln 2 split in two so that k * _LN2_HI is exact
+_EXP_TAYLOR = tuple(1.0 / math.factorial(i) for i in range(12))
+_LN2_HI = 6.93147180369123816490e-01
+_LN2_LO = 1.90821492927058770002e-10
+
+
+def _sigmoid(margin):
+    """1 / (1 + exp(-m)) in float32, bit for bit the same for an element
+    wherever it sits in the batch and whatever the batch length. On the
+    CPU ``torch.sigmoid`` rounds its vectorised loop and its scalar tail
+    differently, so a served row (padded to its bucket) could differ by an
+    ulp from ``predict`` of the same row. There exp(-m) is taken in float64
+    from operations that every code path rounds exactly (+, -, *, rint and
+    a power of two built from bits): 2^k exp(r) with k = rint(-m / ln 2),
+    rounded once to float32; then 1 / (1 + e) in float32, the formula of
+    ``torch.sigmoid``'s scalar path. A CUDA kernel computes every element
+    alike, so on the card ``torch.sigmoid`` stays."""
+    if margin.device.type != "cpu":
+        return torch.sigmoid(margin)
+    x = (-margin.to(torch.float64)).clamp(-700.0, 700.0)
+    k = torch.round(x * (1.0 / math.log(2.0)))
+    r = (x - k * _LN2_HI) - k * _LN2_LO
+    e = torch.full_like(r, _EXP_TAYLOR[-1])
+    for c in reversed(_EXP_TAYLOR[:-1]):
+        e = e * r + c
+    e = (e * ((k.to(torch.int64) + 1023) << 52).view(torch.float64)).to(
+        margin.dtype)
+    return torch.where(torch.isnan(margin), margin, 1.0 / (1.0 + e))
+
+
 def _squared_grad_hess(margin, y):
     return margin - y, torch.ones_like(margin)
 
@@ -48,9 +80,9 @@ def _identity(m):
 
 OBJECTIVES: dict[str, Objective] = {
     "reg:logistic": Objective("reg:logistic", _logistic_grad_hess,
-                              torch.sigmoid, _logit, "rmse"),
+                              _sigmoid, _logit, "rmse"),
     "binary:logistic": Objective("binary:logistic", _logistic_grad_hess,
-                                 torch.sigmoid, _logit, "logloss"),
+                                 _sigmoid, _logit, "logloss"),
     "binary:logitraw": Objective("binary:logitraw", _logistic_grad_hess,
                                  _identity, _logit, "logloss"),
     "reg:squarederror": Objective("reg:squarederror", _squared_grad_hess,

@@ -92,19 +92,173 @@ def test_out_of_range_nodes_and_bins_add_nothing():
     assert hist.sum() == 66.0
 
 
-@pytest.mark.parametrize("n,f,n_bins,n_nodes", [
-    (1193, 10, 44, 1), (1193, 10, 44, 8), (200_000, 28, 256, 1),
-    (200_000, 28, 256, 64), (3000, 4, 300, 4), (10, 3, 5000, 2)])
+# the launch shapes of the main paths: the reference pipeline's levels, the
+# scaled GBT's, the random forest's levels 0-8 (RF_SHAPE) and the CLI
+# forest's deepest, the bin counts above 256, a level cut into bin tiles,
+# levels of depth 14 and 15 (cut into one-bin tiles, and into node tiles),
+# and an empty input
+PLAN_SHAPES = (
+    [(1193, 10, 44, 1 << d) for d in range(4)]
+    + [(200_000, 28, 256, 1 << d) for d in range(7)]
+    + [(100_000, 28, 32, 1 << d) for d in range(9)]
+    + [(1193, 10, 32, 256), (50_000, 8, 300, 4), (50_000, 8, 256, 128),
+       (3000, 4, 300, 4), (10, 3, 5000, 2), (0, 3, 8, 2),
+       (50_000, 8, 256, 1 << 14), (50_000, 8, 32, 1 << 15),
+       (200_000, 28, 256, 1 << 15), (100_000, 28, 32, 1 << 15)])
+PLAN_SETS = (1, 2, 20, 40, 300)
+
+
+@pytest.mark.parametrize("n,f,n_bins,n_nodes", PLAN_SHAPES)
 def test_launch_plan_fits_the_card(n, f, n_bins, n_nodes):
-    """Every block's four warp copies fit the shared-memory budget, every
-    chunk holds at least _MIN_CHUNK_ROWS rows (or all of them), and the
-    grid stays near its target."""
-    chunks, node_tile, bin_tile = port.launch_plan(n, f, n_bins, n_nodes)
-    assert 1 <= node_tile <= n_nodes and 1 <= bin_tile <= n_bins
-    assert 4 * port._WARPS * node_tile * 2 * bin_tile <= port._SMEM_BYTES
-    assert chunks == 1 or -(-n // chunks) >= port._MIN_CHUNK_ROWS
-    tiles = -(-n_nodes // node_tile) * -(-n_bins // bin_tile)
-    assert chunks <= max(1, -(-port._TARGET_BLOCKS // (f * tiles)))
+    """Every block's tiles, staged rows and split fit the 227 KB a block
+    may use, at any set count; the tiles cut the bins and the features
+    into whole tiles and groups; copies x owners divides the warps and
+    fills them when there are several owners; every chunk holds at least
+    _MIN_CHUNK_ROWS rows (or all of them)."""
+    for sets in PLAN_SETS:
+        plan = port.launch_plan(n, f, n_bins, n_nodes, sets)
+        assert port.smem_bytes(plan) <= 227 * 1024
+        assert 1 <= plan.sets <= sets
+        assert plan.rows % 32 == 0 and 32 <= plan.rows <= port._MAX_ROWS
+    plan = port.launch_plan(n, f, n_bins, n_nodes)
+    assert 1 <= plan.bin_tile <= n_bins and 1 <= plan.features <= f
+    assert 1 <= plan.node_tile <= n_nodes
+    # nodes are cut into tiles only where one bin of all of them does not fit
+    assert plan.node_tile == n_nodes or plan.bin_tile == n_bins
+    warps = plan.copies * plan.owners
+    assert port._WARPS % warps == 0
+    assert (plan.owners == 1 and not plan.by_feature) \
+        or warps == port._WARPS
+    assert plan.chunks == 1 or -(-n // plan.chunks) >= port._MIN_CHUNK_ROWS
+
+
+@pytest.mark.parametrize("n,f,n_bins,n_nodes", PLAN_SHAPES)
+def test_launch_plan_gives_each_cell_one_owner(n, f, n_bins, n_nodes):
+    """Walked from the warps' side as the kernel lays them out (warp w is
+    feature slot w % slots of owner w // slots % owners of copy
+    w // (slots * owners); an owner takes the nodes of its node tile whose
+    place in the tile is equal to it modulo owners, or, with one feature in
+    the block and the lanes on rows, the cells whose id ^ (id >> log2
+    owners) is), every (node, bin) cell of every feature of a block has
+    exactly one owner in each copy, for a full and the last feature group,
+    bin tile and node tile; the tiles and feature groups cover each node,
+    bin and feature once."""
+    plan = port.launch_plan(n, f, n_bins, n_nodes)
+    slots = port._WARPS // (plan.copies * plan.owners)
+    shift = plan.owners.bit_length() - 1
+
+    def last(size, tile):
+        return size - (-(-size // tile) - 1) * tile
+
+    for nk in {plan.node_tile, last(n_nodes, plan.node_tile)}:
+        for nb in {plan.bin_tile, last(n_bins, plan.bin_tile)}:
+            node = np.arange(nk)[:, None]
+            cell = node * nb + np.arange(nb)[None, :]
+            for nf in {plan.features, last(f, plan.features)}:
+                by_cell = nf == 1 and not plan.by_feature
+                owner = (cell ^ (cell >> shift) if by_cell
+                         else np.broadcast_to(node, cell.shape)) % plan.owners
+                count = np.zeros((plan.copies, nf, nk, nb), np.int64)
+                for w in range(port._WARPS):
+                    slot, o, c = (w % slots, w // slots % plan.owners,
+                                  w // (slots * plan.owners))
+                    for j in range(slot, nf, slots):
+                        count[c, j] += owner == o
+                assert (count == 1).all()
+    for size, tile in ((n_nodes, plan.node_tile), (n_bins, plan.bin_tile),
+                       (f, plan.features)):
+        covered = np.zeros(size, np.int64)
+        for t0 in range(0, size, tile):
+            covered[t0:t0 + tile] += 1
+        assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("n,f,n_bins,n_nodes", PLAN_SHAPES)
+def test_launch_plan_of_a_set_does_not_depend_on_the_set_count(
+        n, f, n_bins, n_nodes):
+    """The fields that order a set's sums (order_fields: chunks, copies,
+    owners, bin and node tiles, and with several owners the feature group
+    and the staged rows) are the same at any set count, so set s of a
+    launch adds as a one-set launch on its inputs does."""
+    one = port.launch_plan(n, f, n_bins, n_nodes)
+    assert one.sets == 1
+    for sets in PLAN_SETS:
+        plan = port.launch_plan(n, f, n_bins, n_nodes, sets)
+        assert port.order_fields(plan) == port.order_fields(one)
+
+
+class _Launched:
+    """Records a kernel entry point's launch arguments."""
+
+    def __init__(self):
+        self.args = []
+
+    def __call__(self, *args):
+        self.args.append(args)
+
+
+@pytest.mark.parametrize("n,f,n_bins,n_nodes", PLAN_SHAPES)
+def test_set_form_launches_the_one_set_plan(n, f, n_bins, n_nodes,
+                                            monkeypatch):
+    """The two wrappers hand their kernels the same order of sums: the set
+    form's launch carries the one-set launch's order_fields, with its set
+    count and its own plan's sets per block."""
+    one, sets = _Launched(), _Launched()
+    monkeypatch.setattr(port.FUSED_HISTOGRAM, "launch", one)
+    monkeypatch.setattr(port.FUSED_HISTOGRAM_SETS, "launch", sets)
+    monkeypatch.setattr(port.torch, "empty",
+                        lambda shape, **kw: _CudaTensorLike(shape, kw.get(
+                            "dtype", torch.float32)))
+    s = 20
+    port.fused_histogram(_CudaTensorLike((n, f), torch.int32),
+                         _CudaTensorLike((n,), torch.int32),
+                         _CudaTensorLike((n,), torch.float32),
+                         _CudaTensorLike((n,), torch.float32),
+                         n_bins, n_nodes)
+    port.fused_histogram_sets(_CudaTensorLike((n, f), torch.int32),
+                              _CudaTensorLike((s, n), torch.int32),
+                              _CudaTensorLike((s, n), torch.float32),
+                              _CudaTensorLike((s, n), torch.float32),
+                              n_bins, n_nodes)
+    (a,), (b,) = one.args, sets.args
+    assert a[7:11] == (n, f, n_bins, n_nodes) and b[7:12] == (*a[7:11], s)
+    assert port.order_fields(port.Plan(*b[12:21])) \
+        == port.order_fields(port.Plan(*a[11:19], 1))
+    assert tuple(b[12:21]) == tuple(port.launch_plan(n, f, n_bins, n_nodes,
+                                                     s))
+    assert a[19] == b[21] == 0
+
+
+@pytest.mark.parametrize("sets", [0, 3])
+def test_a_given_plan_is_launched(sets, monkeypatch):
+    """A plan handed to the wrapper (to time it against launch_plan's) is
+    the one launched; one that does not fit a block, or has more sets per
+    block than the launch has sets, is refused before any launch."""
+    launched = _Launched()
+    kernel = port.FUSED_HISTOGRAM_SETS if sets else port.FUSED_HISTOGRAM
+    monkeypatch.setattr(kernel, "launch", launched)
+    monkeypatch.setattr(port.torch, "empty",
+                        lambda shape, **kw: _CudaTensorLike(shape, kw.get(
+                            "dtype", torch.float32)))
+    n, f, n_bins, n_nodes = 200_000, 28, 256, 8
+    lead = (sets,) if sets else ()
+    args = (_CudaTensorLike((n, f), torch.int32),
+            _CudaTensorLike(lead + (n,), torch.int32),
+            _CudaTensorLike(lead + (n,), torch.float32),
+            _CudaTensorLike(lead + (n,), torch.float32), n_bins, n_nodes)
+    call = port.fused_histogram_sets if sets else port.fused_histogram
+    plan = port.launch_plan(n, f, n_bins, n_nodes)._replace(owners=1)
+    call(*args, plan=plan)
+    (got,) = launched.args
+    # the one-set entry takes every field but the sets per block
+    fields = tuple(plan) if sets else tuple(plan)[:-1]
+    first = 12 if sets else 11
+    assert tuple(got[first:first + len(fields)]) == fields
+    for bad in (plan._replace(copies=16),
+                plan._replace(sets=max(2, sets + 1))):
+        with pytest.raises(ValueError, match="does not fit"):
+            call(*args, plan=bad)
+    assert len(launched.args) == 1
 
 
 @pytest.mark.parametrize("bad,err", [
@@ -147,6 +301,9 @@ class _CudaTensorLike:
 
     def is_contiguous(self):
         return True
+
+    def data_ptr(self):
+        return 0
 
 
 def test_cuda_tensor_without_a_card_raises():

@@ -182,3 +182,27 @@ def test_lstm_and_unknown_families_are_serve_errors():
         load_backend("nope", "unused", Config(), device="cpu")
     with pytest.raises(ServeError, match="--checkpoint"):
         load_backend("wide_deep", None, Config(), device="cpu")
+
+
+def test_gbt_replies_bit_equal_to_predict_at_any_position():
+    """F5: a reg:logistic booster served on the CPU; a 20-row request padded
+    to the 32-row bucket replies bit-equal to Booster.predict of the same
+    20 rows, so the transform's bits depend on neither a row's position in
+    the batch nor the batch's length."""
+    from euromillioner_tpu_torch.serve.session import GBTBackend
+    from euromillioner_tpu_torch.trees import DMatrix, train
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(400, 8)).astype(np.float32)
+    y = (x @ rng.normal(size=8) + 0.5 * rng.normal(size=400) > 0).astype(
+        np.float32)
+    booster = train({"objective": "reg:logistic", "eta": 0.1,
+                     "max_depth": 6, "device": "cpu"}, DMatrix(x, y), 60,
+                    verbose_eval=False)
+    backend = GBTBackend(booster)
+    rows = x[:20]
+    with InferenceEngine(backend, buckets=(32,), max_wait_ms=2.0) as eng:
+        got = eng.predict(rows)
+    want = booster.predict(DMatrix(rows))
+    assert got.shape == want.shape == (20,)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
