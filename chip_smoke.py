@@ -7,16 +7,25 @@ Phases, each reported on its own lines:
 1. device — the card's name, power limit and clocks;
 2. build — every hand-written kernel, from the checkout's sources, one
    ``nvcc`` per source, all started together, with each kernel's
-   registers, static shared memory and spills (``nvcc -Xptxas -v``);
+   registers, static shared memory and spills (``nvcc -Xptxas -v``); then
+   ``cuobjdump --dump-sass`` of K1's and K2's libraries: every bf16
+   instantiation runs tensor-core instructions (HMMA for ``mma.sync``,
+   HGMMA for K2's ``wgmma`` dwh) and no f32 one does;
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it (K1: the serving buckets and the training
    batch; K2: the training batches, with K1's residuals; then the K1+K2
    Function's gradients against autograd through the scan), then its
-   median time beside the plain version's and the card's bound; then bf16
-   K1 and K2 the same way at the serving buckets (8, 32) and the training
-   batches (64, and bench.py's 2048) at T=64, with three reruns
-   bit-identical, and their times beside the f32 kernels' at B=64 and
-   2048;
+   median time beside the plain version's, the card's bound and the
+   earlier K1/K2 design's time (constants from PERF.md), each timed shape
+   with its launch plan (cluster, tile rows, units per CTA, wh slice
+   resident or streamed, shared memory, and how many of its clusters the
+   card holds at once), K2 also as its two parts (recurrence, dwh) timed
+   apart; then bf16 K1 and K2 the same way at the serving buckets (8, 32)
+   and the training batches (64, and bench.py's 2048) at T=64, with three
+   reruns bit-identical, and their times beside the f32 kernels' at B=64
+   and 2048, K2's dwh beside one ``torch.matmul`` of the same product, and
+   both under the cluster size the plan passed over beside the chosen
+   plan (``LSTM_WAYS``), held to the plain version as well;
 4. serve — the flagship LSTM at full width (hidden 512, 2 layers, 64-step
    windows, 11 features, 7 outputs) with seeded random weights, saved as a
    checkpoint and served through the port's CLI (``serve --smoke 32``)
@@ -149,6 +158,7 @@ import io
 import json
 import logging
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -226,6 +236,34 @@ LSTM_BENCH = {"batch": 2048, "warmup": 2, "steps": 10}
 # are not compared (adam's first step maps a gradient element to about
 # +-lr, so a near-zero element of opposite sign moves its param by 2 lr)
 LSTM_BF16_STEP_TOL = {"loss": 1e-5, "grad": 3e-2}
+# The earlier K1/K2 design's times (8-row CTAs streaming all of wh from L2
+# every step on the FP32 pipe; K2's dwh a 64 x 64-tile SIMT product over
+# all of R in one pass), ms per launch on an H100 80GB HBM3 at 700 W, as
+# PERF.md §6 records them (PRs 1-5): constants, printed beside this run's
+# times and never measured here
+EARLIER_LSTM_MS = {
+    "K1 f32 B=8 T=8": 0.7974, "K1 f32 B=32 T=16": 1.6091,
+    "K1 f32 B=128 T=64": 6.5984, "K1 f32 residuals B=64 T=64": 6.5956,
+    "K1 f32 residuals B=2048 T=64": 15.0163,
+    "K1 bf16 residuals B=64 T=64": 6.1960,
+    "K1 bf16 residuals B=2048 T=64": 12.6553,
+    "K2 f32 B=64 T=64": 8.0236, "K2 f32 B=2048 T=64": 34.1528,
+    "K2 bf16 B=64 T=64": 7.8147, "K2 bf16 B=2048 T=64": 35.4600}
+# K1/K2 under a plan lstm_plan passed over, beside the plan it chose, at
+# bench.py's batch and the training batch in bf16: clusters of 8 CTAs (64
+# units each, 32-row tiles, wh streamed) beside its 16, the size the plan
+# would take where 16 could not be placed or were slower. The values
+# replace the chosen plan's fields.
+LSTM_WAYS = {"K1": {"cluster": 8}, "K2": {"cluster": 8}}
+# the SASS of K1's and K2's libraries: the kernels (by mangled-name
+# fragment) whose bf16 instantiations must run tensor-core instructions
+# (HMMA: mma.sync; HGMMA: wgmma), and those of f32, which must run none
+# (f32 means FP32 FMAs, never TF32)
+SASS_TENSOR_CORES = {"lstm_fwd_kernelI13__nv_bfloat16": "HMMA",
+                     "lstm_bwd_kernelI13__nv_bfloat16": "HMMA",
+                     "dwh_wgmma_kernel": "HGMMA"}
+SASS_F32 = ("lstm_fwd_kernelIf", "lstm_bwd_kernelIf", "dwh_simt_kernel",
+            "dwh_reduce_kernelIf")
 # K3 at the GBT paths' level shapes: the reference pipeline's levels
 # (1193 rows x 10 features, 44 bins, 1-8 nodes), the scaled GBT's levels
 # (200k x 28, 256 bins, 1-64 nodes), one bin count above 256, a depth-8
@@ -402,6 +440,138 @@ def time_ms(fn, warmup: int = 3, runs: int = 20) -> float:
     return statistics.median(times)
 
 
+def earlier(key: str, ms: float) -> str:
+    """This run's time beside the earlier design's (EARLIER_LSTM_MS)."""
+    was = EARLIER_LSTM_MS.get(key)
+    if was is None:
+        return "earlier design not timed"
+    return (f"earlier design {was:.4f} ms in PERF.md ({was / ms:.2f}x this "
+            f"run)")
+
+
+def lstm_plan_line(what: str, dtype, batch: int, steps: int,
+                   backward: bool) -> dict:
+    """Prints the launch plan K1 (or K2) runs at one shape, with how many
+    of its clusters the card holds at once; fails if none can be placed.
+    Returns the plan's fields."""
+    from euromillioner_tpu_torch.ops import fused_lstm as K
+
+    plan = K.lstm_plan(dtype, batch, HIDDEN, steps, backward)
+    active = K.max_active_clusters(dtype, plan, backward)
+    wh = ("resident" if plan.resident else
+          f"streamed ({plan.slots} slots of {plan.ktile} rows)")
+    print(f"{what} plan B={batch} T={steps} H={HIDDEN} "
+          f"{str(dtype).replace('torch.', '')}: cluster {plan.cluster} CTAs "
+          f"x {plan.tiles} batch tiles of {plan.rows} rows, {plan.units} "
+          f"units per CTA, wh slice {wh}, depth splits {plan.splits}, "
+          f"{plan.threads} threads, smem {plan.smem} B per CTA, max active "
+          f"clusters {active}"
+          + (f", dwh split {plan.dwh_split}" if backward else ""))
+    check(active >= 1, f"{what} plan at B={batch} cannot be placed")
+    return {**plan._asdict(), "max_active_clusters": active}
+
+
+def k2_parts_ms(wh, peep, res, g_hs, runs: int) -> dict:
+    """K2's parts timed apart through its C entry point: the recurrence
+    (dxp and dpeep's tile partials) and dwh (the split product and its
+    reduction), each launch counted as any other."""
+    from euromillioner_tpu_torch.ops import fused_lstm as K
+
+    t, b, h = res[0].shape
+    plan = K.lstm_plan(wh.dtype, b, h, t, backward=True)
+    kernel = K._BWD_KERNELS[wh.dtype]
+    dxp, dwh, dpeep = (torch.empty_like(res[2]), torch.empty_like(wh),
+                       torch.empty_like(peep))
+    out = {}
+    for name, parts in (("recurrence", K.BWD_RECURRENCE), ("dwh", K.BWD_DWH)):
+        args, scratch = K._bwd_args(plan, wh, peep, res, g_hs, dxp, dwh,
+                                    dpeep, True, parts)
+        out[name] = time_ms(lambda: kernel.launch(*args), runs=runs)
+        del scratch
+    return out
+
+
+def lstm_ways_lines(x_proj, wh, peep, g_hs, chosen: dict) -> None:
+    """K1 (residuals written) and K2 under the LSTM_WAYS plan beside the
+    chosen plan's times (``chosen``: K1 and K2 ms), each held to the plain
+    version at BF16_KERNEL_TOL as the chosen plan is (K2 on the plain
+    version's residuals, as phase 3's check)."""
+    from euromillioner_tpu_torch.ops import fused_lstm as K
+
+    t, b, four_h = x_proj.shape
+    h = four_h // 4
+    ref = K.lstm_sequence_reference(x_proj, wh, peep, True)
+    ref_b = K.lstm_backward_reference(wh, peep, ref, g_hs, True)
+    failures = []
+    for kern in ("K1", "K2"):
+        backward = kern == "K2"
+        plan = K.lstm_plan(wh.dtype, b, h, t, backward, **LSTM_WAYS[kern])
+        outs = ((torch.empty_like(ref[2]), torch.empty_like(wh),
+                 torch.empty_like(peep)) if backward else
+                tuple(torch.empty_like(r) for r in ref))
+        if backward:
+            args, scratch = K._bwd_args(plan, wh, peep, ref, g_hs, *outs,
+                                        True, K.BWD_ALL)
+            kernel = K._BWD_KERNELS[wh.dtype]
+        else:
+            args = K._fwd_args(plan, x_proj, wh, peep, *outs, True)
+            kernel = K._FWD_KERNELS[wh.dtype]
+        ms = time_ms(lambda: kernel.launch(*args), runs=10)
+        torch.cuda.synchronize()
+        worst = max(max_errors(o, r)[1]
+                    for o, r in zip(outs, ref_b if backward else ref))
+        print(f"{kern} ways bf16 B={b} T={t}: chosen plan (cluster "
+              f"{K.lstm_plan(wh.dtype, b, h, t, backward).cluster}) "
+              f"{chosen[kern]:.4f} ms; cluster {plan.cluster} ({plan.rows}-row "
+              f"tiles, wh {'resident' if plan.resident else 'streamed'}, max "
+              f"active clusters "
+              f"{K.max_active_clusters(wh.dtype, plan, backward)}) "
+              f"{ms:.4f} ms ({ms / chosen[kern]:.2f}x), rel_to_scale "
+              f"{worst:.3e} (tol {BF16_KERNEL_TOL:.2e})")
+        if worst > BF16_KERNEL_TOL:
+            failures.append(f"{kern} under {LSTM_WAYS[kern]}: rel "
+                            f"{worst:.3e}")
+    check(not failures, "; ".join(failures))
+
+
+def phase_sass() -> None:
+    """``cuobjdump --dump-sass`` of K1's and K2's libraries as built: every
+    bf16 instantiation runs tensor-core instructions (HMMA, HGMMA) and no
+    f32 one does."""
+    from euromillioner_tpu_torch.ops import fused_lstm as K
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    ops = {}
+    for kernel in (K.FUSED_LSTM_FWD, K.FUSED_LSTM_BWD):
+        sass = subprocess.run([tool, "--dump-sass", str(kernel.path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        name = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                name = ln.split("Function :")[1].strip()
+                ops[name] = {"HGMMA": 0, "HMMA": 0}
+            elif name is not None:
+                for op in ops[name]:
+                    ops[name][op] += len(re.findall(rf"\b{op}\b", ln))
+    failures = []
+    for frag, op in SASS_TENSOR_CORES.items():
+        found = [n for n in ops if frag in n]
+        for n in found:
+            print(f"sass: {frag}: HGMMA {ops[n]['HGMMA']}, HMMA "
+                  f"{ops[n]['HMMA']} (bf16: {op} expected)")
+        if not found or any(ops[n][op] == 0 for n in found):
+            failures.append(f"{frag} has no {op}")
+    for frag in SASS_F32:
+        found = [n for n in ops if frag in n]
+        for n in found:
+            print(f"sass: {frag}: HGMMA {ops[n]['HGMMA']}, HMMA "
+                  f"{ops[n]['HMMA']} (f32: none allowed)")
+        if not found or any(sum(ops[n].values()) for n in found):
+            failures.append(f"{frag} missing or on the tensor cores")
+    check(not failures, "SASS: " + "; ".join(failures))
+
+
 def k1_inputs(batch: int, steps: int, peepholes: bool):
     """Layer-1 inputs of the flagship model at one (rows, steps) shape:
     x_proj from a real input projection, wh and peepholes as initialised."""
@@ -444,8 +614,10 @@ def phase_k1() -> dict:
                       f"K1 {name} at B={batch} T={steps} differs by "
                       f"{abs_err:.3e} > {K1_TOL:.0e}")
                 worst = max(worst, abs_err)
-    timed = {}
+    timed, plans = {}, {}
     for batch, steps in K1_SHAPES:
+        plans[f"B={batch} T={steps}"] = lstm_plan_line(
+            "K1", torch.float32, batch, steps, False)
         x_proj, wh, peep = k1_inputs(batch, steps, True)
         ms = time_ms(lambda: K.lstm_sequence(x_proj, wh, peep, True))
         plain_ms = time_ms(
@@ -462,10 +634,13 @@ def phase_k1() -> dict:
         print(f"K1 timing B={batch} T={steps} H={HIDDEN} f32: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{max(bytes_ms, ops_ms):.4f} ms ({flops / 1e9:.3f} GFLOP -> "
-              f"{ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms)")
+              f"{ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} "
+              f"ms); {earlier(f'K1 f32 B={batch} T={steps}', ms)}")
     # with residuals (cs and gates written too) at the training shape:
     # the bytes add cs (T*B*H) and gates (T*B*4H) written once
     batch, steps = K1_TRAIN_SHAPE
+    plans[f"B={batch} T={steps}"] = lstm_plan_line(
+        "K1", torch.float32, batch, steps, False)
     x_proj, wh, peep = k1_inputs(batch, steps, True)
     train_ms = time_ms(lambda: K.lstm_forward(x_proj, wh, peep, True))
     train_plain_ms = time_ms(
@@ -476,7 +651,8 @@ def phase_k1() -> dict:
     print(f"K1 timing with residuals B={batch} T={steps} H={HIDDEN} f32: "
           f"kernel {train_ms:.4f} ms, plain {train_plain_ms:.4f} ms, bound "
           f"{max(nbytes / PEAK_HBM_BYTES_S, flops / PEAK_FP32_FLOPS) * 1e3:.4f}"
-          f" ms ({flops / 1e9:.3f} GFLOP; {nbytes / 1e6:.2f} MB)")
+          f" ms ({flops / 1e9:.3f} GFLOP; {nbytes / 1e6:.2f} MB); "
+          f"{earlier(f'K1 f32 residuals B={batch} T={steps}', train_ms)}")
     ms, plain_ms, bytes_ms, ops_ms = timed[TIMED_SHAPE]
     return {"name": "fused_lstm_fwd", "route": "cuda",
             "source": "euromillioner_tpu_torch/csrc/fused_lstm.cu",
@@ -484,7 +660,12 @@ def phase_k1() -> dict:
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": None}
+            "library_ms": None,
+            "ms_by_shape": {f"B={b} T={t}": timed[b, t][0]
+                            for b, t in K1_SHAPES},
+            "residuals_ms": train_ms,
+            "earlier_ms": EARLIER_LSTM_MS["K1 f32 B=128 T=64"],
+            "plan": plans}
 
 
 def k2_inputs(batch: int, steps: int, peepholes: bool):
@@ -558,8 +739,10 @@ def phase_k2() -> dict:
     check(not failures, "; ".join(failures))
 
     batch, steps = K2_SHAPES[-1]
+    plan = lstm_plan_line("K2", torch.float32, batch, steps, True)
     wh, peep, res, g_hs = k2_inputs(batch, steps, True)
     ms = time_ms(lambda: K.lstm_backward(wh, peep, res, g_hs, True))
+    parts = k2_parts_ms(wh, peep, res, g_hs, runs=20)
     plain_ms = time_ms(
         lambda: K.lstm_backward_reference(wh, peep, res, g_hs, True))
     # the least the card could take: g_hs, hs, cs, gates, wh, peep read
@@ -572,16 +755,21 @@ def phase_k2() -> dict:
     bytes_ms = nbytes / PEAK_HBM_BYTES_S * 1e3
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
     print(f"K2 timing B={batch} T={steps} H={HIDDEN} f32: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{ms:.4f} ms (recurrence {parts['recurrence']:.4f}, dwh "
+          f"{parts['dwh']:.4f} timed apart), plain {plain_ms:.4f} ms, bound "
           f"{max(bytes_ms, ops_ms):.4f} ms ({flops / 1e9:.3f} GFLOP -> "
-          f"{ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms)")
+          f"{ops_ms:.4f} ms; {nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms); "
+          f"{earlier(f'K2 f32 B={batch} T={steps}', ms)}")
     return {"name": "fused_lstm_bwd", "route": "cuda",
             "source": "euromillioner_tpu_torch/csrc/fused_lstm_bwd.cu",
             "replaces": "euromillioner_tpu/ops/fused_lstm.py:175",
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": None}
+            "library_ms": None, "recurrence_ms": parts["recurrence"],
+            "dwh_ms": parts["dwh"],
+            "earlier_ms": EARLIER_LSTM_MS[f"K2 f32 B={batch} T={steps}"],
+            "plan": plan}
 
 
 def serve_cli(ckdir: Path, precision: str,
@@ -939,8 +1127,17 @@ def phase_bf16_kernels() -> tuple[dict, dict]:
         torch.cuda.empty_cache()
     check(not failures, "; ".join(failures))
 
-    timed = {}
+    timed, plans = {}, {}
     for batch, steps in BF16_TIMED:
+        plans[batch, steps] = {
+            "K1": lstm_plan_line("K1 bf16", torch.bfloat16, batch, steps,
+                                 False),
+            "K2": lstm_plan_line("K2 bf16", torch.bfloat16, batch, steps,
+                                 True),
+            "K1.f32": lstm_plan_line("K1 f32", torch.float32, batch, steps,
+                                     False),
+            "K2.f32": lstm_plan_line("K2 f32", torch.float32, batch, steps,
+                                     True)}
         x_proj, wh, peep, res, g_hs = bf16_inputs(batch, steps)
         x32, wh32 = x_proj.float(), wh.float()
         res32 = K.lstm_forward(x32, wh32, peep, True)
@@ -958,15 +1155,40 @@ def phase_bf16_kernels() -> tuple[dict, dict]:
                                                        g32, True), runs=runs),
              "K2.plain": time_ms(lambda: K.lstm_backward_reference(
                  wh, peep, res, g_hs, True), runs=runs)}
+        for name, ms in k2_parts_ms(wh, peep, res, g_hs, runs).items():
+            t[f"K2.{name}"] = ms
+        # dwh's yardstick: one PyTorch call, h_prev^T . dxp over the same
+        # (T-1)*B rows in bf16 (cuBLAS, f32 sums), timed and used nowhere
+        dxp = K.lstm_backward(wh, peep, res, g_hs, True)[0]
+        h_prev = res[0][:-1].reshape(-1, HIDDEN)
+        d_rows = dxp[1:].reshape(-1, 4 * HIDDEN)
+        t["dwh.library"] = time_ms(lambda: torch.matmul(h_prev.T, d_rows),
+                                   runs=runs)
         bounds = bf16_bounds(batch, steps)
         for kern in ("K1", "K2"):
             bound, by, nbytes, flops = bounds[kern]
+            key = f"{kern} {{}}{'residuals ' if kern == 'K1' else ''}" \
+                  f"B={batch} T={steps}"
             print(f"{kern} bf16 timing B={batch} T={steps} H={HIDDEN}: kernel "
                   f"{t[kern]:.4f} ms, f32 kernel {t[kern + '.f32']:.4f} ms, "
                   f"plain {t[kern + '.plain']:.4f} ms, bound {bound:.4f} ms "
-                  f"by {by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+                  f"by {by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB);"
+                  f" bf16 {earlier(key.format('bf16 '), t[kern])}; f32 "
+                  f"{earlier(key.format('f32 '), t[kern + '.f32'])}")
+        # dwh alone: 2 (T-1) B H 4H FLOPs on the tensor cores, hs and dxp's
+        # rows read once, dwh written once
+        r = (steps - 1) * batch
+        dwh_bound = max(2 * r * HIDDEN * 4 * HIDDEN / PEAK_BF16_FLOPS,
+                        2 * (r * 5 * HIDDEN + 4 * HIDDEN * HIDDEN)
+                        / PEAK_HBM_BYTES_S) * 1e3
+        print(f"K2 bf16 parts B={batch} T={steps}: recurrence "
+              f"{t['K2.recurrence']:.4f} ms, dwh {t['K2.dwh']:.4f} ms "
+              f"(bound {dwh_bound:.4f} ms), torch.matmul(h_prev^T, dxp) "
+              f"{t['dwh.library']:.4f} ms (library / dwh "
+              f"{t['dwh.library'] / t['K2.dwh']:.2f})")
+        lstm_ways_lines(x_proj, wh, peep, g_hs, t)
         timed[batch, steps] = (t, bounds)
-        del x_proj, wh, res, g_hs, x32, wh32, res32, g32
+        del x_proj, wh, res, g_hs, x32, wh32, res32, g32, dxp, h_prev, d_rows
         torch.cuda.empty_cache()
 
     entries = []
@@ -986,7 +1208,16 @@ def phase_bf16_kernels() -> tuple[dict, dict]:
             "ms_by_shape": {f"B={b} T={s}": timed[b, s][0][kern]
                             for b, s in BF16_TIMED},
             "f32_ms_by_shape": {f"B={b} T={s}": timed[b, s][0][kern + ".f32"]
-                                for b, s in BF16_TIMED}})
+                                for b, s in BF16_TIMED},
+            "earlier_ms": EARLIER_LSTM_MS[
+                f"{kern} bf16 {'residuals ' if kern == 'K1' else ''}"
+                f"B={LSTM_BENCH['batch']} T={SEQ_LEN}"],
+            "plan": {f"B={b} T={s}": plans[b, s][kern]
+                     for b, s in BF16_TIMED}})
+    t = timed[LSTM_BENCH["batch"], SEQ_LEN][0]
+    entries[1].update({"recurrence_ms": t["K2.recurrence"],
+                       "dwh_ms": t["K2.dwh"],
+                       "dwh_library_ms": t["dwh.library"]})
     return entries[0], entries[1]
 
 
@@ -2785,6 +3016,7 @@ def main() -> int:
         FUSED_LSTM_FWD_BF16.build()
         FUSED_LSTM_BWD_BF16.build()
         FUSED_HISTOGRAM_SETS.build()
+        phase_sass()
         k1 = phase_k1()
         k2 = phase_k2()
         k1b, k2b = phase_bf16_kernels()

@@ -80,8 +80,10 @@ class CudaKernel:
         self.argtypes = argtypes
         self.launches = 0
         self.build_log = ""
+        self.path = None  # the built library, once built
         self._fn = None
         self._errstr = None
+        self._lib = None
         self._lock = threading.Lock()
 
     @property
@@ -96,6 +98,7 @@ class CudaKernel:
             t0 = time.perf_counter()
             path, self.build_log = build_library(self.source)
             lib = ctypes.CDLL(str(path))
+            self.path = path
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -103,11 +106,22 @@ class CudaKernel:
             errstr.argtypes = [ctypes.c_int]
             errstr.restype = ctypes.c_char_p
             self._errstr = errstr
+            self._lib = lib
             self._fn = fn
             seconds = time.perf_counter() - t0
             logger.info("built %s (%s) in %.2f s", self.source, path.name,
                         seconds)
             return seconds
+
+    def query(self, symbol: str, argtypes: list, *args) -> int:
+        """Call another C function of this kernel's library, one that
+        launches nothing (an occupancy query); not counted."""
+        if self._fn is None:
+            self.build()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn(*args)
 
     def launch(self, *args) -> None:
         """Launch on the calling thread's current CUDA stream of the

@@ -12,6 +12,11 @@ design and bound):
   backward from those residuals — dxp, dwh and dpeep, all computed by
   hand-written code.
 
+Both run a batch tile on a thread-block cluster that splits wh by hidden
+unit; :func:`lstm_plan` gives every size of a call (pure Python, so the CPU
+tests reach it) and the C sources refuse a plan they would lay out
+otherwise.
+
 :class:`LSTMSequence` joins them as one ``torch.autograd.Function``, as
 ``jax.custom_vjp`` joins the Pallas pair.
 
@@ -31,6 +36,7 @@ instantiation its path launched. Any other dtype on CUDA raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -41,19 +47,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 # K1's entry points and launch counters (``FUSED_LSTM_FWD.launches``): 6
-# pointers, T, B, H, peepholes, device, stream
-_FWD_ARGS = [_P] * 6 + [_I] * 5 + [_P]
+# pointers, T, B, H, peepholes, the plan's cluster, rows, units, k_pad,
+# ktile, slots, splits, threads, smem, then device and stream
+_FWD_ARGS = [_P] * 6 + [_I] * 14 + [_P]
 FUSED_LSTM_FWD = CudaKernel("fused_lstm.cu", "emt_lstm_fwd_f32", _FWD_ARGS)
 FUSED_LSTM_FWD_BF16 = CudaKernel("fused_lstm.cu", "emt_lstm_fwd_bf16",
                                  _FWD_ARGS)
 
-# K2's: 11 pointers (inputs, outputs, two scratch buffers), T, B, H,
-# peepholes, device, stream
-_BWD_ARGS = [_P] * 11 + [_I] * 5 + [_P]
+# K2's: 11 pointers (inputs, outputs, and two f32 scratch buffers: dwh's
+# per-slice partial sums and dpeep's per-tile ones), T, B, H, peepholes,
+# the plan's cluster, rows, units, resident, slots, splits, threads, smem,
+# dwh_split, the parts to run (``BWD_ALL``), then device and stream
+_BWD_ARGS = [_P] * 11 + [_I] * 15 + [_P]
 FUSED_LSTM_BWD = CudaKernel("fused_lstm_bwd.cu", "emt_lstm_bwd_f32",
                             _BWD_ARGS)
 FUSED_LSTM_BWD_BF16 = CudaKernel("fused_lstm_bwd.cu", "emt_lstm_bwd_bf16",
                                  _BWD_ARGS)
+# K2's parts: the recurrence (dxp and dpeep's tile partials), dwh (the
+# split product and its reduction) and dpeep's reduction; the wrapper
+# runs all three, chip_smoke.py times them apart
+BWD_RECURRENCE, BWD_DWH, BWD_DPEEP = 1, 2, 4
+BWD_ALL = BWD_RECURRENCE | BWD_DWH | BWD_DPEEP
 
 # the instantiation each compute dtype launches
 _FWD_KERNELS = {torch.float32: FUSED_LSTM_FWD,
@@ -61,12 +75,182 @@ _FWD_KERNELS = {torch.float32: FUSED_LSTM_FWD,
 _BWD_KERNELS = {torch.float32: FUSED_LSTM_BWD,
                 torch.bfloat16: FUSED_LSTM_BWD_BF16}
 
-# shared memory per CTA, in floats whatever the dtype: K1 keeps 3 * 8
-# rows * H; K2 keeps (6 * 8 rows + 3) * H (dgates, the two carries, the
-# dpeep sums)
-MAX_HIDDEN = 232448 // (3 * 8 * 4)
-MAX_HIDDEN_BWD = 232448 // ((6 * 8 + 3) * 4)
-_ROWS = 8  # batch rows per CTA, both kernels
+# -- the launch plan ---------------------------------------------------------
+# The C sources compute every shared-memory offset from the same fields
+# and refuse a launch whose ``smem`` differs from theirs.
+SMEM_PER_BLOCK = 232448     # the H100's opt-in shared memory per block
+MAX_CLUSTER = 16            # non-portable cluster size (portable: 8)
+STREAM_SLOTS = range(6, 1, -1)  # ring depths of a streamed weight slice
+_SMS = 132                  # the H100 SXM's SMs: the dwh grid covers them
+_WARPS_BF16 = 16            # a bf16 CTA's warps: one 16-row x 8-unit tile each
+_MAX_THREADS_F32 = 256
+
+
+class Plan(NamedTuple):
+    """How K1 or K2 runs one call. A cluster of ``cluster`` CTAs shares a
+    tile of ``rows`` batch rows; CTA c owns the hidden units ``[c *
+    units, (c + 1) * units)`` — all four gates of each — so the cluster
+    owns ``cluster * units >= H`` units, the padded ones masked. Its slice
+    of wh (K1: the 4 * units gate columns of its units, k_pad deep, in
+    ``ktile``-row tiles; K2: its units' rows of wh, one ``ktile`` = 4 *
+    units wide chunk per peer) is ``resident`` in shared memory for the
+    whole call, or streamed from L2. Each step the CTAs share h (K1) or
+    dgates (K2) through the rows they write (hs, dxp), read back from L2
+    after one cluster barrier. K1 holds ``slots`` weight tiles (all of
+    them when resident, else a ring of 2 to 6); K2's ring of ``slots``
+    dgates chunks (with their weight chunks when streamed) runs within a
+    step. f32 CTAs split the product's depth among ``splits`` thread
+    groups, summed in a fixed order; bf16 CTAs run it on the tensor cores
+    (``mma.sync``), 16 warps. ``tiles`` batch tiles make the grid:
+    ``tiles * cluster`` CTAs. K2's ``dwh`` sums the (T - 1) * B rows in
+    ``dwh_split`` slices (1 for K1)."""
+    cluster: int
+    rows: int
+    units: int
+    k_pad: int
+    resident: bool
+    ktile: int
+    slots: int
+    splits: int
+    threads: int
+    smem: int
+    tiles: int
+    dwh_split: int
+
+
+def _ceil(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _smem(bf16: bool, backward: bool, rows: int, units: int, k_pad: int,
+          ktile: int, slots: int, splits: int, resident: bool = True) -> int:
+    """Shared memory per CTA, in bytes, as the C sources lay it out."""
+    u4 = 4 * units
+    if not backward:
+        if bf16:   # h_prev [rows][k_pad + 8]; weight tiles; the step's h,
+            # c and gates staged for 16-byte stores
+            return 2 * (rows * (k_pad + 8) + slots * ktile * u4
+                        + 6 * rows * units)
+        # h_prev [rows][k_pad]; weight tiles; split partials
+        return 4 * (k_pad * rows + slots * ktile * u4
+                    + (splits - 1) * rows * u4)
+    chunks = k_pad // ktile if resident else slots
+    if bf16:       # weight chunks [U][4U + 8]; the ring of dgates chunks
+        # (4 gate tiles [rows][U] a slot, 1024-byte aligned, with 1024 bytes
+        # of room to align the base), which also holds the own dgates and
+        # the depth groups' sums
+        return (-(-2 * chunks * units * (u4 + 8) // 1024) * 1024
+                + slots * 8 * rows * units + 1024)
+    # weight chunks [U][4U + 4]; the ring of dgates chunks; split partials
+    return 4 * (chunks * units * (u4 + 4) + slots * rows * u4
+                + (splits - 1) * rows * units)
+
+
+def _bwd_kgroups(rows: int, units: int) -> int:
+    """A bf16 K2 CTA's depth groups: its 16 warps over 16-row blocks x
+    passes of 32 units x groups, no more groups than k16 steps in a chunk
+    (csrc/fused_lstm_bwd.cu ``bwd_kgroups``)."""
+    return min(16 // ((rows // 16) * -(-units // 32)), units // 4)
+
+
+def lstm_plan(dtype, batch: int, hidden: int, steps: int = 1,
+              backward: bool = False,
+              cluster: int | None = None) -> Plan | None:
+    """The launch plan of K1 (``backward=False``) or K2 for a call of
+    ``steps`` x ``batch`` x ``hidden`` in ``dtype`` (float32 or bfloat16);
+    None when no plan fits a block (then :func:`kernel_refusal` says so).
+
+    The cluster is the least power of two giving each CTA at most ~H / 16
+    units, at least 8 (H = 512: 16 CTAs of 32 units; clusters of 8 were
+    no faster for K2 and slower for K1 on the card, chip_smoke.py's
+    ``LSTM_WAYS`` lines). A bf16 tile is 64 rows (``mma.sync``'s 16-row tiles, one a warp), fewer for a small
+    batch or wide CTAs; an f32 tile at most 64 rows, a multiple of 8, so a
+    serving bucket of 8 pays for 8. The wh slice is resident when it fits
+    beside the rest, else streamed. f32 CTAs under 256 threads split the
+    depth (up to 8 ways) to fill the SM. ``cluster`` (a power of two up to
+    16) replaces the cluster the plan would take, to time one plan beside
+    another (chip_smoke.py's ``LSTM_WAYS``)."""
+    bf16 = dtype == torch.bfloat16
+    if cluster is None:
+        cluster = 1
+        while cluster < MAX_CLUSTER and cluster * 8 < hidden:
+            cluster *= 2
+    elif cluster not in (1, 2, 4, 8, 16):
+        raise ValueError(f"cluster must be a power of two up to 16, got "
+                         f"{cluster}")
+    units = _ceil(-(-hidden // cluster), 8)
+    u4 = 4 * units
+    if backward:
+        k_pad, ktile, tiles_k = 4 * cluster * units, u4, cluster
+    else:
+        ktile = min(64 if bf16 else 32, _ceil(cluster * units, 16))
+        k_pad = _ceil(cluster * units, ktile)
+        tiles_k = k_pad // ktile
+    if bf16:
+        if units // 8 > _WARPS_BF16:
+            return None
+        # 16-row tiles: one warp each per 8 units, 16 warps
+        candidates = [16 * min(4, _WARPS_BF16 // (units // 8),
+                               -(-max(batch, 1) // 16))]
+    else:
+        rows = min(64, _ceil(max(batch, 1), 8))
+        candidates = list(range(rows, 0, -8))
+    for rows in candidates:
+        if bf16:
+            threads, splits = 32 * _WARPS_BF16, 1
+        else:
+            base = rows // 8 * units
+            if base > _MAX_THREADS_F32:
+                continue
+            # a group's depth is a multiple of 4 (a float4 of h or dgates)
+            splits = 1
+            while (splits < 8 and 2 * splits * base <= 256
+                   and ktile % (8 * splits) == 0):
+                splits *= 2
+            threads = splits * base
+        if backward:  # the dgates ring's depth, wh resident or streamed
+            ways = [(r, n) for r in (True, False) for n in (6, 5, 4, 3, 2)]
+        else:
+            ways = [(True, tiles_k), *((False, n) for n in STREAM_SLOTS)]
+        for resident, slots in ways:
+            if (backward and bf16
+                    and _bwd_kgroups(rows, units) > 2 * (slots - 1)):
+                continue  # the depth groups' sums need slots - 1 slots
+            smem = _smem(bf16, backward, rows, units, k_pad, ktile, slots,
+                         splits, resident)
+            if smem <= SMEM_PER_BLOCK:
+                tiles = -(-max(batch, 1) // rows)
+                return Plan(cluster, rows, units, k_pad, resident, ktile,
+                            slots, splits, threads, smem, tiles,
+                            _dwh_split(bf16, (steps - 1) * batch, hidden)
+                            if backward else 1)
+    return None
+
+
+def _dwh_split(bf16: bool, r: int, hidden: int) -> int:
+    """Slices of dwh's R = (T - 1) * B rows: enough for the grid of 128 x
+    128 output tiles to cover two waves of the card's SMs, no more slices
+    than blocks of rows (64 a block in bf16, 16 in f32)."""
+    tiles = -(-hidden // 128) * -(-4 * hidden // 128)
+    blocks = -(-r // (64 if bf16 else 16))
+    return max(1, min(blocks, 2 * _SMS // tiles))
+
+
+def _max_hidden(backward: bool) -> int:
+    """The widest H both dtypes plan for at the smallest batch tile."""
+    lo, hi = 8, 4096
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if all(lstm_plan(dt, 8, mid, 2, backward) is not None
+               for dt in (torch.float32, torch.bfloat16)):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+MAX_HIDDEN = _max_hidden(False)
+MAX_HIDDEN_BWD = _max_hidden(True)
 
 
 def kernel_refusal(dtype, hidden: int) -> str | None:
@@ -83,6 +267,27 @@ def kernel_refusal(dtype, hidden: int) -> str | None:
                 f"shared-memory cap of {cap}: use a narrower layer, or "
                 f"build it with fused='off' to scan")
     return None
+
+
+def plan_args(plan: Plan, backward: bool) -> tuple[int, ...]:
+    """The plan's fields as its C entry point takes them."""
+    if backward:
+        return (plan.cluster, plan.rows, plan.units, int(plan.resident),
+                plan.slots, plan.splits, plan.threads, plan.smem,
+                plan.dwh_split)
+    return (plan.cluster, plan.rows, plan.units, plan.k_pad, plan.ktile,
+            plan.slots, plan.splits, plan.threads, plan.smem)
+
+
+def max_active_clusters(dtype, plan: Plan, backward: bool = False,
+                        device: int = 0) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the plan's recurrence kernel
+    on ``device``: how many of its clusters the card holds at once (0: it
+    cannot be placed). Builds the library; launches nothing."""
+    kernel = (_BWD_KERNELS if backward else _FWD_KERNELS)[dtype]
+    symbol = kernel.symbol.replace("emt_lstm_", "emt_lstm_max_clusters_")
+    args = plan_args(plan, backward)[:8 if backward else 9]
+    return kernel.query(symbol, [_I] * (len(args) + 1), *args, device)
 
 
 def lstm_sequence_reference(x_proj, wh, peep, peepholes: bool = True):
@@ -209,7 +414,8 @@ def _fwd(x_proj, wh, peep, peepholes: bool, residuals: bool):
         raise ValueError(f"unsupported device {x_proj.device}")
     dtype = _check_cuda(x_proj.device,
                         (("x_proj", x_proj), ("wh", wh), ("peep", peep)))
-    if h > MAX_HIDDEN:
+    plan = lstm_plan(dtype, b, h)
+    if plan is None or h > MAX_HIDDEN:
         raise ValueError(f"hidden {h} exceeds the kernel's shared-memory "
                          f"cap {MAX_HIDDEN}")
     hs = torch.empty((t, b, h), dtype=dtype, device=x_proj.device)
@@ -218,12 +424,21 @@ def _fwd(x_proj, wh, peep, peepholes: bool, residuals: bool):
         cs = torch.empty_like(hs)
         gates = torch.empty_like(x_proj)
     if t and b:
-        _FWD_KERNELS[dtype].launch(
-            x_proj.data_ptr(), wh.data_ptr(), peep.data_ptr(), hs.data_ptr(),
-            cs.data_ptr() if residuals else None,
-            gates.data_ptr() if residuals else None,
-            t, b, h, int(bool(peepholes)), x_proj.device.index)
+        _FWD_KERNELS[dtype].launch(*_fwd_args(plan, x_proj, wh, peep, hs, cs,
+                                              gates, peepholes))
     return hs, cs, gates
+
+
+def _fwd_args(plan: Plan, x_proj, wh, peep, hs, cs, gates,
+              peepholes: bool) -> tuple:
+    """K1's C arguments for one call: the tensors' pointers (null for the
+    residuals not written), the shape, the plan's fields and the device."""
+    t, b, four_h = x_proj.shape
+    return (x_proj.data_ptr(), wh.data_ptr(), peep.data_ptr(), hs.data_ptr(),
+            None if cs is None else cs.data_ptr(),
+            None if gates is None else gates.data_ptr(),
+            t, b, four_h // 4, int(bool(peepholes)), *plan_args(plan, False),
+            x_proj.device.index)
 
 
 def lstm_sequence(x_proj, wh, peep, peepholes: bool = True):
@@ -258,7 +473,8 @@ def lstm_backward(wh, peep, residuals, g_hs, peepholes: bool = True):
     dtype = _check_cuda(gates.device, (("gates", gates), ("g_hs", g_hs),
                                        ("hs", hs), ("cs", cs), ("wh", wh),
                                        ("peep", peep)))
-    if h > MAX_HIDDEN_BWD:
+    plan = lstm_plan(dtype, b, h, t, backward=True)
+    if plan is None or h > MAX_HIDDEN_BWD:
         raise ValueError(f"hidden {h} exceeds the backward kernel's "
                          f"shared-memory cap {MAX_HIDDEN_BWD}")
     dxp = torch.empty_like(gates)
@@ -266,15 +482,32 @@ def lstm_backward(wh, peep, residuals, g_hs, peepholes: bool = True):
     dpeep = torch.empty_like(peep)
     if not (t and b):
         return dxp, dwh.zero_(), dpeep.zero_()
-    wh_t = torch.empty((4 * h, h), dtype=dtype, device=gates.device)
-    partials = torch.empty((-(-b // _ROWS), 3, h), dtype=torch.float32,
-                           device=gates.device)
-    _BWD_KERNELS[dtype].launch(
-        g_hs.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-        wh.data_ptr(), peep.data_ptr(), dxp.data_ptr(), dwh.data_ptr(),
-        dpeep.data_ptr(), wh_t.data_ptr(), partials.data_ptr(),
-        t, b, h, int(bool(peepholes)), gates.device.index)
+    args, scratch = _bwd_args(plan, wh, peep, residuals, g_hs, dxp, dwh,
+                              dpeep, peepholes, BWD_ALL)
+    _BWD_KERNELS[dtype].launch(*args)
+    del scratch  # freed in stream order, after the launch
     return dxp, dwh, dpeep
+
+
+def _bwd_args(plan: Plan, wh, peep, residuals, g_hs, dxp, dwh, dpeep,
+              peepholes: bool, parts: int) -> tuple[tuple, tuple]:
+    """K2's C arguments for one call — the tensors' pointers, the two f32
+    scratch buffers the plan sizes (dwh's per-slice partial sums, dwh_split
+    x H x 4H; dpeep's per-tile ones, tiles x 3 x cluster * units), the
+    shape, the plan's fields, ``parts`` and the device — and the scratch
+    tensors, which the caller keeps until it has launched."""
+    hs, cs, gates = residuals
+    t, b, h = hs.shape
+    dev = gates.device
+    dwh_part = torch.empty((plan.dwh_split, h, 4 * h), dtype=torch.float32,
+                           device=dev)
+    dpeep_part = torch.empty((plan.tiles, 3, plan.cluster * plan.units),
+                             dtype=torch.float32, device=dev)
+    return (g_hs.data_ptr(), hs.data_ptr(), cs.data_ptr(), gates.data_ptr(),
+            wh.data_ptr(), peep.data_ptr(), dxp.data_ptr(), dwh.data_ptr(),
+            dpeep.data_ptr(), dwh_part.data_ptr(), dpeep_part.data_ptr(),
+            t, b, h, int(bool(peepholes)), *plan_args(plan, True), parts,
+            dev.index), (dwh_part, dpeep_part)
 
 
 class LSTMSequence(torch.autograd.Function):
