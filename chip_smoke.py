@@ -25,7 +25,11 @@ Phases, each reported on its own lines:
    reruns bit-identical, and their times beside the f32 kernels' at B=64
    and 2048, K2's dwh beside one ``torch.matmul`` of the same product, and
    both under the cluster size the plan passed over beside the chosen
-   plan (``LSTM_WAYS``), held to the plain version as well;
+   plan (``LSTM_WAYS``), held to the plain version as well; then K1 and
+   K2 in both dtypes at widths no main path runs (``ODD_WIDTHS``: 8-,
+   64- and 72-unit CTAs, misaligned rows, streamed slices) and batches
+   with masked rows, T=1 included, held to the plain versions with three
+   reruns bit-identical;
 4. serve — the flagship LSTM at full width (hidden 512, 2 layers, 64-step
    windows, 11 features, 7 outputs) with seeded random weights, saved as a
    checkpoint and served through the port's CLI (``serve --smoke 32``)
@@ -225,6 +229,17 @@ BF16_TIMED = ((64, 64), (2048, 64))
 # (hs, B=32), K2 5.1e-3 (dwh, B=2048), dpeep (f32) 9.5e-5; pinned at two
 # ulps at the bottom of the scale's binade, 2^-6.
 BF16_KERNEL_TOL = 2.0 ** -6
+# K1/K2 at widths no main path runs, where the plan and the kernels take
+# their other branches: H=100 (8-unit CTAs, f32's wh slice resident, rows
+# not 16-byte aligned: element loads, and dwh's plain-load ring), H=1024
+# (64-unit CTAs, 128-byte swizzled dgates tiles, bf16 K1's wh slice
+# streamed) and H=1139 (the widest the earlier design took: 72-unit CTAs,
+# misaligned rows, both dtypes' slices streamed), at a serving bucket (8)
+# and an odd batch (33: a tile with masked rows), and at T=1 (dwh sums
+# no rows); held to the plain versions at K1_TOL, K2_TOL and
+# BF16_KERNEL_TOL, three reruns bit-identical
+ODD_WIDTHS = (100, 1024, 1139)
+ODD_SHAPES = ((8, 8), (33, 8), (33, 1))
 # bench.py's _bench_lstm at WORKLOAD on an accelerator: B=2048, bf16,
 # fused=auto, Adam 1e-3, mse
 LSTM_BENCH = {"batch": 2048, "warmup": 2, "steps": 10}
@@ -505,7 +520,7 @@ def lstm_ways_lines(x_proj, wh, peep, g_hs, chosen: dict) -> None:
     failures = []
     for kern in ("K1", "K2"):
         backward = kern == "K2"
-        plan = K.lstm_plan(wh.dtype, b, h, t, backward, **LSTM_WAYS[kern])
+        plan = K._plan(wh.dtype, b, h, t, backward, **LSTM_WAYS[kern])
         outs = ((torch.empty_like(ref[2]), torch.empty_like(wh),
                  torch.empty_like(peep)) if backward else
                 tuple(torch.empty_like(r) for r in ref))
@@ -572,13 +587,15 @@ def phase_sass() -> None:
     check(not failures, "SASS: " + "; ".join(failures))
 
 
-def k1_inputs(batch: int, steps: int, peepholes: bool):
-    """Layer-1 inputs of the flagship model at one (rows, steps) shape:
-    x_proj from a real input projection, wh and peepholes as initialised."""
+def k1_inputs(batch: int, steps: int, peepholes: bool,
+              hidden: int = HIDDEN):
+    """Layer-1 inputs of the flagship model (or of the same layer at
+    another width) at one (rows, steps) shape: x_proj from a real input
+    projection, wh and peepholes as initialised."""
     from euromillioner_tpu_torch.nn.recurrent import LSTM
 
     gen = torch.Generator().manual_seed(SEED + batch + steps)
-    layer = LSTM(FEATURES, HIDDEN, peepholes=peepholes, generator=gen,
+    layer = LSTM(FEATURES, hidden, peepholes=peepholes, generator=gen,
                  device="cuda").requires_grad_(False)
     x = torch.randn((batch, steps, FEATURES), generator=gen).cuda()
     x_proj = layer._input_proj(x).contiguous()
@@ -663,9 +680,7 @@ def phase_k1() -> dict:
             "library_ms": None,
             "ms_by_shape": {f"B={b} T={t}": timed[b, t][0]
                             for b, t in K1_SHAPES},
-            "residuals_ms": train_ms,
-            "earlier_ms": EARLIER_LSTM_MS["K1 f32 B=128 T=64"],
-            "plan": plans}
+            "residuals_ms": train_ms, "plan": plans}
 
 
 def k2_inputs(batch: int, steps: int, peepholes: bool):
@@ -767,9 +782,7 @@ def phase_k2() -> dict:
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
             "library_ms": None, "recurrence_ms": parts["recurrence"],
-            "dwh_ms": parts["dwh"],
-            "earlier_ms": EARLIER_LSTM_MS[f"K2 f32 B={batch} T={steps}"],
-            "plan": plan}
+            "dwh_ms": parts["dwh"], "plan": plan}
 
 
 def serve_cli(ckdir: Path, precision: str,
@@ -1209,9 +1222,6 @@ def phase_bf16_kernels() -> tuple[dict, dict]:
                             for b, s in BF16_TIMED},
             "f32_ms_by_shape": {f"B={b} T={s}": timed[b, s][0][kern + ".f32"]
                                 for b, s in BF16_TIMED},
-            "earlier_ms": EARLIER_LSTM_MS[
-                f"{kern} bf16 {'residuals ' if kern == 'K1' else ''}"
-                f"B={LSTM_BENCH['batch']} T={SEQ_LEN}"],
             "plan": {f"B={b} T={s}": plans[b, s][kern]
                      for b, s in BF16_TIMED}})
     t = timed[LSTM_BENCH["batch"], SEQ_LEN][0]
@@ -1219,6 +1229,72 @@ def phase_bf16_kernels() -> tuple[dict, dict]:
                        "dwh_ms": t["K2.dwh"],
                        "dwh_library_ms": t["dwh.library"]})
     return entries[0], entries[1]
+
+
+def phase_lstm_odd_widths() -> None:
+    """K1 and K2 in f32 and bf16 at ODD_WIDTHS x ODD_SHAPES against their
+    plain versions on the same inputs (K2 on the plain version's
+    residuals), three reruns bit-identical, each shape with its plans."""
+    from euromillioner_tpu_torch.ops import fused_lstm as K
+
+    failures = []
+    for hidden in ODD_WIDTHS:
+        for batch, steps in ODD_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x_proj, wh, peep = k1_inputs(batch, steps, True, hidden)
+                x_proj, wh = x_proj.to(dtype), wh.to(dtype)
+                gen = torch.Generator().manual_seed(SEED + 7 * batch + steps)
+                g_hs = torch.randn((steps, batch, hidden),
+                                   generator=gen).cuda().to(dtype)
+                ref = K.lstm_sequence_reference(x_proj, wh, peep, True)
+                ref_b = K.lstm_backward_reference(wh, peep, ref, g_hs, True)
+                torch.cuda.synchronize()
+                runs = [(K.lstm_forward(x_proj, wh, peep, True),
+                         K.lstm_backward(wh, peep, ref, g_hs, True),
+                         K.lstm_sequence(x_proj, wh, peep, True))
+                        for _ in range(3)]
+                torch.cuda.synchronize()
+                f32 = dtype == torch.float32
+                name = "f32" if f32 else "bf16"
+                plans = [K.lstm_plan(dtype, batch, hidden, steps, backward)
+                         for backward in (False, True)]
+                errs, all_same = [], True
+                for kern, out, outs, want in (
+                        [("K1", n, i, ref[i])
+                         for i, n in enumerate(("hs", "cs", "gates"))]
+                        + [("K1", "hs(no residuals)", None, ref[0])]
+                        + [("K2", n, i, ref_b[i])
+                           for i, n in enumerate(("dxp", "dwh", "dpeep"))]):
+                    got = [r[2] if outs is None else
+                           r[0 if kern == "K1" else 1][outs] for r in runs]
+                    abs_err, rel_err = max_errors(got[0], want)
+                    same = all(torch.equal(got[0], g) for g in got[1:])
+                    all_same = all_same and same
+                    if not f32:
+                        err, tol = rel_err, BF16_KERNEL_TOL
+                    elif kern == "K1":
+                        err, tol = abs_err, K1_TOL
+                    else:
+                        err, tol = rel_err, K2_TOL[out]
+                    errs.append(f"{kern} {out} {err:.2e}")
+                    if err > tol or not same:
+                        failures.append(
+                            f"{kern} {name} {out} at H={hidden} B={batch} "
+                            f"T={steps}: {err:.3e} > {tol:.2e} or reruns "
+                            f"equal {same}")
+                kinds, tols = (("K1 abs, K2 rel_to_scale", "K1_TOL, K2_TOL")
+                               if f32 else ("rel_to_scale", "BF16_KERNEL_TOL"))
+                print(f"K1/K2 odd width {name} H={hidden} B={batch} "
+                      f"T={steps}: K1 plan cluster {plans[0].cluster} x "
+                      f"{plans[0].units} units, {plans[0].rows}-row tiles, "
+                      f"wh {'resident' if plans[0].resident else 'streamed'};"
+                      f" K2 plan cluster {plans[1].cluster} x "
+                      f"{plans[1].units} units, {plans[1].rows}-row tiles, "
+                      f"wh {'resident' if plans[1].resident else 'streamed'}"
+                      f"; errors ({kinds}): {', '.join(errs)} (tols {tols}), "
+                      f"3 runs bit-identical {all_same}")
+                del x_proj, wh, g_hs, ref, ref_b, runs
+    check(not failures, "; ".join(failures))
 
 
 def phase_train_bf16(root: Path) -> tuple[dict, Path]:
@@ -3020,6 +3096,7 @@ def main() -> int:
         k1 = phase_k1()
         k2 = phase_k2()
         k1b, k2b = phase_bf16_kernels()
+        phase_lstm_odd_widths()
         k3 = phase_k3()
         serve_k1 = phase_serve(root)
         train_k1, train_k2, ckdir = phase_train(root)

@@ -41,11 +41,11 @@
 //   1. A = h_{t-1} (rows x H, rounded to E): the rows of hs[t-1] that the
 //      cluster's CTAs wrote before the last cluster barrier, read back
 //      from L2 with cp.async (the barrier's release/acquire orders the
-//      writes before the reads). Pulled from the peers' shared memory
-//      over DSMEM instead, this exchange took a larger share of a step
-//      than the product (16 CTAs of one GPC pulling from each other), so
-//      the loop keeps DSMEM out and the cluster gives the CTAs
-//      co-scheduling and its hardware barrier;
+//      writes before the reads). hs must be written anyway, so the
+//      exchange needs no copy of h kept in shared memory for the peers;
+//      pulling it from the peers' shared memory over DSMEM is the
+//      alternative, not measured by a committed script (PERF.md §7). The
+//      cluster gives the CTAs co-scheduling and its hardware barrier;
 //   2. product: bf16 on the tensor cores (mma.sync m16n8k16, f32 sums;
 //      one warp per 16-row x 8-unit tile, its four gates), f32 as FP32
 //      FMAs (a thread owns 8 rows x 1 unit x 4 gates; where that leaves

@@ -49,14 +49,19 @@
 //    them) are read back from L2, one peer's columns (a 4U-wide chunk) at
 //    a time through a ring of `slots` chunks (bf16: four TMA boxes a
 //    chunk, one per gate, into swizzled gate tiles on the slot's
-//    mbarrier, which beat cp.async here; f32 and widths TMA cannot take:
-//    cp.async), against wh's rows of the CTA's units in the matching
-//    column order (resident in shared memory, 136 KiB at H=512 in bf16,
-//    or streamed beside the dgates chunks). Pulling the chunks from the
-//    peers' shared memory over DSMEM instead was no faster (16 CTAs of one
-//    GPC pulling from each other), and dxp needs no second copy in shared
-//    memory. bf16 runs the product on the tensor cores (mma.sync
-//    m16n8k16): a warp takes 16 rows x 32 units over a share of each
+//    mbarrier; f32 and widths TMA cannot take: cp.async), against wh's
+//    rows of the CTA's units in the matching column order (resident in
+//    shared memory, 136 KiB at H=512 in bf16, or streamed beside the
+//    dgates chunks). At H=512 the TMA fill makes bf16 K2 0.83-0.84x the
+//    time of the same ring filled by cp.async (PERF.md §6). The stores to
+//    dxp are generic-proxy writes and TMA reads them in the async proxy,
+//    so each writer fences the two proxies (fence.proxy.async.global)
+//    before the cluster barrier. The exchange reads back what the cluster
+//    must write to dxp anyway, so no second copy of the dgates is kept in
+//    shared memory for the peers; pulling them from the peers' shared
+//    memory over DSMEM is the alternative, not measured by a committed
+//    script (PERF.md §7). bf16 runs the product on the tensor cores
+//    (mma.sync m16n8k16): a warp takes 16 rows x 32 units over a share of each
 //    chunk's depth, so an A fragment feeds four mma, and the shares are
 //    added through shared memory in a fixed order into the cells' owners;
 //    f32 as FMAs (8 rows x 1 unit a thread, the depth split among
@@ -591,6 +596,9 @@ __device__ void bwd_bf16(const bf16* __restrict__ g_hs,
           for (int e = 0; e < 8 && unit + e < H; ++e) dst[e] = src[e];
       }
     }
+    // this thread's generic stores to dxp before the peers' TMA reads of
+    // them (async proxy)
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
     cluster.sync();  // the tile's dxp[t] is complete in memory
     if (t == 0) break;
 

@@ -154,8 +154,7 @@ def _bwd_kgroups(rows: int, units: int) -> int:
 
 
 def lstm_plan(dtype, batch: int, hidden: int, steps: int = 1,
-              backward: bool = False,
-              cluster: int | None = None) -> Plan | None:
+              backward: bool = False) -> Plan | None:
     """The launch plan of K1 (``backward=False``) or K2 for a call of
     ``steps`` x ``batch`` x ``hidden`` in ``dtype`` (float32 or bfloat16);
     None when no plan fits a block (then :func:`kernel_refusal` says so).
@@ -163,21 +162,23 @@ def lstm_plan(dtype, batch: int, hidden: int, steps: int = 1,
     The cluster is the least power of two giving each CTA at most ~H / 16
     units, at least 8 (H = 512: 16 CTAs of 32 units; clusters of 8 were
     no faster for K2 and slower for K1 on the card, chip_smoke.py's
-    ``LSTM_WAYS`` lines). A bf16 tile is 64 rows (``mma.sync``'s 16-row tiles, one a warp), fewer for a small
-    batch or wide CTAs; an f32 tile at most 64 rows, a multiple of 8, so a
-    serving bucket of 8 pays for 8. The wh slice is resident when it fits
-    beside the rest, else streamed. f32 CTAs under 256 threads split the
-    depth (up to 8 ways) to fill the SM. ``cluster`` (a power of two up to
-    16) replaces the cluster the plan would take, to time one plan beside
-    another (chip_smoke.py's ``LSTM_WAYS``)."""
+    ``LSTM_WAYS`` lines). A bf16 tile is 64 rows (``mma.sync``'s 16-row
+    tiles, one a warp), fewer for a small batch or wide CTAs; an f32 tile
+    at most 64 rows, a multiple of 8, so a serving bucket of 8 pays for 8.
+    The wh slice is resident when it fits beside the rest, else streamed.
+    f32 CTAs under 256 threads split the depth (up to 8 ways) to fill the
+    SM."""
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster * 8 < hidden:
+        cluster *= 2
+    return _plan(dtype, batch, hidden, steps, backward, cluster)
+
+
+def _plan(dtype, batch: int, hidden: int, steps: int, backward: bool,
+          cluster: int) -> Plan | None:
+    """:func:`lstm_plan` on a given cluster of CTAs (a power of two up to
+    16)."""
     bf16 = dtype == torch.bfloat16
-    if cluster is None:
-        cluster = 1
-        while cluster < MAX_CLUSTER and cluster * 8 < hidden:
-            cluster *= 2
-    elif cluster not in (1, 2, 4, 8, 16):
-        raise ValueError(f"cluster must be a power of two up to 16, got "
-                         f"{cluster}")
     units = _ceil(-(-hidden // cluster), 8)
     u4 = 4 * units
     if backward:
