@@ -95,9 +95,15 @@ Phases, each reported on its own lines:
 13. K4a and K4b, the Wide&Deep one-hot contraction, against their plain
    versions in f32 and bf16 at the serving buckets (8, 32, 128), the
    training batch (64) and bench.py's batch (8192) at full width (21 x
-   4096 x 1040) and one odd shape (errors relative to each element's sum
-   of magnitudes, three reruns bit-identical), then their times beside the
-   plain versions', the library yardsticks' (``embedding_bag``,
+   4096 x 1040), one odd shape and B=40000, past the earlier K4b's limit
+   of 32768 rows (errors relative to each element's sum of magnitudes,
+   three reruns bit-identical), each shape with its two launch plans,
+   after the K4 library's ``-Xptxas -v`` lines; then their times per call
+   (events around one wrapper call) and on the device (launches in a CUDA
+   graph), K4b's sort and row writer apart (and the sort's count kernel
+   where the batch has several tiles), at bench.py's batch also
+   with the L2 flushed and K4a under each of its ways (``FWD_WAYS``),
+   beside the plain versions', the library yardsticks' (``embedding_bag``,
    ``index_add_``) and the bounds;
 14. serve Wide&Deep — the 100M model with seeded random weights, saved as
    a TrainState checkpoint and served through the CLI (``serve
@@ -111,7 +117,8 @@ Phases, each reported on its own lines:
    K4a that plus the watch evaluations, ms/step and examples/s; then
    ``serve --smoke 8`` on the checkpoint it saved;
 16. bench.py's Wide&Deep step (B=8192, bf16, Adam): median ms/step,
-   rows/s, K4a+K4b's share of the step; then the step at the training
+   rows/s, K4a+K4b's launches (one each a step) and share of the step
+   from their per-call and device times; then the step at the training
    batch (B=64); a ``torch.profiler`` window of each (kernel time per
    step, the device's busy share, the heaviest kernels);
 17. one full-width Wide&Deep step on the card against the CPU, with f32
@@ -382,6 +389,11 @@ RF_SUB_LEAF_TOL = 1e-5
 K4_SHAPES = tuple((b, 21, 4096, 1040) for b in (8, 32, 128, 64, 8192)) + (
     (5, 3, 300, 20),)
 K4_TIMED_B = 64
+# a batch past the earlier K4b's limit of 32768 rows (F6): held to the
+# plain versions in both dtypes, reruns bit-identical; not timed
+K4_F6_SHAPE = (40000, 21, 4096, 1040)
+# K4a's and K4b's device times: launches per CUDA graph (device_ms)
+K4_DEVICE_LAUNCHES = 50
 # K4a/K4b against their plain versions (K4a's on the card, K4b's on CPU
 # copies, whose index_add_ adds in batch order): both add in the same
 # order, so bit-equal is expected; any error is taken relative to the sum
@@ -452,6 +464,38 @@ def time_ms(fn, warmup: int = 3, runs: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, launches: int = 50, runs: int = 5) -> float:
+    """Median milliseconds per call of ``fn`` on the card without the
+    host's time: ``launches`` calls captured in one CUDA graph, the graph
+    replayed between CUDA events ``runs`` times, each time divided by the
+    count. ``fn`` must launch on the current stream and allocate nothing
+    it keeps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
     return statistics.median(times)
 
 
@@ -2634,17 +2678,86 @@ def k4_bound_ms(ids, w, dh) -> dict:
             "dw": (dw / PEAK_HBM_BYTES_S * 1e3, ops_ms)}
 
 
-def phase_k4() -> tuple[dict, dict]:
-    """K4a and K4b against their plain versions in f32 and bf16 at the
-    paths' shapes, three reruns bit-identical; then times beside the plain
-    versions', the library yardsticks' and the bounds."""
+def k4_raw_calls(w, ids, dh, v: int) -> dict:
+    """Zero-argument calls that launch K4a, K4b and K4b's parts (``sort``:
+    count, scan and place — with ``count`` alone when it is a kernel of its
+    own; ``write``: the row writer) through their C entry
+    points on outputs and scratch made here, each launch counted as any
+    other; ``plans`` holds the two plans."""
     from euromillioner_tpu_torch.ops import wide_onehot as K
 
+    b, k = ids.shape
+    e = w.shape[2]
+    out = torch.empty((b, e), dtype=torch.float32, device="cuda")
+    dw = torch.empty((k, v, e), dtype=dh.dtype, device="cuda")
+    fplan = K.fwd_plan(w.dtype, b, k, v, e,
+                       K._vec(e, w.element_size(), w, out))
+    dplan = K.dw_plan(dh.dtype, b, k, v, e,
+                      K._vec(e, dh.element_size(), dh, dw))
+    scratch = torch.empty(dplan.scratch, dtype=torch.int32, device="cuda")
+    fargs = K._fwd_args(fplan, w, ids, out)
+    calls = {"fwd": lambda: K.WIDE_ONEHOT_FWD.launch(*fargs),
+             "plans": (fplan, dplan), "_keep": (out, dw, scratch)}
+    parts = {"dw": K.DW_ALL, "sort": K.DW_SORT, "write": K.DW_WRITE}
+    if not dplan.one_block:  # the sort's count kernel alone
+        parts["count"] = K.DW_COUNT
+    for name, part in parts.items():
+        args = K._dw_args(dplan, ids, dh, dw, scratch, part)
+        calls[name] = (lambda a=args: K.WIDE_ONEHOT_DW.launch(*a))
+    return calls
+
+
+def k4a_ways_line(w, ids, raw: dict) -> None:
+    """K4a on the device under each way of FWD_WAYS (how many batch rows a
+    thread walks the positions with, how many positions' loads it issues
+    before their adds) beside the plan's, each bit-equal to the plan's
+    output; prints one line, fails on a difference."""
+    from euromillioner_tpu_torch.ops import wide_onehot as K
+
+    b, k = ids.shape
+    _, v, e = w.shape
+    chosen = raw["plans"][0]
+    want = K.wide_onehot_fwd(w, ids)
+    out = torch.empty_like(want)
+    times, same = {}, True
+    for rows, group in K.FWD_WAYS:
+        plan = K.fwd_plan(w.dtype, b, k, v, e, chosen.vec, rows=rows,
+                          group=group)
+        args = K._fwd_args(plan, w, ids, out)
+        times[rows, group] = device_ms(
+            lambda: K.WIDE_ONEHOT_FWD.launch(*args), K4_DEVICE_LAUNCHES)
+        torch.cuda.synchronize()
+        same = same and torch.equal(out, want)
+    print(f"K4a ways B={b} {str(w.dtype)[6:]}: on the device, (rows per "
+          f"thread, positions loaded at once) "
+          + ", ".join(f"{r}x{g}: {t:.4f} ms" for (r, g), t in times.items())
+          + f"; the plan takes {chosen.rows}x{chosen.group}; every way "
+          f"bit-equal {same}")
+    check(same, f"K4a ways differ at B={b}")
+
+
+def phase_k4() -> tuple[dict, dict]:
+    """K4a and K4b against their plain versions in f32 and bf16 at the
+    paths' shapes and at K4_F6_SHAPE, three reruns bit-identical, each
+    shape with its two launch plans; then, at the paths' shapes, times
+    beside the plain versions', the library yardsticks' and the bounds:
+    per call (CUDA events around one wrapper call), on the device alone
+    (K4_DEVICE_LAUNCHES launches in a CUDA graph), K4b's sort and row
+    writer apart, and at bench.py's batch with the L2 flushed."""
+    from euromillioner_tpu_torch.ops import wide_onehot as K
+
+    for ln in K.WIDE_ONEHOT_FWD.build_log.splitlines():
+        if any(w in ln for w in ("entry function", "registers", "spill")):
+            print(f"K4 ptxas: {ln.strip()}")
     failures = []
     worst = {"fwd": 0.0, "dw": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for b, k, v, e in K4_SHAPES:
+        for b, k, v, e in K4_SHAPES + (K4_F6_SHAPE,):
             w, ids, dh = k4_inputs(b, k, v, e, dtype)
+            fplan = K.fwd_plan(dtype, b, k, v, e)
+            dplan = K.dw_plan(dtype, b, k, v, e)
+            print(f"K4 plans B={b} K={k} V={v} E={e} {str(dtype)[6:]}: K4a "
+                  f"{fplan._asdict()}; K4b {dplan._asdict()}")
             want_f = K.wide_onehot_fwd_reference(w, ids)
             scale_f = K.wide_onehot_fwd_reference(w.abs(), ids)
             cpu_ids, cpu_dh = ids.cpu(), dh.cpu()
@@ -2671,16 +2784,35 @@ def phase_k4() -> tuple[dict, dict]:
                                     f"{rel:.3e}, reruns equal {same}")
                 key = "fwd" if name == "K4a" else "dw"
                 worst[key] = max(worst[key], err.max().item())
+                del err
+            del w, ids, dh, fwd, dw, want_f, scale_f, want_d, scale_d
+            torch.cuda.empty_cache()
     check(not failures, "; ".join(failures))
 
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    flush_ms = device_ms(lambda: flush.fill_(1.0), K4_DEVICE_LAUNCHES)
     timed = {}
     for dtype in (torch.float32, torch.bfloat16):
         for b, k, v, e in K4_SHAPES[:-1]:
             w, ids, dh = k4_inputs(b, k, v, e, dtype)
+            raw = k4_raw_calls(w, ids, dh, v)
             fwd_ms = time_ms(lambda: K.wide_onehot_fwd(w, ids))
             fwd_plain = time_ms(lambda: K.wide_onehot_fwd_reference(w, ids))
             dw_ms = time_ms(lambda: K.wide_onehot_dw(ids, dh, v))
             dw_plain = time_ms(lambda: K.wide_onehot_dw_reference(ids, dh, v))
+            dev = {key: device_ms(raw[key], K4_DEVICE_LAUNCHES)
+                   for key in ("fwd", "dw", "sort", "write", "count")
+                   if key in raw}
+            sort_parts = (f"count {dev['count']:.4f}, scan and place "
+                          f"{dev['sort'] - dev['count']:.4f}"
+                          if "count" in dev else "one block per position")
+            flushed = {}
+            if b == WD_BENCH["batch"]:
+                k4a_ways_line(w, ids, raw)
+                for key in ("fwd", "dw"):
+                    flushed[key] = device_ms(
+                        lambda: (flush.fill_(1.0), raw[key]()),
+                        K4_DEVICE_LAUNCHES) - flush_ms
             # yardsticks, built outside the timed calls: one embedding_bag
             # over the ids offset into the flat (K*V, E) table, and one
             # index_add_ of dH's rows into a zeroed f32 (K*V, E) + the cast
@@ -2694,29 +2826,47 @@ def phase_k4() -> tuple[dict, dict]:
                 (k * v, e), device="cuda").index_add_(0, idx, src).to(dtype))
             bounds = k4_bound_ms(ids, w, dh)
             timed[b, str(dtype)[6:]] = {
-                "fwd": (fwd_ms, fwd_plain, fwd_lib, *bounds["fwd"]),
-                "dw": (dw_ms, dw_plain, dw_lib, *bounds["dw"])}
+                "fwd": (fwd_ms, fwd_plain, fwd_lib, *bounds["fwd"],
+                        dev["fwd"], flushed.get("fwd")),
+                "dw": (dw_ms, dw_plain, dw_lib, *bounds["dw"], dev["dw"],
+                       flushed.get("dw"))}
             for name, key in (("K4a", "fwd"), ("K4b", "dw")):
-                ms, plain, lib, bytes_ms, ops_ms = timed[b, str(dtype)[6:]][key]
+                (ms, plain, lib, bytes_ms, ops_ms, d_ms,
+                 cold) = timed[b, str(dtype)[6:]][key]
+                bound = max(bytes_ms, ops_ms)
                 print(f"{name} timing B={b} K={k} V={v} E={e} "
-                      f"{str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
-                      f"{plain:.4f} ms, library {lib:.4f} ms, bound "
-                      f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f},"
-                      f" operations {ops_ms:.4f})")
+                      f"{str(dtype)[6:]}: kernel {ms:.4f} ms per call, "
+                      f"{d_ms:.4f} ms on the device ({K4_DEVICE_LAUNCHES} "
+                      f"launches in a CUDA graph; {bound / d_ms:.3f} of the "
+                      f"bound)"
+                      + (f", {cold:.4f} ms with the L2 flushed"
+                         if cold is not None else "")
+                      + (f" [sort {dev['sort']:.4f} ms ({sort_parts}), "
+                         f"row writer {dev['write']:.4f} ms]"
+                         if key == "dw" else "")
+                      + f"; plain {plain:.4f} ms, library {lib:.4f} ms, "
+                      f"bound {bound:.4f} ms (bytes {bytes_ms:.4f}, "
+                      f"operations {ops_ms:.4f})")
+            del w, ids, dh, raw, src, flat, table, idx
+            torch.cuda.empty_cache()
 
     def entry(name, key, source_line):
-        ms, plain, lib, bytes_ms, ops_ms = timed[K4_TIMED_B, "bfloat16"][key]
+        (ms, plain, lib, bytes_ms, ops_ms, d_ms,
+         _) = timed[K4_TIMED_B, "bfloat16"][key]
         return {"name": name, "route": "cuda",
                 "source": "euromillioner_tpu_torch/csrc/wide_onehot.cu",
                 "replaces": f"euromillioner_tpu/ops/wide_onehot.py:"
                             f"{source_line}",
                 "launches": 0, "max_abs_err": worst[key], "ms": ms,
+                "device_ms": d_ms,
                 "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
                 "library_ms": lib,
                 "timed_shape": [K4_TIMED_B, 21, 4096, 1040, "bfloat16"],
                 "ms_by_shape": {f"{b}x21x4096x1040 {dt}": t[key][0]
-                                for (b, dt), t in timed.items()}}
+                                for (b, dt), t in timed.items()},
+                "device_ms_by_shape": {f"{b}x21x4096x1040 {dt}": t[key][5]
+                                       for (b, dt), t in timed.items()}}
 
     return (entry("wide_onehot_fwd", "fwd", 86),
             entry("wide_onehot_dw", "dw", 97))
@@ -2990,6 +3140,8 @@ def phase_wd_bench(k4: tuple[dict, dict]) -> dict:
     from euromillioner_tpu_torch.core.precision import Precision
     from euromillioner_tpu_torch.data.dataset import Batch
     from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
+    from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
+                                                         WIDE_ONEHOT_FWD)
     from euromillioner_tpu_torch.train.optim import adam
     from euromillioner_tpu_torch.train.trainer import Trainer
 
@@ -3004,6 +3156,7 @@ def phase_wd_bench(k4: tuple[dict, dict]) -> dict:
     batch = trainer._place(Batch(x=x, y=y, mask=np.ones(b, np.float32)))
     torch.cuda.reset_peak_memory_stats()
     times = []
+    WIDE_ONEHOT_FWD.launches = WIDE_ONEHOT_DW.launches = 0
     for i in range(WD_BENCH["warmup"] + WD_BENCH["steps"]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3011,16 +3164,25 @@ def phase_wd_bench(k4: tuple[dict, dict]) -> dict:
         torch.cuda.synchronize()
         if i >= WD_BENCH["warmup"]:
             times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"K4a": WIDE_ONEHOT_FWD.launches,
+                "K4b": WIDE_ONEHOT_DW.launches}
     check(math.isfinite(float(loss)), "bench step loss is not finite")
+    n_steps = WD_BENCH["warmup"] + WD_BENCH["steps"]
+    check(launches == {"K4a": n_steps, "K4b": n_steps},
+          f"bench steps launched {launches}, expected {n_steps} of each")
     ms = statistics.median(times)
     key = f"{b}x21x4096x1040 bfloat16"
     k4_ms = k4[0]["ms_by_shape"][key] + k4[1]["ms_by_shape"][key]
+    k4_dev = (k4[0]["device_ms_by_shape"][key]
+              + k4[1]["device_ms_by_shape"][key])
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"wide_deep bench step (B={b}, bf16 towers, Adam): median "
           f"{ms:.4f} ms/step over {len(times)} steps (min {min(times):.4f}, "
           f"max {max(times):.4f}), {b / ms * 1e3:.1f} rows/s; K4a+K4b "
-          f"{k4_ms:.4f} ms = {k4_ms / ms:.3f} of the step (from their own "
-          f"times); peak device memory {peak:.2f} GiB")
+          f"{k4_ms:.4f} ms per call = {k4_ms / ms:.3f} of the step, "
+          f"{k4_dev:.4f} ms on the device = {k4_dev / ms:.3f} (from their own "
+          f"times); launches {launches} in {n_steps} steps; peak device "
+          f"memory {peak:.2f} GiB")
 
     def step():
         nonlocal state
@@ -3047,7 +3209,8 @@ def phase_wd_bench(k4: tuple[dict, dict]) -> dict:
     del trainer, state, model, batch, small
     torch.cuda.empty_cache()
     return {"step_ms": ms, "rows_per_s": b / ms * 1e3,
-            "k4_share": k4_ms / ms}
+            "k4_share": k4_ms / ms, "k4_device_share": k4_dev / ms,
+            "launches": launches}
 
 
 def main() -> int:
@@ -3123,7 +3286,7 @@ def main() -> int:
         k4a, k4b = phase_k4()
         serve_k4a = phase_wd_serve(root)
         train_k4a, train_k4b = phase_wd_train(root)
-        phase_wd_bench((k4a, k4b))
+        wd_bench = phase_wd_bench((k4a, k4b))
         phase_wd_step(root)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3144,10 +3307,12 @@ def main() -> int:
     k3["launches"] = reference_k3 + scaled_k3 + cli_k3
     k3["launches_by_path"] = {"reference": reference_k3,
                               "scaled_gbt": scaled_k3, "cli_train": cli_k3}
-    k4a["launches"] = serve_k4a + train_k4a
-    k4a["launches_by_path"] = {"serve": serve_k4a, "train": train_k4a}
-    k4b["launches"] = train_k4b
-    k4b["launches_by_path"] = {"train": train_k4b}
+    k4a["launches_by_path"] = {"serve": serve_k4a, "train": train_k4a,
+                               "bench_step": wd_bench["launches"]["K4a"]}
+    k4a["launches"] = sum(k4a["launches_by_path"].values())
+    k4b["launches_by_path"] = {"train": train_k4b,
+                               "bench_step": wd_bench["launches"]["K4b"]}
+    k4b["launches"] = sum(k4b["launches_by_path"].values())
     rf_cls["launches_by_path"] = rf_cls_k3
     rf_cls["launches"] = sum(rf_cls_k3.values())
     rf_reg["launches_by_path"] = rf_reg_k3

@@ -18,43 +18,95 @@
 // K4a is a gather-sum and K4b a segmented sum, and neither does a matrix
 // product. The TPU's sequential grid carries a VMEM accumulator across
 // position steps (forward) or batch steps (dW); here blocks run in no
-// order, so each output element is owned by one thread, which walks its
-// terms in a fixed order:
-//  * K4a: thread per (row b, vector of VEC columns): f32 sums from zero,
-//    positions k = 0..K-1 in order, rows read as VEC-wide vector loads (16
-//    bytes when E allows). The plain version adds in the same order, so the
-//    two are bit-equal.
-//  * K4b, two kernels: (1) one block per position k sorts the keys
-//    id * B + b of its valid rows in shared memory (bitonic; keys are
-//    unique, so the order is ids ascending, batch order within an id);
-//    (2) a thread per (k, sorted position, column vector) that starts a run
-//    of equal ids sums that run's dh rows in batch order in f32 registers
-//    and writes the row once, cast to w's dtype. Rows no example touched
-//    stay as the wrapper's zeros. This is the plain version's order
-//    (index_add_ of the batch in order), with no f32 scratch table and no
-//    float atomics, so reruns are bit-identical.
+// order, so each output element is owned by one thread, which adds its
+// terms in the plain version's order: positions ascending from zero (K4a),
+// batch order within an id (K4b). No float atomics: reruns are
+// bit-identical, and both are bit-equal to the plain versions.
 //
-// Bound. Both move bytes and do next to no arithmetic (one add per element
-// read). K4a reads B*K rows of E (at most the distinct rows, at least) and
-// writes B*E f32: at B=8192, K=21, E=1040 in bf16, 358 MB gathered, 179 MB
-// of distinct rows at most, 34 MB written, 0.06-0.12 ms at 3.35 TB/s; at
-// the serving and training batches (B <= 128) launch latency. K4b must
-// write the dense (K, V, E) block: 178.9 MB in bf16 at full width, ~0.053
-// ms (0.107 ms in f32), here through the wrapper's zero fill plus the
-// touched rows. This design spends extra on K4b's sort (one block per
-// position, log2(B)^2 / 2 passes) and on threads of the runs kernel that
-// find no run to start.
+// What bounds them, and the design. Both move bytes and do one add per
+// element read; neither needs the tensor cores. Launch plans come from
+// ops/wide_onehot.py (fwd_plan, dw_plan); the entry points recompute what
+// follows from a plan and refuse one they would lay out otherwise.
+//  * K4a reads the distinct table rows the ids name and writes (B, E) f32:
+//    at bench.py's B=8192 in bf16, 358 MB gathered from 64 MB of distinct
+//    rows, 34 MB written (bound 0.029 ms at 3.35 TB/s). Repeated rows come
+//    from L2, so the gather is bound by L2-to-SM traffic, not HBM (an
+//    L2-flushed launch is ~10% slower on an H100 80GB HBM3 at 700 W), and
+//    by how many loads are in flight. A thread owns one 16-byte column
+//    vector of `rows` batch rows and issues the loads of `group` positions
+//    for them before their adds (the earlier design: 1 row, 4 at a time).
+//    At small B (serving, training: B <= 128) the call is latency: one row
+//    a thread, the loads of all 21 positions in flight at once, and the
+//    plan narrows blocks (then vectors) until more than a quarter of the
+//    SMs have work. At large B the plan takes the way that measured
+//    fastest (chip_smoke.py's "K4a ways"): 8 rows a thread walking the
+//    positions one at a time in f32, so the resident threads move through
+//    the position slabs together; one row with 8 positions at a time in
+//    bf16, whose 8-row sums would take 64 registers a thread. Outputs are
+//    stored evict-first so they do not push table rows out of L2.
+//  * K4b must write the dense (K, V, E) block: 178.9 MB in bf16 at full
+//    width (0.053 ms at 3.35 TB/s), and reads dh's rows once for each
+//    position they feed (358 MB from L2 at B=8192 in bf16; dh itself, 17
+//    MB, stays in L2). The earlier design wrote the block twice (the
+//    wrapper's zero fill, then the touched rows), sorted each position's
+//    keys in one block (21 blocks on 132 SMs, log2(B)^2/2 passes, at most
+//    32768 rows) and ran a thread per (sorted key, column vector), most of
+//    which found no run to start. Here:
+//    (1) a counting sort: each (tile, position) block counts its tile's
+//        ids over V+1 bins (the last for ids outside [0, V)) in shared
+//        memory; then each (tile, position) block scans its position's
+//        counts (every tile's, a bin a thread: 16 KiB a tile at V=4096,
+//        at most 8 tiles at the main paths' batches) into exclusive
+//        offsets, tile 0's block listing the non-empty ids with their
+//        runs, and one warp places the tile's rows in order, 32 at a
+//        time, ranked by comparing the lanes' bins. Equal ids are ranked
+//        by tile and by that walk, never by the order of atomics; the
+//        result is each position's batch rows sorted by id, batch order
+//        within an id. Any B and V: bins go in passes when they do not
+//        fit beside the tile. A batch of one tile (every serving and
+//        training batch) is counted by its placing block: one launch;
+//    (2) one row writer launch with two kinds of blocks: run blocks
+//        stride over the non-empty (k, v) rows, two column vectors a
+//        thread, and sum each run's dh rows in
+//        batch order in f32 (the run's row numbers are known, so 4 rows'
+//        loads go out together; a long run is spread over threads by
+//        columns, never split into partial sums); zeroing blocks store
+//        zeros in the empty rows. Every row is stored once, evict-first,
+//        16 bytes a store. The run sums are bound by L2-to-SM traffic (dh
+//        re-read once per position). Staging dh's column slices in shared
+//        memory (read from L2 once) was tried and lost: one 128 KiB block
+//        an SM walking ~30 runs a thread is bound by its chains of loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstring>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSortThreads = 1024;
-constexpr int kMaxBlocks = 132 * 64;
+constexpr int kFwdThreads = 128;
+constexpr int kSortThreads = 256;
+constexpr int kPlaceThreads = 1024;  // a bin a thread while scanning
+constexpr int kWriteThreads = 256;
+constexpr int kRunBatch = 4;
+constexpr int kMaxTileRows = 8192;
+constexpr int kMaxSortSmem = 64 * 1024;  // a placing block's tile and cursors
+constexpr int kMaxPositions = 1024;  // K: the row writer's list offsets
+constexpr unsigned kFull = 0xffffffffu;
+
+// K4b's parts (the wrapper's DW_COUNT, DW_PLACE, DW_WRITE)
+constexpr int kPartCount = 1;
+constexpr int kPartPlace = 2;
+constexpr int kPartWrite = 4;
+
+// K4a's (rows per thread, positions whose loads go out before the adds)
+// pairs, as ops/wide_onehot.py's FWD_WAYS
+__host__ __device__ constexpr bool fwd_way(int rows, int group) {
+  return (rows == 1 && (group == 24 || group == 8)) ||
+         (rows == 2 && group == 8) || (rows == 4 && group == 4) ||
+         (rows == 8 && group == 1);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -72,223 +124,602 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// VEC consecutive elements, aligned so one load or store moves them all
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
+// the integer type one vector of VEC elements is loaded and stored as
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<16> {
+  using type = uint4;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned int;
+};
+template <>
+struct RawOf<2> {
+  using type = unsigned short;
 };
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int VEC, typename R>
+__device__ __forceinline__ void add_raw(float (&acc)[VEC], const R& raw) {
+  static_assert(sizeof(R) == sizeof(T) * VEC, "vector size");
+  T v[VEC];
+  memcpy(v, &raw, sizeof(R));
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] += to_f32(v[j]);
+}
+
+template <typename T, int VEC, typename R>
+__device__ __forceinline__ R pack_raw(const float (&acc)[VEC]) {
+  T v[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) v[j] = from_f32<T>(acc[j]);
+  R raw;
+  memcpy(&raw, v, sizeof(R));
+  return raw;
+}
+
+// VEC f32 sums stored evict-first (st.global.cs)
+template <int VEC>
+__device__ __forceinline__ void store_f32_cs(float* p, const float (&a)[VEC]) {
+  if constexpr (VEC == 8) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
+    __stcs(reinterpret_cast<float4*>(p) + 1,
+           make_float4(a[4], a[5], a[6], a[7]));
+  } else if constexpr (VEC == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
+  } else if constexpr (VEC == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(a[0], a[1]));
+  } else {
+    __stcs(p, a[0]);
+  }
+}
+
+// -- K4a --------------------------------------------------------------------
+
+// A thread owns column vector c of batch rows [g*ROWS, g*ROWS + ROWS) and
+// adds positions in ascending order, issuing the loads of KG positions for
+// its rows before their adds; threads are numbered (g, c) with c fastest,
+// so a warp reads 512 contiguous bytes of a row.
+template <typename T, int VEC, int ROWS, int KG>
+__global__ void __launch_bounds__(kFwdThreads, 4)
 wide_fwd_kernel(const T* __restrict__ w,      // (K, V, E)
                 const int* __restrict__ ids,  // (B, K)
                 float* __restrict__ out,      // (B, E)
                 int B, int K, int V, int E) {
+  using R = typename RawOf<sizeof(T) * VEC>::type;
   const int nvec = E / VEC;
-  const long long total = (long long)B * nvec;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const int b = (int)(t / nvec);
-    const int c = (int)(t % nvec) * VEC;
-    float acc[VEC];
+  const long long unit = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long units = ((long long)B + ROWS - 1) / ROWS * nvec;
+  if (unit >= units) return;
+  const int g = (int)(unit / nvec);
+  const int c = (int)(unit - (long long)g * nvec) * VEC;
+  const int b0 = g * ROWS;
+  float acc[ROWS][VEC];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-    const int* row_ids = ids + (size_t)b * K;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const int id = __ldg(row_ids + k);
-      if (id < 0 || id >= V) continue;
-      const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(
-          w + ((size_t)k * V + id) * E + c);
+  for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[j] += to_f32(p.v[j]);
-    }
-    float* o = out + (size_t)b * E + c;
+    for (int j = 0; j < VEC; ++j) acc[r][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += KG) {
+    R raw[ROWS][KG];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) o[j] = acc[j];
-  }
-}
-
-// keys[k, :] = the valid rows' id * B + b in ascending order, INT_MAX after
-// them; n is the power of two at or above B that the sort runs over
-__global__ void __launch_bounds__(kSortThreads)
-wide_dw_sort_kernel(const int* __restrict__ ids,  // (B, K)
-                    int* __restrict__ keys,       // (K, B)
-                    int B, int K, int V, int n) {
-  extern __shared__ int s[];
-  const int k = blockIdx.x;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int key = INT_MAX;
-    if (i < B) {
-      const int id = ids[(size_t)i * K + k];
-      if (id >= 0 && id < V) key = id * B + i;
-    }
-    s[i] = key;
-  }
-  __syncthreads();
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const int a = s[i];
-          const int c = s[j];
-          const bool up = (i & size) == 0;
-          if ((a > c) == up) {
-            s[i] = c;
-            s[j] = a;
-          }
-        }
+    for (int j = 0; j < KG; ++j) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int k = k0 + j;
+        const int b = b0 + r;
+        int id = -1;
+        if (k < K && b < B) id = __ldg(ids + (size_t)b * K + k);
+        raw[r][j] = R{};
+        if (id >= 0 && id < V)
+          raw[r][j] = __ldg(reinterpret_cast<const R*>(
+              w + ((size_t)k * V + id) * E + c));
       }
-      __syncthreads();
     }
-  }
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    keys[(size_t)k * B + i] = s[i];
-  }
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-wide_dw_runs_kernel(const int* __restrict__ keys,  // (K, B) sorted
-                    const T* __restrict__ dh,      // (B, E)
-                    T* __restrict__ dw,            // (K, V, E), zeroed
-                    int B, int K, int V, int E) {
-  const int nvec = E / VEC;
-  const long long total = (long long)K * B * nvec;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(t % nvec) * VEC;
-    const long long kb = t / nvec;
-    const int i = (int)(kb % B);
-    const int k = (int)(kb / B);
-    const int* ks = keys + (size_t)k * B;
-    const int key = ks[i];
-    if (key == INT_MAX) continue;
-    const int id = key / B;
-    // keys ascend, so the one before a valid key is valid too
-    if (i > 0 && ks[i - 1] / B == id) continue;
-    float acc[VEC];
+    // a missing term adds +0, which leaves a sum started at +0 unchanged
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-    for (int r = i; r < B; ++r) {
-      const int kr = ks[r];
-      if (kr == INT_MAX || kr / B != id) break;
-      const int b = kr - id * B;
-      const Pack<T, VEC> p =
-          *reinterpret_cast<const Pack<T, VEC>*>(dh + (size_t)b * E + c);
+    for (int j = 0; j < KG; ++j)
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[j] += to_f32(p.v[j]);
-    }
-    Pack<T, VEC> o;
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) o.v[j] = from_f32<T>(acc[j]);
-    *reinterpret_cast<Pack<T, VEC>*>(dw + ((size_t)k * V + id) * E + c) = o;
+      for (int r = 0; r < ROWS; ++r) add_raw<T, VEC>(acc[r], raw[r][j]);
   }
-}
-
-unsigned blocks_for(long long total) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  return (unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+    if (b0 + r < B) store_f32_cs<VEC>(out + (size_t)(b0 + r) * E + c, acc[r]);
 }
 
 template <typename T, int VEC>
 cudaError_t launch_fwd(const void* w, const int* ids, float* out, int B,
-                       int K, int V, int E, cudaStream_t s) {
-  const long long total = (long long)B * (E / VEC);
-  wide_fwd_kernel<T, VEC><<<blocks_for(total), kThreads, 0, s>>>(
-      static_cast<const T*>(w), ids, out, B, K, V, E);
-  return cudaGetLastError();
+                       int K, int V, int E, int rows, int group, int threads,
+                       int blocks, cudaStream_t s) {
+  const T* wt = static_cast<const T*>(w);
+#define EMT_FWD_WAY(R_, G_)                                         \
+  if (rows == R_ && group == G_) {                                  \
+    wide_fwd_kernel<T, VEC, R_, G_><<<blocks, threads, 0, s>>>(     \
+        wt, ids, out, B, K, V, E);                                  \
+    return cudaGetLastError();                                      \
+  }
+  EMT_FWD_WAY(1, 24)
+  EMT_FWD_WAY(1, 8)
+  EMT_FWD_WAY(2, 8)
+  EMT_FWD_WAY(4, 4)
+  EMT_FWD_WAY(8, 1)
+#undef EMT_FWD_WAY
+  return cudaErrorInvalidValue;
+}
+
+// -- K4b: the counting sort ---------------------------------------------------
+
+__device__ __forceinline__ int bin_of(int id, int V) {
+  return id >= 0 && id < V ? id : V;
+}
+
+// Exclusive block-wide scans of two values at once (every thread of the
+// block must call it; at most 32 warps): each thread's exclusive prefix of
+// a and of b, and both totals.
+__device__ __forceinline__ void block_scan2(int a, int b, int& excl_a,
+                                            int& excl_b, int& total_a,
+                                            int& total_b) {
+  __shared__ int sums_a[32];
+  __shared__ int sums_b[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int sa = a, sb = b;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ya = __shfl_up_sync(kFull, sa, off);
+    const int yb = __shfl_up_sync(kFull, sb, off);
+    if (lane >= off) {
+      sa += ya;
+      sb += yb;
+    }
+  }
+  if (lane == 31) {
+    sums_a[warp] = sa;
+    sums_b[warp] = sb;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int wa = lane < warps ? sums_a[lane] : 0;
+    int wb = lane < warps ? sums_b[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int ya = __shfl_up_sync(kFull, wa, off);
+      const int yb = __shfl_up_sync(kFull, wb, off);
+      if (lane >= off) {
+        wa += ya;
+        wb += yb;
+      }
+    }
+    sums_a[lane] = wa;
+    sums_b[lane] = wb;
+  }
+  __syncthreads();
+  excl_a = (warp ? sums_a[warp - 1] : 0) + sa - a;
+  excl_b = (warp ? sums_b[warp - 1] : 0) + sb - b;
+  total_a = sums_a[warps - 1];
+  total_b = sums_b[warps - 1];
+  __syncthreads();
+}
+
+// One warp places rows [r0, r1) in batch order: order[cursor[bin] + rank]
+// = b, rank counting the earlier rows of the same bin — inside a 32-row
+// chunk by comparing every lane's bin with every other's, the chunks in
+// order; bins outside [0, n) are another pass's.
+__device__ __forceinline__ void place_rows(const int* row_bins, int r0,
+                                           int r1, int v0, int n,
+                                           int* cursor, int* order) {
+  const int lane = threadIdx.x & 31;
+  for (int base = r0; base < r1; base += 32) {
+    const int b = base + lane;
+    const int bin = b < r1 ? row_bins[b - r0] - v0 : -1;
+    const bool mine = bin >= 0 && bin < n;
+    const int key = mine ? bin : -1;
+    int rank = 0, same = 0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const bool eq = __shfl_sync(kFull, key, j) == key;
+      same += eq;
+      rank += eq && j < lane;
+    }
+    const int pos = mine ? cursor[bin] : 0;
+    __syncwarp();
+    if (mine && rank == 0) cursor[bin] = pos + same;
+    if (mine) order[pos + rank] = b;
+    __syncwarp();
+  }
+}
+
+// counts[k, tile, v] = how many of the tile's rows have bin v at position
+// k; bins in passes of bin_range
+__global__ void __launch_bounds__(kSortThreads)
+wide_dw_count_kernel(const int* __restrict__ ids, int* __restrict__ counts,
+                     int B, int K, int V, int tile_rows, int tiles,
+                     int bin_range) {
+  extern __shared__ int hist[];
+  const int tile = blockIdx.x;
+  const int k = blockIdx.y;
+  const int r0 = tile * tile_rows;
+  const int r1 = min(B, r0 + tile_rows);
+  const int bins = V + 1;
+  int* out = counts + ((size_t)k * tiles + tile) * bins;
+  for (int v0 = 0; v0 < bins; v0 += bin_range) {
+    const int n = min(bin_range, bins - v0);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) hist[i] = 0;
+    __syncthreads();
+    for (int b = r0 + threadIdx.x; b < r1; b += blockDim.x) {
+      const int bin = bin_of(__ldg(ids + (size_t)b * K + k), V) - v0;
+      if (bin >= 0 && bin < n) atomicAdd(&hist[bin], 1);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) out[v0 + i] = hist[i];
+    __syncthreads();
+  }
+}
+
+// Scans one position's bins [v0, v0 + n), a bin a thread, carrying the
+// running totals across calls: the bin's total over the tiles and, of it,
+// the tiles before `tile`; cursor[v - v0] = where the tile's rows of bin v
+// go in the flat (K, B) order (bins in order, tiles in order within a
+// bin). The block of tile 0 also writes starts[k, v] and, for non-empty
+// bins v < V, runs[k, i] = (v, start, end). `counts` holds the position's
+// (tiles, V + 1) counts.
+__device__ __forceinline__ void scan_bins(const int* counts, int tiles,
+                                          int tile, int bins, int V, int v0,
+                                          int n, int* cursor, int* starts,
+                                          int4* runs, int& carry,
+                                          int& listed) {
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int v = v0 + base + threadIdx.x;
+    int total = 0, before = 0;
+    if (base + threadIdx.x < n)
+      for (int t = 0; t < tiles; ++t) {
+        const int c = counts[(size_t)t * bins + v];
+        total += c;
+        before += t < tile ? c : 0;
+      }
+    const int flag = v < V && total > 0;
+    int excl, excl_flag, sum, flags;
+    block_scan2(total, flag, excl, excl_flag, sum, flags);
+    if (base + threadIdx.x < n) {
+      const int start = carry + excl;
+      cursor[base + threadIdx.x] = start + before;
+      if (tile == 0) {
+        starts[v] = start;
+        if (flag) runs[listed + excl_flag] = make_int4(v, start, start + total,
+                                                       0);
+      }
+    }
+    carry += sum;
+    listed += flags;
+  }
+}
+
+// scan_bins for a one-tile batch whose counts are in shared memory
+// (cursor[v] for v < bins, one pass): each thread takes ceil(bins /
+// blockDim.x) consecutive bins, so one block scan covers them all, and
+// turns the counts into cursors in place.
+__device__ __forceinline__ void scan_local_bins(int bins, int V, int* cursor,
+                                                int* starts, int4* runs,
+                                                int carry, int& listed) {
+  const int per = (bins + blockDim.x - 1) / blockDim.x;
+  const int v0 = threadIdx.x * per;
+  int sum = 0, flags = 0;
+  for (int v = v0; v < min(bins, v0 + per); ++v) {
+    sum += cursor[v];
+    flags += v < V && cursor[v] > 0;
+  }
+  int excl, excl_flag, total, total_flags;
+  block_scan2(sum, flags, excl, excl_flag, total, total_flags);
+  int start = carry + excl;
+  int at = excl_flag;
+  for (int v = v0; v < min(bins, v0 + per); ++v) {
+    const int n = cursor[v];
+    cursor[v] = start;
+    starts[v] = start;
+    if (v < V && n > 0) runs[at++] = make_int4(v, start, start + n, 0);
+    start += n;
+  }
+  listed = total_flags;
+}
+
+// Sorts each position's rows by bin, batch order within a bin: block
+// (tile, k) scans the position's counts (every block of the position does
+// it; its tiles' counts are few), then one warp places the tile's rows in
+// order at their bins' cursors (place_rows), bin_range bins a pass. A
+// one-tile batch (every serving and training batch) needs no count kernel:
+// its block counts in shared memory first. Block (0, k) writes the
+// position's starts, runs and run count nnz[k].
+__global__ void __launch_bounds__(kPlaceThreads)
+wide_dw_place_kernel(const int* __restrict__ ids,
+                     const int* __restrict__ counts, int* __restrict__ starts,
+                     int4* __restrict__ runs, int* __restrict__ nnz,
+                     int* __restrict__ order, int B, int K, int V,
+                     int tile_rows, int tiles, int bin_range, int cap) {
+  extern __shared__ int smem[];
+  int* row_bins = smem;            // tile_rows
+  int* cursor = smem + tile_rows;  // bin_range: counts, then cursors
+  const int tile = blockIdx.x;
+  const int k = blockIdx.y;
+  const int r0 = tile * tile_rows;
+  const int r1 = min(B, r0 + tile_rows);
+  const int bins = V + 1;
+  for (int b = r0 + threadIdx.x; b < r1; b += blockDim.x)
+    row_bins[b - r0] = bin_of(__ldg(ids + (size_t)b * K + k), V);
+  int carry = k * B;
+  int listed = 0;
+  for (int v0 = 0; v0 < bins; v0 += bin_range) {
+    const int n = min(bin_range, bins - v0);
+    if (counts == nullptr) {  // one tile, one pass: count here
+      for (int i = threadIdx.x; i < n; i += blockDim.x) cursor[i] = 0;
+      __syncthreads();
+      for (int b = threadIdx.x; b < r1; b += blockDim.x)
+        atomicAdd(&cursor[row_bins[b]], 1);
+      __syncthreads();
+      scan_local_bins(bins, V, cursor, starts + (size_t)k * bins,
+                      runs + (size_t)k * cap, carry, listed);
+    } else {
+      scan_bins(counts + (size_t)k * tiles * bins, tiles, tile, bins, V, v0,
+                n, cursor, starts + (size_t)k * bins, runs + (size_t)k * cap,
+                carry, listed);
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) place_rows(row_bins, r0, r1, v0, n, cursor, order);
+    __syncthreads();
+  }
+  if (tile == 0 && threadIdx.x == 0) nnz[k] = listed;
+}
+
+// -- K4b: the row writer ------------------------------------------------------
+
+// Two roles by block. The first run_blocks blocks stride over units of the
+// positions' lists of non-empty ids (runs[k, i] = (v, start, end)): a unit
+// is one entry's column vectors p and p + upr (upr = ceil(E / VEC / 2), so
+// a warp's lanes read contiguous vectors of both halves); it sums the run's
+// dh rows in batch order in f32, kRunBatch rows' loads at a time, and
+// stores its vectors of the row once. The other blocks own zero_rows (k, v)
+// rows each of the flat K x V and store zeros in the rows whose run is
+// empty. Every row is written once.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWriteThreads)
+wide_dw_write_kernel(const T* __restrict__ dh,        // (B, E)
+                     const int* __restrict__ order,   // (K, B)
+                     const int4* __restrict__ runs,   // (K, cap)
+                     const int* __restrict__ nnz,     // (K,)
+                     const int* __restrict__ starts,  // (K, V + 1)
+                     T* __restrict__ dw,              // (K, V, E)
+                     int K, int V, int E, int cap, int zero_rows,
+                     int run_blocks) {
+  using R = typename RawOf<sizeof(T) * VEC>::type;
+  const int nvec = E / VEC;
+  if ((int)blockIdx.x < run_blocks) {
+    __shared__ int first[kMaxPositions + 1];  // entries before position k
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int k = 0; k < K; ++k) {
+        first[k] = n;
+        n += nnz[k];
+      }
+      first[K] = n;
+    }
+    __syncthreads();
+    const int upr = (nvec + 1) / 2;
+    const long long units = (long long)first[K] * upr;
+    for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         u < units; u += (long long)run_blocks * blockDim.x) {
+      const int entry = (int)(u / upr);
+      const int p = (int)(u - (long long)entry * upr);
+      const bool two = p + upr < nvec;
+      int k = 0;
+      while (first[k + 1] <= entry) ++k;
+      const int4 run = __ldg(runs + (size_t)k * cap + entry - first[k]);
+      const T* src = dh + p * VEC;
+      float acc0[VEC], acc1[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc0[j] = acc1[j] = 0.f;
+      for (int i = run.y; i < run.z; i += kRunBatch) {
+        R raw0[kRunBatch], raw1[kRunBatch];
+#pragma unroll
+        for (int j = 0; j < kRunBatch; ++j) {
+          raw0[j] = raw1[j] = R{};
+          if (i + j < run.z) {
+            const T* row = src + (size_t)__ldg(order + i + j) * E;
+            raw0[j] = __ldg(reinterpret_cast<const R*>(row));
+            if (two)
+              raw1[j] = __ldg(reinterpret_cast<const R*>(row + upr * VEC));
+          }
+        }
+        // past the run's end a term is +0, which leaves the sum unchanged
+#pragma unroll
+        for (int j = 0; j < kRunBatch; ++j) {
+          add_raw<T, VEC>(acc0, raw0[j]);
+          add_raw<T, VEC>(acc1, raw1[j]);
+        }
+      }
+      T* out = dw + ((size_t)k * V + run.x) * E + p * VEC;
+      __stcs(reinterpret_cast<R*>(out), pack_raw<T, VEC, R>(acc0));
+      if (two)
+        __stcs(reinterpret_cast<R*>(out + upr * VEC),
+               pack_raw<T, VEC, R>(acc1));
+    }
+    return;
+  }
+  const int row0 = ((int)blockIdx.x - run_blocks) * zero_rows;
+  const int units = min(zero_rows, K * V - row0) * nvec;
+#pragma unroll 4
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int r = u / nvec;
+    const int row = row0 + r;
+    const int k = row / V;
+    const int* st = starts + (size_t)k * (V + 1) + (row - k * V);
+    if (__ldg(st) == __ldg(st + 1))
+      __stcs(reinterpret_cast<R*>(dw + (size_t)row * E + (u - r * nvec) * VEC),
+             R{});
+  }
 }
 
 template <typename T, int VEC>
-cudaError_t launch_runs(const int* keys, const void* dh, void* dw, int B,
-                        int K, int V, int E, cudaStream_t s) {
-  const long long total = (long long)K * B * (E / VEC);
-  wide_dw_runs_kernel<T, VEC><<<blocks_for(total), kThreads, 0, s>>>(
-      keys, static_cast<const T*>(dh), static_cast<T*>(dw), B, K, V, E);
+cudaError_t launch_write(const void* dh, const int* order, const int4* runs,
+                         const int* nnz, const int* starts, void* dw, int K,
+                         int V, int E, int cap, int zero_rows,
+                         int zero_blocks, int run_blocks, cudaStream_t s) {
+  wide_dw_write_kernel<T, VEC>
+      <<<run_blocks + zero_blocks, kWriteThreads, 0, s>>>(
+          static_cast<const T*>(dh), order, runs, nnz, starts,
+          static_cast<T*>(dw), K, V, E, cap, zero_rows, run_blocks);
   return cudaGetLastError();
+}
+
+// cudaSetDevice only when `device` is not already the calling thread's:
+// the entry points run once a call, and the call is host-bound at the
+// serving and training batches
+cudaError_t use_device(int device) {
+  int current = -1;
+  if (cudaGetDevice(&current) == cudaSuccess && current == device)
+    return cudaSuccess;
+  return cudaSetDevice(device);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype 0 = float32, 1 = bfloat16; vec is the column vector width, which
-// the wrapper picks to divide E and the pointers' alignment.
+// dtype 0 = float32, 1 = bfloat16; vec is the column vector width (16
+// bytes at most), which the plan picks to divide E and the pointers'
+// alignment. Each returns cudaGetLastError() (0 = ok); a plan the entry
+// would not lay out so, or an unsupported (dtype, vec), is
+// cudaErrorInvalidValue.
 //
-// K4a on `stream` of CUDA device `device`. Returns cudaGetLastError()
-// (0 = ok); an unsupported (dtype, vec) pair is cudaErrorInvalidValue.
+// K4a on `stream` of CUDA device `device`, launched as fwd_plan says:
+// `rows` batch rows per thread, the loads of `group` positions in flight
+// before their adds, `threads` per block, `blocks` blocks.
 int emt_wide_onehot_fwd(const void* w, const int* ids, float* out, int B,
-                        int K, int V, int E, int dtype, int vec, int device,
+                        int K, int V, int E, int dtype, int vec, int rows,
+                        int group, int threads, int blocks, int device,
                         void* stream) {
   if (B <= 0 || E <= 0) return 0;
-  if (E % vec) return (int)cudaErrorInvalidValue;
-  const cudaError_t set = cudaSetDevice(device);
+  if (K < 0 || V < 0 || vec <= 0 || E % vec || !fwd_way(rows, group) ||
+      threads < 32 || threads > kFwdThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  const long long units = ((long long)B + rows - 1) / rows * (E / vec);
+  if (blocks != (units + threads - 1) / threads)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = (cudaStream_t)stream;
+#define EMT_FWD(T_, VEC_)                                                \
+  return (int)launch_fwd<T_, VEC_>(w, ids, out, B, K, V, E, rows, group, \
+                                   threads, blocks, s)
   if (dtype == 0) {
     switch (vec) {
-      case 4: return (int)launch_fwd<float, 4>(w, ids, out, B, K, V, E, s);
-      case 2: return (int)launch_fwd<float, 2>(w, ids, out, B, K, V, E, s);
-      case 1: return (int)launch_fwd<float, 1>(w, ids, out, B, K, V, E, s);
+      case 4: EMT_FWD(float, 4);
+      case 2: EMT_FWD(float, 2);
+      case 1: EMT_FWD(float, 1);
     }
   } else if (dtype == 1) {
     switch (vec) {
-      case 8:
-        return (int)launch_fwd<__nv_bfloat16, 8>(w, ids, out, B, K, V, E, s);
-      case 4:
-        return (int)launch_fwd<__nv_bfloat16, 4>(w, ids, out, B, K, V, E, s);
-      case 2:
-        return (int)launch_fwd<__nv_bfloat16, 2>(w, ids, out, B, K, V, E, s);
-      case 1:
-        return (int)launch_fwd<__nv_bfloat16, 1>(w, ids, out, B, K, V, E, s);
+      case 8: EMT_FWD(__nv_bfloat16, 8);
+      case 4: EMT_FWD(__nv_bfloat16, 4);
+      case 2: EMT_FWD(__nv_bfloat16, 2);
+      case 1: EMT_FWD(__nv_bfloat16, 1);
     }
   }
+#undef EMT_FWD
   return (int)cudaErrorInvalidValue;
 }
 
-// K4b on `stream` of CUDA device `device`: `dw` (K, V, E) must hold zeros;
-// `keys` is (K, B) int32 scratch. The sort keeps pow2(B) ints in shared
-// memory, so B <= 32768 and V * B < 2^31 (the wrapper checks both).
-int emt_wide_onehot_dw(const int* ids, const void* dh, void* dw, int* keys,
+// K4b on `stream` of CUDA device `device`, launched as dw_plan says. `dw`
+// (K, V, E) may hold anything: every row is written. `scratch` holds
+// scratch_ints int32, 16-byte aligned: the (K, min(V, B)) runs (v, start,
+// end, 0) of the non-empty ids; the (K, tiles, V+1) counts (none when the
+// batch is one tile and its bins one pass: the placing block counts); the
+// (K, V+1) run starts; the (K, B) order; the K run counts. `parts` (bits:
+// 1 count, 2 scan and place, 4 write) runs some parts alone, for timing
+// them, on what earlier calls left in scratch.
+int emt_wide_onehot_dw(const int* ids, const void* dh, void* dw, int* scratch,
                        int B, int K, int V, int E, int dtype, int vec,
-                       int device, void* stream) {
-  if (B <= 0 || K <= 0 || E <= 0) return 0;
-  if (E % vec || B > 32768) return (int)cudaErrorInvalidValue;
-  const cudaError_t set = cudaSetDevice(device);
+                       int tile_rows, int tiles, int bin_range, int sort_smem,
+                       int zero_rows, int zero_blocks, int run_blocks,
+                       int scratch_ints, int parts, int device,
+                       void* stream) {
+  if (K <= 0 || V <= 0 || E <= 0) return 0;  // the block is empty
+  if (B < 0 || vec <= 0 || E % vec || K > kMaxPositions || tile_rows < 32 ||
+      tile_rows > kMaxTileRows || tile_rows % 32)
+    return (int)cudaErrorInvalidValue;
+  const long long bins = (long long)V + 1;
+  const long long rows = (long long)K * V;
+  const long long want_tiles =
+      B > 0 ? ((long long)B + tile_rows - 1) / tile_rows : 1;
+  const long long room = kMaxSortSmem / (int)sizeof(int) - tile_rows;
+  const bool one_block = tiles == 1 && bins <= bin_range;
+  const int cap = V < B ? V : B;
+  const long long counts = one_block ? 0 : (long long)K * tiles * bins;
+  const long long starts = (long long)K * bins;
+  const long long order = (long long)K * B;
+  const long long listed = (long long)K * cap * 4;
+  if (tiles != want_tiles || bin_range != (bins < room ? bins : room) ||
+      sort_smem != (tile_rows + bin_range) * (int)sizeof(int) ||
+      rows > INT_MAX || zero_rows < 1 ||
+      (long long)zero_rows * (E / vec) > INT_MAX ||
+      zero_blocks != (rows + zero_rows - 1) / zero_rows || run_blocks < 1 ||
+      scratch_ints != listed + counts + starts + order + K ||
+      (long long)K * B > INT_MAX || parts < 1 || parts > 7)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return (int)set;
   cudaStream_t s = (cudaStream_t)stream;
-  int n = 1;
-  while (n < B) n <<= 1;
-  const size_t smem = (size_t)n * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wide_dw_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  int4* rn = reinterpret_cast<int4*>(scratch);
+  int* cnt = scratch + listed;
+  int* st = cnt + counts;
+  int* ord = st + starts;
+  int* nz = ord + order;
+  const dim3 grid(tiles, K);
+  if ((parts & kPartCount) && !one_block) {
+    const int smem = bin_range * (int)sizeof(int);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          wide_dw_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    wide_dw_count_kernel<<<grid, kSortThreads, smem, s>>>(
+        ids, cnt, B, K, V, tile_rows, tiles, bin_range);
   }
-  wide_dw_sort_kernel<<<K, kSortThreads, smem, s>>>(ids, keys, B, K, V, n);
+  if (parts & kPartPlace) {
+    if (sort_smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          wide_dw_place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          sort_smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    wide_dw_place_kernel<<<grid, kPlaceThreads, sort_smem, s>>>(
+        ids, one_block ? nullptr : cnt, st, rn, nz, ord, B, K, V, tile_rows,
+        tiles, bin_range, cap);
+  }
   const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || !(parts & kPartWrite)) return (int)e;
+#define EMT_WRITE(T_, VEC_)                                                \
+  return (int)launch_write<T_, VEC_>(dh, ord, rn, nz, st, dw, K, V, E, cap, \
+                                     zero_rows, zero_blocks, run_blocks, s)
   if (dtype == 0) {
     switch (vec) {
-      case 4: return (int)launch_runs<float, 4>(keys, dh, dw, B, K, V, E, s);
-      case 2: return (int)launch_runs<float, 2>(keys, dh, dw, B, K, V, E, s);
-      case 1: return (int)launch_runs<float, 1>(keys, dh, dw, B, K, V, E, s);
+      case 4: EMT_WRITE(float, 4);
+      case 2: EMT_WRITE(float, 2);
+      case 1: EMT_WRITE(float, 1);
     }
   } else if (dtype == 1) {
     switch (vec) {
-      case 8:
-        return (int)launch_runs<__nv_bfloat16, 8>(keys, dh, dw, B, K, V, E, s);
-      case 4:
-        return (int)launch_runs<__nv_bfloat16, 4>(keys, dh, dw, B, K, V, E, s);
-      case 2:
-        return (int)launch_runs<__nv_bfloat16, 2>(keys, dh, dw, B, K, V, E, s);
-      case 1:
-        return (int)launch_runs<__nv_bfloat16, 1>(keys, dh, dw, B, K, V, E, s);
+      case 8: EMT_WRITE(__nv_bfloat16, 8);
+      case 4: EMT_WRITE(__nv_bfloat16, 4);
+      case 2: EMT_WRITE(__nv_bfloat16, 2);
+      case 1: EMT_WRITE(__nv_bfloat16, 1);
     }
   }
+#undef EMT_WRITE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -129,7 +129,9 @@ class CudaKernel:
         ``int device, void* stream``); raises on a refused launch."""
         if self._fn is None:
             self.build()
-        stream = torch.cuda.current_stream(args[-1]).cuda_stream
+        raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        stream = (raw(args[-1]) if raw is not None
+                  else torch.cuda.current_stream(args[-1]).cuda_stream)
         code = self._fn(*args, stream)
         if code != 0:
             raise RuntimeError(
