@@ -12,8 +12,8 @@ Phases, each reported on its own lines:
    instantiation runs tensor-core instructions (HMMA for ``mma.sync``,
    HGMMA for K2's ``wgmma`` dwh) and no f32 one does;
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the shapes its path gives it (K1: the serving buckets and the training
-   batch; K2: the training batches, with K1's residuals; then the K1+K2
+   the shapes its path gives it (K1: the serving buckets, the HTTP batch
+   server's 128-step bucket and the training batch; K2: the training batches, with K1's residuals; then the K1+K2
    Function's gradients against autograd through the scan), then its
    median time beside the plain version's, the card's bound and the
    earlier K1/K2 design's time (constants from PERF.md), each timed shape
@@ -38,6 +38,29 @@ Phases, each reported on its own lines:
    read just after), its replies must lie inside the (lstm, fused)
    envelope of the f32 replies, and the f32 replies must agree with a
    direct per-sequence apply;
+4a. serve over HTTP — the same flagship checkpointed and served by ``serve``
+   subprocesses on free ports, one per scheduler: the step scheduler
+   (``--scheduler continuous serve.max_slots=32 serve.step_blocks=2,8,32
+   serve.profiles=bf16``) and the whole-sequence one (``--scheduler batch
+   serve.seq_buckets=8,16,32,64,128 serve.profiles=fused``); bench.py's
+   _bench_serve_seq traffic (320 sequences, 85% of 8-16 steps, 15% of
+   96-128, numpy seed 0) POSTed from 8 client threads, once with every 4th
+   request at ``{"profile": "bf16"}`` (continuous) or every 2nd at
+   ``"fused"`` (batch) and once at f32 alone: /healthz, /stats and the
+   /metrics 404, every f32 reply (the fused ones too: that tier serves
+   float32) within F32_SERVE_TOL of a direct apply and every other inside
+   its profile's envelope, requests/s and client
+   p50/p99 per pass, the continuous-vs-batch ratio, SIGTERM → exit 0 with
+   the final stats, the child's and the kernel launches logged; the
+   continuous server launches no kernel (its blocks are the scan), the
+   batch server's fused child launches K1 exactly layers x (its batches +
+   its warmup programs); then both schedulers in this process with every
+   sequence submitted at once (bench.py's way), each with one more pass
+   under ``torch.profiler`` (device launches per dispatch, the device's
+   busy share of the wall), and a saturated burst
+   served across a mid-stream switch of the (2, 8, 32) ladder bit-equal to
+   the fixed rung 2, with how many elements a hoisted input projection
+   would round otherwise at other block sizes on the card and on the CPU;
 5. train — the flagship at full width trained through the port's CLI
    (``train --model lstm --html-file tests/golden/euromillions.html``,
    2 epochs of B=64, f32) from seeded weights: two finite watch lines, K2
@@ -154,7 +177,8 @@ Phases, each reported on its own lines:
    RandomForestModel.predict; ``serve --model-type rf --smoke 32`` on that
    model and ``serve --model-type gbt --smoke 32`` on phase 12's booster:
    no failed request, every reply bit-equal to a direct predict;
-22. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the
+22. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
+   ``serve_http_fused``), the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
@@ -165,6 +189,7 @@ Any failed check ends the run with exit code 1.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import logging
@@ -186,6 +211,10 @@ SMOKE_REQUESTS = 32
 # K1 at the serving path's (row bucket, time bucket) shapes
 K1_SHAPES = ((8, 8), (32, 16), (128, 64))
 TIMED_SHAPE = (128, 64)
+# K1 at the largest time bucket phase 4a's fused child runs
+# (serve.seq_buckets=...,128 at the row buckets 8, 32, 128): checked at
+# K1_TOL, not timed
+K1_HTTP_SHAPES = ((8, 128), (32, 128), (128, 128))
 # K1 with residuals at the training path's shape
 K1_TRAIN_SHAPE = (64, 64)
 TRAIN_EPOCHS = 2
@@ -258,6 +287,26 @@ LSTM_BENCH = {"batch": 2048, "warmup": 2, "steps": 10}
 # are not compared (adam's first step maps a gradient element to about
 # +-lr, so a near-zero element of opposite sign moves its param by 2 lr)
 LSTM_BF16_STEP_TOL = {"loss": 1e-5, "grad": 3e-2}
+# phase 4a: the flagship behind the serve CLI's HTTP front end, with
+# bench.py's _bench_serve_seq traffic (numpy seed 0: 85% of the sequences
+# 8-16 steps, 15% 96-128) sent by HTTP_CLIENTS threads, once per server
+# with the servers' extra profiles mixed in and once at f32 alone (the
+# timed pass of the continuous-vs-batch ratio)
+HTTP_SEQUENCES = 320
+HTTP_CLIENTS = 8
+HTTP_SERVERS = {
+    "continuous": (["--scheduler", "continuous", "serve.max_slots=32",
+                    "serve.step_blocks=2,8,32", "serve.profiles=bf16"],
+                   "bf16", 4),   # every 4th request at bf16
+    "batch": (["--scheduler", "batch", "serve.seq_buckets=8,16,32,64,128",
+               "serve.profiles=fused"], "fused", 2),  # every 2nd fused
+}
+# seconds a server may take to answer /healthz, and any request or exit
+HTTP_WAIT = 120
+# the mid-stream rung switch on the card: sequences long enough to span
+# several blocks, more of them than slots (load >= 1 from the start)
+RUNG_SWITCH = {"sequences": 96, "steps": 64, "slots": 32,
+               "blocks": (2, 8, 32)}
 # The earlier K1/K2 design's times (8-row CTAs streaming all of wh from L2
 # every step on the FP32 pipe; K2's dwh a 64 x 64-tile SIMT product over
 # all of R in one pass), ms per launch on an H100 80GB HBM3 at 700 W, as
@@ -655,7 +704,7 @@ def phase_k1() -> dict:
     from euromillioner_tpu_torch.ops import fused_lstm as K
 
     worst = 0.0
-    for batch, steps in K1_SHAPES + (K1_TRAIN_SHAPE,):
+    for batch, steps in K1_SHAPES + (K1_TRAIN_SHAPE,) + K1_HTTP_SHAPES:
         for peepholes in (True, False):
             x_proj, wh, peep = k1_inputs(batch, steps, peepholes)
             ref = K.lstm_sequence_reference(x_proj, wh, peep, peepholes)
@@ -902,6 +951,369 @@ def phase_serve(root: Path) -> int:
     check(fused_err <= envelope, "fused replies outside the envelope")
     shutil.rmtree(ckdir.parent, ignore_errors=True)
     return launches
+
+
+def http_traffic() -> list:
+    """bench.py's _bench_serve_seq sequences (numpy seed 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    n = HTTP_SEQUENCES
+    short = rng.integers(8, 17, size=n)
+    long_ = rng.integers(96, 129, size=n)
+    lens = np.where(rng.random(n) < 0.85, short, long_)
+    return [rng.normal(size=(int(t), FEATURES)).astype(np.float32)
+            for t in lens]
+
+
+def direct_apply(model, seqs) -> "torch.Tensor":
+    """model.apply of every sequence on the card, one batch per length."""
+    import numpy as np
+
+    out = torch.empty((len(seqs), OUTPUTS))
+    by_len: dict = {}
+    for i, s in enumerate(seqs):
+        by_len.setdefault(len(s), []).append(i)
+    with torch.inference_mode():
+        for idx in by_len.values():
+            x = torch.from_numpy(np.stack([seqs[i] for i in idx])).cuda()
+            out[idx] = model.apply(x).float().cpu()
+    return out
+
+
+def http_call(url: str, path: str, body=None) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                url + path, data=data), timeout=HTTP_WAIT) as reply:
+            return reply.status, json.loads(reply.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_pass(url: str, seqs, profile_of) -> dict:
+    """Every sequence POSTed from HTTP_CLIENTS threads; replies, client
+    latencies (ms) and requests/s over the pass's wall."""
+    replies: list = [None] * len(seqs)
+    lat: list = [0.0] * len(seqs)
+
+    def client(c: int) -> None:
+        for i in range(c, len(seqs), HTTP_CLIENTS):
+            body = {"rows": seqs[i].tolist()}
+            if profile_of(i):
+                body["profile"] = profile_of(i)
+            t0 = time.perf_counter()
+            status, reply = http_call(url, "/predict", body)
+            lat[i] = (time.perf_counter() - t0) * 1e3
+            replies[i] = reply["predictions"] if status == 200 else None
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+        list(pool.map(client, range(HTTP_CLIENTS)))
+    wall = time.perf_counter() - t0
+    lat.sort()
+    return {"replies": replies, "rps": len(seqs) / wall,
+            "p50_ms": statistics.median(lat),
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat) + 0.5))]}
+
+
+def serve_http(root: Path, ckdir: Path, name: str, seqs) -> dict:
+    """One ``serve`` subprocess on a free port: /healthz, /stats and the
+    /metrics 404, the mixed pass, the f32 pass, then SIGTERM; returns the
+    passes, its /stats and what its shutdown logged (final stats, the
+    child's, kernel launches). The process is killed if anything fails."""
+    import signal
+    import socket
+
+    extra, profile, every = HTTP_SERVERS[name]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    log = root / "build" / "chip_smoke" / f"http_{name}.log"
+    argv = [sys.executable, "-m", "euromillioner_tpu_torch", "serve",
+            "--model-type", "lstm", "--checkpoint", str(ckdir),
+            f"serve.port={port}", "model.compute_dtype=float32", *extra]
+    t_start = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(argv, cwd=root, stdout=fh,
+                                stderr=subprocess.STDOUT)
+        try:
+            while True:
+                try:
+                    status, health = http_call(url, "/healthz")
+                    break
+                except OSError:
+                    check(proc.poll() is None and time.perf_counter()
+                          - t_start < HTTP_WAIT, f"serve {name} never "
+                          f"answered /healthz: {log.read_text()[-2000:]}")
+                    time.sleep(0.2)
+            up_s = time.perf_counter() - t_start
+            check(status == 200 and health["ok"], f"{name} /healthz")
+            print(f"serve http {name}: up in {up_s:.1f} s; /healthz "
+                  f"{json.dumps(health)}")
+            status, body = http_call(url, "/metrics")
+            check(status == 404 and body["error"]
+                  == "engine has no telemetry", f"{name} /metrics")
+            mixed = http_pass(url, seqs, lambda i: profile
+                              if i % every == 0 else None)
+            f32 = http_pass(url, seqs, lambda i: None)
+            status, stats = http_call(url, "/stats")
+            check(status == 200, f"{name} /stats")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=HTTP_WAIT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=HTTP_WAIT)
+    text = log.read_text()
+    check(rc == 0 and "shutting down" in text,
+          f"serve {name} after SIGTERM: rc {rc}: {text[-2000:]}")
+
+    def logged(prefix: str) -> dict:
+        line = next(ln for ln in text.splitlines() if prefix in ln)
+        return json.loads(line.split(prefix, 1)[1])
+
+    return {"mixed": mixed, "f32": f32, "stats": stats,
+            "final": logged("final stats: "),
+            "child": logged(f"final stats of the {profile} profile: "),
+            "launches": logged("kernel launches: "), "profile": profile,
+            "every": every}
+
+
+def phase_serve_http(root: Path) -> int:
+    """Phase 4a: the flagship served over HTTP by the CLI under both
+    schedulers, each reply held to a direct apply (f32 within
+    F32_SERVE_TOL, the extra profile inside its envelope), the continuous
+    server launching no kernel and the batch server's fused child K1 once
+    per layer per program; then the mid-stream rung switch on the card.
+    Returns K1's launches on the HTTP fused path."""
+    from euromillioner_tpu_torch.config import ServeConfig
+    from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
+                                                        rel_error)
+    from euromillioner_tpu_torch.models.lstm import build_lstm
+    from euromillioner_tpu_torch.train.checkpoint import save_checkpoint
+
+    model = build_lstm(HIDDEN, LAYERS, OUTPUTS, fused="off",
+                       in_features=FEATURES,
+                       generator=torch.Generator().manual_seed(SEED),
+                       device="cuda").requires_grad_(False)
+    ckdir = root / "build" / "chip_smoke" / "http_ck"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    save_checkpoint(str(ckdir), model, step=0)
+    seqs = http_traffic()
+    direct = direct_apply(model, seqs)
+    runs = {}
+    for name in HTTP_SERVERS:
+        run = runs[name] = serve_http(root, ckdir, name, seqs)
+        for what in ("mixed", "f32"):
+            p = run[what]
+            check(all(r is not None for r in p["replies"]),
+                  f"{name} {what}: requests failed")
+            got = torch.tensor(p["replies"])
+            at = [i for i in range(len(seqs)) if what == "mixed"
+                  and i % run["every"] == 0]
+            plain = [i for i in range(len(seqs)) if i not in set(at)]
+            err = rel_error(got[plain], direct[plain])
+            env = SERVE_ENVELOPES[("lstm", run["profile"])]
+            prof_err = rel_error(got[at], direct[at]) if at else 0.0
+            print(f"serve http {name} {what}: {p['rps']:.2f} requests/s, "
+                  f"client p50 {p['p50_ms']:.3f} ms, p99 "
+                  f"{p['p99_ms']:.3f} ms; f32 replies rel to direct apply "
+                  f"{err:.3e} (tol {F32_SERVE_TOL:.0e})"
+                  + (f"; {len(at)} {run['profile']} replies {prof_err:.3e} "
+                     f"(envelope {env:.0e}"
+                     + (f", tol {F32_SERVE_TOL:.0e}"
+                        if run["profile"] == "fused" else "") + ")"
+                     if at else ""))
+            check(err <= F32_SERVE_TOL, f"{name} f32 replies disagree")
+            check(prof_err <= env, f"{name} {run['profile']} replies "
+                  f"outside the envelope")
+            # the fused tier serves float32 through K1: held as f32 too
+            check(run["profile"] != "fused" or prof_err <= F32_SERVE_TOL,
+                  f"{name} fused replies {prof_err:.3e} > "
+                  f"{F32_SERVE_TOL:.0e}")
+        st = run["final"]
+        print(f"serve http {name}: final stats {json.dumps(st)}; child "
+              f"{json.dumps(run['child'])}; kernel launches "
+              f"{json.dumps(run['launches'])}")
+        check(st["sequences"] == 2 * len(seqs) - len(seqs) // run["every"]
+              and run["child"]["sequences"] == len(seqs) // run["every"],
+              f"{name} served counts")
+    cont = runs["continuous"]
+    check(not any(cont["launches"].values()),
+          "the continuous server launched a kernel (its blocks scan)")
+    print(f"serve http continuous: block_hist "
+          f"{json.dumps(cont['final']['block_hist'])}, mean_occupancy "
+          f"{cont['final']['mean_occupancy']}, readbacks "
+          f"{cont['final']['readbacks']} for {cont['final']['sequences']} "
+          f"sequences")
+    batch = runs["batch"]
+    serve = ServeConfig()
+    warm = len(serve.buckets) * 5  # serve.seq_buckets=8,16,32,64,128
+    k1 = batch["launches"]["emt_lstm_fwd_f32"]
+    want = LAYERS * (batch["child"]["batches"] + warm)
+    print(f"serve http batch: fused child K1 launches {k1} (expected "
+          f"{LAYERS} x ({batch['child']['batches']} batches + {warm} warmup "
+          f"programs) = {want})")
+    check(k1 > 0 and k1 == want, f"HTTP fused K1 launches {k1} != {want}")
+    check(sum(batch["launches"].values()) == k1, "other kernels launched")
+    ratio = cont["f32"]["rps"] / batch["f32"]["rps"]
+    print(f"serve http: continuous / batch requests/s at f32 "
+          f"{cont['f32']['rps']:.2f} / {batch['f32']['rps']:.2f} = "
+          f"{ratio:.3f}")
+    open_loop_rates(model, seqs, direct)
+    phase_rung_switch(model)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return k1
+
+
+def open_loop_rates(model, seqs, direct) -> None:
+    """The two schedulers in this process, bench.py's _bench_serve_seq way:
+    every sequence submitted at once (no HTTP, no client threads), f32,
+    one warm pass, then requests/s of one timed pass each; replies held
+    to the direct apply at F32_SERVE_TOL."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import rel_error
+    from euromillioner_tpu_torch.serve.continuous import (
+        RecurrentBackend, StepScheduler, WholeSequenceScheduler)
+
+    backend = RecurrentBackend(model, feat_dim=FEATURES,
+                               compute_dtype=torch.float32)
+    rates = {}
+    for name, make in (
+            ("batch", lambda: WholeSequenceScheduler(
+                backend, row_buckets=(8, 32),
+                time_buckets=(8, 16, 32, 64, 128), warmup=True)),
+            ("continuous", lambda: StepScheduler(
+                backend, max_slots=32, step_blocks=(2, 8, 32)))):
+        with make() as eng:
+            for f in [eng.submit(s) for s in seqs[:16]]:
+                f.result(timeout=HTTP_WAIT)
+            t0 = time.perf_counter()
+            futures = [eng.submit(s) for s in seqs]
+            got = torch.tensor(np.stack([f.result(timeout=HTTP_WAIT)
+                                         for f in futures]))
+            rates[name] = len(seqs) / (time.perf_counter() - t0)
+            st = eng.stats()
+            profiled_pass(name, eng, seqs)
+        err = rel_error(got, direct)
+        shown = {k: st[k] for k in ("block_hist", "mean_occupancy",
+                                    "readbacks", "p50_step_ms",
+                                    "mean_time_fill", "mean_row_fill")
+                 if k in st}
+        print(f"serve open loop {name}: {rates[name]:.2f} requests/s; "
+              f"rel to direct apply {err:.3e}; {json.dumps(shown)}")
+        check(err <= F32_SERVE_TOL, f"open loop {name} replies disagree")
+    print(f"serve open loop: continuous / batch "
+          f"{rates['continuous'] / rates['batch']:.3f}")
+
+
+def profiled_pass(name: str, eng, seqs) -> None:
+    """One more open-loop pass of ``seqs`` under ``torch.profiler`` (not
+    timed for the rate): the device kernels and copies launched per
+    scheduler dispatch (a step block, or a micro-batch), and their device
+    time's share of the pass's wall (the busy share; the rest is idle).
+    A measurement only: it checks nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    key = "steps" if "steps" in eng.stats() else "batches"
+    before = eng.stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in [eng.submit(s) for s in seqs]:
+            f.result(timeout=HTTP_WAIT)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    after = eng.stats()
+    dispatches = after[key] - before[key]
+    # a step block of K advances every slot K steps
+    substeps = sum(int(k) * (n - before.get("block_hist", {}).get(k, 0))
+                   for k, n in after.get("block_hist", {}).items())
+    launches, busy_ms, rows = 0, 0.0, []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        launches += e.count
+        busy_ms += us / 1e3
+        rows.append((us / 1e3, e.count, e.key))
+    if not launches:
+        print(f"serve open loop {name} profiled: the profiler recorded no "
+              f"device time (not measured)")
+        return
+    print(f"serve open loop {name} profiled: {launches} device kernels and "
+          f"copies over {dispatches} {key} = {launches / dispatches:.1f} "
+          f"a dispatch"
+          + (f", {launches / substeps:.1f} a step of the pool over "
+             f"{substeps} steps" if substeps else "")
+          + f"; device time {busy_ms:.3f} ms of the pass's "
+          f"{wall_ms:.3f} ms wall = busy share {busy_ms / wall_ms:.4f}")
+    for ms, count, kname in sorted(rows, reverse=True)[:6]:
+        print(f"serve open loop {name} profiled:   {ms:.3f} ms in {count} "
+              f"launches  {kname[:80]}")
+
+
+def phase_rung_switch(model) -> None:
+    """A saturated burst served across a mid-stream ladder switch on the
+    card, bit-equal to the same sequences at the fixed smallest rung; and
+    whether the hoisted input projection (the scan's one product over all
+    of a block's rows) would round otherwise at other block sizes, on the
+    card and on the CPU — why the block program projects each step at the
+    pool's row count."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.nn.recurrent import LSTM
+    from euromillioner_tpu_torch.serve.continuous import (RecurrentBackend,
+                                                          StepScheduler)
+
+    cfg = RUNG_SWITCH
+    rng = np.random.default_rng(3)
+    seqs = [rng.normal(size=(cfg["steps"], FEATURES)).astype(np.float32)
+            for _ in range(cfg["sequences"])]
+    backend = RecurrentBackend(model, feat_dim=FEATURES,
+                               compute_dtype=torch.float32)
+    replies = {}
+    for name, kw in (("ladder", {"step_blocks": cfg["blocks"]}),
+                     ("fixed", {"step_block": cfg["blocks"][0]})):
+        with StepScheduler(backend, max_slots=cfg["slots"], start=False,
+                           **kw) as eng:
+            futures = [eng.submit(s) for s in seqs]
+            eng.start()
+            replies[name] = np.stack([f.result(timeout=HTTP_WAIT)
+                                      for f in futures])
+            hist = eng.stats()["block_hist"]
+        print(f"rung switch {name}: block_hist {json.dumps(hist)}")
+    same = np.array_equal(replies["ladder"], replies["fixed"])
+    print(f"rung switch: {cfg['sequences']} x {cfg['steps']} steps over "
+          f"{cfg['slots']} slots, ladder {list(cfg['blocks'])} against "
+          f"block {cfg['blocks'][0]}: bit-identical {same}")
+    check(len(hist) == 1, "the fixed run switched rungs")
+    check(same, "a mid-stream rung switch moved a reply")
+    layers = [lyr for _n, lyr in model.named_layers()
+              if isinstance(lyr, LSTM)]
+    x = torch.from_numpy(np.stack(seqs[:cfg["slots"]]))[:, :32]
+    for dev in ("cuda", "cpu"):
+        counts = []
+        for layer, width in zip(layers, (FEATURES, HIDDEN)):
+            layer = layer if dev == "cuda" else copy.deepcopy(layer).cpu()
+            inp = (x if width == FEATURES else torch.from_numpy(
+                rng.normal(size=(cfg["slots"], 32, HIDDEN)).astype(
+                    np.float32))).to(dev)
+            with torch.inference_mode():
+                whole = layer._input_proj(inp)
+                for k in cfg["blocks"][:-1]:
+                    parts = torch.cat([layer._input_proj(inp[:, i:i + k])
+                                       for i in range(0, 32, k)])
+                    counts.append(int((parts != whole).sum()))
+        print(f"rung switch: hoisted input projection on {dev}, elements "
+              f"differing from one K=32 product at K={list(cfg['blocks'][:-1])}"
+              f" per layer: {counts} of {whole.numel()} per layer")
 
 
 def golden_windows(root: Path):
@@ -3262,6 +3674,7 @@ def main() -> int:
         phase_lstm_odd_widths()
         k3 = phase_k3()
         serve_k1 = phase_serve(root)
+        http_k1 = phase_serve_http(root)
         train_k1, train_k2, ckdir = phase_train(root)
         phase_step(root)
         trained_k1 = phase_serve_trained(ckdir)
@@ -3294,7 +3707,8 @@ def main() -> int:
     k1["launches_by_path"] = {
         "serve": serve_k1, "train": train_k1, "serve_trained": trained_k1,
         "serve_bf16_ckpt_fused": bf16_serve_k1["fused"],
-        "serve_bf16_ckpt_int8w": bf16_serve_k1["int8w"]}
+        "serve_bf16_ckpt_int8w": bf16_serve_k1["int8w"],
+        "serve_http_fused": http_k1}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches"] = train_k2
     k2["launches_by_path"] = {"train": train_k2}

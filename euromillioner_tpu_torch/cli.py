@@ -12,8 +12,10 @@ model JSON; ``reference`` runs the Main.java pipeline; ``serve
 --model-type lstm|wide_deep`` a checkpoint. ``--device`` picks ``cuda``
 (the default) or ``cpu``. Data comes from a saved results page
 (``--html-file``) or a featurized CSV (``--csv``); fetching the live page
-is not ported yet. ``serve`` has only the in-process ``--smoke N`` front
-end; the HTTP server is not ported yet.
+is not ported yet. ``serve`` answers HTTP on ``serve.host:serve.port``
+(``--scheduler batch|continuous`` picks the LSTM's scheduler) until
+SIGTERM or Ctrl-C, or pushes ``--smoke N`` requests through the in-process
+transport and exits.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import sys
 
 import numpy as np
 
-from euromillioner_tpu_torch.config import Config, apply_overrides, check_ported
+from euromillioner_tpu_torch.config import Config, apply_overrides
 from euromillioner_tpu_torch.utils.errors import (ConfigError,
                                                   EuromillionerError,
                                                   ServeError)
@@ -220,18 +222,21 @@ def cmd_reference(args, cfg: Config) -> int:
 
 def cmd_serve(args, cfg: Config) -> int:
     """Serve a saved model: an LSTM checkpoint behind the whole-sequence
-    scheduler, or a tree model JSON (``--model-file``) or a Wide&Deep
-    checkpoint behind the row micro-batching engine. ``--smoke N`` pushes
-    N synthetic requests through the in-process transport, prints one JSON
-    summary line and exits (0 iff none failed)."""
+    or the step scheduler (``--scheduler``), or a tree model JSON
+    (``--model-file``) or a Wide&Deep checkpoint behind the row
+    micro-batching engine. Answers HTTP on ``serve.host:serve.port``
+    until SIGTERM or Ctrl-C, which log the final stats and exit 0; a bind
+    failure is a ServeError naming the address. ``--smoke N`` instead
+    pushes N synthetic requests through the in-process transport, prints
+    one JSON summary line and exits (0 iff none failed)."""
+    import signal
+
     from euromillioner_tpu_torch.core.precision import resolve_serve_precision
     from euromillioner_tpu_torch.serve import transport
 
+    if args.scheduler:
+        cfg.serve.scheduler = args.scheduler
     resolve_serve_precision(cfg.serve.precision)
-    check_ported(cfg)
-    if not args.smoke:
-        raise ServeError("the HTTP transport is not ported yet; run with "
-                         "--smoke N")
     if args.model_type == "lstm":
         from euromillioner_tpu_torch.serve.continuous import (
             load_recurrent_backend, make_sequence_engine)
@@ -240,9 +245,11 @@ def cmd_serve(args, cfg: Config) -> int:
                                          args.num_features,
                                          device=args.device)
         engine = make_sequence_engine(backend, cfg)
-        shape = (f"row_buckets={list(engine.row_buckets)}, "
-                 f"time_buckets={list(engine.time_buckets)}")
     else:
+        if cfg.serve.scheduler == "continuous":
+            raise ServeError(
+                "serve.scheduler=continuous needs a recurrent model "
+                "(--model-type lstm); row families batch per request")
         from euromillioner_tpu_torch.serve.engine import make_row_engine
         from euromillioner_tpu_torch.serve.session import load_backend
 
@@ -250,16 +257,67 @@ def cmd_serve(args, cfg: Config) -> int:
                                args.num_features, device=args.device,
                                model_file=args.model_file)
         engine = make_row_engine(backend, cfg)
-        shape = f"buckets={list(engine.buckets)}"
     try:
-        logger.info("serving %s on %s (%s engine, precision=%s, envelope=%s, "
-                    "%s)", backend.name, backend.device, engine.kind,
-                    backend.precision, backend.envelope or "oracle", shape)
-        summary = transport.run_smoke(engine, args.smoke)
-        print(json.dumps(summary))
-        return 0 if summary["failed"] == 0 else 1
+        prec = engine.precision_desc
+        logger.info("serve.precision=%s (pinned max-rel-error envelope: %s; "
+                    "serving params %.3f MB)", prec["precision"],
+                    prec["envelope"] or "bit-exact f32",
+                    prec["serve_param_mb"])
+        if args.smoke:
+            logger.info("serving %s on %s (%s engine, %s)", backend.name,
+                        backend.device, engine.kind,
+                        json.dumps(engine.slo_desc))
+            summary = transport.run_smoke(engine, args.smoke)
+            print(json.dumps(summary))
+            return 0 if summary["failed"] == 0 else 1
+        host, port = cfg.serve.host, cfg.serve.port
+        try:
+            server = transport.make_server(engine, host, port)
+        except OSError as e:  # address in use, bad host, privileged port
+            raise ServeError(f"cannot bind {host}:{port}: {e}")
+        _log_banner(backend, engine, cfg)
+
+        def _stop(signum, frame):  # SIGTERM: the same path as Ctrl-C
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _stop)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            logger.info("shutting down; final stats: %s",
+                        json.dumps(engine.stats()))
+            for profile, child in getattr(engine, "children", {}).items():
+                logger.info("final stats of the %s profile: %s", profile,
+                            json.dumps(child.stats()))
+            from euromillioner_tpu_torch.ops.common import launch_counts
+
+            logger.info("kernel launches: %s", json.dumps(launch_counts()))
+        finally:
+            server.server_close()
+        return 0
     finally:
         engine.close()
+
+
+def _log_banner(backend, engine, cfg: Config) -> None:
+    """The JAX CLI's serving line for each engine kind."""
+    s = cfg.serve
+    where = f"http://{s.host}:{s.port}"
+    if engine.kind == "rows":
+        logger.info("serving %s on %s (buckets=%s, max_wait=%.1fms, "
+                    "inflight=%d)", backend.name, where, list(s.buckets),
+                    s.max_wait_ms, s.inflight)
+    elif s.scheduler == "continuous":
+        logger.info("serving %s on %s (scheduler=continuous, max_slots=%d, "
+                    "step_blocks=%s, classes=%s, inflight=%d, "
+                    "precision=%s)", backend.name, where, s.max_slots,
+                    list(engine.step_blocks), list(s.classes), s.inflight,
+                    backend.precision)
+    else:
+        logger.info("serving %s on %s (scheduler=batch, row_buckets=%s, "
+                    "time_buckets=%s, max_wait=%.1fms, inflight=%d)",
+                    backend.name, where, list(s.buckets),
+                    list(s.seq_buckets), s.max_wait_ms, s.inflight)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -302,8 +360,9 @@ def build_parser() -> argparse.ArgumentParser:
     sv = sub.add_parser(
         "serve", help="serve a GBT or random-forest model JSON or a "
                       "Wide&Deep checkpoint behind the row engine (f32), "
-                      "or an LSTM checkpoint behind the whole-sequence "
-                      "scheduler (serve.precision=f32|bf16|fused|int8w)")
+                      "or an LSTM checkpoint behind a sequence scheduler "
+                      "(serve.precision=f32|bf16|fused|int8w), over HTTP "
+                      "on serve.host:serve.port")
     sv.add_argument("--model-type", default="gbt",
                     choices=["gbt", "rf", "mlp", "lstm", "wide_deep",
                              "classic"])
@@ -314,6 +373,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="input feature count (default: family standard)")
     sv.add_argument("--smoke", type=int, default=0,
                     help="serve N synthetic in-process requests and exit")
+    sv.add_argument("--scheduler", choices=["batch", "continuous"],
+                    help="lstm: whole-sequence micro-batches or step-level "
+                         "continuous batching over a device-resident slot "
+                         "pool (overrides serve.scheduler)")
     sv.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="serving device (default: cuda; the CPU runs only "
                          "when asked for)")

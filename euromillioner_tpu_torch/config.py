@@ -12,14 +12,6 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
 
-from euromillioner_tpu_torch.utils.errors import ConfigError
-
-# serve.scheduler values this port serves so far; the JAX package's other
-# values are valid there and rejected here by name. Every serve.precision
-# profile is ported for the sequence family; the row families serve f32
-# (serve/session.py).
-PORTED_SCHEDULERS = ("batch",)
-
 # the featurized row: 4 date columns, then the 7 balls
 FEATURE_COLUMNS = (
     "day_of_week", "month", "day", "year",
@@ -167,9 +159,12 @@ class TreesServeConfig:
 
 @dataclass
 class ServeConfig:
-    """Serving: the whole-sequence scheduler (serve/continuous.py) and the
-    row engine (serve/engine.py)."""
+    """Serving: the HTTP front end (serve/transport.py), the sequence
+    schedulers (serve/continuous.py) and the row engine
+    (serve/engine.py)."""
 
+    host: str = "127.0.0.1"
+    port: int = 8777
     # Flush a micro-batch when it reaches the largest row bucket or when
     # the OLDEST queued request has waited max_wait_ms (serve/batcher.py).
     max_wait_ms: float = 2.0
@@ -181,8 +176,27 @@ class ServeConfig:
     # Accepted so overrides shared with the JAX package parse; an eager
     # PyTorch program keeps no compiled-executable cache to bound.
     max_executables: int = 16
-    # "batch" is ported; "continuous" (the step scheduler) is not yet.
+    # Sequence family (lstm): "batch" coalesces whole sequences into
+    # time/row-padded micro-batches; "continuous" schedules at the step
+    # level over a device-resident slot pool. Row families ignore it.
     scheduler: str = "batch"
+    # Continuous scheduler: state slots in the pool (one sequence each;
+    # also the step program's row count, >= 2).
+    max_slots: int = 32
+    # Continuous scheduler: timesteps per dispatch (>= 2).
+    step_block: int = 8
+    # Continuous scheduler: adaptive step-block ladder (e.g. 2,8,32),
+    # picked per dispatch by load with hysteresis; every rung >= 2.
+    # Empty: the fixed step_block.
+    step_blocks: tuple[int, ...] = ()
+    # Continuous scheduler: finished outputs wait in a device-side
+    # staging buffer and drain in one device→host read per interval
+    # (sooner when a finisher's max_wait_s is due). 0 reads every step.
+    readback_interval_ms: float = 0.0
+    # SLO classes, most urgent first: requests name one ("class" key,
+    # submit(cls=)); cuts and slot admission order by (class priority,
+    # deadline). Unknown names are refused; no class is the first.
+    classes: tuple[str, ...] = ("interactive", "bulk")
     # Time buckets: a micro-batch pads to the smallest fitting length;
     # the largest caps admissible sequence length.
     seq_buckets: tuple[int, ...] = (8, 16, 32, 64)
@@ -191,6 +205,10 @@ class ServeConfig:
     # zero-carry programs) or "int8w" (weight-only int8 params through the
     # same kernel), each behind its pinned envelope (core/precision.py).
     precision: str = "f32"
+    # Extra profiles served beside ``precision`` from the same checkpoint,
+    # picked per request ({"profile": ...}, submit(profile=)); each runs
+    # on its own child scheduler. Empty: one profile.
+    profiles: tuple[str, ...] = ()
     # int8w tier: fake-quantize the input block to the per-tensor int8 grid
     act_quant: bool = False
     # Accepted and validated (>= 2) so commands shared with the JAX
@@ -210,16 +228,6 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
-
-
-def check_ported(cfg: Config) -> None:
-    """Reject serve settings that are valid in the JAX package but not
-    ported yet — a :class:`ConfigError` (exit 17) naming the setting,
-    before any restore or device work."""
-    if cfg.serve.scheduler == "continuous":
-        raise ConfigError(
-            f"serve.scheduler={cfg.serve.scheduler!r} is not ported yet; "
-            f"this port serves {list(PORTED_SCHEDULERS)}")
 
 
 def _coerce(current: Any, value: str, optional: bool = False) -> Any:

@@ -8,6 +8,7 @@ CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from euromillioner_tpu_torch.utils.errors import ConfigError
@@ -28,3 +29,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ConfigError(f"unsupported device {str(dev)!r} (cuda | cpu)")
     return dev
+
+
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a host sync: on CUDA through a
+    pinned copy and a non-blocking transfer on the current stream (the
+    pinned block is not reused before the copy ends); on the CPU the
+    array's own memory."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

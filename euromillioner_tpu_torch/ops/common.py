@@ -69,12 +69,22 @@ def build_library(source: str) -> tuple[Path, str]:
         return out, proc.stdout + proc.stderr
 
 
+# every CudaKernel made in this process, for launch_counts()
+_KERNELS: list["CudaKernel"] = []
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel entry point's launches in this process, by symbol."""
+    return {k.symbol: k.launches for k in _KERNELS}
+
+
 class CudaKernel:
     """One kernel's C entry point: built and loaded on first use,
     ``launches`` counts the launches that went through :meth:`launch`
     (a plain int; nothing else changes it but a caller resetting it)."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
+        _KERNELS.append(self)
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes

@@ -4,8 +4,13 @@ Requests queue on the host and flush as one micro-batch when EITHER the
 queued row count reaches ``max_batch`` OR the oldest request's deadline
 (its submit time plus ``max_wait_s``, or its own shorter ``deadline``)
 passes. Every micro-batch pads up to the smallest bucket that fits
-(:func:`pick_bucket`), so the device sees a few fixed shapes. SLO classes
-and trace spans are not ported yet: requests cut in deadline order.
+(:func:`pick_bucket`), so the device sees a few fixed shapes.
+
+SLO classes (``serve.classes``): a request carries its class's priority
+rank, the cut takes requests in (priority, deadline, arrival) order, and
+a queue that mixes priorities flushes at once, so an urgent request never
+waits out bulk coalescing. Classless traffic batches exactly as before.
+Trace spans are not ported yet.
 """
 
 from __future__ import annotations
@@ -78,12 +83,15 @@ def pad_rows(x: np.ndarray, bucket: int) -> np.ndarray:
 class Request:
     """One queued request: ``x`` is (rows, *feat). ``deadline`` (absolute
     monotonic) shortens the batcher's flush deadline for this request;
-    ``seq`` is the arrival ordinal (the tie-break)."""
+    ``priority`` is its SLO class's rank (0 = most urgent) and ``cls`` the
+    class name; ``seq`` is the arrival ordinal (the tie-break)."""
 
     x: np.ndarray
     future: Future = field(default_factory=Future)
     t_submit: float = field(default_factory=time.monotonic)
     deadline: float | None = None
+    priority: int = 0
+    cls: str = ""
     seq: int = 0
 
     @property
@@ -137,6 +145,13 @@ class MicroBatcher:
     def _earliest_deadline(self) -> float:
         return min(self._deadline(r) for r in self._q)
 
+    def _mixed_priority(self) -> bool:
+        # an urgent arrival next to accumulating bulk rows cuts now; a
+        # homogeneous queue keeps the plain dual flush rule
+        it = iter(self._q)
+        p0 = next(it).priority
+        return any(r.priority != p0 for r in it)
+
     def next_batch(self, timeout: float | None = None) -> list[Request] | None:
         """Block until a flush is due, then cut one micro-batch (whole
         requests, up to ``max_batch`` rows). ``None`` when closed and
@@ -147,7 +162,8 @@ class MicroBatcher:
                 now = time.monotonic()
                 if self._q:
                     if (self._rows >= self.max_batch or self._closed
-                            or now >= self._earliest_deadline()):
+                            or now >= self._earliest_deadline()
+                            or self._mixed_priority()):
                         break
                     wake = self._earliest_deadline()
                 else:
@@ -159,7 +175,9 @@ class MicroBatcher:
                         return []
                     wake = give_up if wake is None else min(wake, give_up)
                 self._cond.wait(None if wake is None else wake - now)
-            order = sorted(self._q, key=lambda r: (self._deadline(r), r.seq))
+            # uniform classes with uniform waits sort back to FIFO
+            order = sorted(self._q, key=lambda r: (r.priority,
+                                                   self._deadline(r), r.seq))
             batch: list[Request] = []
             rows = 0
             for req in order:

@@ -8,10 +8,18 @@ bucket of ``serve.buckets``, runs the backend's forward on the device and
 keeps up to ``inflight`` batches enqueued while the oldest is read back.
 Every bucket's program runs once at start (``warmup``).
 
-Not ported yet: SLO classes, memory budgets, drift sampling, per-request
-precision profiles, telemetry and traces, workload capture, the serving
-mesh, the AOT store, and chunking of a request larger than the largest
-bucket (refused with a ServeError).
+SLO classes (``serve.classes``): a request names its class (``cls=``, the
+HTTP ``"class"`` key); cuts take requests in (class priority, deadline,
+arrival) order. The class and drift helpers here (:func:`resolve_classes`,
+:func:`resolve_request_class`, :class:`ClassStats`, :class:`DriftStats`)
+serve every engine, the sequence schedulers' included. A request may name
+a precision profile (``profile=``); the row families serve only ``f32``
+(their narrow tiers are not ported yet), so any other profile is refused
+by name.
+
+Not ported yet: memory budgets, telemetry and traces, workload capture,
+the serving mesh, the AOT store, and chunking of a request larger than
+the largest bucket (refused with a ServeError).
 """
 
 from __future__ import annotations
@@ -25,6 +33,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from euromillioner_tpu_torch.core.device import upload
+from euromillioner_tpu_torch.core.precision import (rel_error,
+                                                    resolve_serve_precision,
+                                                    serve_envelope)
 from euromillioner_tpu_torch.core.prefetch import DoubleBuffer
 from euromillioner_tpu_torch.serve.batcher import (LATENCY_WINDOW,
                                                    MicroBatcher, Request,
@@ -32,10 +44,131 @@ from euromillioner_tpu_torch.serve.batcher import (LATENCY_WINDOW,
                                                    pick_bucket,
                                                    resolve_future,
                                                    validate_buckets)
-from euromillioner_tpu_torch.utils.errors import ServeError
+from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
 logger = get_logger("serve.engine")
+
+# a narrow profile's replies are checked against the f32 oracle on the
+# first readback and every 64th after it (DriftStats)
+DRIFT_EVERY = 64
+
+
+def resolve_request_class(class_priority: dict[str, int],
+                          cls: str | None) -> tuple[str, int]:
+    """One request's class name → ``(name, priority)``. None is the
+    highest-priority class; an unknown name is a :class:`ServeError`
+    naming the valid ones (the transport's 400)."""
+    if cls is None:
+        cls = next(iter(class_priority))
+    prio = class_priority.get(cls)
+    if prio is None:
+        raise ServeError(
+            f"unknown request class {cls!r}; serving classes are "
+            f"{list(class_priority)}")
+    return cls, prio
+
+
+def resolve_classes(classes) -> dict[str, int]:
+    """``serve.classes`` names → priority ranks (0 = most urgent, by
+    position): non-empty, unique, non-blank, else a :class:`ServeError`
+    at engine build."""
+    names = [str(c).strip() for c in classes]
+    if not names or len(set(names)) != len(names) or any(not n
+                                                         for n in names):
+        raise ServeError(
+            f"serve.classes must be non-empty unique names, got {classes!r}")
+    return {name: rank for rank, name in enumerate(names)}
+
+
+def param_bytes(tree) -> int:
+    """Bytes of every tensor in a (nested) dict/list/tuple of tensors —
+    int8w's value and scale tensors included."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(param_bytes(t) for t in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_bytes(t) for t in tree)
+    return 0
+
+
+class ClassStats:
+    """Per-class completion latency: all-time counts and a bounded recent
+    window for p50/p99. Not thread-safe: mutate under the engine's stats
+    lock."""
+
+    def __init__(self, classes):
+        self._lat: dict[str, collections.deque] = {
+            c: collections.deque(maxlen=LATENCY_WINDOW) for c in classes}
+        self._n = {c: 0 for c in classes}
+
+    def observe(self, cls: str, seconds: float) -> None:
+        if cls in self._lat:
+            self._lat[cls].append(seconds)
+            self._n[cls] += 1
+
+    def snapshot(self) -> dict:
+        return {
+            c: {"completed": self._n[c],
+                "p50_ms": round(percentile(sorted(d), 0.50) * 1e3, 3),
+                "p99_ms": round(percentile(sorted(d), 0.99) * 1e3, 3)}
+            for c, d in self._lat.items()}
+
+
+class DriftStats:
+    """Sampled drift of a narrow profile's replies from the f32 oracle:
+    last/max rel error, checks, and breaches of the pinned envelope (the
+    first breach logs a warning). Not thread-safe: mutate under the
+    engine's stats lock."""
+
+    def __init__(self, profile: str, envelope: float):
+        self.profile = profile
+        self.envelope = envelope
+        self.last = 0.0
+        self.max = 0.0
+        self.checks = 0
+        self.breaches = 0
+
+    def observe(self, drift: float) -> None:
+        self.last = drift
+        self.max = max(self.max, drift)
+        self.checks += 1
+        if self.envelope > 0.0 and drift > self.envelope:
+            self.breaches += 1
+            if self.breaches == 1:
+                logger.warning(
+                    "precision=%s drift %.3e exceeds the pinned envelope "
+                    "%.3e; further breaches are counted in stats()",
+                    self.profile, drift, self.envelope)
+
+    def snapshot(self) -> dict:
+        return {"profile": self.profile, "envelope": self.envelope,
+                "drift_last": round(self.last, 8),
+                "drift_max": round(self.max, 8),
+                "drift_checks": self.checks,
+                "envelope_breaches": self.breaches}
+
+    def desc(self, serve_params) -> dict:
+        """The /healthz and banner surface: profile, pinned envelope and
+        the serving params' size."""
+        return {"precision": self.profile, "envelope": self.envelope,
+                "serve_param_mb": round(param_bytes(serve_params) / 2**20,
+                                        3)}
+
+    def sample(self, got, oracle_fn, lock) -> float | None:
+        """One drift measurement of ``got`` against ``oracle_fn()``,
+        recorded under ``lock``; an oracle failure is logged, never a
+        request failure."""
+        try:
+            drift = rel_error(got, oracle_fn())
+        except Exception as e:  # noqa: BLE001 — monitoring only
+            logger.warning("drift oracle check failed (%r); serving "
+                           "continues", e)
+            return None
+        with lock:
+            self.observe(drift)
+        return drift
 
 
 class InferenceEngine:
@@ -47,8 +180,23 @@ class InferenceEngine:
 
     def __init__(self, backend, *, buckets: Sequence[int] = (8, 32, 128),
                  max_wait_ms: float = 2.0, inflight: int = 2,
-                 warmup: bool = True):
+                 warmup: bool = True,
+                 classes: Sequence[str] = ("interactive", "bulk"),
+                 profiles: Sequence[str] = ()):
         self.backend = backend
+        self.precision = backend.precision
+        for p in profiles:
+            p = resolve_serve_precision(p)
+            serve_envelope(backend.family, p)  # unpinned → ConfigError
+            if p != self.precision:
+                raise ConfigError(
+                    f"serve.profiles={p!r} is not ported yet for row "
+                    f"families; this port serves them at "
+                    f"{self.precision!r} only")
+        self._class_priority = resolve_classes(classes)
+        self.classes = tuple(self._class_priority)
+        self._cls_stats = ClassStats(self.classes)
+        self._drift = DriftStats(self.precision, backend.envelope or 0.0)
         self.buckets = validate_buckets(buckets)
         self.max_batch = self.buckets[-1]
         if inflight < 1:
@@ -61,6 +209,7 @@ class InferenceEngine:
             maxlen=LATENCY_WINDOW)
         self._requests = self._rows = self._batches = self._errors = 0
         self._fill = 0.0
+        self._t_start = time.monotonic()
         self._closed = False
         if warmup:
             self.warmup()
@@ -69,10 +218,7 @@ class InferenceEngine:
         self._thread.start()
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.backend.device.type == "cuda":
-            return t.pin_memory().to(self.backend.device, non_blocking=True)
-        return t
+        return upload(x, self.backend.device)
 
     def warmup(self) -> None:
         """Run every bucket's program once, so the first request pays for
@@ -81,12 +227,40 @@ class InferenceEngine:
             x = np.zeros((b, *self._feat_shape), np.float32)
             self.backend.apply(self._put(self.backend.prepare(x))).cpu()
 
+    @property
+    def slo_desc(self) -> dict:
+        """/healthz: the classes this engine admits, in priority order."""
+        return {"classes": list(self.classes)}
+
+    @property
+    def load_desc(self) -> dict:
+        """/healthz: constant-time load figures (no percentile sort)."""
+        return {"queue_depth": self._batcher.queue_depth}
+
+    @property
+    def precision_desc(self) -> dict:
+        """/healthz and the banner: profile, envelope, params' size."""
+        return self._drift.desc(self.backend.serving_params())
+
+    def _route_profile(self, profile: str | None) -> None:
+        """None or this engine's profile is served here; any other is a
+        :class:`ServeError` naming the servable ones (the 400)."""
+        if profile is not None and profile != self.precision:
+            raise ServeError(
+                f"unknown precision profile {profile!r}; serving profiles "
+                f"are {[self.precision]}")
+
     # -- request side ---------------------------------------------------
-    def submit(self, x: np.ndarray, max_wait_s: float | None = None
+    def submit(self, x: np.ndarray, max_wait_s: float | None = None,
+               cls: str | None = None, profile: str | None = None
                ) -> Future:
         """Enqueue rows ``(n, *feat)`` (a single row ``feat`` is lifted to
         one); resolves to an ``(n, out)`` array. ``max_wait_s`` shortens
-        this request's flush deadline (clamped to the engine's)."""
+        this request's flush deadline (clamped to the engine's); ``cls``
+        names its SLO class (default: the most urgent); ``profile`` its
+        precision profile (default: the engine's)."""
+        self._route_profile(profile)
+        cls, prio = resolve_request_class(self._class_priority, cls)
         x = np.asarray(x, np.float32)
         if x.shape == self._feat_shape:
             x = x[None]
@@ -102,16 +276,18 @@ class InferenceEngine:
             raise ServeError(
                 f"request of {len(x)} rows exceeds the largest bucket "
                 f"{self.max_batch} (chunking is not ported yet)")
-        req = Request(x=x)
+        req = Request(x=x, priority=prio, cls=cls)
         if max_wait_s is not None:
             req.deadline = req.t_submit + max(
                 0.0, min(float(max_wait_s), self._batcher.max_wait_s))
         self._batcher.submit(req)
         return req.future
 
-    def predict(self, x: np.ndarray, max_wait_s: float | None = None
+    def predict(self, x: np.ndarray, max_wait_s: float | None = None,
+                cls: str | None = None, profile: str | None = None
                 ) -> np.ndarray:
-        return self.submit(x, max_wait_s=max_wait_s).result()
+        return self.submit(x, max_wait_s=max_wait_s, cls=cls,
+                           profile=profile).result()
 
     # -- dispatcher thread ----------------------------------------------
     def _run(self) -> None:
@@ -164,7 +340,9 @@ class InferenceEngine:
         # accounting BEFORE futures resolve: a returned predict() sees
         # itself in stats()
         with self._lock:
-            self._latencies.extend(now - r.t_submit for r in batch)
+            for r in batch:
+                self._latencies.append(now - r.t_submit)
+                self._cls_stats.observe(r.cls, now - r.t_submit)
             self._requests += len(batch)
             self._rows += rows
             self._batches += 1
@@ -188,6 +366,9 @@ class InferenceEngine:
                 "errors": self._errors,
                 "queue_depth": self._batcher.queue_depth,
                 "mean_fill_ratio": round(self._fill / n, 4) if n else 0.0,
+                "uptime_s": round(time.monotonic() - self._t_start, 3),
+                "classes": self._cls_stats.snapshot(),
+                "precision": self._drift.snapshot(),
             }
         out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
         out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
@@ -214,4 +395,6 @@ def make_row_engine(backend, cfg) -> InferenceEngine:
     return InferenceEngine(backend, buckets=cfg.serve.buckets,
                            max_wait_ms=cfg.serve.max_wait_ms,
                            inflight=cfg.serve.inflight,
-                           warmup=cfg.serve.warmup)
+                           warmup=cfg.serve.warmup,
+                           classes=cfg.serve.classes,
+                           profiles=cfg.serve.profiles)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from euromillioner_tpu_torch.config import Config, check_ported
+from euromillioner_tpu_torch.config import Config
 from euromillioner_tpu_torch.core.precision import (resolve_serve_precision,
                                                     serve_envelope)
 from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
@@ -81,6 +81,11 @@ class NNBackend:
     def prepare(self, x) -> np.ndarray:
         return np.asarray(x, np.float32)
 
+    def serving_params(self) -> dict:
+        """The tensors the engine's program reads (their size is
+        /healthz's ``serve_param_mb``)."""
+        return self.model.state_dict()
+
     def predict(self, x) -> np.ndarray:
         """Direct single-shot path: (rows, *feat) → (rows, out)."""
         xt = torch.as_tensor(self.prepare(x), device=self.device)
@@ -106,6 +111,10 @@ class _TreeBackend:
     def apply(self, binned: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             return self._apply(self._params, binned)
+
+    def serving_params(self):
+        """The ensemble tensors the program reads."""
+        return self._params
 
 
 class GBTBackend(_TreeBackend):
@@ -166,15 +175,14 @@ def load_backend(model_type: str, checkpoint: str | None = None,
                  device=None, *, model_file: str | None = None):
     """A serving backend on ``device`` (the card when None): a tree model
     JSON of either package (``gbt``, ``rf``; ``model_file``) or a
-    checkpoint directory of either package (``wide_deep``). The profile,
-    the scheduler and the family are validated before any load
+    checkpoint directory of either package (``wide_deep``). The profile
+    and the family are validated before any load
     (ConfigError), in the JAX package's order: a tree family at another
     profile than f32 is refused before a missing ``model_file`` is."""
     from euromillioner_tpu_torch.models.registry import restore_for_inference
 
     cfg = cfg or Config()
     profile = resolve_serve_precision(cfg.serve.precision)
-    check_ported(cfg)
     if profile != "f32" and model_type in (*_TREE_FAMILIES, "classic"):
         raise ConfigError(
             f"serve.precision={profile} needs a neural model family; "

@@ -1,23 +1,54 @@
-"""Serving transport: the request protocol and the in-process smoke path
-(the JAX package's ``serve/transport.py``; its HTTP server is not ported
-yet).
+"""Serving transport: one request protocol, two front ends (the JAX
+package's ``serve/transport.py``).
 
 ``handle_request`` is the whole protocol — a pure ``payload dict →
-(status, reply dict)`` function — so the smoke path exercises the same
-request→batch→dispatch→reply code an HTTP front end would.
+(status, reply dict)`` function — so the HTTP server and the in-process
+smoke path run the same request→batch→dispatch→reply code.
+
+HTTP (stdlib ``ThreadingHTTPServer``; one blocking ``predict`` per handler
+thread, the engine coalesces across threads):
+
+* ``POST /predict`` ``{"rows": [[...], ...]}`` (optional ``max_wait_s``,
+  ``class``, ``profile``) → ``{"predictions": [...], "rows": n}``;
+* ``GET /healthz`` — liveness and what is alive (:func:`healthz_body`);
+* ``GET /stats`` — the engine's ``stats()``.
+
+The port's engines have no telemetry yet, so ``GET /metrics`` and ``GET
+/trace`` answer the JAX handler's 404 for such an engine, and so do the
+``/admin/*`` routes (no live migration, no fleet supervisor).
 """
 
 from __future__ import annotations
 
+import json
 import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 import numpy as np
 
 from euromillioner_tpu_torch.utils.errors import ServeError
+from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
-# payload keys the JAX package accepts that need parts not ported yet
-_UNPORTED_KEYS = ("class", "profile", "tag")
+logger = get_logger("serve.transport")
+
+# The /healthz schema version, the JAX package's: a fleet router keys its
+# ejection policy on fields of this body
+HEALTHZ_VERSION = 1
+
+# the JAX handler's answers for an engine without these surfaces
+_ADMIN_404 = {"/admin/export": "this engine has no live-migration surface",
+              "/admin/migrate": "this engine has no live-migration surface",
+              "/admin/release": "this endpoint has no fleet supervisor"}
+
+
+def healthz_body(engine) -> dict:
+    """The /healthz JSON: liveness, the SLO classes (and the step-block
+    ladder), the precision profile with its envelope, and constant-time
+    load figures."""
+    return {"ok": True, "healthz_version": HEALTHZ_VERSION,
+            **engine.slo_desc, **engine.precision_desc, **engine.load_desc}
 
 
 def handle_request(engine, payload: Any) -> tuple[int, dict]:
@@ -26,12 +57,12 @@ def handle_request(engine, payload: Any) -> tuple[int, dict]:
     independent feature rows and replies with one prediction each; a
     sequence engine treats them as one ordered sequence of per-step rows
     and replies with its single prediction. Optional ``max_wait_s``
-    shortens the request's flush deadline."""
+    shortens the request's flush deadline and orders admission; ``class``
+    names its SLO class and ``profile`` its precision profile (an unknown
+    one is a 400 naming the valid ones). ``tag`` (live migration) is not
+    ported yet: a 400."""
     if not isinstance(payload, dict) or "rows" not in payload:
         return 400, {"error": 'payload must be {"rows": [[...], ...]}'}
-    unported = [k for k in _UNPORTED_KEYS if k in payload]
-    if unported:
-        return 400, {"error": f"payload keys {unported} are not ported yet"}
     try:
         x = np.asarray(payload["rows"], np.float32)
     except (TypeError, ValueError) as e:
@@ -44,8 +75,17 @@ def handle_request(engine, payload: Any) -> tuple[int, dict]:
             return 400, {"error": "max_wait_s must be a number"}
         if max_wait_s < 0:
             return 400, {"error": "max_wait_s must be >= 0"}
+    cls = payload.get("class")
+    if cls is not None and not isinstance(cls, str):
+        return 400, {"error": "class must be a string (serve.classes)"}
+    profile = payload.get("profile")
+    if profile is not None and not isinstance(profile, str):
+        return 400, {"error": "profile must be a string (serve.profiles)"}
+    if "tag" in payload:
+        return 400, {"error": "tag (live migration) is not ported yet"}
     try:
-        pred = engine.predict(x, max_wait_s=max_wait_s)
+        pred = engine.predict(x, max_wait_s=max_wait_s, cls=cls,
+                              profile=profile)
     except ServeError as e:
         return 400, {"error": str(e)}
     except Exception as e:  # noqa: BLE001 — engine faults → 500, not crash
@@ -81,8 +121,9 @@ def run_smoke(engine, n: int, concurrency: int = 4) -> dict:
     carries each reply's predictions in request order (None where the
     request failed)."""
     if getattr(engine, "kind", "rows") == "sequence":
+        # the batch scheduler refuses sequences past its largest bucket
         payloads = smoke_payloads(n, engine.backend.feat_dim,
-                                  engine.time_buckets[-1])
+                                  getattr(engine, "time_buckets", (16,))[-1])
     else:
         payloads = row_payloads(n, engine.backend.feat_shape)
     statuses: list[int] = [0] * n
@@ -103,3 +144,51 @@ def run_smoke(engine, n: int, concurrency: int = 4) -> dict:
     ok = sum(1 for s in statuses if s == 200)
     return {"requests": n, "ok": ok, "failed": n - ok,
             "stats": engine.stats(), "predictions": preds}
+
+
+class _Handler(BaseHTTPRequestHandler):
+    engine: Any  # set by make_server on the subclass
+
+    def _reply(self, status: int, body: dict) -> None:
+        data = json.dumps(body).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def do_GET(self) -> None:  # noqa: N802 — http.server API
+        path = urllib.parse.urlsplit(self.path).path
+        if path == "/healthz":
+            self._reply(200, healthz_body(self.engine))
+        elif path == "/stats":
+            self._reply(200, self.engine.stats())
+        elif path in ("/metrics", "/trace"):
+            self._reply(404, {"error": "engine has no telemetry"})
+        else:
+            self._reply(404, {"error": f"no route {self.path}"})
+
+    def do_POST(self) -> None:  # noqa: N802 — http.server API
+        if self.path != "/predict" and self.path not in _ADMIN_404:
+            self._reply(404, {"error": f"no route {self.path}"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            payload = json.loads(self.rfile.read(length) or b"{}")
+        except ValueError as e:  # JSONDecodeError is a ValueError
+            self._reply(400, {"error": f"bad JSON body: {e}"})
+            return
+        if self.path in _ADMIN_404:
+            self._reply(404, {"error": _ADMIN_404[self.path]})
+            return
+        self._reply(*handle_request(self.engine, payload))
+
+    def log_message(self, fmt: str, *args: Any) -> None:
+        logger.debug("http: " + fmt, *args)
+
+
+def make_server(engine, host: str, port: int) -> ThreadingHTTPServer:
+    """A bound (not yet serving) HTTP server over ``engine``; the caller
+    runs ``serve_forever`` and ``server_close``."""
+    handler = type("BoundHandler", (_Handler,), {"engine": engine})
+    return ThreadingHTTPServer((host, port), handler)

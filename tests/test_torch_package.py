@@ -6,6 +6,7 @@ import ast
 import json
 import os
 import pathlib
+import socket
 import subprocess
 import sys
 
@@ -94,7 +95,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
     for name in ("serve.continuous", "trees.gbt", "trees.growth", "app",
                  "trees.random_forest",
                  "ops.fused_histogram", "ops.wide_onehot", "models.wide_deep",
-                 "serve.engine", "serve.session"):
+                 "serve.engine", "serve.session", "serve.transport",
+                 "serve.batcher"):
         assert f"euromillioner_tpu_torch.{name}" in loaded
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -234,7 +236,13 @@ def test_cli_serves_jax_checkpoint_on_cpu(jax_ckpt):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["--model-type", "lstm", "serve.scheduler=continuous"], 17),
+    (["--model-type", "lstm", "serve.scheduler=continuous"], 0),
+    (["--model-type", "lstm", "--scheduler", "continuous",
+      "serve.step_blocks=2,8", "serve.profiles=bf16"], 0),
+    (["--model-type", "lstm", "serve.profiles=fp8"], 17),
+    # parts of the step scheduler not ported yet have no port setting
+    (["--model-type", "lstm", "serve.preempt.enabled=true"], 2),
+    (["--model-type", "wide_deep", "--scheduler", "continuous"], 16),
     # the sequence family serves bf16; the row families refuse it by name
     (["--model-type", "lstm", "serve.precision=bf16"], 0),
     (["--model-type", "lstm", "serve.precision=fp8"], 17),
@@ -247,8 +255,15 @@ def test_cli_exit_codes(jax_ckpt, argv, rc):
 
 
 def test_cli_without_smoke_is_a_serve_error(jax_ckpt):
-    assert cli.main(["serve", "--model-type", "lstm", "--checkpoint",
-                     jax_ckpt, "--device", "cpu", *TINY]) == 16
+    """Without --smoke, serve binds serve.host:serve.port; an address
+    already bound is a ServeError (16), as in the JAX CLI."""
+    with socket.socket() as taken:
+        taken.bind(("127.0.0.1", 0))
+        taken.listen()
+        port = taken.getsockname()[1]
+        assert cli.main(["serve", "--model-type", "lstm", "--checkpoint",
+                         jax_ckpt, "--device", "cpu", f"serve.port={port}",
+                         *TINY]) == 16
 
 
 @pytest.mark.parametrize("extra,rc", [([], 16),

@@ -104,7 +104,8 @@ def test_single_rows_coalesce_and_pad(backend, rows):
     assert st["requests"] == 5 and st["rows"] == 5 and st["errors"] == 0
     assert 0 < st["mean_fill_ratio"] <= 1
     assert set(st) == {"requests", "rows", "batches", "errors",
-                       "queue_depth", "mean_fill_ratio", "p50_ms", "p99_ms"}
+                       "queue_depth", "mean_fill_ratio", "uptime_s",
+                       "classes", "precision", "p50_ms", "p99_ms"}
 
 
 def test_handle_request_and_smoke(backend, rows):
@@ -131,9 +132,11 @@ def test_bad_requests_rejected(backend):
         assert handle_request(eng, {"rows": "abc"})[0] == 400
         assert handle_request(eng, {"rows": [[0.0] * 11],
                                     "max_wait_s": -1})[0] == 400
+        assert handle_request(eng, {"rows": [[0.0] * 11],
+                                    "class": "bulk"})[0] == 200
         status, body = handle_request(eng, {"rows": [[0.0] * 11],
-                                            "class": "bulk"})
-        assert status == 400 and "not ported" in body["error"]
+                                            "class": "premium"})
+        assert status == 400 and "unknown request class" in body["error"]
     with pytest.raises(ServeError, match="closed"):
         eng.submit(np.zeros((1, 11), np.float32))
 

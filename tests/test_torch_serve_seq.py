@@ -15,6 +15,7 @@ from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
 from euromillioner_tpu_torch.models.convert import params_from_jax
 from euromillioner_tpu_torch.models.lstm import build_lstm
 from euromillioner_tpu_torch.serve.continuous import (RecurrentBackend,
+                                                      StepScheduler,
                                                       WholeSequenceScheduler,
                                                       make_sequence_engine)
 from euromillioner_tpu_torch.serve.session import load_backend
@@ -120,7 +121,9 @@ def test_stats_keys_pinned(models, seqs):
         st = eng.stats()
     assert set(st) == {"scheduler", "batches", "sequences", "errors",
                        "queued", "mean_row_fill", "mean_time_fill",
-                       "p50_ms", "p99_ms"}
+                       "classes", "precision", "uptime_s", "p50_ms",
+                       "p99_ms"}
+    assert st["classes"]["interactive"]["completed"] == 2
     assert st["scheduler"] == "batch" and st["sequences"] == 2
     assert st["errors"] == 0 and st["batches"] == 2
     assert 0 < st["mean_row_fill"] <= 1 and 0 < st["mean_time_fill"] <= 1
@@ -136,9 +139,11 @@ def test_bad_requests_rejected(models):
             eng.submit(np.zeros((3, FEAT + 1), np.float32))
         assert handle_request(eng, {"rows": "abc"})[0] == 400
         assert handle_request(eng, [1, 2])[0] == 400
+        assert handle_request(eng, {"rows": [[0.0] * FEAT],
+                                    "class": "bulk"})[0] == 200
         status, body = handle_request(eng, {"rows": [[0.0] * FEAT],
-                                            "class": "bulk"})
-        assert status == 400 and "not ported" in body["error"]
+                                            "class": "premium"})
+        assert status == 400 and "unknown request class" in body["error"]
         assert handle_request(eng, {"rows": [[0.0] * FEAT],
                                     "max_wait_s": -1})[0] == 400
     with pytest.raises(ServeError, match="closed"):
@@ -171,12 +176,18 @@ def test_run_smoke_through_configured_engine(models):
 
 
 @pytest.mark.parametrize("override,err", [
-    ("serve.scheduler=continuous", ConfigError),
+    ("serve.scheduler=continuous", None),
     ("serve.scheduler=nonsense", ServeError),
 ])
 def test_unported_or_unknown_scheduler(models, override, err):
+    """Both of the JAX package's schedulers are ported; any other name is
+    a ServeError."""
     _, tm = models
-    cfg = apply_overrides(Config(), [override])
+    cfg = apply_overrides(Config(), [override, "serve.warmup=false"])
+    if err is None:
+        with make_sequence_engine(_backend(tm, "f32"), cfg) as eng:
+            assert isinstance(eng, StepScheduler)
+        return
     with pytest.raises(err):
         make_sequence_engine(_backend(tm, "f32"), cfg)
 
