@@ -177,9 +177,37 @@ Phases, each reported on its own lines:
    RandomForestModel.predict; ``serve --model-type rf --smoke 32`` on that
    model and ``serve --model-type gbt --smoke 32`` on phase 12's booster:
    no failed request, every reply bit-equal to a direct predict;
-22. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
-   ``serve_http_fused``), the ``nvidia-smi`` line, and last the
-   ``{"ok": true, "device": ...}`` line.
+22. the MLP (BASELINE.json config 1) — ``train --model mlp --html-file
+   tests/golden/euromillions.html`` at the ModelConfig defaults (hidden
+   256, 256, the 10 label-dropped features, B=64, Adam, mse), 2 epochs
+   (cut from 20), in bf16 and in f32, and the f32 command on the CPU: two
+   finite watch lines each, ms/step and examples/s, the f32 run's
+   per-epoch rmse within MLP_RMSE_TOL of the CPU's;
+23. serve the MLP — ``serve --model-type mlp --smoke 32`` on the f32
+   checkpoint at ``serve.precision=f32``, ``bf16`` and ``int8w`` and with
+   ``serve.profiles=bf16,int8w``: no failed request; in process each
+   profile's program at every bucket (8, 32, 128) against the f32
+   predict (f32 bit-equal, bf16 and int8w inside their envelopes),
+   requests naming each profile routed to it, each profile's
+   ``serve_param_mb`` and its p50 and rows/s per bucket;
+24. Wide&Deep's tiers — phase 14's checkpoint served through the CLI at
+   ``bf16`` and ``int8w``: K4a counted from 0 in each run (the bf16
+   program's batches and warmups plus the f32 profile's drift oracle's;
+   at int8w the oracle's alone), K4b never; in process the int8w program
+   launches no K4 kernel, each tier inside its envelope of the f32
+   predict at every bucket, the tiers' params (int8w about a quarter of f32's) and p50 per
+   bucket beside f32's;
+25. classic — logistic regression, the linear SVM, Gaussian naive Bayes
+   and k-means fitted on the card and on the CPU on the golden page's
+   standardised rows (label column 0 as the class id; k-means from the
+   same initial rows): fitted arrays within CLASSIC_TOL, test ids equal
+   but at near ties, fit seconds; each saved as JSON and served through
+   ``serve --model-type classic --smoke 32`` bit-equal to its predict;
+26. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
+   ``serve_http_fused``, K4a's phase 24's ``serve_bf16`` and the int8w
+   run's drift oracle), the ``nvidia-smi`` line, and last the
+   ``{"ok": true, "device": ...}`` line. The lines phases 22-25 measure
+   carry the card's name and power limit.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -476,6 +504,29 @@ WD_STEP_TOL = {"float32": {"loss": 1e-6, "out": 1e-5, "grad": 1e-5,
                             "param": None}}
 # bench.py's _bench_wide_deep: B = WD_SHAPE["batch"], 15 timed steps
 WD_BENCH = {"batch": 8192, "warmup": 2, "steps": 15}
+# the row families (phases 22-25): serve --smoke request counts; the row
+# engine's buckets (ServeConfig's); per bucket, ROW_P50_RUNS closed-loop
+# requests of one full bucket, then ROW_RATE_REQUESTS at once
+MLP_SMOKE_REQUESTS = 32
+CLASSIC_SMOKE_REQUESTS = 32
+ROW_BUCKETS = (8, 32, 128)
+ROW_P50_RUNS = 20
+ROW_RATE_REQUESTS = 64
+# the f32 MLP's per-epoch train-rmse / test-rmse on the card against the
+# same CLI command on the CPU, relative: f32 on both sides (TF32 off), the
+# products and reductions summed in other orders over 2 x 19 Adam steps
+MLP_RMSE_TOL = 1e-4
+# the classic fits on the card against the CPU's: each fitted array within
+# this fraction of its scale (500 f32 gradient steps, or 50 Lloyd
+# iterations from the same rows, summed in other orders); the linear SVM's
+# hinge mask is discontinuous, so its fits may part where a margin sits
+# within this of 1 (svm_first_flip); a test id may differ only where the
+# CPU's top two scores are nearer than this fraction of the scores' scale
+CLASSIC_TOL = 1e-4
+CLASSIC_K = 6
+# the card's name and power limit (nvidia-smi), beside every measured line
+# of phases 22-25
+CARD = ""
 # H100 SXM data-sheet peaks (dense): FP32 non-tensor, bf16 tensor cores
 # and HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -3294,21 +3345,24 @@ def wd_cli(argv: list[str]) -> tuple[int, str]:
     return rc, buf.getvalue()
 
 
-def wd_serve_cli(ckdir: Path, requests: int) -> tuple[dict, int]:
-    """``serve --model-type wide_deep --smoke N`` on the card; returns the
-    summary and K4a's launches during it (reset just before)."""
+def wd_serve_cli(ckdir: Path, requests: int, extra: tuple = ()
+                 ) -> tuple[dict, int]:
+    """``serve --model-type wide_deep --smoke N`` (with ``extra``
+    overrides) on the card; returns the summary and K4a's launches during
+    it (reset just before)."""
     from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
                                                          WIDE_ONEHOT_FWD)
 
     WIDE_ONEHOT_FWD.launches = WIDE_ONEHOT_DW.launches = 0
     rc, out = wd_cli(["serve", "--model-type", "wide_deep", "--checkpoint",
-                      str(ckdir), "--smoke", str(requests)])
+                      str(ckdir), "--smoke", str(requests), *extra])
     launches = WIDE_ONEHOT_FWD.launches
-    check(rc == 0, f"serve --model-type wide_deep exited {rc}")
+    check(rc == 0, f"serve --model-type wide_deep {' '.join(extra)} "
+                   f"exited {rc}")
     check(WIDE_ONEHOT_DW.launches == 0, "serving launched K4b")
     summary = json.loads(out.strip().splitlines()[-1])
     shown = {k: v for k, v in summary.items() if k != "predictions"}
-    print(f"serve wide_deep: {json.dumps(shown)}")
+    print(f"serve wide_deep {' '.join(extra)}: {json.dumps(shown)}")
     check(summary["failed"] == 0, "wide_deep serve: requests failed")
     got = torch.tensor(summary["predictions"])
     check(tuple(got.shape) == (requests, 1, OUTPUTS), "reply shapes")
@@ -3316,11 +3370,11 @@ def wd_serve_cli(ckdir: Path, requests: int) -> tuple[dict, int]:
     return summary, launches
 
 
-def phase_wd_serve(root: Path) -> int:
+def phase_wd_serve(root: Path) -> tuple[int, Path]:
     """The serving main path at full width: a seeded Wide&Deep (100M) as a
     TrainState checkpoint, served through the CLI; then bench.py's rows
     through the engine against direct predicts. Returns K4a's launches in
-    the CLI run."""
+    the CLI run and the checkpoint (phase_wd_tiers serves it again)."""
     import numpy as np
 
     from euromillioner_tpu_torch.config import Config
@@ -3379,9 +3433,8 @@ def phase_wd_serve(root: Path) -> int:
     check(bool(np.isfinite(single).all()), "non-finite engine replies")
     check(err <= WD_CROSS_SHAPE_TOL, "engine replies outside the tolerance")
     del backend
-    shutil.rmtree(ckdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, ckdir
 
 
 def wd_golden_frames(root: Path):
@@ -3625,6 +3678,423 @@ def phase_wd_bench(k4: tuple[dict, dict]) -> dict:
             "launches": launches}
 
 
+# -- the row families: the MLP (BASELINE.json config 1), the narrow tiers
+# of the mlp and Wide&Deep, the classic family ---------------------------
+
+def card(text: str) -> None:
+    """One measured line, with the card's name and power limit."""
+    print(f"{text} [{CARD}]")
+
+
+def watch_rounds(jsonl: Path) -> tuple[list, dict]:
+    """The watch records and the fit summary a CLI training run wrote."""
+    records = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+    rounds = [r for r in records if "round" in r]
+    summary = [r for r in records if r.get("event") == "fit_summary"]
+    return rounds, (summary[0] if summary else {})
+
+
+def phase_mlp_train(root: Path) -> Path:
+    """``train --model mlp`` through the CLI at the ModelConfig defaults
+    (hidden 256, 256; 10 label-dropped features; B=64, Adam 1e-3, mse;
+    TRAIN_EPOCHS epochs, cut from 20) on the card in bf16 (the default
+    compute dtype) and f32, and the f32 command once more on the CPU: each
+    run's watch lines, the card runs' ms/step and examples/s, and the f32
+    run's per-epoch rmse against the CPU's. Returns the f32 checkpoint."""
+    out = root / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for name, extra in (("bf16", []),
+                        ("f32", ["model.compute_dtype=float32"]),
+                        ("f32 cpu", ["model.compute_dtype=float32",
+                                     "--device", "cpu"])):
+        tag = name.replace(" ", "_")
+        ckdir, jsonl = out / f"mlp_{tag}", out / f"mlp_{tag}.jsonl"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        jsonl.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        rc, _ = wd_cli(["train", "--model", "mlp", "--html-file",
+                        str(root / GOLDEN_HTML), f"train.epochs={TRAIN_EPOCHS}",
+                        f"train.metrics_jsonl={jsonl}", "--save", str(ckdir),
+                        *extra])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"train --model mlp ({name}) exited {rc}")
+        rounds, stats = watch_rounds(jsonl)
+        for r in rounds:
+            print(f"mlp train ({name}) watch line [{r['round']}]: train-rmse "
+                  f"{r['train-rmse']:.6f} test-rmse {r['test-rmse']:.6f}")
+        check(len(rounds) == TRAIN_EPOCHS, f"{len(rounds)} watch lines")
+        check(all(math.isfinite(r[k]) for r in rounds
+                  for k in ("train-rmse", "test-rmse")), "non-finite rmse")
+        line = (f"mlp train ({name}, hidden 256x256, B=64): "
+                f"{stats['mean_step_ms']:.4f} ms/step over {stats['steps']} "
+                f"device-synchronised steps, {stats['examples_per_sec']:.1f} "
+                f"examples/s; CLI wall {wall:.2f} s")
+        if name.endswith("cpu"):
+            print(f"{line} (the card machine's host CPU)")
+        else:
+            card(line)
+        runs[name] = (rounds, ckdir)
+    worst = max(abs(c[k] - h[k]) / abs(h[k])
+                for c, h in zip(runs["f32"][0], runs["f32 cpu"][0])
+                for k in ("train-rmse", "test-rmse"))
+    print(f"mlp train f32, card vs CPU: per-epoch rmse within {worst:.3e} "
+          f"relative (tol {MLP_RMSE_TOL:.0e})")
+    check(worst <= MLP_RMSE_TOL, "mlp f32 training drifts from the CPU's")
+    shutil.rmtree(runs["bf16"][1], ignore_errors=True)
+    shutil.rmtree(runs["f32 cpu"][1], ignore_errors=True)
+    return runs["f32"][1]
+
+
+def bucket_rates(backend, profile: str, rows) -> dict:
+    """Per bucket of ServeConfig's (8, 32, 128): an engine with that one
+    bucket at ``profile``, ROW_P50_RUNS closed-loop requests of one full
+    bucket (client p50 ms), then ROW_RATE_REQUESTS such requests at once
+    (rows/s). Returns {bucket: (p50_ms, rows_per_s)}."""
+    from euromillioner_tpu_torch.serve.engine import InferenceEngine
+
+    out = {}
+    for b in ROW_BUCKETS:
+        eng = InferenceEngine(backend, buckets=(b,), precision=profile)
+        try:
+            lat = []
+            for _ in range(ROW_P50_RUNS):
+                t0 = time.perf_counter()
+                eng.predict(rows[:b])
+                lat.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            futures = [eng.submit(rows[:b]) for _ in range(ROW_RATE_REQUESTS)]
+            for f in futures:
+                f.result(timeout=HTTP_WAIT)
+            dt = time.perf_counter() - t0
+            check(eng.stats()["errors"] == 0, f"{profile} bucket {b} failed")
+        finally:
+            eng.close()
+        out[b] = (statistics.median(lat), ROW_RATE_REQUESTS * b / dt)
+    return out
+
+
+def held_to_oracle(backend, profile: str, rows, what: str) -> None:
+    """One full bucket of ``rows`` per bucket through the profile's
+    program against the f32 ``predict`` of the same rows: f32 bit-equal,
+    a narrow profile inside its pinned envelope, its params narrow (every
+    float leaf bfloat16 under bf16, int8 leaves under int8w)."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
+                                                        is_quantized,
+                                                        rel_error)
+
+    leaves = backend.serve_params(profile).values()
+    if profile == "bf16":
+        check(all(t.dtype == torch.bfloat16 for t in leaves
+                  if t.is_floating_point()), f"{what} bf16 params not bf16")
+    elif profile == "int8w":
+        check(any(is_quantized(t) for t in leaves),
+              f"{what} int8w params hold no int8 leaf")
+    for b in ROW_BUCKETS:
+        x = torch.as_tensor(rows[:b], device=backend.device)
+        got = backend.serve_apply(profile)(x).cpu().numpy()
+        want = backend.predict(rows[:b])
+        if profile == "f32":
+            same = np.array_equal(got, want)
+            print(f"{what} f32 program vs predict at bucket {b}: bit-equal "
+                  f"{same}")
+            check(same, f"{what} f32 replies differ from predict")
+        else:
+            env = SERVE_ENVELOPES[(backend.family, profile)]
+            err = rel_error(got, want)
+            print(f"{what} {profile} vs the f32 predict at bucket {b}: rel "
+                  f"{err:.3e} (envelope {env:.0e})")
+            check(err <= env, f"{what} {profile} outside its envelope")
+
+
+def print_rates(what: str, rates: dict, mb: dict) -> None:
+    for profile, by_bucket in rates.items():
+        cells = ", ".join(f"bucket {b}: p50 {p50:.4f} ms, {rps:.1f} rows/s"
+                          for b, (p50, rps) in by_bucket.items())
+        card(f"{what} at {profile} (serve_param_mb {mb[profile]}): {cells}")
+
+
+def phase_mlp_serve(ckdir: Path) -> None:
+    """The f32 checkpoint served through ``serve --model-type mlp --smoke
+    N`` at f32, bf16 and int8w and with ``serve.profiles=bf16,int8w``: no
+    failed request; then in process each profile's program held to the
+    f32 predict at every bucket, requests naming each profile routed to
+    it, and each profile's params and rates per bucket."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
+                                                        rel_error)
+    from euromillioner_tpu_torch.serve.engine import (make_row_engine,
+                                                      param_bytes)
+    from euromillioner_tpu_torch.serve.session import load_backend
+    from euromillioner_tpu_torch.serve.transport import handle_request
+
+    flags = ["model.compute_dtype=float32"]
+    for extra in (["serve.precision=f32"], ["serve.precision=bf16"],
+                  ["serve.precision=int8w"], ["serve.profiles=bf16,int8w"]):
+        rc, out = wd_cli(["serve", "--model-type", "mlp", "--checkpoint",
+                          str(ckdir), "--smoke", str(MLP_SMOKE_REQUESTS),
+                          *flags, *extra])
+        check(rc == 0, f"serve --model-type mlp {extra[0]} exited {rc}")
+        summary = json.loads(out.strip().splitlines()[-1])
+        st = summary["stats"]
+        got = np.asarray(summary["predictions"], np.float32)
+        print(f"serve mlp --smoke {MLP_SMOKE_REQUESTS} {extra[0]}: ok "
+              f"{summary['ok']}, failed {summary['failed']}, batches "
+              f"{st['batches']}, precision {json.dumps(st['precision'])}")
+        check(summary["failed"] == 0, f"mlp serve {extra[0]}: requests failed")
+        check(got.shape == (MLP_SMOKE_REQUESTS, 1, 1)
+              and bool(np.isfinite(got).all()), "mlp smoke replies")
+        check(st["precision"]["envelope_breaches"] == 0, "envelope breached")
+    cfg = apply_overrides(Config(), flags + ["serve.profiles=bf16,int8w"])
+    backend = load_backend("mlp", str(ckdir), cfg)
+    rows = np.random.default_rng(SEED).normal(
+        size=(max(ROW_BUCKETS), 10)).astype(np.float32)
+    mb = {}
+    for profile in ("f32", "bf16", "int8w"):
+        held_to_oracle(backend, profile, rows, "serve mlp")
+        mb[profile] = round(param_bytes(backend.serve_params(profile))
+                            / 2**20, 3)
+    engine = make_row_engine(backend, cfg)
+    try:
+        for i in range(12):
+            profile = (None, "bf16", "int8w")[i % 3]
+            x = rows[8 * i:8 * i + 8]
+            status, reply = handle_request(
+                engine, {"rows": x.tolist(),
+                         **({"profile": profile} if profile else {})})
+            check(status == 200, f"profile {profile} request: {reply}")
+            got = np.asarray(reply["predictions"], np.float32)
+            want = backend.predict(x)
+            if profile is None:
+                check(np.array_equal(got, want), "f32 reply != predict")
+            else:
+                err = rel_error(got, want)
+                check(0.0 < err <= SERVE_ENVELOPES[("nn", profile)],
+                      f"{profile} reply outside its envelope")
+        st = engine.stats()
+    finally:
+        engine.close()
+    print(f"serve mlp serve.profiles=bf16,int8w, requests naming each "
+          f"profile: {json.dumps(st['profiles'])}")
+    check(all(st["profiles"][p]["completed"] == 4
+              for p in ("f32", "bf16", "int8w")), "profile routing")
+    rates = {p: bucket_rates(backend, p, rows)
+             for p in ("f32", "bf16", "int8w")}
+    print_rates("serve mlp (hidden 256x256)", rates, mb)
+    del backend
+    torch.cuda.empty_cache()
+
+
+def phase_wd_tiers(ckdir: Path) -> dict:
+    """The 100M Wide&Deep checkpoint of phase 14 served through the CLI at
+    bf16 and int8w: no failed request, the bf16 run's K4a launches
+    counted from 0 (its batches and bucket warmups, plus the f32 drift
+    oracle's), the int8w run's only the f32 oracle's; in process the int8w
+    program launches no K4 kernel at all, each tier is held to the f32
+    predict at every bucket inside its envelope, and the tiers' params
+    and p50 per bucket stand beside f32's. Returns K4a's launches in the
+    two CLI runs."""
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
+                                                         WIDE_ONEHOT_FWD)
+    from euromillioner_tpu_torch.serve.engine import param_bytes
+    from euromillioner_tpu_torch.serve.session import load_backend
+
+    launches = {}
+    for profile in ("bf16", "int8w"):
+        summary, k4a = wd_serve_cli(ckdir, WD_SMOKE_REQUESTS,
+                                    (f"serve.precision={profile}",))
+        st = summary["stats"]
+        oracle = st["precision"]["drift_checks"]
+        own = (st["batches"] + len(ROW_BUCKETS)) if profile == "bf16" else 0
+        print(f"serve wide_deep at {profile}: K4a launches {k4a} (expected "
+              f"{own} of the {profile} program: batches + bucket warmups, "
+              f"+ {oracle} of the f32 profile's drift oracle = "
+              f"{own + oracle})")
+        check(st["precision"]["envelope_breaches"] == 0, "envelope breached")
+        check(k4a == own + oracle, f"K4a launched {k4a} times at {profile}")
+        launches[profile] = k4a
+    cfg = apply_overrides(Config(), ["serve.profiles=bf16,int8w"])
+    backend = load_backend("wide_deep", str(ckdir), cfg)
+    rows = bench_rows(max(ROW_BUCKETS))
+    mb = {p: round(param_bytes(backend.serve_params(p)) / 2**20, 3)
+          for p in ("f32", "bf16", "int8w")}
+    for profile in ("bf16", "int8w"):
+        WIDE_ONEHOT_FWD.launches = WIDE_ONEHOT_DW.launches = 0
+        for b in ROW_BUCKETS:
+            backend.serve_apply(profile)(
+                torch.as_tensor(rows[:b], device=backend.device))
+        torch.cuda.synchronize()
+        counts = (WIDE_ONEHOT_FWD.launches, WIDE_ONEHOT_DW.launches)
+        want = (len(ROW_BUCKETS), 0) if profile == "bf16" else (0, 0)
+        print(f"serve wide_deep {profile} program alone at the buckets "
+              f"{ROW_BUCKETS}: (K4a, K4b) launches {counts}, expected {want}")
+        check(counts == want, f"{profile} program's K4 launches {counts}")
+        held_to_oracle(backend, profile, rows, "serve wide_deep")
+    card(f"serve wide_deep serving params: f32 {mb['f32']} MB, bf16 "
+         f"{mb['bf16']} MB, int8w {mb['int8w']} MB "
+         f"({mb['int8w'] / mb['f32']:.3f} of f32)")
+    check(mb["int8w"] <= 0.3 * mb["f32"], "int8w params not about a quarter")
+    rates = {p: bucket_rates(backend, p, rows)
+             for p in ("f32", "bf16", "int8w")}
+    print_rates("serve wide_deep (100M)", rates, mb)
+    del backend
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def classic_data(root: Path):
+    """The golden page's featurized rows, label column 0 (the draw's day
+    of week) as the class id, each feature standardised by the training
+    split's mean and deviation: (x, y, x_test, y_test)."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.data.pipeline import pipeline_from_html
+
+    tr, va = pipeline_from_html((root / GOLDEN_HTML).read_text())
+    mean, std = tr.x.mean(0), tr.x.std(0) + 1e-6
+    return ((tr.x - mean) / std, tr.y.astype(np.int32),
+            ((va.x - mean) / std).astype(np.float32), va.y.astype(np.int32))
+
+
+def classic_scores(model, x):
+    """The per-class scores each classic model's argmax (argmin for
+    k-means) runs on, as numpy: the near-tie measure of a flipped id."""
+    from euromillioner_tpu_torch.classic import GaussianNB, KMeans
+
+    if isinstance(model, KMeans):
+        xt = torch.as_tensor(x, device=model.device)
+        c = model.centers
+        return -((xt * xt).sum(-1, keepdim=True) - 2.0 * (xt @ c.T)
+                 + (c * c).sum(-1)[None]).cpu().numpy()
+    if isinstance(model, GaussianNB):
+        return model.log_likelihood(
+            torch.as_tensor(x, device=model.device)).cpu().numpy()
+    return model.decision_function(x)
+
+
+def svm_first_flip(x, y, steps: int, lr: float, l2: float) -> float:
+    """The linear SVM's fit on the card and on the CPU agree until a step
+    whose hinge mask (``y * score < 1``) differs between them; from there
+    they follow different subgradients. Bisects the step count for the
+    last step whose (w, b) still agree within CLASSIC_TOL of their scale,
+    prints it and the margins the two devices classify differently at the
+    next step, and returns the largest |margin - 1| among them (a near tie
+    when below CLASSIC_TOL)."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.classic.linear import _fit_svm
+
+    def fit(dev, k):
+        xt = torch.as_tensor(x, device=dev)
+        onehot = torch.nn.functional.one_hot(
+            torch.as_tensor(y, dtype=torch.int64, device=dev),
+            int(y.max()) + 1).float()
+        y_pm = 2.0 * onehot - 1.0
+        w, b = _fit_svm(xt, y_pm, k, lr, l2)
+        return (y_pm * (xt @ w + b)).cpu().numpy(), w.cpu(), b.cpu()
+
+    def gap(k):
+        (_, wg, bg), (_, wc, bc) = fit("cuda", k), fit("cpu", k)
+        return max(float((a - c).abs().max() / (c.abs().max() + 1e-30))
+                   for a, c in ((wg, wc), (bg, bc)))
+
+    lo, hi = 0, steps
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if gap(mid) <= CLASSIC_TOL else (lo, mid)
+    m_gpu, m_cpu = fit("cuda", lo)[0], fit("cpu", lo)[0]
+    flips = np.flatnonzero((m_gpu < 1.0) != (m_cpu < 1.0))
+    worst = float(np.abs(m_cpu.reshape(-1)[flips] - 1.0).max()) \
+        if len(flips) else float("inf")
+    print(f"classic svm: card and CPU agree within {CLASSIC_TOL:.0e} "
+          f"through step {lo} (gap {gap(lo):.3e}); step {lo + 1}'s hinge "
+          f"masks differ at {len(flips)} element(s), margins "
+          f"{m_cpu.reshape(-1)[flips].tolist()} on the CPU and "
+          f"{m_gpu.reshape(-1)[flips].tolist()} on the card")
+    return worst
+
+
+def phase_classic(root: Path) -> None:
+    """Logistic regression, the linear SVM, Gaussian naive Bayes and
+    k-means fitted on the card and on the CPU on the golden page's rows
+    (k-means from the same initial rows): the fitted arrays within
+    CLASSIC_TOL of each array's scale, test-split ids equal but at near
+    ties, fit seconds; each card model saved as JSON and served through
+    ``serve --model-type classic --smoke N``, replies bit-equal to its
+    predict."""
+    import numpy as np
+
+    from euromillioner_tpu_torch import classic
+    from euromillioner_tpu_torch.serve.transport import row_payloads
+
+    x, y, xt, yt = classic_data(root)
+    out = root / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    makers = {"logistic": classic.LogisticRegression,
+              "svm": classic.LinearSVM, "naive_bayes": classic.GaussianNB,
+              "kmeans": lambda device: classic.KMeans(
+                  CLASSIC_K, seed=SEED, device=device)}
+    for kind, make in makers.items():
+        fits, secs = [], []
+        for dev in ("cuda", "cpu"):
+            m = make(device=dev)
+            t0 = time.perf_counter()
+            m.fit(x) if kind == "kmeans" else m.fit(x, y)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            fits.append(m)
+        gpu, cpu = fits
+        arrays = {"kmeans": lambda m: [m.centers],
+                  "naive_bayes": lambda m: list(m._params)}.get(
+                      kind, lambda m: list(m._wb))
+        worst = max(float((a.cpu() - b).abs().max() / (b.abs().max() + 1e-30))
+                    for a, b in zip(arrays(gpu), arrays(cpu)))
+        ids_gpu, ids_cpu = gpu.predict(xt), cpu.predict(xt)
+        scores = np.sort(classic_scores(cpu, xt), axis=-1)
+        margin = (scores[:, -1] - scores[:, -2]) / np.abs(scores).max()
+        flips = np.flatnonzero(ids_gpu != ids_cpu)
+        card(f"classic {kind}: fit {secs[0]:.4f} s on the card, "
+             f"{secs[1]:.4f} s on the CPU; fitted arrays within "
+             f"{worst:.3e} of their scale (tol {CLASSIC_TOL:.0e}); test ids "
+             f"{len(flips)} of {len(xt)} differ (margins "
+             f"{margin[flips].tolist()}); test accuracy "
+             f"{float((ids_gpu == yt).mean()) if kind != 'kmeans' else 'n/a'}")
+        if kind == "svm" and worst > CLASSIC_TOL:
+            # the hinge mask is discontinuous: hold the fits up to the step
+            # where the devices first classify a margin differently, and
+            # that margin to a near tie
+            tie = svm_first_flip(x, y, gpu.steps, gpu.lr, gpu.l2)
+            check(tie < CLASSIC_TOL, "svm: fits part away from a near tie")
+        else:
+            check(worst <= CLASSIC_TOL,
+                  f"{kind}: card fit drifts from the CPU's")
+        check(bool((margin[flips] < CLASSIC_TOL).all()),
+              f"{kind}: ids differ away from a near tie")
+        path = out / f"classic_{kind}.json"
+        gpu.save_model(str(path))
+        rc, stdout = wd_cli(["serve", "--model-type", "classic",
+                             "--model-file", str(path), "--smoke",
+                             str(CLASSIC_SMOKE_REQUESTS)])
+        check(rc == 0, f"serve --model-type classic ({kind}) exited {rc}")
+        summary = json.loads(stdout.strip().splitlines()[-1])
+        got = np.asarray(summary["predictions"])[:, 0]
+        rows = np.asarray(row_payloads(CLASSIC_SMOKE_REQUESTS, (x.shape[1],)),
+                          np.float32)[:, 0]
+        same = np.array_equal(got, gpu.predict(rows))
+        print(f"serve classic {kind} --smoke {CLASSIC_SMOKE_REQUESTS}: ok "
+              f"{summary['ok']}, failed {summary['failed']}, batches "
+              f"{summary['stats']['batches']}, replies bit-equal to predict "
+              f"{same}")
+        check(summary["failed"] == 0 and same, f"classic {kind} serving")
+        path.unlink()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3644,9 +4114,10 @@ def main() -> int:
     from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
                                                          WIDE_ONEHOT_FWD)
 
+    global CARD
     resolve_device("cuda")  # TF32 off for the plain versions' GEMMs
     name = torch.cuda.get_device_name(0)
-    smi = nvidia_smi("name,power.limit")
+    smi = CARD = nvidia_smi("name,power.limit")
     print(f"device: {name} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}); {nvidia_smi('clocks.sm,clocks.max.sm')}")
     kernels = (FUSED_LSTM_FWD, FUSED_LSTM_BWD, FUSED_HISTOGRAM,
@@ -3697,10 +4168,15 @@ def main() -> int:
         shutil.rmtree(gbt_out, ignore_errors=True)
         WIDE_ONEHOT_DW.build()  # loads the library K4a's build made
         k4a, k4b = phase_k4()
-        serve_k4a = phase_wd_serve(root)
+        serve_k4a, wd_ckdir = phase_wd_serve(root)
         train_k4a, train_k4b = phase_wd_train(root)
         wd_bench = phase_wd_bench((k4a, k4b))
         phase_wd_step(root)
+        mlp_ckdir = phase_mlp_train(root)
+        phase_mlp_serve(mlp_ckdir)
+        shutil.rmtree(mlp_ckdir, ignore_errors=True)
+        tiers_k4a = phase_wd_tiers(wd_ckdir)
+        phase_classic(root)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3722,7 +4198,10 @@ def main() -> int:
     k3["launches_by_path"] = {"reference": reference_k3,
                               "scaled_gbt": scaled_k3, "cli_train": cli_k3}
     k4a["launches_by_path"] = {"serve": serve_k4a, "train": train_k4a,
-                               "bench_step": wd_bench["launches"]["K4a"]}
+                               "bench_step": wd_bench["launches"]["K4a"],
+                               "serve_bf16": tiers_k4a["bf16"],
+                               "serve_int8w_drift_oracle":
+                                   tiers_k4a["int8w"]}
     k4a["launches"] = sum(k4a["launches_by_path"].values())
     k4b["launches_by_path"] = {"train": train_k4b,
                                "bench_step": wd_bench["launches"]["K4b"]}

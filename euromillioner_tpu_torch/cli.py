@@ -3,13 +3,15 @@
 The JAX package's subcommands for the ported paths, with the same flags,
 dotted config overrides and exit codes (the error taxonomy's
 ``exit_code``; 2 for bad arguments): ``fetch --html-file`` writes the
-featurized CSV; ``train --model gbt|rf|lstm|wide_deep`` trains a booster
-or a random forest (``--save`` writes its model JSON; ``--num-classes C``
-makes the forest a classifier), the LSTM or Wide&Deep (``--save`` writes
-the TrainState); ``predict --model-type gbt|rf`` predicts with a saved
-model JSON; ``reference`` runs the Main.java pipeline; ``serve
---model-type gbt|rf`` serves a model JSON (``--model-file``) and ``serve
---model-type lstm|wide_deep`` a checkpoint. ``--device`` picks ``cuda``
+featurized CSV; ``train --model gbt|rf|mlp|lstm|wide_deep`` trains a
+booster or a random forest (``--save`` writes its model JSON;
+``--num-classes C`` makes the forest a classifier), the MLP, the LSTM or
+Wide&Deep (``--save`` writes the TrainState); ``predict --model-type
+gbt|rf`` predicts with a saved model JSON; ``reference`` runs the
+Main.java pipeline; ``serve --model-type gbt|rf|classic`` serves a model
+JSON (``--model-file``) and ``serve --model-type mlp|lstm|wide_deep`` a
+checkpoint, the neural families at ``serve.precision=f32|bf16|int8w``
+(and ``fused`` for the LSTM). ``--device`` picks ``cuda``
 (the default) or ``cpu``. Data comes from a saved results page
 (``--html-file``) or a featurized CSV (``--csv``); fetching the live page
 is not ported yet. ``serve`` answers HTTP on ``serve.host:serve.port``
@@ -88,9 +90,6 @@ def cmd_train(args, cfg: Config) -> int:
         return _train_gbt(args, cfg)
     if args.model == "rf":
         return _train_rf(args, cfg)
-    if args.model not in ("lstm", "wide_deep"):
-        raise ConfigError(f"--model {args.model} is not ported yet; this "
-                          f"port trains gbt, rf, lstm and wide_deep")
     return _train_nn(args, cfg)
 
 
@@ -146,7 +145,8 @@ def _train_nn(args, cfg: Config) -> int:
     """Train a neural family with the {train, test} watches, then save the
     TrainState (``--save`` or ``train.checkpoint_dir``): the LSTM on
     sliding windows of the draw history, Wide&Deep on each full 11-column
-    row predicting the next draw's balls."""
+    row predicting the next draw's balls, the MLP on the 10 label-dropped
+    features predicting the label column."""
     import torch
 
     from euromillioner_tpu_torch.core.device import resolve_device
@@ -166,9 +166,10 @@ def _train_nn(args, cfg: Config) -> int:
     if args.model == "lstm":
         train_ds = Dataset(*make_sequences(full, cfg.model.seq_len))
         val_ds = Dataset(*make_sequences(fullv, cfg.model.seq_len))
-    else:
+    elif args.model == "wide_deep":
         train_ds = Dataset(x=full[:-1], y=full[1:, 4:11])
         val_ds = Dataset(x=fullv[:-1], y=fullv[1:, 4:11])
+    # the mlp trains on the split as it is: (N, 10) features, label column
     model = build_model(
         cfg.model, in_features=train_ds.x.shape[-1],
         generator=torch.Generator().manual_seed(cfg.train.seed),
@@ -222,9 +223,10 @@ def cmd_reference(args, cfg: Config) -> int:
 
 def cmd_serve(args, cfg: Config) -> int:
     """Serve a saved model: an LSTM checkpoint behind the whole-sequence
-    or the step scheduler (``--scheduler``), or a tree model JSON
-    (``--model-file``) or a Wide&Deep checkpoint behind the row
-    micro-batching engine. Answers HTTP on ``serve.host:serve.port``
+    or the step scheduler (``--scheduler``), or a tree or classic model
+    JSON (``--model-file``) or an MLP or Wide&Deep checkpoint behind the
+    row micro-batching engine (one child engine per extra
+    ``serve.profiles`` entry). Answers HTTP on ``serve.host:serve.port``
     until SIGTERM or Ctrl-C, which log the final stats and exit 0; a bind
     failure is a ServeError naming the address. ``--smoke N`` instead
     pushes N synthetic requests through the in-process transport, prints
@@ -330,14 +332,15 @@ def build_parser() -> argparse.ArgumentParser:
                                       "the featurized CSV")
     fe.add_argument("--html-file", help="saved results page")
     fe.add_argument("--output", default="euromillions.csv")
-    tr = sub.add_parser("train", help="train a booster (gbt), the LSTM or "
+    tr = sub.add_parser("train", help="train a booster (gbt), a random "
+                                      "forest, the MLP, the LSTM or "
                                       "Wide&Deep with {train, test} watches")
     tr.add_argument("--model", default="gbt",
                     choices=["gbt", "rf", "mlp", "lstm", "wide_deep"])
     tr.add_argument("--csv", help="featurized CSV input")
     tr.add_argument("--html-file", help="saved results page")
     tr.add_argument("--save", help="model JSON (gbt, rf) or checkpoint "
-                                   "directory (lstm, wide_deep)")
+                                   "directory (mlp, lstm, wide_deep)")
     tr.add_argument("--num-classes", type=int, default=0,
                     help="rf: train a classifier with this many classes")
     tr.add_argument("--distributed", action="store_true",
@@ -358,15 +361,16 @@ def build_parser() -> argparse.ArgumentParser:
     rf.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help=f"device of both boosters ({device_help})")
     sv = sub.add_parser(
-        "serve", help="serve a GBT or random-forest model JSON or a "
-                      "Wide&Deep checkpoint behind the row engine (f32), "
-                      "or an LSTM checkpoint behind a sequence scheduler "
-                      "(serve.precision=f32|bf16|fused|int8w), over HTTP "
-                      "on serve.host:serve.port")
+        "serve", help="serve a GBT, random-forest or classic model JSON "
+                      "(f32) or an MLP or Wide&Deep checkpoint "
+                      "(serve.precision=f32|bf16|int8w) behind the row "
+                      "engine, or an LSTM checkpoint behind a sequence "
+                      "scheduler (serve.precision=f32|bf16|fused|int8w), "
+                      "over HTTP on serve.host:serve.port")
     sv.add_argument("--model-type", default="gbt",
                     choices=["gbt", "rf", "mlp", "lstm", "wide_deep",
                              "classic"])
-    sv.add_argument("--model-file", help="model JSON (gbt, rf)")
+    sv.add_argument("--model-file", help="model JSON (gbt, rf, classic)")
     sv.add_argument("--checkpoint",
                     help="checkpoint dir (latest intact step is used)")
     sv.add_argument("--num-features", type=int, default=0,

@@ -113,9 +113,10 @@ class ForestConfig:
 
 @dataclass
 class ModelConfig:
-    """Neural models (the lstm and wide_deep families are ported)."""
+    """Neural models (BASELINE.json configs 1, 2, 5)."""
 
-    name: str = "mlp"                   # the JAX default; lstm | wide_deep
+    name: str = "mlp"                   # mlp | lstm | wide_deep
+    hidden_sizes: tuple[int, ...] = (256, 256)
     lstm_hidden: int = 512
     lstm_layers: int = 2
     seq_len: int = 64

@@ -1,5 +1,5 @@
-"""Model registry: config → model (the lstm and wide_deep families are
-ported)."""
+"""Model registry: config → model (the mlp, lstm and wide_deep
+families)."""
 
 from __future__ import annotations
 
@@ -11,16 +11,23 @@ from euromillioner_tpu_torch.core.precision import dtype_from_name
 from euromillioner_tpu_torch.nn.module import Module
 from euromillioner_tpu_torch.utils.errors import CheckpointError
 
-PORTED_MODELS = ("lstm", "wide_deep")
+PORTED_MODELS = ("mlp", "lstm", "wide_deep")
 
 
 def build_model(cfg: ModelConfig, *, in_features: int = 11,
                 fused: str = "auto", generator: torch.Generator | None = None,
                 device=None) -> Module:
-    """The model ``cfg.name`` names. Wide&Deep is built as the JAX
-    package builds it: sized by ``wide_deep_target_params`` and
+    """The model ``cfg.name`` names, over ``in_features`` inputs (the mlp
+    and lstm; Wide&Deep reads its 11-column row). Wide&Deep is built as
+    the JAX package builds it: sized by ``wide_deep_target_params`` and
     ``embed_dim`` only, with its own default compute dtype (bfloat16)
     whatever ``cfg.compute_dtype`` says."""
+    if cfg.name == "mlp":
+        from euromillioner_tpu_torch.models.mlp import build_mlp
+
+        return build_mlp(hidden_sizes=tuple(cfg.hidden_sizes), out_dim=1,
+                         dropout=cfg.dropout, in_features=in_features,
+                         generator=generator, device=device)
     if cfg.name == "lstm":
         from euromillioner_tpu_torch.models.lstm import build_lstm
 
@@ -42,13 +49,13 @@ def default_in_shape(cfg: ModelConfig,
                      num_features: int = 0) -> tuple[int, ...]:
     """Family-standard input shape for rebuilding a trained model: lstm
     consumes ``(seq_len, 11)`` full-row windows, wide_deep the full
-    11-column featurized row."""
+    11-column featurized row, mlp the 10 label-dropped features.
+    ``num_features`` overrides the trailing feature count."""
     if cfg.name == "lstm":
         return (cfg.seq_len, num_features or 11)
     if cfg.name == "wide_deep":
         return (num_features or 11,)
-    raise ValueError(f"model {cfg.name!r} is not ported yet "
-                     f"({' | '.join(PORTED_MODELS)})")
+    return (num_features or 10,)
 
 
 def restore_for_inference(cfg, checkpoint: str, num_features: int = 0,
@@ -70,9 +77,9 @@ def restore_for_inference(cfg, checkpoint: str, num_features: int = 0,
     ck = latest_checkpoint(checkpoint) or checkpoint
     saved = load_checkpoint(ck)
     want = model.state_dict()
-    flags = ("model.lstm_hidden / lstm_layers / graves_peepholes"
-             if cfg.model.name == "lstm"
-             else "model.wide_deep_target_params / embed_dim")
+    flags = {"mlp": "model.hidden_sizes",
+             "lstm": "model.lstm_hidden / lstm_layers / graves_peepholes",
+             }.get(cfg.model.name, "model.wide_deep_target_params / embed_dim")
     if set(saved) != set(want):
         raise CheckpointError(
             f"checkpoint params {sorted(set(saved) ^ set(want))} do not "

@@ -23,6 +23,12 @@ one-hot products do there.
 The gradient of the wide table is dense: all ~94M parameters get a
 gradient every step (zeros where no example looked), as in the JAX
 package, so Adam's moments decay on untouched rows there and here.
+
+The int8w serving tier (``serve.precision=int8w``) runs
+:meth:`WideDeep.quantized_apply`, the JAX package's dequantized gather in
+plain PyTorch: each example reads its ``num_crosses`` int8 rows and only
+those are dequantized, so neither the table nor a one-hot is ever dense
+on that path and no K4 kernel runs.
 """
 
 from __future__ import annotations
@@ -32,8 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from euromillioner_tpu_torch.core.device import resolve_device
+from euromillioner_tpu_torch.core.precision import (INT8_Q, INT8_SCALE,
+                                                    dequantize_leaf,
+                                                    is_quantized)
 from euromillioner_tpu_torch.nn import initializers as init
-from euromillioner_tpu_torch.nn.layers import Dense
+from euromillioner_tpu_torch.nn.layers import Dense, dense
 from euromillioner_tpu_torch.nn.module import Module, Sequential
 from euromillioner_tpu_torch.ops.wide_onehot import (check_table_dtype,
                                                      wide_onehot_matmul)
@@ -193,8 +202,7 @@ class WideDeep(Module):
         wide = h @ self.wide_proj.to(dtype) + self.wide_bias.to(dtype)
         # deep tower: embeddings → concat → MLP
         ball_e = _lookup(self.ball_embed, singles, dtype)     # (B, 7, emb)
-        raw = x[..., :_N_DATE].to(torch.int32)
-        raw = torch.cat([raw[..., :3], raw[..., 3:] % 64], dim=-1)  # year mod 64
+        raw = self._raw_fields(x)
         field_es = [
             _lookup(self.field_embed[str(i)],
                     torch.clamp(raw[..., i], 0, v - 1), dtype)
@@ -203,6 +211,65 @@ class WideDeep(Module):
                             dim=-1)
         deep = self.deep.apply(deep_in, train=train, generator=generator)
         return (wide + deep).reshape(*lead, self.out_dim)
+
+    def _raw_fields(self, x):
+        """The date fields' ids (year mod 64), unclipped, as int32."""
+        raw = x[..., :_N_DATE].to(torch.int32)
+        return torch.cat([raw[..., :3], raw[..., 3:] % 64], dim=-1)
+
+    def quantized_apply(self, params: dict, x):
+        """The int8-weight serving forward (``serve.precision=int8w``; the
+        JAX package's ``quantized_apply``) over ``params``, a state dict
+        whose leaves may be int8w marker dicts (core/precision.py): the
+        wide tower gathers each example's ``num_crosses`` int8 rows and
+        dequantizes only those, the embeddings gather dequantized rows and
+        the MLP kernels dequantize on the way into f32 products. Every
+        sum is f32. A leaf left in float (a partly quantized tree) serves
+        through the same program."""
+        lead = x.shape[:-1]
+        x = x.reshape(-1, x.shape[-1])
+        dev = x.device
+        balls, pairs, date_cross = self._cross_ids(x)
+        s_end = _N_BALLS * self.ball_vocab
+        p_end = s_end + _N_PAIRS * self.pair_vocab
+        pos = torch.arange(_N_BALLS, dtype=torch.int32, device=dev)
+        pair_pos = torch.arange(_N_PAIRS, dtype=torch.int32, device=dev)
+        # global rows of the stacked table: each cross position owns a
+        # disjoint slab of rows
+        ids = torch.cat([balls + pos * self.ball_vocab,
+                         pairs + s_end + pair_pos * self.pair_vocab,
+                         date_cross + p_end + pos * self.date_vocab],
+                        dim=1).to(torch.int64)       # (B, num_crosses)
+        wt = params["wide_table"]
+        if is_quantized(wt):
+            rows = wt[INT8_Q][ids].to(torch.float32) * wt[INT8_SCALE]
+        else:
+            rows = wt[ids].to(torch.float32)
+        h = rows.sum(dim=-2)                          # == onehot @ table
+        wide = (h @ dequantize_leaf(params["wide_proj"])
+                + params["wide_bias"].to(torch.float32))
+        ball_e = dequantize_leaf(params["ball_embed"])[balls.to(torch.int64)]
+        raw = self._raw_fields(x)
+        field_es = [
+            dequantize_leaf(params[f"field_embed.{i}"])[
+                torch.clamp(raw[..., i], 0, v - 1).to(torch.int64)]
+            for i, v in enumerate(_FIELD_VOCABS)]
+        out = torch.cat([ball_e.reshape(x.shape[0], -1)] + field_es, dim=-1)
+        for name, layer in self.deep.named_layers():
+            bias = params.get(f"deep.{name}.bias")
+            out = dense(out, dequantize_leaf(params[f"deep.{name}.kernel"]),
+                        None if bias is None else dequantize_leaf(bias),
+                        layer.activation)
+        return (wide + out).reshape(*lead, self.out_dim)
+
+    @staticmethod
+    def quant_rules() -> list[str]:
+        """Leaves the int8w profile quantizes (key components for
+        ``core.precision.quantize_int8w``): the wide table and projection,
+        both embedding families and the deep-MLP kernels. Biases stay
+        exact."""
+        return ["wide_table", "wide_proj", "ball_embed", "field_embed",
+                "kernel"]
 
 
 def build_wide_deep(target_params: int = 100_000_000, *,

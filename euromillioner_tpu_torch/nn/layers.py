@@ -1,4 +1,6 @@
-"""Dense and Dropout (the layers the LSTM model stacks)."""
+"""Core layers: Dense, Embedding, Dropout, LayerNorm, Activation,
+Flatten (the JAX package's ``nn/layers.py``), with its leaf names and
+shapes (``kernel``/``bias``, ``table``, ``scale``/``bias``)."""
 
 from __future__ import annotations
 
@@ -40,10 +42,34 @@ class Dense(Module):
                 torch.zeros(units, device=device))
 
     def apply(self, x, *, train=False, generator=None):
-        y = x @ self.kernel.to(x.dtype)
-        if self.use_bias:
-            y = y + self.bias.to(x.dtype)
-        return _ACTIVATIONS[self.activation](y)
+        return dense(x, self.kernel, self.bias if self.use_bias else None,
+                     self.activation)
+
+
+def dense(x, kernel, bias, activation: str = "identity"):
+    """``Dense``'s arithmetic on given tensors: ``act(x @ kernel + bias)``
+    in x's dtype (``bias`` may be None) — what a serving program runs on
+    a params tree that is not the layer's own."""
+    y = x @ kernel.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
+    return _ACTIVATIONS[activation](y)
+
+
+class Embedding(Module):
+    """Integer ids → vectors; ``table`` is (vocab, dim), drawn from
+    N(0, 0.01²) as in the JAX package."""
+
+    def __init__(self, vocab_size: int, dim: int, *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.dim = dim
+        self.table = torch.nn.Parameter(
+            init.normal(0.01)((vocab_size, dim), generator, device))
+
+    def apply(self, x, *, train=False, generator=None):
+        return torch.nn.functional.embedding(x.to(torch.int64), self.table)
 
 
 class Dropout(Module):
@@ -66,3 +92,44 @@ class Dropout(Module):
         keep = 1.0 - self.rate
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
+class LayerNorm(Module):
+    """Normalise the last axis (population variance), then ``scale`` and
+    ``bias`` in x's dtype."""
+
+    def __init__(self, dim: int, epsilon: float = 1e-5, *, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = torch.nn.Parameter(torch.ones(dim, device=device))
+        self.bias = torch.nn.Parameter(torch.zeros(dim, device=device))
+
+    def apply(self, x, *, train=False, generator=None):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, correction=0)
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        return y * self.scale.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class Activation(Module):
+    """One named activation (``_ACTIVATIONS``) as a layer."""
+
+    def __init__(self, fn: str):
+        super().__init__()
+        if fn not in _ACTIVATIONS:
+            raise ValueError(f"unknown activation {fn!r}")
+        self.fn = fn
+
+    def apply(self, x, *, train=False, generator=None):
+        return _ACTIVATIONS[self.fn](x)
+
+    @property
+    def name(self) -> str:
+        return f"Activation_{self.fn}"
+
+
+class Flatten(Module):
+    """Collapse every axis but the leading (batch) one."""
+
+    def apply(self, x, *, train=False, generator=None):
+        return x.reshape(x.shape[0], -1)

@@ -1,7 +1,9 @@
 """Losses and eval metrics (the JAX package's ``nn/losses.py``).
 
 ``logloss`` and ``error_rate`` are xgboost's eval metrics on
-probabilities (logloss with a float32 clip). Every reducer takes an
+probabilities (logloss with a float32 clip); the training losses
+(``sigmoid_binary_cross_entropy``, ``softmax_cross_entropy``) take logits
+and are numerically stable. Every reducer takes an
 optional ``mask`` so padded fixed-shape batches score only real rows: the
 masked mean divides by ``sum(mask) * (values.numel() // mask.numel())``,
 floored at 1, exactly as the JAX package does.
@@ -40,7 +42,24 @@ def logloss(prob, label, mask=None):
     return _mean(nll, mask)
 
 
+def sigmoid_binary_cross_entropy(logits, label, mask=None):
+    """Stable BCE from logits: max(x,0) - x*y + log(1+exp(-|x|))."""
+    nll = (torch.clamp_min(logits, 0.0) - logits * label
+           + torch.log1p(torch.exp(-logits.abs())))
+    return _mean(nll, mask)
+
+
+def softmax_cross_entropy(logits, onehot, mask=None):
+    logp = torch.log_softmax(logits, dim=-1)
+    return _mean(-(onehot * logp).sum(dim=-1), mask)
+
+
 def error_rate(prob, label, mask=None, threshold: float = 0.5):
     """xgboost ``error``: the fraction misclassified at ``threshold``."""
     wrong = ((prob > threshold).to(torch.float32) != label).to(torch.float32)
     return _mean(wrong, mask)
+
+
+def accuracy(logits, label_ids, mask=None):
+    correct = (logits.argmax(dim=-1) == label_ids).to(torch.float32)
+    return _mean(correct, mask)

@@ -12,10 +12,16 @@ SLO classes (``serve.classes``): a request names its class (``cls=``, the
 HTTP ``"class"`` key); cuts take requests in (class priority, deadline,
 arrival) order. The class and drift helpers here (:func:`resolve_classes`,
 :func:`resolve_request_class`, :class:`ClassStats`, :class:`DriftStats`)
-serve every engine, the sequence schedulers' included. A request may name
-a precision profile (``profile=``); the row families serve only ``f32``
-(their narrow tiers are not ported yet), so any other profile is refused
-by name.
+serve every engine, the sequence schedulers' included.
+
+Precision profiles: an engine serves its backend's profile (or the one it
+is built for); a neural backend's ``bf16``/``int8w`` replies are checked
+against the f32 oracle program on the same padded batch on the first
+dispatch and every ``DRIFT_EVERY``-th after it. ``serve.profiles`` adds
+one child engine per extra profile over the same backend, each with its
+own batcher and dispatcher, so profiles never share a micro-batch; a
+request names its profile (``profile=``, the HTTP ``"profile"`` key) and
+an unknown one is refused by name.
 
 Not ported yet: memory budgets, telemetry and traces, workload capture,
 the serving mesh, the AOT store, and chunking of a request larger than
@@ -44,7 +50,7 @@ from euromillioner_tpu_torch.serve.batcher import (LATENCY_WINDOW,
                                                    pick_bucket,
                                                    resolve_future,
                                                    validate_buckets)
-from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
+from euromillioner_tpu_torch.utils.errors import ServeError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
 logger = get_logger("serve.engine")
@@ -173,8 +179,10 @@ class DriftStats:
 
 class InferenceEngine:
     """Dynamic micro-batching over one row backend (``serve.session``'s
-    ``NNBackend``, ``GBTBackend`` or ``RFBackend``): ``submit`` returns a
-    future, ``predict`` blocks."""
+    ``NNBackend``, ``GBTBackend``, ``RFBackend`` or ``ClassicBackend``):
+    ``submit`` returns a future, ``predict`` blocks. ``precision`` is the
+    profile this engine serves (default: the backend's); ``profiles``
+    adds a child engine for each other one."""
 
     kind = "rows"  # transport: a request is a batch of independent rows
 
@@ -182,21 +190,30 @@ class InferenceEngine:
                  max_wait_ms: float = 2.0, inflight: int = 2,
                  warmup: bool = True,
                  classes: Sequence[str] = ("interactive", "bulk"),
+                 precision: str | None = None,
                  profiles: Sequence[str] = ()):
         self.backend = backend
-        self.precision = backend.precision
+        self.precision = (resolve_serve_precision(precision) if precision
+                          else backend.precision)
+        self.envelope = serve_envelope(backend.family, self.precision)
+        # every extra profile is validated before anything is built: an
+        # unknown name or an unpinned (family, profile) pair is a
+        # ConfigError
+        extra: list[str] = []
         for p in profiles:
             p = resolve_serve_precision(p)
-            serve_envelope(backend.family, p)  # unpinned → ConfigError
-            if p != self.precision:
-                raise ConfigError(
-                    f"serve.profiles={p!r} is not ported yet for row "
-                    f"families; this port serves them at "
-                    f"{self.precision!r} only")
+            serve_envelope(backend.family, p)
+            if p != self.precision and p not in extra:
+                extra.append(p)
+        # the profile's program and params, built here on the
+        # constructing thread: f32's program is the oracle, ``apply``
+        self._program = backend.serve_apply(self.precision)
+        self._serve_params = backend.serve_params(self.precision)
         self._class_priority = resolve_classes(classes)
         self.classes = tuple(self._class_priority)
         self._cls_stats = ClassStats(self.classes)
-        self._drift = DriftStats(self.precision, backend.envelope or 0.0)
+        self._drift = DriftStats(self.precision, self.envelope)
+        self._n_dispatched = 0  # dispatcher thread only
         self.buckets = validate_buckets(buckets)
         self.max_batch = self.buckets[-1]
         if inflight < 1:
@@ -207,6 +224,8 @@ class InferenceEngine:
         self._lock = threading.Lock()
         self._latencies: collections.deque = collections.deque(
             maxlen=LATENCY_WINDOW)
+        self._children: dict[str, InferenceEngine] = {}
+        self._submitted = 0
         self._requests = self._rows = self._batches = self._errors = 0
         self._fill = 0.0
         self._t_start = time.monotonic()
@@ -216,6 +235,22 @@ class InferenceEngine:
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serve-dispatch")
         self._thread.start()
+        # children once the parent is live: same backend, their own
+        # batcher and dispatcher
+        try:
+            for p in extra:
+                self._children[p] = InferenceEngine(
+                    backend, buckets=buckets, max_wait_ms=max_wait_ms,
+                    inflight=inflight, warmup=warmup, classes=classes,
+                    precision=p)
+        except BaseException:
+            self.close()
+            raise
+
+    @property
+    def children(self) -> dict:
+        """The child engines, by the extra profile each serves."""
+        return dict(self._children)
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return upload(x, self.backend.device)
@@ -225,7 +260,7 @@ class InferenceEngine:
         no kernel build, allocator growth or library initialisation."""
         for b in self.buckets:
             x = np.zeros((b, *self._feat_shape), np.float32)
-            self.backend.apply(self._put(self.backend.prepare(x))).cpu()
+            self._program(self._put(self.backend.prepare(x))).cpu()
 
     @property
     def slo_desc(self) -> dict:
@@ -239,16 +274,26 @@ class InferenceEngine:
 
     @property
     def precision_desc(self) -> dict:
-        """/healthz and the banner: profile, envelope, params' size."""
-        return self._drift.desc(self.backend.serving_params())
+        """/healthz and the banner: profile, envelope, params' size, and
+        the served profiles where children serve more."""
+        desc = self._drift.desc(self._serve_params)
+        if self._children:
+            desc["profiles"] = [self.precision, *self._children]
+        return desc
 
-    def _route_profile(self, profile: str | None) -> None:
-        """None or this engine's profile is served here; any other is a
-        :class:`ServeError` naming the servable ones (the 400)."""
-        if profile is not None and profile != self.precision:
+    def _route_profile(self, profile: str | None
+                       ) -> "InferenceEngine | None":
+        """None or this engine's profile → None (served here); a child's
+        profile → that child; any other is a :class:`ServeError` naming
+        the servable ones (the 400)."""
+        if profile is None or profile == self.precision:
+            return None
+        child = self._children.get(profile)
+        if child is None:
             raise ServeError(
                 f"unknown precision profile {profile!r}; serving profiles "
-                f"are {[self.precision]}")
+                f"are {[self.precision, *self._children]}")
+        return child
 
     # -- request side ---------------------------------------------------
     def submit(self, x: np.ndarray, max_wait_s: float | None = None,
@@ -259,7 +304,9 @@ class InferenceEngine:
         this request's flush deadline (clamped to the engine's); ``cls``
         names its SLO class (default: the most urgent); ``profile`` its
         precision profile (default: the engine's)."""
-        self._route_profile(profile)
+        child = self._route_profile(profile)
+        if child is not None:
+            return child.submit(x, max_wait_s=max_wait_s, cls=cls)
         cls, prio = resolve_request_class(self._class_priority, cls)
         x = np.asarray(x, np.float32)
         if x.shape == self._feat_shape:
@@ -281,6 +328,8 @@ class InferenceEngine:
             req.deadline = req.t_submit + max(
                 0.0, min(float(max_wait_s), self._batcher.max_wait_s))
         self._batcher.submit(req)
+        with self._lock:
+            self._submitted += 1
         return req.future
 
     def predict(self, x: np.ndarray, max_wait_s: float | None = None,
@@ -312,12 +361,19 @@ class InferenceEngine:
             bucket = pick_bucket(rows, self.buckets)
             x = (batch[0].x if len(batch) == 1
                  else np.concatenate([r.x for r in batch]))
-            y_dev = self.backend.apply(
-                self._put(self.backend.prepare(pad_rows(x, bucket))))
+            x_dev = self._put(self.backend.prepare(pad_rows(x, bucket)))
+            y_dev = self._program(x_dev)
+            ref_dev = None
+            if self.precision != "f32":
+                # the sampled drift check: the same padded batch through
+                # the f32 oracle program, compared in _complete
+                if self._n_dispatched % DRIFT_EVERY == 0:
+                    ref_dev = self.backend.apply(x_dev)
+                self._n_dispatched += 1
         except Exception as e:  # noqa: BLE001 — fail the batch, keep serving
             self._fail(batch, e)
             return
-        done = self._buffer.push((batch, rows, bucket, t0, y_dev))
+        done = self._buffer.push((batch, rows, bucket, t0, y_dev, ref_dev))
         if done is not None:
             self._complete(done)
 
@@ -330,12 +386,14 @@ class InferenceEngine:
             resolve_future(req.future, exc=exc)
 
     def _complete(self, item) -> None:
-        batch, rows, bucket, t0, y_dev = item
+        batch, rows, bucket, t0, y_dev, ref_dev = item
         try:
             y = y_dev.cpu().numpy().astype(self.backend.out_dtype)
         except Exception as e:  # noqa: BLE001 — a device fault fails the batch
             self._fail(batch, e)
             return
+        if ref_dev is not None:
+            self._drift.sample(y, lambda: ref_dev.cpu().numpy(), self._lock)
         now = time.monotonic()
         # accounting BEFORE futures resolve: a returned predict() sees
         # itself in stats()
@@ -372,14 +430,27 @@ class InferenceEngine:
             }
         out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
         out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
+        if self._children:
+            out["profiles"] = {
+                self.precision: self._profile_row(),
+                **{p: c._profile_row() for p, c in self._children.items()}}
         return out
+
+    def _profile_row(self) -> dict:
+        """This engine's row of ``stats()["profiles"]``."""
+        with self._lock:
+            return {"requests": self._submitted,
+                    "completed": self._requests,
+                    "drift": self._drift.snapshot()}
 
     def close(self) -> None:
         """Stop accepting requests, drain queued work, join the
-        dispatcher."""
+        dispatcher (children first)."""
         if self._closed:
             return
         self._closed = True
+        for child in self._children.values():
+            child.close()
         self._batcher.close()
         self._thread.join()
 

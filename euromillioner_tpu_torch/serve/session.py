@@ -1,39 +1,54 @@
 """Row-family serving backends (the JAX package's ``serve/session.py``):
-:class:`NNBackend`, :class:`GBTBackend`, :class:`RFBackend` and
-:func:`load_backend`.
+:class:`NNBackend`, :class:`GBTBackend`, :class:`RFBackend`,
+:class:`ClassicBackend` and :func:`load_backend`.
 
-Ported so far: the ``wide_deep`` family at the ``f32`` profile, and the
-tree families (``gbt``, ``rf``; f32 only, as in the JAX package) through
-whole-ensemble programs. The JAX package's chunked tree dispatch
-(``serve.trees.chunk``), its ``classic`` and ``mlp`` backends, the row
-families' ``bf16``/``int8w`` profiles, ``ModelSession`` (executable cache,
-AOT store, mesh placement) and the ``serve.quant`` fault point are not
-ported yet; asking for them is a :class:`ConfigError` that names them.
+Every row family serves: the neural ones (``mlp``, ``wide_deep``) at the
+``f32``, ``bf16`` and ``int8w`` profiles, the tree families (``gbt``,
+``rf``) through whole-ensemble programs and ``classic`` (linear models,
+Gaussian naive Bayes, k-means), these three at ``f32`` only, as in the
+JAX package. A neural backend keeps its f32 ``predict`` as the oracle;
+``bf16`` casts the params once at restore and computes in bfloat16,
+``int8w`` stores the big matmul operands as per-output-channel int8
+(``quant_rules`` of the model, else the size rule) and runs the model's
+``quantized_apply`` where it has one (Wide&Deep's dequantized gather),
+else the model's forward on the tree dequantized at each call.
+
+Not ported yet: the JAX package's chunked tree dispatch
+(``serve.trees.chunk``), ``ModelSession`` (executable cache, AOT store,
+mesh placement) and the ``serve.quant`` fault point with its fallback to
+f32 (a failed cast or quantization raises here). Asking for chunked
+dispatch is a :class:`ConfigError` that names it.
 """
 
 from __future__ import annotations
 
+import copy
+from typing import Callable
+
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from euromillioner_tpu_torch.config import Config
-from euromillioner_tpu_torch.core.precision import (resolve_serve_precision,
+from euromillioner_tpu_torch.core.precision import (cast_floats,
+                                                    dequantize_int8w,
+                                                    quantize_int8w,
+                                                    resolve_serve_precision,
                                                     serve_envelope)
 from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
 
-# row families this port serves, and the JAX package's others
-PORTED_ROW_FAMILIES = ("gbt", "rf", "wide_deep")
-_UNPORTED_FAMILIES = ("classic", "mlp")
+# row families this port serves through load_backend
+PORTED_ROW_FAMILIES = ("gbt", "rf", "mlp", "wide_deep", "classic")
 _TREE_FAMILIES = ("gbt", "rf")
 
 
-def _refuse_narrow_profile(profile: str) -> None:
-    """The row families' bf16/int8w tiers wait for the port of
-    ``WideDeep.quantized_apply``: a ConfigError naming the profile."""
-    if profile in ("bf16", "int8w"):
-        raise ConfigError(
-            f"serve.precision={profile!r} is not ported yet for row "
-            f"families; this port serves them at 'f32'")
+def _bind(model: torch.nn.Module, params: dict) -> torch.nn.Module:
+    """A private copy of ``model`` whose parameters are the tensors of
+    ``params`` (no data is copied): one profile's program runs on it and
+    never touches the parameters another thread's program reads."""
+    memo = {id(p): torch.nn.Parameter(params[name], requires_grad=False)
+            for name, p in model.named_parameters()}
+    return copy.deepcopy(model, memo)
 
 
 class NNBackend:
@@ -41,16 +56,21 @@ class NNBackend:
     the model's own arithmetic, outputs in float32.
 
     * ``apply(x)`` — (rows, *feat) float32 on the device → (rows, out)
-      float32 on the device: the engine's program.
-    * ``predict(x)`` — host rows → host float32 predictions through the
-      same forward: the direct oracle.
+      float32 on the device through the f32 params: the oracle program.
+    * ``serve_apply(profile)`` — the program one profile serves
+      (``apply`` itself at ``f32``), over ``serve_params(profile)``.
+    * ``predict(x)`` — host rows → host float32 predictions through
+      ``apply``: the direct oracle every profile is measured against.
 
-    The input is cast to ``compute_dtype`` unless the model reads ids from
-    it (``cast_inputs = False``, as Wide&Deep); such a model casts after
-    the lookup to its own compute dtype."""
+    The input is cast to ``compute_dtype`` (bfloat16 at ``bf16``) unless
+    the model reads ids from it (``cast_inputs = False``, as Wide&Deep);
+    such a model casts after the lookup to its own compute dtype. The
+    narrow trees and programs of ``precision`` and of every profile in
+    ``profiles`` are built here, on the constructing thread."""
 
     def __init__(self, model, feat_shape: tuple[int, ...],
-                 compute_dtype=None, precision: str = "f32"):
+                 compute_dtype=None, precision: str = "f32",
+                 profiles=()):
         self.name = f"nn:{type(model).__name__}"
         self.model = model.requires_grad_(False)
         self.family = ("wide_deep" if type(model).__name__ == "WideDeep"
@@ -61,16 +81,18 @@ class NNBackend:
         self.compute_dtype = compute_dtype or torch.bfloat16
         self.cast_inputs = getattr(model, "cast_inputs", True)
         self.precision = resolve_serve_precision(precision)
-        _refuse_narrow_profile(self.precision)
         # no pinned (family, fused) pair: a ConfigError naming the pairs
         self.envelope = serve_envelope(self.family, self.precision)
+        self._params = {k: v.detach() for k, v in model.state_dict().items()}
+        self._serve_params: dict[str, dict] = {"f32": self._params}
+        self._serve_apply: dict[str, Callable] = {"f32": self.apply}
         if self.family == "wide_deep" and self.device.type == "cuda":
-            # build here, on the constructing thread — never lazily on the
-            # engine's dispatcher thread
             from euromillioner_tpu_torch.ops.wide_onehot import \
                 WIDE_ONEHOT_FWD
 
             WIDE_ONEHOT_FWD.build()
+        for p in (self.precision, *profiles):
+            self.serve_apply(p)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -78,29 +100,93 @@ class NNBackend:
                 x = x.to(self.compute_dtype)
             return self.model.apply(x).to(torch.float32)
 
+    def serve_params(self, profile: str) -> dict:
+        """The state dict one profile serves: ``f32`` the model's own
+        tensors, ``bf16`` a one-time float cast, ``int8w`` the quantized
+        tree (per the model's ``quant_rules`` where it has them). Built
+        once per profile and kept."""
+        prof = resolve_serve_precision(profile)
+        tree = self._serve_params.get(prof)
+        if tree is None:
+            serve_envelope(self.family, prof)  # unpinned → ConfigError
+            if prof == "bf16":
+                tree = cast_floats(self._params, torch.bfloat16)
+            else:
+                rules = getattr(self.model, "quant_rules", None)
+                tree = quantize_int8w(self._params,
+                                      names=list(rules()) if rules else None)
+            self._serve_params[prof] = tree
+        return tree
+
+    def serve_apply(self, profile: str) -> Callable:
+        """The program one profile serves, x on the device → float32 on
+        the device. ``bf16`` runs the model on its bfloat16 params with a
+        bfloat16 compute dtype (inputs cast unless ``cast_inputs`` is
+        off); ``int8w`` runs the model's ``quantized_apply`` where it has
+        one, else its forward on the tree dequantized to f32 at each call,
+        on f32 inputs."""
+        prof = resolve_serve_precision(profile)
+        fn = self._serve_apply.get(prof)
+        if fn is not None:
+            return fn
+        params = self.serve_params(prof)
+        if prof == "bf16":
+            model = _bind(self.model, params)
+            if getattr(model, "compute_dtype", None) is not None:
+                model.compute_dtype = torch.bfloat16
+            cast = self.cast_inputs
+
+            def fn(x):
+                with torch.inference_mode():
+                    if cast:
+                        x = x.to(torch.bfloat16)
+                    return model.apply(x).to(torch.float32)
+        else:
+            qapply = getattr(self.model, "quantized_apply", None)
+            if qapply is not None:
+                def fn(x):
+                    with torch.inference_mode():
+                        return qapply(params, x).to(torch.float32)
+            else:
+                model = _bind(self.model, self._params)
+
+                def fn(x):
+                    with torch.inference_mode():
+                        dense = dequantize_int8w(params, torch.float32)
+                        return functional_call(model, dense, (x,)).to(
+                            torch.float32)
+        self._serve_apply[prof] = fn
+        return fn
+
     def prepare(self, x) -> np.ndarray:
         return np.asarray(x, np.float32)
 
-    def serving_params(self) -> dict:
-        """The tensors the engine's program reads (their size is
-        /healthz's ``serve_param_mb``)."""
-        return self.model.state_dict()
-
     def predict(self, x) -> np.ndarray:
-        """Direct single-shot path: (rows, *feat) → (rows, out)."""
+        """Direct single-shot path through the f32 params:
+        (rows, *feat) → (rows, out)."""
         xt = torch.as_tensor(self.prepare(x), device=self.device)
         return self.apply(xt).cpu().numpy().astype(self.out_dtype)
 
 
-class _TreeBackend:
+class _F32Backend:
+    """What the row engine reads of a backend whose only profile is
+    ``f32``: its program (``apply``) and the tensors it reads."""
+
+    precision = "f32"
+
+    def serve_params(self, profile: str = "f32"):
+        return self._params
+
+    def serve_apply(self, profile: str = "f32"):
+        return self.apply
+
+
+class _TreeBackend(_F32Backend):
     """What the row engine reads of a tree backend: the model's
     ``predict_program`` split — ``prepare`` bins the rows on the host,
     ``apply`` runs the ensemble program on the device — so replies are
     bit-identical to the model's direct ``predict`` by construction. f32
     only: routing and leaf sums have no narrow-dtype profile."""
-
-    precision = "f32"
-    envelope = None
 
     def __init__(self, model, program, out_dtype):
         self.device = model.device
@@ -111,10 +197,6 @@ class _TreeBackend:
     def apply(self, binned: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             return self._apply(self._params, binned)
-
-    def serving_params(self):
-        """The ensemble tensors the program reads."""
-        return self._params
 
 
 class GBTBackend(_TreeBackend):
@@ -151,6 +233,63 @@ class RFBackend(_TreeBackend):
         return self.model.predict(np.asarray(x, np.float32))
 
 
+class ClassicBackend(_F32Backend):
+    """classic-family serving (linear models, Gaussian naive Bayes, k-means
+    assignment): int32 class or cluster ids through the model's own score
+    program (``scores``, ``log_likelihood``, ``assign_program``) and an
+    argmax (an argmin of distances for k-means), so replies are bit-equal
+    to the model's ``predict`` of the same rows. f32 only, as in the JAX
+    package."""
+
+    family = "classic"
+
+    def __init__(self, model):
+        from euromillioner_tpu_torch.classic.kmeans import (KMeans,
+                                                            assign_program)
+        from euromillioner_tpu_torch.classic.linear import _LinearBase
+        from euromillioner_tpu_torch.classic.naive_bayes import GaussianNB
+
+        self.name = f"classic:{type(model).__name__}"
+        self.model = model
+        self.device = model.device
+        self.out_dtype = np.int32
+        unfit = ServeError("classic model must be fit/loaded before serving")
+        if isinstance(model, KMeans):
+            if model.centers is None:
+                raise unfit
+            self._params = (model.centers,)
+            self.feat_shape = (int(model.centers.shape[1]),)
+            self._program = lambda x: assign_program(x, model.centers)
+        elif isinstance(model, _LinearBase):
+            if model._wb is None:
+                raise unfit
+            self._params = tuple(model._wb)
+            self.feat_shape = (int(model._wb[0].shape[0]),)
+            self._program = lambda x: model.scores(x).argmax(dim=-1).to(
+                torch.int32)
+        elif isinstance(model, GaussianNB):
+            if model._params is None:
+                raise unfit
+            self._params = tuple(model._params)
+            self.feat_shape = (int(model._params[0].shape[1]),)
+            self._program = lambda x: model.log_likelihood(x).argmax(
+                dim=-1).to(torch.int32)
+        else:
+            raise ServeError(
+                f"no classic serving adapter for {type(model).__name__} "
+                "(serve linear models, GaussianNB or KMeans)")
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self._program(x)
+
+    def prepare(self, x) -> np.ndarray:
+        return np.asarray(x, np.float32)
+
+    def predict(self, x) -> np.ndarray:
+        return self.model.predict(np.asarray(x, np.float32))
+
+
 def _load_tree_backend(model_type: str, model_file: str | None, cfg: Config,
                        device) -> _TreeBackend:
     if not model_file:
@@ -173,12 +312,13 @@ def _load_tree_backend(model_type: str, model_file: str | None, cfg: Config,
 def load_backend(model_type: str, checkpoint: str | None = None,
                  cfg: Config | None = None, num_features: int = 0,
                  device=None, *, model_file: str | None = None):
-    """A serving backend on ``device`` (the card when None): a tree model
-    JSON of either package (``gbt``, ``rf``; ``model_file``) or a
-    checkpoint directory of either package (``wide_deep``). The profile
-    and the family are validated before any load
-    (ConfigError), in the JAX package's order: a tree family at another
-    profile than f32 is refused before a missing ``model_file`` is."""
+    """A serving backend on ``device`` (the card when None): a model JSON
+    of either package (``gbt``, ``rf``, ``classic``; ``model_file``) or a
+    checkpoint directory of either package (``mlp``, ``wide_deep``) at
+    ``cfg.serve.precision``, with the trees of ``cfg.serve.profiles``
+    built too. The checks run in the JAX package's order, before any
+    load: the profile's name, then a tree or classic family at another
+    profile than f32 (ConfigError), then the model file or checkpoint."""
     from euromillioner_tpu_torch.models.registry import restore_for_inference
 
     cfg = cfg or Config()
@@ -187,18 +327,20 @@ def load_backend(model_type: str, checkpoint: str | None = None,
         raise ConfigError(
             f"serve.precision={profile} needs a neural model family; "
             f"{model_type} serves f32 only")
+    if model_type == "classic":
+        if not model_file:
+            raise ServeError("serve --model-type classic needs "
+                             "--model-file")
+        from euromillioner_tpu_torch.classic import load_classic_model
+
+        return ClassicBackend(load_classic_model(model_file, device=device))
     if model_type in _TREE_FAMILIES:
         return _load_tree_backend(model_type, model_file, cfg, device)
-    if model_type in _UNPORTED_FAMILIES:
-        raise ConfigError(
-            f"serve --model-type {model_type} is not ported yet; this port "
-            f"serves lstm | {' | '.join(PORTED_ROW_FAMILIES)}")
     if model_type == "lstm":
         raise ServeError("lstm is a sequence family: load it with "
                          "serve.continuous.load_recurrent_backend")
     if model_type not in PORTED_ROW_FAMILIES:
         raise ServeError(f"unknown model type {model_type!r}")
-    _refuse_narrow_profile(profile)
     if not checkpoint:
         raise ServeError(f"serve --model-type {model_type} needs "
                          "--checkpoint")
@@ -206,4 +348,4 @@ def load_backend(model_type: str, checkpoint: str | None = None,
     model, compute_dtype, in_shape, _ck = restore_for_inference(
         cfg, checkpoint, num_features, device)
     return NNBackend(model, in_shape, compute_dtype=compute_dtype,
-                     precision=profile)
+                     precision=profile, profiles=cfg.serve.profiles)

@@ -46,9 +46,12 @@ from euromillioner_tpu_torch.utils.profiling import StepTimer
 
 logger = get_logger("train.trainer")
 
-# training losses and the matching default watch metric (xgboost's
-# objective → eval default analog)
-_LOSSES: dict[str, tuple[Callable, str]] = {"mse": (L.mse, "rmse")}
+# training losses (logit/raw inputs) and the matching default watch metric
+# and prediction transform (xgboost's objective → eval default analog)
+_LOSSES: dict[str, tuple[Callable, str, Callable]] = {
+    "mse": (L.mse, "rmse", lambda z: z),
+    "bce": (L.sigmoid_binary_cross_entropy, "logloss", torch.sigmoid),
+}
 
 
 def epoch_seeds(seed: int, epoch: int) -> tuple[int, int]:
@@ -74,7 +77,7 @@ class Trainer:
             raise TrainError(f"unknown loss {loss!r} ({sorted(_LOSSES)})")
         self.model = model
         self.optimizer = optimizer
-        self.loss_fn, default_metric = _LOSSES[loss]
+        self.loss_fn, default_metric, self.pred_transform = _LOSSES[loss]
         self.eval_metric = eval_metric or default_metric
         if self.eval_metric not in METRICS:
             raise TrainError(f"unknown eval_metric {self.eval_metric!r}")
@@ -156,9 +159,11 @@ class Trainer:
         return TrainState(params, opt_state, state.step + 1), loss.detach()
 
     def _predict(self, params, x):
+        """Transformed float32 predictions (the JAX package's ``_eval``):
+        sigmoid probabilities under ``bce``, raw outputs under ``mse``."""
         with torch.no_grad():
-            return self._apply(params, self._cast_x(x),
-                               train=False).to(torch.float32)
+            return self.pred_transform(self._apply(
+                params, self._cast_x(x), train=False).to(torch.float32))
 
     # -- public API ------------------------------------------------------
     def fit(self, state: TrainState, train_ds: Dataset, *, epochs: int,

@@ -96,7 +96,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                  "trees.random_forest",
                  "ops.fused_histogram", "ops.wide_onehot", "models.wide_deep",
                  "serve.engine", "serve.session", "serve.transport",
-                 "serve.batcher"):
+                 "serve.batcher", "models.mlp", "classic.linear",
+                 "classic.naive_bayes", "classic.kmeans"):
         assert f"euromillioner_tpu_torch.{name}" in loaded
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -243,11 +244,19 @@ def test_cli_serves_jax_checkpoint_on_cpu(jax_ckpt):
     # parts of the step scheduler not ported yet have no port setting
     (["--model-type", "lstm", "serve.preempt.enabled=true"], 2),
     (["--model-type", "wide_deep", "--scheduler", "continuous"], 16),
-    # the sequence family serves bf16; the row families refuse it by name
     (["--model-type", "lstm", "serve.precision=bf16"], 0),
     (["--model-type", "lstm", "serve.precision=fp8"], 17),
     (["--model-type", "lstm", "serve.no_such_field=1"], 2),
-    (["--model-type", "wide_deep", "serve.precision=bf16"], 17),
+    # the neural row families take bf16 and restore the checkpoint, which
+    # holds an LSTM: a CheckpointError (14), as the JAX CLI exits on the
+    # same command
+    (["--model-type", "wide_deep", "serve.precision=bf16",
+      "model.wide_deep_target_params=200000"], 14),
+    (["--model-type", "mlp", "serve.precision=bf16"], 14),
+    (["--model-type", "mlp", "serve.profiles=int8w"], 14),
+    # classic serves a model JSON at f32 only (JAX CLI: 16 and 17)
+    (["--model-type", "classic"], 16),
+    (["--model-type", "classic", "serve.precision=int8w"], 17),
 ])
 def test_cli_exit_codes(jax_ckpt, argv, rc):
     assert cli.main(["serve", "--checkpoint", jax_ckpt, "--smoke", "2",

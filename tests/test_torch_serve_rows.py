@@ -2,7 +2,7 @@
 transport}.py) on the CPU: the engine's replies against a direct predict
 at the same bucket shape (the port's mirror of tests/test_serve_quant.py's
 Wide&Deep f32 pin), the JAX package's NNBackend against the port's, the
-smoke path, and the profiles and families not ported yet."""
+smoke path, and what each family still refuses by name."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +14,7 @@ from euromillioner_tpu.models.wide_deep import WideDeep as JaxWideDeep
 from euromillioner_tpu.serve.session import NNBackend as JaxNNBackend
 from euromillioner_tpu_torch.config import Config, apply_overrides
 from euromillioner_tpu_torch.models.convert import params_from_jax
+from euromillioner_tpu_torch.models.mlp import build_mlp
 from euromillioner_tpu_torch.models.wide_deep import WideDeep
 from euromillioner_tpu_torch.serve.engine import InferenceEngine
 from euromillioner_tpu_torch.serve.session import NNBackend, load_backend
@@ -141,13 +142,36 @@ def test_bad_requests_rejected(backend):
         eng.submit(np.zeros((1, 11), np.float32))
 
 
+@pytest.fixture(scope="module")
+def classic_model_file(tmp_path_factory):
+    from euromillioner_tpu_torch.classic import LogisticRegression
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(40, 5)).astype(np.float32)
+    path = tmp_path_factory.mktemp("classic") / "logistic.json"
+    LogisticRegression(steps=5, device="cpu").fit(
+        x, (x[:, 0] > 0).astype(np.int32)).save_model(str(path))
+    return str(path)
+
+
 @pytest.mark.parametrize("profile", ["bf16", "int8w"])
-def test_narrow_profiles_refused_by_name(backend, profile):
-    with pytest.raises(ConfigError, match=profile):
-        NNBackend(backend.model, (11,), precision=profile)
+def test_narrow_profiles_refused_by_name(classic_model_file, profile):
+    """The neural row families serve bf16 and int8w; the tree and classic
+    families serve f32 only, refused by name before any model file is
+    read, and an engine over them refuses the profile as a child."""
+    from euromillioner_tpu_torch.serve.session import ClassicBackend
+    from euromillioner_tpu_torch.classic import load_classic_model
+
     cfg = apply_overrides(Config(), [f"serve.precision={profile}"])
+    for family in ("gbt", "rf", "classic"):
+        with pytest.raises(ConfigError, match=f"{profile}.*f32 only"):
+            load_backend(family, None, cfg, device="cpu",
+                         model_file="unused")
+    backend = ClassicBackend(load_classic_model(classic_model_file,
+                                                device="cpu"))
     with pytest.raises(ConfigError, match=profile):
-        load_backend("wide_deep", "unused", cfg, device="cpu")
+        InferenceEngine(backend, buckets=(BUCKET,), warmup=False,
+                        profiles=(profile,))
 
 
 def test_fused_profile_has_no_wide_deep_envelope(backend):
@@ -157,13 +181,21 @@ def test_fused_profile_has_no_wide_deep_envelope(backend):
 
 @pytest.mark.parametrize("family", ["gbt", "rf", "mlp", "classic"])
 def test_other_families_refused_by_name(family):
-    """mlp and classic are not ported; the tree families are, but not
-    their chunked dispatch (serve.trees.chunk > 0), refused before the
-    model file is read."""
-    cfg, match = Config(), f"{family} is not ported"
+    """What each family still refuses, by name, before a model file or
+    checkpoint is read: the tree families' chunked dispatch
+    (serve.trees.chunk > 0), the mlp's fused profile (no pinned (nn,
+    fused) envelope) and classic at any profile but f32."""
+    cfg, match = Config(), f"{family} serves f32 only"
     if family in ("gbt", "rf"):
         cfg = apply_overrides(cfg, ["serve.trees.chunk=4"])
         match = "serve.trees.chunk=4 .* is not ported"
+    elif family == "mlp":
+        with pytest.raises(ConfigError, match="'nn' family.*'fused'"):
+            NNBackend(build_mlp((4,), device="cpu"), (10,),
+                      precision="fused")
+        return
+    else:
+        cfg = apply_overrides(cfg, ["serve.precision=int8w"])
     with pytest.raises(ConfigError, match=match):
         load_backend(family, "unused", cfg, device="cpu",
                      model_file="unused")

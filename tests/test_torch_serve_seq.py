@@ -20,7 +20,8 @@ from euromillioner_tpu_torch.serve.continuous import (RecurrentBackend,
                                                       make_sequence_engine)
 from euromillioner_tpu_torch.serve.session import load_backend
 from euromillioner_tpu_torch.serve.transport import handle_request, run_smoke
-from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
+from euromillioner_tpu_torch.utils.errors import (CheckpointError, ConfigError,
+                                                  ServeError)
 
 torch.set_num_threads(2)
 
@@ -196,15 +197,17 @@ def test_unported_or_unknown_scheduler(models, override, err):
                                        "wide_deep:bf16"])
 def test_unported_or_unknown_precision(models, precision):
     """The sequence family serves bf16 and int8w at their pinned
-    envelopes; fp8 is no profile; the row families still refuse bf16 by
-    name before any restore."""
+    envelopes; fp8 is no profile; a row family takes bf16 too and gets as
+    far as the restore, which finds no checkpoint (CheckpointError, as
+    the JAX package's load_backend)."""
     _, tm = models
     if precision == "fp8":
         with pytest.raises(ConfigError, match="fp8"):
             _backend(tm, precision)
     elif precision == "wide_deep:bf16":
-        cfg = apply_overrides(Config(), ["serve.precision=bf16"])
-        with pytest.raises(ConfigError, match="bf16"):
+        cfg = apply_overrides(Config(), [
+            "serve.precision=bf16", "model.wide_deep_target_params=200000"])
+        with pytest.raises(CheckpointError, match="no-such-checkpoint"):
             load_backend("wide_deep", "no-such-checkpoint", cfg,
                          device="cpu")
     else:
