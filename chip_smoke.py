@@ -203,10 +203,32 @@ Phases, each reported on its own lines:
    same initial rows): fitted arrays within CLASSIC_TOL, test ids equal
    but at near ties, fit seconds; each saved as JSON and served through
    ``serve --model-type classic --smoke 32`` bit-equal to its predict;
-26. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
+26. DP-1 — ``train --model lstm --distributed`` through the CLI at the
+   flagship's defaults (bf16, B=64, 2 epochs): one visible card, so a group
+   of one over NCCL in this process; bf16 K1/K2 launched as many times as
+   in the plain run, and its checkpoint bit-equal to the plain ``train
+   --model lstm``'s at the same seed;
+27. DP-2 and RF-mesh — two ranks on the one card (child processes, a gloo
+   group over CUDA tensors: NCCL refuses two ranks on one device), after
+   the single-process references in this process: the full-width flagship
+   through ``DistributedTrainer`` for one epoch of global B=64 over the
+   golden windows (1129 = 17 x 64 + 41: the last batch padded), at bf16 and
+   then f32, the ranks' params bit-identical and within DP2_PARAM_TOL of
+   the single process, each kernel of the dtype launched layers x 18 times
+   a rank, ms/step beside the single process's; then RF_SHAPE's classifier
+   and regressor row-sharded
+   over the two ranks (K3's set form on each rank's rows, one all-reduce a
+   level): 9 set launches a rank, the classifier's trees equal to one
+   device's, the regressor's equal or a shown near tie;
+28. parameter averaging — one rank (a group of one over NCCL), the MLP at
+   its defaults, two local steps a round: bit-equal to the plain trainer's
+   replay on the card;
+29. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
    ``serve_http_fused``, K4a's phase 24's ``serve_bf16`` and the int8w
-   run's drift oracle), the ``nvidia-smi`` line, and last the
-   ``{"ok": true, "device": ...}`` line. The lines phases 22-25 measure
+   run's drift oracle, bf16 K1's and K2's ``train_dp`` (phase 26), every
+   K1/K2 row's ``train_dp_gloo`` (phase 27, summed over the ranks), the
+   forest set forms' ``rf_mesh``), the ``nvidia-smi`` line, and last the
+   ``{"ok": true, "device": ...}`` line. The lines phases 22-28 measure
    carry the card's name and power limit.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
@@ -222,8 +244,10 @@ import io
 import json
 import logging
 import math
+import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -524,6 +548,31 @@ MLP_RMSE_TOL = 1e-4
 # CPU's top two scores are nearer than this fraction of the scores' scale
 CLASSIC_TOL = 1e-4
 CLASSIC_K = 6
+# training across ranks (phases 26-28): two ranks share the one card over
+# gloo (NCCL refuses two ranks on one device); global batch B=64 for one
+# epoch of the golden page's 1129 windows = 17 x 64 + 41, so the last
+# batch is padded (its 41 real rows all on rank 0 of 2: 32 + 9)
+DP_RANKS = 2
+DP_BATCH = 64
+DP_EPOCHS = 1
+# how long the ranks may wait on each other, and the two-rank phase in all
+DP_GROUP_TIMEOUT_S = 120.0
+DP_PHASE_TIMEOUT_S = 420.0
+# DP-2's params after its epoch (2 ranks of B=32, gradients all-reduced in
+# f32) against the single-process trainer at B=64 on the card, absolute.
+# bf16: the ranks' B=32 products (cuBLAS's input projection, K1/K2) round
+# to bf16 apart from one process's B=64 ones, and Adam turns a gradient
+# within that rounding of 0 into a step of about +-lr either way; the
+# starting point was tests/test_torch_train.py's BF16_STEP_TOL["params"]
+# (1e-4, one step), measured 9.744e-4 after 18 steps (NVIDIA H100 80GB
+# HBM3, 700.00 W; three calls alike), pinned at two Adam steps of lr
+# 1e-3. f32: the same epoch with the f32 kernels, where only summation
+# orders differ (Adam still turns a gradient within their rounding of 0
+# either way): measured 8.439e-6 on the same card, pinned at ~6x
+DP2_PARAM_TOL = {"bfloat16": 2e-3, "float32": 5e-5}
+# parameter averaging (phase 28): the MLP at ModelConfig's defaults,
+# per-worker B=64, two local steps a round, one rank
+PA_SYNC_EVERY = 2
 # the card's name and power limit (nvidia-smi), beside every measured line
 # of phases 22-25
 CARD = ""
@@ -1446,9 +1495,9 @@ def train_cli(root: Path, name: str, dtype_args: list[str]
           f"{want_k1}")
     check(len(summary) == 1, f"{name}: no fit summary")
     stats = summary[0]
-    print(f"{name} timing (device-synchronised steps, {stats['steps']} "
-          f"timed): {stats['mean_step_ms']:.4f} ms/step, "
-          f"{stats['examples_per_sec']:.1f} examples/s")
+    card(f"{name} timing (device-synchronised steps, {stats['steps']} "
+         f"timed): {stats['mean_step_ms']:.4f} ms/step, "
+         f"{stats['examples_per_sec']:.1f} examples/s")
     return counts, want_k1, want_k2, ckdir
 
 
@@ -4095,6 +4144,346 @@ def phase_classic(root: Path) -> None:
         path.unlink()
 
 
+# -- 26-28: training across ranks --------------------------------------------
+
+def phase_train_dp(root: Path) -> dict:
+    """DP-1: ``train --model lstm --distributed`` through the CLI at the
+    flagship's defaults (bf16, B=64, TRAIN_EPOCHS epochs): with one visible
+    card the CLI runs a group of one over NCCL in this process. Its K1/K2
+    launches must be the plain run's, and its checkpoint bit-equal to the
+    plain ``train --model lstm`` at the same seed (a group of one adds
+    nothing to the arithmetic: the all-reduce of one rank is a copy).
+    Returns the bf16 kernels' launches of the distributed run."""
+    import torch.distributed as dist
+
+    counts, want_k1, want_k2, ckdir = train_cli(root, "train_dp",
+                                                ["--distributed"])
+    print(f"DP-1 launches (a group of one over NCCL): bf16 K1 "
+          f"{counts['K1.bf16']}, bf16 K2 {counts['K2.bf16']} (expected "
+          f"{want_k1}, {want_k2})")
+    check(counts["K2.bf16"] == want_k2 and counts["K1.bf16"] == want_k1,
+          f"DP-1 launched {counts}, expected K1 {want_k1} and K2 {want_k2}")
+    check(counts["K1.f32"] == counts["K2.f32"] == 0,
+          "DP-1 launched the f32 kernels")
+    check(not dist.is_initialized(), "DP-1 left its process group")
+    _, _, _, ref = train_cli(root, "train_dp_ref", [])
+    step = f"step_{TRAIN_EPOCHS:08d}"
+    files = sorted(p.name for p in (ckdir / step).iterdir())
+    same = files == sorted(p.name for p in (ref / step).iterdir()) and all(
+        (ckdir / step / f).read_bytes() == (ref / step / f).read_bytes()
+        for f in files)
+    print(f"DP-1 checkpoint ({files}) bit-equal to the plain train's: "
+          f"{same}")
+    check(same, "DP-1's checkpoint differs from the plain train's")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    shutil.rmtree(ref, ignore_errors=True)
+    return counts
+
+
+def dp_precisions() -> dict:
+    """DP-2's two runs: the default bf16 compute dtype, then f32."""
+    from euromillioner_tpu_torch.core.precision import (DEFAULT_PRECISION,
+                                                        PARITY)
+
+    return {"bfloat16": DEFAULT_PRECISION, "float32": PARITY}
+
+
+def dp_flagship(device: str):
+    """The flagship at full width with seeded weights, for DP-2."""
+    from euromillioner_tpu_torch.models.lstm import build_lstm
+
+    return build_lstm(HIDDEN, LAYERS, OUTPUTS, in_features=FEATURES,
+                      generator=torch.Generator().manual_seed(SEED + 11),
+                      device=device)
+
+
+def dp_fit(root: Path, trainer, jsonl: Path | None) -> tuple[dict, dict]:
+    """One epoch of the golden windows at B=DP_BATCH, unshuffled, the LSTM
+    counters reset just before and read just after: (params on the CPU,
+    the run's numbers; ms/step from the fit summary in ``jsonl``, the
+    trainer's ``metrics_jsonl``, where given)."""
+    train_ds, _ = golden_windows(root)
+    state = trainer.init_state()
+    reset_lstm_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, train_ds, epochs=DP_EPOCHS,
+                        batch_size=DP_BATCH, shuffle=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = watch_rounds(jsonl)[1] if jsonl is not None else {}
+    return ({k: v.detach().cpu() for k, v in state.params.items()},
+            {"counts": lstm_counts(), "steps": int(state.step), "wall": wall,
+             "windows": len(train_ds), "ms_per_step":
+                 stats.get("mean_step_ms"), "timed_steps": stats.get("steps")})
+
+
+def rf_mesh_forests(mesh) -> dict:
+    """RF_SHAPE's classifier and regressor row-sharded over ``mesh``
+    (the seed's draws, hist_method=auto), each grown once untimed and
+    once more: the second's trees, wall and set-form K3 launches on this
+    rank."""
+    from euromillioner_tpu_torch.ops.fused_histogram import \
+        FUSED_HISTOGRAM_SETS
+    from euromillioner_tpu_torch.trees import random_forest as rf
+
+    x, y_cls, y_reg = rf_data()
+    kw = dict(num_trees=RF_SHAPE["trees"], max_depth=RF_SHAPE["max_depth"],
+              max_bins=RF_SHAPE["max_bins"], seed=RF_SEED, mesh=mesh)
+    out = {}
+    for name, grow in (
+            ("classifier", lambda: rf.train_classifier(
+                x, y_cls, RF_SHAPE["num_classes"], **kw)),
+            ("regressor", lambda: rf.train_regressor(x, y_reg, **kw))):
+        grow()
+        torch.cuda.synchronize()
+        FUSED_HISTOGRAM_SETS.launches = 0
+        t0 = time.perf_counter()
+        model = grow()
+        torch.cuda.synchronize()
+        out[name] = {"trees": model.trees, "wall": time.perf_counter() - t0,
+                     "launches": FUSED_HISTOGRAM_SETS.launches}
+    return out
+
+
+def rank_worker(rank: int, world: int, address: str, out_dir: str) -> int:
+    """One rank of DP-2 and RF-mesh: a gloo group over CUDA tensors on the
+    card (both ranks on device 0), the data-parallel flagship for
+    DP_EPOCHS epochs, then RF_SHAPE's two forests row-sharded; saves what
+    it computed to ``out_dir/rank{rank}.pt``. Run by
+    ``phase_ranks_on_one_card`` in a child process."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from euromillioner_tpu_torch.dist.sharded import DistributedTrainer
+    from euromillioner_tpu_torch.train.optim import adam
+
+    root = Path(__file__).resolve().parent
+    out = Path(out_dir)
+    resolve_device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{address}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    try:
+        mesh = build_mesh(MeshSpec(data=world), device="cuda")
+        res = {}
+        for name, precision in dp_precisions().items():
+            jsonl = out / f"dp2_{name}.jsonl"
+            trainer = DistributedTrainer(dp_flagship("cuda"), adam(1e-3),
+                                         precision=precision, mesh=mesh,
+                                         metrics_jsonl=str(jsonl))
+            res[name] = dp_fit(root, trainer, jsonl if rank == 0 else None)
+        res["forests"] = rf_mesh_forests(mesh)
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_ranks_on_one_card(root: Path) -> dict:
+    """DP-2 and RF-mesh: DP_RANKS ranks on the one card over gloo with CUDA
+    tensors (the collectives go through the host: not NCCL). First the
+    single-process references in this process: the flagship trained one
+    epoch at B=64 by the plain Trainer, and RF_SHAPE's forests on one
+    device. Then the ranks, as child processes (killed in ``finally``):
+    the data-parallel flagship (bit-identical params on every rank, within
+    DP2_PARAM_TOL of the single process, layers x 18 launches of each bf16
+    kernel a rank over the padded last batch, ms/step) and the
+    row-sharded forests (the classifier's trees equal to one device's, the
+    regressor's equal or a shown near tie; K3's set launches per rank).
+    Returns the launches summed over the ranks."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.train.optim import adam
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    out = root / "build" / "chip_smoke" / "ranks"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    single = {}
+    for name, precision in dp_precisions().items():
+        jsonl = out / f"single_{name}.jsonl"
+        single[name] = dp_fit(root, Trainer(
+            dp_flagship("cuda"), adam(1e-3), precision=precision,
+            metrics_jsonl=str(jsonl)), jsonl)
+    x, y_cls, y_reg = rf_data()
+    forests = {"classifier": grow_forest(True, x, y_cls, RF_SHAPE["trees"],
+                                         "cuda")[:2],
+               "regressor": grow_forest(False, x, y_reg, RF_SHAPE["trees"],
+                                        "cuda")[:2]}
+    address = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = []
+    try:
+        for rank in range(DP_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke as c; "
+                 f"sys.exit(c.rank_worker({rank}, {DP_RANKS}, "
+                 f"{address!r}, {str(out)!r}))"], cwd=root, env=env))
+        deadline = time.monotonic() + DP_PHASE_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * DP_RANKS, f"the ranks exited {codes}")
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(DP_RANKS)]
+
+    # DP-2 (launches summed over the ranks and both runs)
+    lstm: dict = {}
+    for name in single:
+        params = [r[name][0] for r in ranks]
+        runs = [r[name][1] for r in ranks]
+        ref_params, ref_run = single[name]
+        want_steps = -(-runs[0]["windows"] // DP_BATCH)
+        per_rank = LAYERS * want_steps * DP_EPOCHS
+        kind = "bf16" if name == "bfloat16" else "f32"
+        print(f"DP-2 {name}: {runs[0]['windows']} windows = "
+              f"{runs[0]['windows'] // DP_BATCH} x {DP_BATCH} + "
+              f"{runs[0]['windows'] % DP_BATCH} -> {want_steps} steps, the "
+              f"last padded; steps per rank {[r['steps'] for r in runs]}; "
+              f"launches per rank {[r['counts'] for r in runs]} (expected "
+              f"{kind} K1 and K2 {per_rank} each)")
+        check(all(r["steps"] == want_steps * DP_EPOCHS for r in runs),
+              "DP-2 ranks took another number of steps")
+        other = "f32" if kind == "bf16" else "bf16"
+        check(all(r["counts"][f"K1.{kind}"] == r["counts"][f"K2.{kind}"]
+                  == per_rank and r["counts"][f"K1.{other}"]
+                  == r["counts"][f"K2.{other}"] == 0 for r in runs),
+              f"DP-2 {name} launches differ from layers x steps")
+        identical = all(torch.equal(params[0][k], p[k])
+                        for p in params[1:] for k in params[0])
+        gap = max(float((params[0][k] - v).abs().max())
+                  for k, v in ref_params.items())
+        tol = DP2_PARAM_TOL[name]
+        print(f"DP-2 {name}: the ranks' params bit-identical: {identical}; "
+              f"against the single-process trainer at B={DP_BATCH} on the "
+              f"card: largest difference {gap:.3e} (tol {tol:.0e})")
+        check(identical, f"DP-2 {name}: the ranks' params differ")
+        check(gap <= tol, f"DP-2 {name} params differ by {gap:.3e}")
+        card(f"DP-2 {name} ({DP_RANKS} ranks on one card, gloo through the "
+             f"host, not NCCL; B={DP_BATCH}): {runs[0]['ms_per_step']:.4f} "
+             f"ms/step over {runs[0]['timed_steps']} device-synchronised "
+             f"steps (epoch wall {runs[0]['wall']:.3f} s); the single "
+             f"process {ref_run['ms_per_step']:.4f} ms/step (wall "
+             f"{ref_run['wall']:.3f} s)")
+        for k in runs[0]["counts"]:
+            lstm[k] = lstm.get(k, 0) + sum(r["counts"][k] for r in runs)
+
+    # RF-mesh
+    n_trees, depth = RF_SHAPE["trees"], RF_SHAPE["max_depth"]
+    launches = {}
+    for name, (ref, ref_wall) in forests.items():
+        got = [r["forests"][name] for r in ranks]
+        per = [g["launches"] for g in got]
+        launches[name] = sum(per)
+        card(f"RF-mesh {name} ({DP_RANKS} ranks over gloo, RF_SHAPE): walls "
+             f"{[round(g['wall'], 4) for g in got]} s (one device "
+             f"{ref_wall:.4f} s); K3 set launches per rank {per} (expected "
+             f"{depth + 1} each)")
+        check(all(p == depth + 1 for p in per),
+              f"RF-mesh {name}: K3 set launches {per}")
+        check(all(np.array_equal(got[0]["trees"][k], g["trees"][k])
+                  for g in got[1:] for k in got[0]["trees"]),
+              f"RF-mesh {name}: the ranks grew different forests")
+        mesh_model = type("Forest", (), {"trees": got[0]["trees"],
+                                         "cuts": ref.cuts})
+        if name == "classifier":
+            same = all(np.array_equal(got[0]["trees"][k], ref.trees[k])
+                       for k in ref.trees)
+            print(f"RF-mesh classifier trees equal to one device's: {same}")
+            check(same, "RF-mesh classifier trees differ from one device's")
+            continue
+        equal, ties = rf_reg_first_difference(mesh_model, ref, x, y_reg,
+                                              n_trees,
+                                              ("2 ranks", "one device"))
+        leaf = rf_leaf_gap(mesh_model, ref, n_trees)
+        print(f"RF-mesh regressor against one device: {equal} of {n_trees} "
+              f"trees equal in reachable structure, {ties} of the other "
+              f"{n_trees - equal} a near-tie at their first difference; "
+              f"leaf means of the identical trees within {leaf:.3e} of the "
+              f"largest (tol {RF_REG_LEAF_TOL:.0e})")
+        check(equal + ties == n_trees,
+              "RF-mesh regressor differs from one device's without a "
+              "near-tie")
+        check(leaf <= RF_REG_LEAF_TOL, f"RF-mesh leaf means differ by "
+              f"{leaf:.3e}")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"lstm": lstm, "rf": launches}
+
+
+def free_port() -> int:
+    """A localhost port no one listens on (for a process group's
+    rendezvous)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_param_avg(root: Path) -> None:
+    """Parameter averaging with one rank (a group of one over NCCL) and
+    PA_SYNC_EVERY local steps a round: the MLP at ModelConfig's defaults
+    (BASELINE.json config 1: hidden 256, 256, bf16, Adam 1e-3) over one
+    epoch of the golden page's split, against the plain trainer's replay
+    of the same batches (cycled to whole rounds) on the card, as the JAX
+    package's ``test_single_worker_equals_sequential`` holds it."""
+    from itertools import cycle, islice
+
+    from euromillioner_tpu_torch.config import ModelConfig
+    from euromillioner_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from euromillioner_tpu_torch.core.precision import DEFAULT_PRECISION
+    from euromillioner_tpu_torch.data.pipeline import pipeline_from_html
+    from euromillioner_tpu_torch.dist import bootstrap
+    from euromillioner_tpu_torch.dist.param_avg import \
+        fit_parameter_averaging
+    from euromillioner_tpu_torch.models.registry import build_model
+    from euromillioner_tpu_torch.train.optim import adam
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    train_ds, _ = pipeline_from_html((root / GOLDEN_HTML).read_text())
+    trainer = Trainer(build_model(
+        ModelConfig(name="mlp"), in_features=train_ds.x.shape[1],
+        generator=torch.Generator().manual_seed(SEED + 13), device="cuda"),
+        adam(1e-3), precision=DEFAULT_PRECISION)
+    bootstrap.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = build_mesh(MeshSpec(), device="cuda")
+        t0 = time.perf_counter()
+        state = fit_parameter_averaging(
+            trainer, trainer.init_state(), train_ds, mesh=mesh, epochs=1,
+            batch_size=DP_BATCH, sync_every=PA_SYNC_EVERY, shuffle=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        bootstrap.shutdown()
+    batches = list(train_ds.batches(DP_BATCH))
+    rounds = -(-len(batches) // PA_SYNC_EVERY)
+    ref = trainer.init_state()
+    for batch in islice(cycle(batches), rounds * PA_SYNC_EVERY):
+        ref, _ = trainer.train_step(ref, trainer._place(batch))
+    same = all(torch.equal(state.params[k], ref.params[k])
+               for k in ref.params)
+    gap = max(float((state.params[k] - v).abs().max())
+              for k, v in ref.params.items())
+    card(f"parameter averaging (1 rank over NCCL, sync_every "
+         f"{PA_SYNC_EVERY}, the MLP at B={DP_BATCH}): {int(state.step)} steps "
+         f"in {wall:.3f} s; bit-equal to the plain trainer's replay of "
+         f"{rounds} rounds: {same} (largest difference {gap:.3e})")
+    check(int(state.step) == int(ref.step) == rounds * PA_SYNC_EVERY,
+          "parameter averaging took another number of steps")
+    check(same, "parameter averaging with one rank differs from the replay")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4177,6 +4566,9 @@ def main() -> int:
         shutil.rmtree(mlp_ckdir, ignore_errors=True)
         tiers_k4a = phase_wd_tiers(wd_ckdir)
         phase_classic(root)
+        dp1 = phase_train_dp(root)
+        ranks = phase_ranks_on_one_card(root)
+        phase_param_avg(root)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4184,15 +4576,21 @@ def main() -> int:
         "serve": serve_k1, "train": train_k1, "serve_trained": trained_k1,
         "serve_bf16_ckpt_fused": bf16_serve_k1["fused"],
         "serve_bf16_ckpt_int8w": bf16_serve_k1["int8w"],
-        "serve_http_fused": http_k1}
+        "serve_http_fused": http_k1,
+        "train_dp_gloo": ranks["lstm"]["K1.f32"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
-    k2["launches"] = train_k2
-    k2["launches_by_path"] = {"train": train_k2}
+    k2["launches_by_path"] = {"train": train_k2,
+                              "train_dp_gloo": ranks["lstm"]["K2.f32"]}
+    k2["launches"] = sum(k2["launches_by_path"].values())
     k1b["launches_by_path"] = {"train": bf16_train["K1.bf16"],
-                               "bench_step": bench["K1.bf16"]}
+                               "bench_step": bench["K1.bf16"],
+                               "train_dp": dp1["K1.bf16"],
+                               "train_dp_gloo": ranks["lstm"]["K1.bf16"]}
     k1b["launches"] = sum(k1b["launches_by_path"].values())
     k2b["launches_by_path"] = {"train": bf16_train["K2.bf16"],
-                               "bench_step": bench["K2.bf16"]}
+                               "bench_step": bench["K2.bf16"],
+                               "train_dp": dp1["K2.bf16"],
+                               "train_dp_gloo": ranks["lstm"]["K2.bf16"]}
     k2b["launches"] = sum(k2b["launches_by_path"].values())
     k3["launches"] = reference_k3 + scaled_k3 + cli_k3
     k3["launches_by_path"] = {"reference": reference_k3,
@@ -4206,10 +4604,12 @@ def main() -> int:
     k4b["launches_by_path"] = {"train": train_k4b,
                                "bench_step": wd_bench["launches"]["K4b"]}
     k4b["launches"] = sum(k4b["launches_by_path"].values())
-    rf_cls["launches_by_path"] = rf_cls_k3
-    rf_cls["launches"] = sum(rf_cls_k3.values())
-    rf_reg["launches_by_path"] = rf_reg_k3
-    rf_reg["launches"] = sum(rf_reg_k3.values())
+    rf_cls["launches_by_path"] = dict(rf_cls_k3,
+                                      rf_mesh=ranks["rf"]["classifier"])
+    rf_cls["launches"] = sum(rf_cls["launches_by_path"].values())
+    rf_reg["launches_by_path"] = dict(rf_reg_k3,
+                                      rf_mesh=ranks["rf"]["regressor"])
+    rf_reg["launches"] = sum(rf_reg["launches_by_path"].values())
     print(json.dumps({"kernels": [k1, k2, k1b, k2b, k3, k4a, k4b, rf_cls,
                                   rf_reg]}))
     print(f"nvidia-smi: {smi}")

@@ -14,17 +14,31 @@ checkpoint, the neural families at ``serve.precision=f32|bf16|int8w``
 (and ``fused`` for the LSTM). ``--device`` picks ``cuda``
 (the default) or ``cpu``. Data comes from a saved results page
 (``--html-file``) or a featurized CSV (``--csv``); fetching the live page
-is not ported yet. ``serve`` answers HTTP on ``serve.host:serve.port``
-(``--scheduler batch|continuous`` picks the LSTM's scheduler) until
-SIGTERM or Ctrl-C, or pushes ``--smoke N`` requests through the in-process
-transport and exits.
+is not ported yet. ``train --distributed`` trains mlp, lstm and wide_deep
+data-parallel and grows rf row-sharded over a ``torch.distributed`` group
+of one process per device (NCCL on the card, gloo on the CPU): with
+``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID`` set this process
+is one rank of that group; without them it starts one rank per visible
+card, or ``EUROMILLIONER_CPU_DEVICES`` ranks under ``--device cpu``, and
+exits non-zero if any rank does. ``serve`` answers HTTP on
+``serve.host:serve.port`` (``--scheduler batch|continuous`` picks the
+LSTM's scheduler) until SIGTERM or Ctrl-C, or pushes ``--smoke N``
+requests through the in-process transport and exits.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
+import os
+import signal
+import socket
+import subprocess
 import sys
+import threading
+import time
+from pathlib import Path
 
 import numpy as np
 
@@ -82,15 +96,118 @@ def cmd_fetch(args, cfg: Config) -> int:
 def cmd_train(args, cfg: Config) -> int:
     """Train a booster (``--model gbt``, the default), a random forest or
     a neural family with the {train, test} watches, then save it
-    (``--save``)."""
-    if args.distributed:
-        raise ConfigError("train --distributed is not ported yet; this port "
-                          "trains on one device")
+    (``--save``); ``--distributed`` over a data-parallel group."""
+    if not args.distributed:
+        return (_train_gbt(args, cfg) if args.model == "gbt"
+                else _train_model(args, cfg, None))
+    from euromillioner_tpu_torch.core.mesh import MeshSpec, require_data_only
+
+    spec = MeshSpec.from_config(cfg.mesh)
+    require_data_only(spec)
     if args.model == "gbt":
+        logger.warning(
+            "--distributed: gbt trains as one single-device program; "
+            "mesh ignored (use rf or a neural family for multi-chip)")
         return _train_gbt(args, cfg)
+    if os.environ.get("COORDINATOR_ADDRESS") or args.auto_coordinator:
+        return _train_rank(args, cfg, spec)
+    return _launch_local_ranks(args, cfg, spec)
+
+
+def _train_rank(args, cfg: Config, spec, *topology) -> int:
+    """This process as one rank of the group (``topology``: coordinator
+    address, size, rank; default the environment's): join it, build the
+    mesh, train, leave it. Ranks other than 0 log warnings only."""
+    from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.core.mesh import build_mesh
+    from euromillioner_tpu_torch.dist import bootstrap
+
+    device = resolve_device(args.device)  # no card: fail before the group
+    bootstrap.initialize(*topology, auto=args.auto_coordinator,
+                         device=device)
+    try:
+        if not bootstrap.is_primary():
+            logging.getLogger("euromillioner_tpu_torch").setLevel(
+                logging.WARNING)
+        mesh = build_mesh(spec, device=device)
+        logger.info("device mesh: %s", mesh.shape)
+        return _train_model(args, cfg, mesh)
+    finally:
+        bootstrap.shutdown()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch_local_ranks(args, cfg: Config, spec) -> int:
+    """No coordinator configured: one rank per local device (the visible
+    cards, or ``EUROMILLIONER_CPU_DEVICES`` under ``--device cpu``), the
+    JAX CLI's "mesh spans this process's devices". A group of one runs in
+    this process; more ranks run as child processes of this command line
+    with the group's variables set, joined in ``finally``. The first rank
+    to fail ends the run with its exit code (the others are stopped); a
+    SIGTERM here is passed on to every rank, which agree to stop at the
+    next epoch boundary."""
+    from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.core.mesh import local_device_count
+
+    device = resolve_device(args.device)
+    n = local_device_count(device)
+    spec.resolve(n)  # a mesh that does not cover the devices: exit 15
+    logger.info("no coordinator configured: the group spans this host's %d "
+                "%s device(s), one rank each; across hosts set "
+                "COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID", n,
+                device.type)
+    address = f"127.0.0.1:{_free_port()}"
+    if n == 1:
+        return _train_rank(args, cfg, spec, address, 1, 0)
+    root = str(Path(__file__).resolve().parents[1])
+    base = dict(os.environ, COORDINATOR_ADDRESS=address,
+                NUM_PROCESSES=str(n))
+    base["PYTHONPATH"] = os.pathsep.join(
+        [root, *filter(None, [base.get("PYTHONPATH")])])
+    children: list[subprocess.Popen] = []
+
+    def pass_on(signum, frame):
+        for c in children:
+            if c.poll() is None:
+                c.send_signal(signal.SIGTERM)
+
+    in_main = threading.current_thread() is threading.main_thread()
+    prev = signal.signal(signal.SIGTERM, pass_on) if in_main else None
+    try:
+        for rank in range(n):
+            children.append(subprocess.Popen(
+                [sys.executable, "-m", "euromillioner_tpu_torch", *args.argv],
+                env=dict(base, PROCESS_ID=str(rank), LOCAL_RANK=str(rank))))
+        while True:
+            codes = [c.poll() for c in children]
+            failed = [(r, rc) for r, rc in enumerate(codes) if rc]
+            if failed:
+                rank, rc = failed[0]
+                logger.error("rank %d exited %d; stopping the other ranks",
+                             rank, rc)
+                return rc
+            if all(rc == 0 for rc in codes):
+                return 0
+            time.sleep(0.1)
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+            c.wait()
+        if in_main:
+            signal.signal(signal.SIGTERM, prev)
+
+
+def _train_model(args, cfg: Config, mesh) -> int:
+    """The random forest or a neural family, over ``mesh`` when given."""
     if args.model == "rf":
-        return _train_rf(args, cfg)
-    return _train_nn(args, cfg)
+        return _train_rf(args, cfg, mesh)
+    return _train_nn(args, cfg, mesh)
 
 
 def _train_gbt(args, cfg: Config) -> int:
@@ -111,20 +228,23 @@ def _train_gbt(args, cfg: Config) -> int:
     return 0
 
 
-def _train_rf(args, cfg: Config) -> int:
+def _train_rf(args, cfg: Config, mesh) -> int:
     """A random forest on the featurized rows: a classifier with
     ``--num-classes C`` (logs validation accuracy), else a regressor (logs
-    validation rmse)."""
+    validation rmse); row-sharded over ``mesh`` when given, saved by rank
+    0."""
     from euromillioner_tpu_torch.core.device import resolve_device
     from euromillioner_tpu_torch.trees import train_classifier, train_regressor
 
-    device = resolve_device(args.device)  # no card: fail before any work
+    device = (mesh.device if mesh is not None
+              else resolve_device(args.device))  # no card: fail first
     train_ds, val_ds = _load_datasets(args, cfg)
     fc = cfg.forest
     kw = dict(num_trees=fc.num_trees, max_depth=fc.max_depth,
               max_bins=fc.max_bins, feature_subset=fc.feature_subset,
               bootstrap=fc.bootstrap, min_info_gain=fc.min_info_gain,
-              seed=fc.seed, hist_method=fc.hist_method, device=device)
+              seed=fc.seed, hist_method=fc.hist_method, device=device,
+              mesh=mesh)
     if args.num_classes:
         model = train_classifier(train_ds.x, train_ds.y, args.num_classes,
                                  **kw)
@@ -135,18 +255,19 @@ def _train_rf(args, cfg: Config) -> int:
         rmse = float(np.sqrt(np.mean((model.predict(val_ds.x)
                                       - val_ds.y) ** 2)))
         logger.info("validation rmse: %.4f", rmse)
-    if args.save:
+    if args.save and (mesh is None or mesh.rank == 0):
         model.save_model(args.save)
         logger.info("saved model to %s", args.save)
     return 0
 
 
-def _train_nn(args, cfg: Config) -> int:
+def _train_nn(args, cfg: Config, mesh) -> int:
     """Train a neural family with the {train, test} watches, then save the
     TrainState (``--save`` or ``train.checkpoint_dir``): the LSTM on
     sliding windows of the draw history, Wide&Deep on each full 11-column
     row predicting the next draw's balls, the MLP on the 10 label-dropped
-    features predicting the label column."""
+    features predicting the label column. Data-parallel over ``mesh``
+    when given (every rank saves its shard)."""
     import torch
 
     from euromillioner_tpu_torch.core.device import resolve_device
@@ -158,7 +279,7 @@ def _train_nn(args, cfg: Config) -> int:
     from euromillioner_tpu_torch.train.optim import from_train_config
     from euromillioner_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     train_ds, val_ds = _load_datasets(args, cfg)
     cfg.model.name = args.model
     precision = from_names(cfg.model.param_dtype, cfg.model.compute_dtype)
@@ -174,9 +295,15 @@ def _train_nn(args, cfg: Config) -> int:
         cfg.model, in_features=train_ds.x.shape[-1],
         generator=torch.Generator().manual_seed(cfg.train.seed),
         device=device)
-    trainer = Trainer(model, from_train_config(cfg.train), loss="mse",
-                      precision=precision,
-                      metrics_jsonl=cfg.train.metrics_jsonl or None)
+    kw = dict(loss="mse", precision=precision,
+              metrics_jsonl=cfg.train.metrics_jsonl or None)
+    if mesh is not None:
+        from euromillioner_tpu_torch.dist.sharded import DistributedTrainer
+
+        trainer = DistributedTrainer(model, from_train_config(cfg.train),
+                                     mesh=mesh, **kw)
+    else:
+        trainer = Trainer(model, from_train_config(cfg.train), **kw)
     state = trainer.fit(
         trainer.init_state(), train_ds, epochs=cfg.train.epochs,
         batch_size=cfg.data.batch_size,
@@ -344,7 +471,12 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--num-classes", type=int, default=0,
                     help="rf: train a classifier with this many classes")
     tr.add_argument("--distributed", action="store_true",
-                    help="train over a device mesh (not ported; refused)")
+                    help="train mlp/lstm/wide_deep data-parallel, rf "
+                         "row-sharded, over one rank per device "
+                         "(mesh.data=N; gbt trains on one device)")
+    tr.add_argument("--auto-coordinator", action="store_true",
+                    help="TPU pod metadata discovery; refused here (set "
+                         "COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID)")
     tr.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help=f"training device ({device_help})")
     pr = sub.add_parser("predict", help="predict with a saved model")
@@ -398,7 +530,12 @@ def main(argv: list[str] | None = None) -> int:
     # parse_known_args so `--serve.precision=fused`-style flags fall
     # through to the override list (apply_overrides strips leading dashes)
     args, unknown = build_parser().parse_known_args(argv)
+    # a --distributed launch starts its ranks on this same command line
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     try:
+        from euromillioner_tpu_torch.core.mesh import cpu_device_count
+
+        cpu_device_count()  # a malformed EUROMILLIONER_CPU_DEVICES: exit 2
         overrides = [o.strip() for o in list(args.overrides) + list(unknown)
                      if o.strip()]
         cfg = apply_overrides(Config(), overrides)

@@ -222,12 +222,24 @@ class ServeConfig:
 
 
 @dataclass
+class MeshConfig:
+    """Device mesh axes (the JAX package's ``MeshConfig``, same fields and
+    defaults); adapt via ``core.mesh.MeshSpec.from_config``. Only the
+    ``data`` axis is ported: ``model`` and ``seq`` above 1 are refused."""
+
+    data: int = -1                      # -1 → all devices
+    model: int = 1
+    seq: int = 1
+
+
+@dataclass
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     gbt: GBTConfig = field(default_factory=GBTConfig)
     forest: ForestConfig = field(default_factory=ForestConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
 
 

@@ -12,9 +12,16 @@ at every level — ``.params['0_LSTM']['bias']``, ...,
 :func:`load_checkpoint` takes the leaves under ``.params`` by their
 ``leaf_paths`` (serving), and :func:`load_train_state` restores a whole
 TrainState — optimizer state included — into the structure of a ``like``
-state, so either package resumes the other's training. The port's
-:func:`save_checkpoint` writes single-process, visible only once complete
-(written into ``.tmp`` and renamed).
+state, so either package resumes the other's training.
+
+Saves keep the JAX package's multi-process protocol: in a
+``torch.distributed`` group every rank holds the whole (replicated)
+state, writes its own ``arrays-{rank}.emt`` and a ``checksums-{rank}.json``
+sidecar into ``step_{step:08d}.tmp``; after a barrier rank 0 merges the
+sidecars into the manifest (``num_processes`` = the group's size),
+removes them and renames the directory into place, so it is visible only
+once complete. Loading verifies every shard the manifest names and reads
+this rank's (shard 0 where the checkpoint has fewer).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ logger = get_logger("train.checkpoint")
 
 _MANIFEST = "manifest.json"
 _ARRAYS = "arrays-{proc:05d}.emt"
+_CHECKSUMS = "checksums-{proc:05d}.json"
 _KEY = re.compile(r"\['([^']*)'\]")
 
 
@@ -80,8 +88,18 @@ def _state_path(keystr: str) -> str | None:
     return ".".join(_KEY.findall(keystr[len(".params"):]))
 
 
-def save_checkpoint(directory: str, state, *, step: int) -> str:
-    """Write ``directory/step_{step:08d}/``. ``state`` is a full
+def _process(group=None) -> tuple[int, int]:
+    """(this process's rank in ``group``, its size; None: the default
+    group); (0, 1) outside a group."""
+    if torch.distributed.is_initialized():
+        return (torch.distributed.get_rank(group),
+                torch.distributed.get_world_size(group))
+    return 0, 1
+
+
+def save_checkpoint(directory: str, state, *, step: int, group=None) -> str:
+    """Write ``directory/step_{step:08d}/`` (every rank of ``group``, the
+    default process group when None, calls it). ``state`` is a full
     ``TrainState`` (params, optimizer state, step counter) or, for a
     serving checkpoint, a module or ``state_dict`` (params, then ``step``
     as the ``.step`` leaf)."""
@@ -96,20 +114,39 @@ def save_checkpoint(directory: str, state, *, step: int) -> str:
               for i, (_, t) in enumerate(pairs)}
     target = os.path.join(directory, f"step_{step:08d}")
     tmp = target + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
-    serialization.save(os.path.join(tmp, _ARRAYS.format(proc=0)), arrays)
-    manifest = {
-        "step": step,
-        "num_leaves": len(arrays),
-        "num_processes": 1,
-        "leaf_paths": paths,
-        "checksums": {"00000": {k: _crc(v) for k, v in arrays.items()}},
-    }
-    with open(os.path.join(tmp, _MANIFEST), "w") as fh:
-        json.dump(manifest, fh)
-    if os.path.isdir(target):
-        shutil.rmtree(target)
-    os.replace(tmp, target)
+    proc, nproc = _process(group)
+
+    def barrier():
+        if nproc > 1:
+            torch.distributed.barrier(group)
+
+    if proc == 0:
+        os.makedirs(tmp, exist_ok=True)
+    barrier()
+    serialization.save(os.path.join(tmp, _ARRAYS.format(proc=proc)), arrays)
+    with open(os.path.join(tmp, _CHECKSUMS.format(proc=proc)), "w") as fh:
+        json.dump({k: _crc(v) for k, v in arrays.items()}, fh)
+    barrier()
+    if proc == 0:
+        sums = {}
+        for p in range(nproc):
+            sidecar = os.path.join(tmp, _CHECKSUMS.format(proc=p))
+            with open(sidecar) as fh:
+                sums[f"{p:05d}"] = json.load(fh)
+            os.remove(sidecar)
+        manifest = {
+            "step": step,
+            "num_leaves": len(arrays),
+            "num_processes": nproc,
+            "leaf_paths": paths,
+            "checksums": sums,
+        }
+        with open(os.path.join(tmp, _MANIFEST), "w") as fh:
+            json.dump(manifest, fh)
+        if os.path.isdir(target):
+            shutil.rmtree(target)
+        os.replace(tmp, target)
+    barrier()
     logger.info("saved checkpoint %s (%d leaves)", target, len(arrays))
     return target
 
@@ -154,6 +191,20 @@ def _load_shard(path: str, manifest: dict, proc: int
     return arrays
 
 
+def _verified_own_shard(path: str, manifest: dict
+                        ) -> dict[str, torch.Tensor]:
+    """Every shard the manifest names, integrity-checked; returns this
+    rank's (shard 0 when the checkpoint has fewer shards than the group
+    has ranks: every shard holds the whole state)."""
+    nproc = int(manifest.get("num_processes", 1))
+    own = _process()[0]
+    own = own if own < nproc else 0
+    for proc in range(nproc):
+        if proc != own:
+            _load_shard(path, manifest, proc)
+    return _load_shard(path, manifest, own)
+
+
 def verify_checkpoint(path: str) -> bool:
     """True when ``path`` restores: manifest readable and every shard it
     names loads with matching per-array checksums."""
@@ -190,7 +241,7 @@ def load_checkpoint(path: str) -> dict[str, torch.Tensor]:
     paths = manifest.get("leaf_paths")
     if paths is None:
         raise CheckpointError(f"checkpoint {path} has no leaf_paths")
-    arrays = _load_shard(path, manifest, 0)
+    arrays = _verified_own_shard(path, manifest)
     if len(paths) != len(arrays):
         raise CheckpointError(
             f"manifest names {len(paths)} leaf paths for {len(arrays)} "
@@ -212,7 +263,7 @@ def load_train_state(path: str, like):
     ``TrainState``): the leaf paths must match ``like``'s exactly, and each
     leaf takes ``like``'s shape, dtype and device."""
     manifest = _read_manifest(path)
-    arrays = _load_shard(path, manifest, 0)
+    arrays = _verified_own_shard(path, manifest)
     want = _state_leaves(like)
     saved = manifest.get("leaf_paths")
     paths = [k for k, _ in want]

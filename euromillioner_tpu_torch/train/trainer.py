@@ -84,12 +84,15 @@ class Trainer:
         self.precision = precision
         self.device = next(model.parameters()).device
         self._jsonl = JsonlMetricsWriter(metrics_jsonl) if metrics_jsonl else None
+        # where fit() logs (the data-parallel trainer silences ranks > 0)
+        self._logger = logger
         # SIGTERM protocol: the handler only sets this flag; the epoch loop
         # checkpoints and stops at the next epoch boundary. `preempted`
         # reports whether the last fit() ended early.
         self._preempt_requested = False
         self.preempted = False
 
+    # -- hooks the data-parallel trainer (dist/sharded.py) overrides -----
     def _place(self, batch: Batch) -> Batch:
         """Host batch → device tensors (pinned and non-blocking on CUDA, so
         the copy overlaps the step in flight)."""
@@ -99,6 +102,25 @@ class Trainer:
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t.to(self.device)
         return Batch(x=put(batch.x), y=put(batch.y), mask=put(batch.mask))
+
+    def _mask_total(self, batch: Batch):
+        """The loss normaliser's row count: None, the placed batch's own
+        ``sum(mask)``."""
+        return None
+
+    def _reduce(self, grads, loss):
+        """The step's gradients and loss as the update sees them."""
+        return grads, loss
+
+    def _agree(self, flag: bool) -> bool:
+        """A host decision every process takes alike (the epoch
+        boundary's stop flag)."""
+        return flag
+
+    def _metric(self, metric: str, pred, y, mask, n_rows: int):
+        """A watch metric over the placed predictions of all
+        ``n_rows`` rows."""
+        return METRICS[metric](pred, y, mask)
 
     # -- state ----------------------------------------------------------
     def init_state(self, params: Mapping[str, torch.Tensor] | None = None
@@ -138,7 +160,8 @@ class Trainer:
         y = batch.y
         if pred.dim() == y.dim() + 1 and pred.shape[-1] == 1:
             pred = pred[..., 0]
-        return self.loss_fn(pred, y, batch.mask)
+        return self.loss_fn(pred, y, batch.mask,
+                            mask_total=self._mask_total(batch))
 
     def train_step(self, state: TrainState, batch: Batch,
                    generator: torch.Generator | None = None
@@ -151,12 +174,13 @@ class Trainer:
         loss = self._loss(params, batch, generator)
         grads = dict(zip(params, torch.autograd.grad(loss,
                                                      list(params.values()))))
+        grads, loss = self._reduce(grads, loss.detach())
         with torch.no_grad():
             params = {k: v.detach() for k, v in params.items()}
             updates, opt_state = self.optimizer.update(grads, state.opt_state,
                                                        params)
             params = apply_updates(params, updates)
-        return TrainState(params, opt_state, state.step + 1), loss.detach()
+        return TrainState(params, opt_state, state.step + 1), loss
 
     def _predict(self, params, x):
         """Transformed float32 predictions (the JAX package's ``_eval``):
@@ -190,7 +214,7 @@ class Trainer:
         prev_handler: Any = None
         if threading.current_thread() is threading.main_thread():
             def _on_sigterm(signum, frame):
-                logger.warning(
+                self._logger.warning(
                     "SIGTERM received: checkpoint-and-exit at next epoch boundary")
                 self._preempt_requested = True
 
@@ -210,7 +234,7 @@ class Trainer:
                               else signal.SIG_DFL)
         dt = time.perf_counter() - t0
         stats = timer.summary()
-        logger.info(
+        self._logger.info(
             "fit done: %d epochs, %d examples, %.2fs (%.0f ex/s; "
             "steady-state %.2f ms/step)",
             epochs, seen, dt, seen / max(dt, 1e-9),
@@ -248,14 +272,14 @@ class Trainer:
             if watches and (epoch % log_every == 0 or epoch == epochs - 1):
                 results = {name: self.evaluate(state.params, ds, batch_size)
                            for name, ds in watches.items()}
-                logger.info(eval_line(epoch, results))
+                self._logger.info(eval_line(epoch, results))
                 if self._jsonl:
                     self._jsonl.write({"round": epoch, **{
                         f"{w}-{m}": v for w, ms in results.items()
                         for m, v in ms.items()}})
             # read the flag once per boundary, so the save and the stop
-            # agree on it
-            preempt = self._preempt_requested
+            # agree on it (and every process of a group with them)
+            preempt = self._agree(self._preempt_requested)
             periodic = (checkpoint_dir and checkpoint_every
                         and (epoch + 1) % checkpoint_every == 0)
             if periodic or (checkpoint_dir and preempt):
@@ -264,7 +288,7 @@ class Trainer:
                 save_checkpoint(checkpoint_dir, state, step=epoch + 1)
             if preempt:
                 self.preempted = True
-                logger.warning(
+                self._logger.warning(
                     "preempted: stopping after epoch %d (%s)", epoch,
                     "checkpoint saved" if checkpoint_dir
                     else "no checkpoint_dir — state returned unsaved")
@@ -303,8 +327,8 @@ class Trainer:
             preds.append(pred.reshape(pred.shape[0], -1))
             ys.append(batch.y.reshape(batch.y.shape[0], -1))
             masks.append(batch.mask)
-        value = METRICS[metric](torch.cat(preds), torch.cat(ys),
-                                torch.cat(masks))
+        value = self._metric(metric, torch.cat(preds), torch.cat(ys),
+                             torch.cat(masks), len(ds))
         return {metric: float(value)}
 
     def predict(self, params, ds: Dataset, batch_size: int = 512) -> np.ndarray:

@@ -1,5 +1,6 @@
 """Random forest: the Spark-MLlib capability (BASELINE.json config 3; the JAX
-package's ``trees/random_forest.py``), on one device.
+package's ``trees/random_forest.py``), on one device or row-sharded over a
+data-parallel group.
 
 MLlib grows every tree level by level from per-node feature/bin label
 histograms. Here one level of ALL trees is a fixed sequence of tensor ops:
@@ -22,6 +23,15 @@ Histogram methods (``hist_method``, as the JAX package names them):
 
 The JAX package gates its kernel on VMEM and 256 bins; K3 takes any bin
 count, so nothing here has that gate.
+
+Row-sharded (``mesh=``, the JAX package's mesh path and MLlib's
+``treeAggregate``): every rank draws the whole forest's bootstrap weights
+and feature masks from the same seed at the true row count, pads the
+rows to a multiple of the ``data`` axis with zero weight and takes its
+share. Each level runs K3 (``direct``) on the rank's rows, then one
+``all_reduce`` of the level's histograms before the gains, so every rank
+grows the same trees. ``hist_method=pallas`` is refused there, as the
+JAX package refuses it.
 
 Randomness. The Poisson(1) bootstrap weights and the per-(tree, node)
 feature masks (exactly m features, from the rank of iid uniforms) are
@@ -48,6 +58,7 @@ import numpy as np
 import torch
 
 from euromillioner_tpu_torch.core.device import resolve_device
+from euromillioner_tpu_torch.core.mesh import round_up_multiple
 from euromillioner_tpu_torch.ops.fused_histogram import fused_histogram_sets
 from euromillioner_tpu_torch.trees import binning
 from euromillioner_tpu_torch.trees.growth import (interleave_siblings,
@@ -273,7 +284,8 @@ def variance_splits(s, s2, c, feat_mask):
 def level_step(binned, y, y_cls, node_id, boot_w, feat_mask, parent_hists, *,
                classification: bool, depth: int, n_bins: int,
                n_classes: int, final: bool, min_info_gain: float,
-               method: str = "direct", want_hists: bool = True):
+               method: str = "direct", want_hists: bool = True,
+               reduce=None):
     """One level of every tree (JAX ``_make_level_step``'s level):
     ``node_id``/``boot_w`` (T, N), ``feat_mask`` (T, 2^depth, F). Returns
     ``(feature, split_bin, is_leaf, leaf_pred, node_id, hists)`` — the
@@ -282,7 +294,9 @@ def level_step(binned, y, y_cls, node_id, boot_w, feat_mask, parent_hists, *,
     sibling subtraction reads as ``parent_hists``.
 
     ``method``: ``direct`` (K3's set form) or ``sub`` (the same with
-    sibling subtraction and a final level from per-node sums). On CPU
+    sibling subtraction and a final level from per-node sums). ``reduce``
+    (the row-sharded path's all-reduce) maps the level's histograms
+    before the gains; None keeps them as they are. On CPU
     tensors K3's plain version runs the JAX package's scatter order, so
     ``direct`` there is its CPU path bit for bit. Rows whose parent went
     leaf never re-enter a level, so under ``sub`` the right sibling of
@@ -316,6 +330,8 @@ def level_step(binned, y, y_cls, node_id, boot_w, feat_mask, parent_hists, *,
                                       n_bins, n_classes)
     else:
         hists = reg_histograms_sets(binned, y, local, w, n_nodes, n_bins)
+    if reduce is not None:
+        hists = reduce(hists)
 
     if classification:
         gains, cls_counts = gini_splits(hists, feat_mask)
@@ -452,12 +468,17 @@ def reachable_trees(trees: dict, max_depth: int) -> dict:
     return out
 
 
-def _resolve_rf_hist(method: str, device: torch.device) -> str:
-    """auto → ``direct``, pallas → ``sub``, scatter → ``direct`` (CPU
-    only): see the module note."""
+def _resolve_rf_hist(method: str, device: torch.device, mesh=None) -> str:
+    """auto → ``direct``, pallas → ``sub`` (one device only), scatter →
+    ``direct`` (CPU only): see the module note."""
     if method not in ("auto", "scatter", "pallas"):
         raise TrainError(
             f"hist_method must be auto|scatter|pallas, got {method!r}")
+    if method == "pallas" and mesh is not None:
+        raise TrainError(
+            "hist_method=pallas is single-device only; the mesh path shards "
+            "rows and all-reduces each level's histograms — use "
+            "hist_method=auto with mesh=")
     if method == "scatter" and device.type != "cpu":
         raise TrainError(
             "hist_method=scatter is the CPU formulation; on the card the "
@@ -471,11 +492,12 @@ def _train(x, y, *, classification: bool, num_classes: int = 0,
            feature_subset: str | float = "auto", bootstrap: bool = True,
            min_info_gain: float = 0.0, seed: int = 0, mesh=None,
            hist_method: str = "auto", device=None) -> RandomForestModel:
-    if mesh is not None:
-        raise ConfigError(
-            "mesh= (the forest's row-sharded path) is not ported yet; "
-            "this port grows forests on one device")
+    if mesh is not None and device is None:
+        device = mesh.device  # a mesh's forest grows on the mesh's device
     dev = resolve_device(device)
+    if mesh is not None and dev.type != mesh.device.type:
+        raise ConfigError(f"the forest's device {dev} is not the mesh's "
+                          f"{mesh.device}")
     x = np.asarray(x, np.float32)
     y = np.asarray(y, np.float32).reshape(-1)
     if x.ndim != 2 or len(x) != len(y):
@@ -491,21 +513,41 @@ def _train(x, y, *, classification: bool, num_classes: int = 0,
     m = resolve_feature_subset(feature_subset, n_features, classification)
     cuts = binning.quantile_cuts(x, max_bins)
     n_bins = binning.num_bins(cuts)
-    method = _resolve_rf_hist(hist_method, dev)
+    method = _resolve_rf_hist(hist_method, dev, mesh)
 
+    # drawn at the true row count, so padding never moves the draws
     boot_w, masks = draw_forest(seed, num_trees, n, n_features, m, max_depth,
                                 bootstrap)
+    binned_np = binning.apply_bins(x, cuts)
+    reduce = None
+    if mesh is not None:
+        from euromillioner_tpu_torch.dist.collectives import all_reduce_tree
+
+        padded = round_up_multiple(n, mesh.data)
+        pad = padded - n
+        if pad:  # zero bootstrap weight: invisible to the histograms
+            binned_np = np.concatenate(
+                [binned_np, np.zeros((pad, n_features), binned_np.dtype)])
+            y = np.concatenate([y, np.zeros(pad, np.float32)])
+            boot_w = torch.cat([boot_w, torch.zeros((num_trees, pad))], 1)
+        share = padded // mesh.data
+        rows = slice(mesh.rank * share, (mesh.rank + 1) * share)
+        binned_np, y, boot_w = binned_np[rows], y[rows], boot_w[:, rows]
+
+        def reduce(hists):
+            return all_reduce_tree(hists, mesh)
 
     def put(a):
         return torch.as_tensor(a).to(dev)
 
-    binned = put(binning.apply_bins(x, cuts))
+    binned = put(binned_np)
     y_t = put(y)
+    n_rows = len(y)
     n_cls = max(num_classes, 1)
     y_cls = (torch.clamp(y_t, 0, n_cls - 1).int() if classification
-             else torch.zeros(n, dtype=torch.int32, device=dev))
+             else torch.zeros(n_rows, dtype=torch.int32, device=dev))
     boot_w = put(boot_w)
-    node_id = torch.zeros((num_trees, n), dtype=torch.int32, device=dev)
+    node_id = torch.zeros((num_trees, n_rows), dtype=torch.int32, device=dev)
     levels = []
     parent = None
     for d in range(max_depth + 1):
@@ -514,13 +556,14 @@ def _train(x, y, *, classification: bool, num_classes: int = 0,
             classification=classification, depth=d, n_bins=n_bins,
             n_classes=n_cls, final=d == max_depth,
             min_info_gain=min_info_gain, method=method,
-            want_hists=d + 1 < max_depth)
+            want_hists=d + 1 < max_depth, reduce=reduce)
         levels.append((feature, split_bin, is_leaf, leaf_pred))
     trees = {k: torch.cat([lv[i] for lv in levels], dim=1).cpu().numpy()
              .astype(_TREE_DTYPES[k]) for i, k in enumerate(_TREE_KEYS)}
     logger.info("trained forest: %d trees, depth %d, %d features (%d per "
-                "node), %s histograms", num_trees, max_depth, n_features, m,
-                hist_method)
+                "node), %s histograms%s", num_trees, max_depth, n_features, m,
+                hist_method, "" if mesh is None
+                else f", rows sharded over {mesh.data} ranks")
     return RandomForestModel(cuts, trees, max_depth, classification,
                              num_classes, device=dev)
 

@@ -119,7 +119,8 @@ def test_cli_reference_on_cpu(capsys):
     (["reference"], 17),                               # fetching: not ported
     (["fetch"], 17),
     (["train", "--model", "rf", "--html-file", str(GOLDEN),
-      "--distributed"], 17),                           # a mesh: not ported
+      "--distributed", "mesh.model=2"], 17),           # tensor parallel:
+                                                       # not ported
     (["train", "--html-file", str(GOLDEN), "gbt.hist_method=matmul"], 13),
     (["train", "--html-file", str(GOLDEN), "gbt.no_such=1"], 2),
 ])

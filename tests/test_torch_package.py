@@ -26,6 +26,9 @@ from euromillioner_tpu_torch import cli
 from euromillioner_tpu_torch.app import run_reference_pipeline
 from euromillioner_tpu_torch.config import Config, apply_overrides
 from euromillioner_tpu_torch.core.device import resolve_device
+from euromillioner_tpu_torch.core.mesh import build_mesh
+from euromillioner_tpu_torch.dist.bootstrap import \
+    initialize as dist_initialize
 from euromillioner_tpu_torch.models.convert import params_from_jax
 from euromillioner_tpu_torch.models.lstm import build_lstm
 from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
@@ -97,7 +100,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_jax_package():
                  "ops.fused_histogram", "ops.wide_onehot", "models.wide_deep",
                  "serve.engine", "serve.session", "serve.transport",
                  "serve.batcher", "models.mlp", "classic.linear",
-                 "classic.naive_bayes", "classic.kmeans"):
+                 "classic.naive_bayes", "classic.kmeans", "core.mesh",
+                 "dist", "dist.bootstrap", "dist.collectives",
+                 "dist.sharded", "dist.param_avg", "dist.failure"):
         assert f"euromillioner_tpu_torch.{name}" in loaded
     assert "chip_smoke" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -158,7 +163,8 @@ def rf_model(tmp_path_factory):
                                    "run_reference_pipeline",
                                    "build_wide_deep", "load_backend",
                                    "rf_train", "rf_load_model",
-                                   "load_backend_gbt", "load_backend_rf"])
+                                   "load_backend_gbt", "load_backend_rf",
+                                   "build_mesh", "dist_initialize"])
 def test_entry_points_default_to_cuda_and_refuse_without_it(
         no_cuda, jax_ckpt, gbt_model, rf_model, entry):
     cfg = apply_overrides(Config(), TINY)
@@ -188,6 +194,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(
                                                  model_file=gbt_model),
         "load_backend_rf": lambda: load_backend("rf", cfg=cfg,
                                                 model_file=rf_model),
+        "build_mesh": lambda: build_mesh(),
+        "dist_initialize": lambda: dist_initialize("127.0.0.1:1", 1, 0),
     }
     with pytest.raises(ConfigError, match="--device cpu"):
         calls[entry]()
@@ -208,6 +216,16 @@ def test_cli_without_cuda_exits_17(no_cuda, jax_ckpt):
 ], ids=["train", "serve"])
 def test_wide_deep_cli_without_cuda_exits_17(no_cuda, argv):
     assert cli.main(argv) == 17
+
+
+@pytest.mark.parametrize("model", ["mlp", "lstm", "wide_deep", "rf"])
+def test_train_distributed_without_cuda_exits_17(no_cuda, model):
+    """``train --distributed`` defaults to the card (NCCL) and refuses to
+    start without one, before any rank or group exists."""
+    page = str(ROOT / "tests" / "golden" / "euromillions.html")
+    assert cli.main(["train", "--model", model, "--distributed",
+                     "--html-file", page]) == 17
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("cmd", ["train", "predict", "reference"])

@@ -402,9 +402,22 @@ def test_errors_match_jax(case, err):
 
 
 def test_refusals_by_name():
+    """Under a mesh, hist_method=pallas is refused as the JAX package
+    refuses it, and a forest device other than the mesh's is a
+    ConfigError (both before any collective: a group of one's record is
+    enough)."""
+    from euromillioner_tpu_torch.core.mesh import Mesh
+
     x, y, _ = _data(8, n=40)
+    cpu_mesh = Mesh(data=1, rank=0, device=torch.device("cpu"))
+    with pytest.raises(TrainError, match="pallas"):
+        rf.train_classifier(x, y, 3, mesh=cpu_mesh, hist_method="pallas",
+                            device="cpu")
+    with pytest.raises(jax_errors.TrainError, match="pallas"):
+        jrf.train_classifier(x, y, 3, mesh=object(), hist_method="pallas")
+    card_mesh = Mesh(data=1, rank=0, device=torch.device("cuda", 0))
     with pytest.raises(ConfigError, match="mesh"):
-        rf.train_classifier(x, y, 3, mesh=object(), device="cpu")
+        rf.train_classifier(x, y, 3, mesh=card_mesh, device="cpu")
     with pytest.raises(TrainError, match="scatter"):
         rf._resolve_rf_hist("scatter", torch.device("cuda"))
     model = rf.train_regressor(x, y, num_trees=1, max_depth=1, device="cpu")
