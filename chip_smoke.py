@@ -208,28 +208,38 @@ Phases, each reported on its own lines:
    of one over NCCL in this process; bf16 K1/K2 launched as many times as
    in the plain run, and its checkpoint bit-equal to the plain ``train
    --model lstm``'s at the same seed;
-27. DP-2 and RF-mesh — two ranks on the one card (child processes, a gloo
+27. DP-1 for the other families, the same way: ``train --model mlp
+   --distributed`` and ``train --model wide_deep --distributed`` at the
+   CLI defaults (Wide&Deep at 100M parameters: K4a/K4b counted from 0,
+   every step's gradients through one all-reduced f32 bucket) and ``train
+   --model rf --num-classes 6 --distributed`` (9 K3 set launches), each
+   beside the plain command at the same seed: launches equal, output
+   bit-equal, ms/step (the forest's wall) beside the plain run's;
+28. DP-2 and RF-mesh — two ranks on the one card (child processes, a gloo
    group over CUDA tensors: NCCL refuses two ranks on one device), after
    the single-process references in this process: the full-width flagship
-   through ``DistributedTrainer`` for one epoch of global B=64 over the
-   golden windows (1129 = 17 x 64 + 41: the last batch padded), at bf16 and
-   then f32, the ranks' params bit-identical and within DP2_PARAM_TOL of
-   the single process, each kernel of the dtype launched layers x 18 times
-   a rank, ms/step beside the single process's; then RF_SHAPE's classifier
+   through ``DistributedTrainer`` with SGD for one epoch of global B=64
+   over the golden windows (1129 = 17 x 64 + 41: the last batch padded),
+   at bf16 and then f32, the ranks' params bit-identical and within
+   DP2_PARAM_TOL of the single process (a tolerance at most a tenth of
+   the distance the epoch moves the params, so a gradient-scale fault
+   cannot pass), each kernel of the dtype launched layers x 18 times a
+   rank, ms/step beside the single process's; then RF_SHAPE's classifier
    and regressor row-sharded
    over the two ranks (K3's set form on each rank's rows, one all-reduce a
    level): 9 set launches a rank, the classifier's trees equal to one
    device's, the regressor's equal or a shown near tie;
-28. parameter averaging — one rank (a group of one over NCCL), the MLP at
+29. parameter averaging — one rank (a group of one over NCCL), the MLP at
    its defaults, two local steps a round: bit-equal to the plain trainer's
    replay on the card;
-29. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
+30. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
    ``serve_http_fused``, K4a's phase 24's ``serve_bf16`` and the int8w
-   run's drift oracle, bf16 K1's and K2's ``train_dp`` (phase 26), every
-   K1/K2 row's ``train_dp_gloo`` (phase 27, summed over the ranks), the
-   forest set forms' ``rf_mesh``), the ``nvidia-smi`` line, and last the
-   ``{"ok": true, "device": ...}`` line. The lines phases 22-28 measure
-   carry the card's name and power limit.
+   run's drift oracle, bf16 K1's and K2's ``train_dp`` (phase 26), K4a's
+   and K4b's ``train_dp`` and the class forest's ``cli_train_dp`` (phase
+   27), every K1/K2 row's ``train_dp_gloo`` (phase 28, summed over the
+   ranks), the forest set forms' ``rf_mesh``), the ``nvidia-smi`` line,
+   and last the ``{"ok": true, "device": ...}`` line. The lines phases
+   22-29 measure carry the card's name and power limit.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -548,7 +558,7 @@ MLP_RMSE_TOL = 1e-4
 # CPU's top two scores are nearer than this fraction of the scores' scale
 CLASSIC_TOL = 1e-4
 CLASSIC_K = 6
-# training across ranks (phases 26-28): two ranks share the one card over
+# training across ranks (phases 26-29): two ranks share the one card over
 # gloo (NCCL refuses two ranks on one device); global batch B=64 for one
 # epoch of the golden page's 1129 windows = 17 x 64 + 41, so the last
 # batch is padded (its 41 real rows all on rank 0 of 2: 32 + 9)
@@ -558,19 +568,28 @@ DP_EPOCHS = 1
 # how long the ranks may wait on each other, and the two-rank phase in all
 DP_GROUP_TIMEOUT_S = 120.0
 DP_PHASE_TIMEOUT_S = 420.0
+# DP-2 trains with plain SGD (as tests/test_torch_dist_train.py does), so
+# the update is proportional to the gradient: a loss normaliser off by a
+# factor (the local count, or the ranks' sum left undivided) moves the
+# params by about as much as the whole epoch moves them. Adam's update
+# barely changes when the gradient is scaled, and would hide that.
+DP2_LR = 1e-3
 # DP-2's params after its epoch (2 ranks of B=32, gradients all-reduced in
 # f32) against the single-process trainer at B=64 on the card, absolute.
 # bf16: the ranks' B=32 products (cuBLAS's input projection, K1/K2) round
-# to bf16 apart from one process's B=64 ones, and Adam turns a gradient
-# within that rounding of 0 into a step of about +-lr either way; the
-# starting point was tests/test_torch_train.py's BF16_STEP_TOL["params"]
-# (1e-4, one step), measured 9.744e-4 after 18 steps (NVIDIA H100 80GB
-# HBM3, 700.00 W; three calls alike), pinned at two Adam steps of lr
-# 1e-3. f32: the same epoch with the f32 kernels, where only summation
-# orders differ (Adam still turns a gradient within their rounding of 0
-# either way): measured 8.439e-6 on the same card, pinned at ~6x
-DP2_PARAM_TOL = {"bfloat16": 2e-3, "float32": 5e-5}
-# parameter averaging (phase 28): the MLP at ModelConfig's defaults,
+# to bf16 apart from one process's B=64 ones; measured 1.320e-3 (0_LSTM.wx)
+# on an NVIDIA H100 80GB HBM3 at 700.00 W, two calls alike, pinned at
+# ~4x. f32: only summation orders differ; measured 1.192e-7
+# (1_LSTM.bias) on the same card, two calls alike, pinned at ~8x. (At
+# SGD 1e-4 the bf16 difference did not shrink, 7.641e-3, while the epoch
+# moved the params 270x less: bf16's roundings of the weights do not
+# scale with lr. 1e-3 keeps the check sharp.)
+DP2_PARAM_TOL = {"bfloat16": 5e-3, "float32": 1e-6}
+# the largest distance the single process's epoch moves a param must be
+# at least this many times the tolerance, so that a gradient-scale fault
+# (which moves the params by about that distance) cannot pass
+DP2_POWER = 10
+# parameter averaging (phase 29): the MLP at ModelConfig's defaults,
 # per-worker B=64, two local steps a round, one rank
 PA_SYNC_EVERY = 2
 # the card's name and power limit (nvidia-smi), beside every measured line
@@ -4180,6 +4199,134 @@ def phase_train_dp(root: Path) -> dict:
     return counts
 
 
+def dp_cli_pair(root: Path, model: str, extra: list[str], counters: dict
+                ) -> dict:
+    """``train --model {model}`` through the CLI on the golden page at its
+    defaults (plus ``extra``), at the same seed: plain, then with
+    ``--distributed`` (one visible card: a group of one over NCCL in this
+    process), each with the ``counters`` (name: kernel entry point) reset
+    just before and read just after. The two runs must launch each kernel
+    alike and write bit-equal output (the checkpoint directory, or the
+    forest's model file). Prints ms/step of both (a neural family's fit
+    summary) or the walls (the forest). Returns the distributed run's
+    launches."""
+    import torch.distributed as dist
+
+    out = root / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for name, dist_args in (("plain", []), ("distributed",
+                                            ["--distributed"])):
+        tag = f"dp_{model}_{name}"
+        dest, jsonl = out / tag, out / f"{tag}.jsonl"
+        shutil.rmtree(dest, ignore_errors=True)
+        dest.unlink(missing_ok=True)
+        jsonl.unlink(missing_ok=True)
+        metrics = ([] if model == "rf" else
+                   [f"train.epochs={TRAIN_EPOCHS}",
+                    f"train.metrics_jsonl={jsonl}"])
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc, _ = wd_cli(["train", "--model", model, "--html-file",
+                        str(root / GOLDEN_HTML), *metrics, *extra,
+                        *dist_args, "--save", str(dest)])
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        check(rc == 0, f"train --model {model} {' '.join(dist_args)} "
+                       f"exited {rc}")
+        check(not dist.is_initialized(), f"{tag} left its process group")
+        stats = {} if model == "rf" else watch_rounds(jsonl)[1]
+        jsonl.unlink(missing_ok=True)
+        runs[name] = (dest, launches, wall, stats)
+    (dp, dp_n, dp_wall, dp_stats), (ref, ref_n, ref_wall, ref_stats) = (
+        runs["distributed"], runs["plain"])
+    if model == "rf":
+        same = dp.read_bytes() == ref.read_bytes()
+        timing = (f"CLI wall {dp_wall:.3f} s (plain {ref_wall:.3f} s, the "
+                  f"same command without --distributed)")
+        dp.unlink()
+        ref.unlink()
+    else:
+        step = f"step_{TRAIN_EPOCHS:08d}"
+        files = sorted(p.name for p in (dp / step).iterdir())
+        same = (files == sorted(p.name for p in (ref / step).iterdir())
+                and all((dp / step / f).read_bytes()
+                        == (ref / step / f).read_bytes() for f in files))
+        timing = (f"{dp_stats['mean_step_ms']:.4f} ms/step over "
+                  f"{dp_stats['steps']} device-synchronised steps (plain "
+                  f"{ref_stats['mean_step_ms']:.4f} ms/step over "
+                  f"{ref_stats['steps']}); CLI wall {dp_wall:.2f} s (plain "
+                  f"{ref_wall:.2f} s)")
+        shutil.rmtree(dp, ignore_errors=True)
+        shutil.rmtree(ref, ignore_errors=True)
+    card(f"DP-1 {model} (train --distributed, a group of one over NCCL, "
+         f"the CLI defaults {' '.join(extra)}): {timing}")
+    print(f"DP-1 {model}: launches {dp_n} (plain {ref_n}); output "
+          f"bit-equal to the plain train's: {same}")
+    check(dp_n == ref_n, f"DP-1 {model} launched {dp_n}, the plain run "
+                         f"{ref_n}")
+    check(all(n > 0 for n in dp_n.values()),
+          f"DP-1 {model} launched a kernel of its path no time: {dp_n}")
+    check(same, f"DP-1 {model}'s output differs from the plain train's")
+    return dp_n
+
+
+def phase_train_dp_families(root: Path) -> dict:
+    """DP-1 for the other families ``train --distributed`` covers, as the
+    flagship's: the MLP (BASELINE.json config 1, no kernel of its own),
+    Wide&Deep at the CLI's 100M parameters (K4a, K4b; every step's
+    gradients, the wide tables' dense one included, go through one
+    all-reduced f32 bucket) and the random forest (``--num-classes 6``,
+    K3's set form, each level's histograms all-reduced). Returns the
+    launches by kernel."""
+    from euromillioner_tpu_torch.ops.fused_histogram import \
+        FUSED_HISTOGRAM_SETS
+    from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
+                                                         WIDE_ONEHOT_FWD)
+
+    dp_cli_pair(root, "mlp", [], {})
+    wd = dp_cli_pair(root, "wide_deep", [], {"K4a": WIDE_ONEHOT_FWD,
+                                             "K4b": WIDE_ONEHOT_DW})
+    rf = dp_cli_pair(root, "rf", ["--num-classes", "6"],
+                     {"K3.sets": FUSED_HISTOGRAM_SETS})
+    wd_bucket_cost()
+    torch.cuda.empty_cache()
+    return {**wd, **rf}
+
+
+def wd_bucket_cost() -> None:
+    """The time of one ``all_reduce_grads`` on the CLI Wide&Deep's
+    gradients in a group of one over NCCL, the cost the data-parallel step
+    adds: the flat f32 bucket's ``cat``, the all-reduce, the copy back;
+    beside the time its HBM traffic (each gradient read and written twice)
+    takes at the card's peak rate."""
+    from euromillioner_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from euromillioner_tpu_torch.dist import bootstrap
+    from euromillioner_tpu_torch.dist.collectives import all_reduce_grads
+    from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
+
+    model = build_wide_deep(generator=torch.Generator().manual_seed(SEED),
+                            device="cuda")
+    grads = {k: torch.zeros_like(p) for k, p in model.named_parameters()}
+    del model
+    loss = torch.zeros((), device="cuda")
+    n = sum(g.numel() for g in grads.values())
+    bootstrap.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = build_mesh(MeshSpec(), device="cuda")
+        ms = time_ms(lambda: all_reduce_grads(grads, mesh, loss), runs=10)
+    finally:
+        bootstrap.shutdown()
+    moved = 4 * 4 * n
+    card(f"DP-1 wide_deep gradient bucket: {n:,} f32 gradients = "
+         f"{4 * n / 1e6:.1f} MB; one all_reduce_grads (cat, NCCL all-reduce "
+         f"of one rank, copy back) {ms:.4f} ms; its {moved / 1e9:.2f} GB of "
+         f"HBM traffic take {moved / PEAK_HBM_BYTES_S * 1e3:.4f} ms at the "
+         f"peak rate")
+    del grads
+
+
 def dp_precisions() -> dict:
     """DP-2's two runs: the default bf16 compute dtype, then f32."""
     from euromillioner_tpu_torch.core.precision import (DEFAULT_PRECISION,
@@ -4200,10 +4347,12 @@ def dp_flagship(device: str):
 def dp_fit(root: Path, trainer, jsonl: Path | None) -> tuple[dict, dict]:
     """One epoch of the golden windows at B=DP_BATCH, unshuffled, the LSTM
     counters reset just before and read just after: (params on the CPU,
-    the run's numbers; ms/step from the fit summary in ``jsonl``, the
+    the run's numbers: the largest distance a param moved from its
+    initial value, and ms/step from the fit summary in ``jsonl``, the
     trainer's ``metrics_jsonl``, where given)."""
     train_ds, _ = golden_windows(root)
     state = trainer.init_state()
+    init = {k: v.detach().cpu().clone() for k, v in state.params.items()}
     reset_lstm_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4212,8 +4361,12 @@ def dp_fit(root: Path, trainer, jsonl: Path | None) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stats = watch_rounds(jsonl)[1] if jsonl is not None else {}
-    return ({k: v.detach().cpu() for k, v in state.params.items()},
+    params = {k: v.detach().cpu() for k, v in state.params.items()}
+    moved = {k: float((params[k] - v).abs().max()) for k, v in init.items()}
+    most = max(moved, key=moved.get)
+    return (params,
             {"counts": lstm_counts(), "steps": int(state.step), "wall": wall,
+             "moved": moved[most], "moved_most": most,
              "windows": len(train_ds), "ms_per_step":
                  stats.get("mean_step_ms"), "timed_steps": stats.get("steps")})
 
@@ -4259,7 +4412,7 @@ def rank_worker(rank: int, world: int, address: str, out_dir: str) -> int:
     from euromillioner_tpu_torch.core.device import resolve_device
     from euromillioner_tpu_torch.core.mesh import MeshSpec, build_mesh
     from euromillioner_tpu_torch.dist.sharded import DistributedTrainer
-    from euromillioner_tpu_torch.train.optim import adam
+    from euromillioner_tpu_torch.train.optim import sgd
 
     root = Path(__file__).resolve().parent
     out = Path(out_dir)
@@ -4273,7 +4426,7 @@ def rank_worker(rank: int, world: int, address: str, out_dir: str) -> int:
         res = {}
         for name, precision in dp_precisions().items():
             jsonl = out / f"dp2_{name}.jsonl"
-            trainer = DistributedTrainer(dp_flagship("cuda"), adam(1e-3),
+            trainer = DistributedTrainer(dp_flagship("cuda"), sgd(DP2_LR),
                                          precision=precision, mesh=mesh,
                                          metrics_jsonl=str(jsonl))
             res[name] = dp_fit(root, trainer, jsonl if rank == 0 else None)
@@ -4298,7 +4451,7 @@ def phase_ranks_on_one_card(root: Path) -> dict:
     Returns the launches summed over the ranks."""
     import numpy as np
 
-    from euromillioner_tpu_torch.train.optim import adam
+    from euromillioner_tpu_torch.train.optim import sgd
     from euromillioner_tpu_torch.train.trainer import Trainer
 
     out = root / "build" / "chip_smoke" / "ranks"
@@ -4308,7 +4461,7 @@ def phase_ranks_on_one_card(root: Path) -> dict:
     for name, precision in dp_precisions().items():
         jsonl = out / f"single_{name}.jsonl"
         single[name] = dp_fit(root, Trainer(
-            dp_flagship("cuda"), adam(1e-3), precision=precision,
+            dp_flagship("cuda"), sgd(DP2_LR), precision=precision,
             metrics_jsonl=str(jsonl)), jsonl)
     x, y_cls, y_reg = rf_data()
     forests = {"classifier": grow_forest(True, x, y_cls, RF_SHAPE["trees"],
@@ -4363,14 +4516,24 @@ def phase_ranks_on_one_card(root: Path) -> dict:
               f"DP-2 {name} launches differ from layers x steps")
         identical = all(torch.equal(params[0][k], p[k])
                         for p in params[1:] for k in params[0])
-        gap = max(float((params[0][k] - v).abs().max())
-                  for k, v in ref_params.items())
+        gaps = {k: float((params[0][k] - v).abs().max())
+                for k, v in ref_params.items()}
+        widest = max(gaps, key=gaps.get)
+        gap = gaps[widest]
         tol = DP2_PARAM_TOL[name]
-        print(f"DP-2 {name}: the ranks' params bit-identical: {identical}; "
-              f"against the single-process trainer at B={DP_BATCH} on the "
-              f"card: largest difference {gap:.3e} (tol {tol:.0e})")
+        moved = ref_run["moved"]
+        print(f"DP-2 {name} (SGD {DP2_LR:g}): the ranks' params "
+              f"bit-identical: {identical}; against the single-process "
+              f"trainer at B={DP_BATCH} on the card: largest difference "
+              f"{gap:.3e} ({widest}; tol {tol:.0e}); the epoch moves a param by up "
+              f"to {moved:.3e} ({ref_run['moved_most']}) = "
+              f"{moved / tol:.1f} x the tolerance (at least {DP2_POWER} x "
+              f"required)")
         check(identical, f"DP-2 {name}: the ranks' params differ")
         check(gap <= tol, f"DP-2 {name} params differ by {gap:.3e}")
+        check(moved >= DP2_POWER * tol, f"DP-2 {name}: the tolerance "
+              f"{tol:.0e} would pass a gradient-scale fault (the epoch "
+              f"moves a param by only {moved:.3e})")
         card(f"DP-2 {name} ({DP_RANKS} ranks on one card, gloo through the "
              f"host, not NCCL; B={DP_BATCH}): {runs[0]['ms_per_step']:.4f} "
              f"ms/step over {runs[0]['timed_steps']} device-synchronised "
@@ -4567,6 +4730,7 @@ def main() -> int:
         tiers_k4a = phase_wd_tiers(wd_ckdir)
         phase_classic(root)
         dp1 = phase_train_dp(root)
+        dp1_families = phase_train_dp_families(root)
         ranks = phase_ranks_on_one_card(root)
         phase_param_avg(root)
     except SmokeFailure as e:
@@ -4599,12 +4763,15 @@ def main() -> int:
                                "bench_step": wd_bench["launches"]["K4a"],
                                "serve_bf16": tiers_k4a["bf16"],
                                "serve_int8w_drift_oracle":
-                                   tiers_k4a["int8w"]}
+                                   tiers_k4a["int8w"],
+                               "train_dp": dp1_families["K4a"]}
     k4a["launches"] = sum(k4a["launches_by_path"].values())
     k4b["launches_by_path"] = {"train": train_k4b,
-                               "bench_step": wd_bench["launches"]["K4b"]}
+                               "bench_step": wd_bench["launches"]["K4b"],
+                               "train_dp": dp1_families["K4b"]}
     k4b["launches"] = sum(k4b["launches_by_path"].values())
     rf_cls["launches_by_path"] = dict(rf_cls_k3,
+                                      cli_train_dp=dp1_families["K3.sets"],
                                       rf_mesh=ranks["rf"]["classifier"])
     rf_cls["launches"] = sum(rf_cls["launches_by_path"].values())
     rf_reg["launches_by_path"] = dict(rf_reg_k3,

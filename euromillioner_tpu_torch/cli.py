@@ -314,7 +314,8 @@ def _train_nn(args, cfg: Config, mesh) -> int:
         checkpoint_every=cfg.train.checkpoint_every)
     if args.save or cfg.train.checkpoint_dir:
         out = save_checkpoint(args.save or cfg.train.checkpoint_dir, state,
-                              step=cfg.train.epochs)
+                              step=cfg.train.epochs,
+                              group=mesh.group if mesh is not None else None)
         logger.info("saved checkpoint to %s", out)
     return 0
 

@@ -25,8 +25,8 @@ import torch
 
 from euromillioner_tpu_torch.core.mesh import Mesh
 from euromillioner_tpu_torch.data.dataset import Dataset
-from euromillioner_tpu_torch.dist.collectives import (all_reduce_tensors,
-                                                      leaves, rebuild)
+from euromillioner_tpu_torch.dist.collectives import (leaves, pmean_stacked,
+                                                      rebuild)
 from euromillioner_tpu_torch.train.trainer import (Trainer, TrainState,
                                                    epoch_seeds)
 from euromillioner_tpu_torch.utils.errors import DistributedError, TrainError
@@ -36,15 +36,13 @@ logger = get_logger("dist.param_avg")
 
 
 def _pmean_floats(tree, mesh: Mesh):
-    """Float leaves averaged over the workers (one all-reduce); integer
+    """Float leaves averaged over the workers (``pmean_stacked``); integer
     leaves pass through."""
     ts = leaves(tree)
-    idx = [i for i, t in enumerate(ts) if t.is_floating_point()]
-    summed = all_reduce_tensors([ts[i] for i in idx], mesh)
-    out = list(ts)
-    for i, s in zip(idx, summed):
-        out[i] = s / mesh.data
-    return rebuild(tree, iter(out))
+    means = iter(pmean_stacked([t for t in ts if t.is_floating_point()],
+                               mesh))
+    return rebuild(tree, iter(next(means) if t.is_floating_point() else t
+                              for t in ts))
 
 
 def fit_parameter_averaging(trainer: Trainer, state: TrainState,

@@ -25,7 +25,8 @@ rank predicts its rows of every chunk and the metric's shares are
 all-reduced, so every rank logs the same watch values. Only rank 0 logs
 and writes ``metrics_jsonl``. The SIGTERM stop flag is all-reduced at
 each epoch boundary so every rank stops together; checkpoints are saved
-by every rank (``train/checkpoint.py``'s multi-process layout).
+by every rank of the mesh's group (``train/checkpoint.py``'s
+multi-process layout).
 """
 
 from __future__ import annotations
@@ -103,6 +104,7 @@ class DistributedTrainer(Trainer):
             raise DistributedError(
                 f"the model is on {self.device}, the mesh on {mesh.device}")
         self.mesh = mesh
+        self._group = mesh.group
         if mesh.rank != 0:
             self._logger = _Quiet()
 

@@ -191,13 +191,13 @@ def _load_shard(path: str, manifest: dict, proc: int
     return arrays
 
 
-def _verified_own_shard(path: str, manifest: dict
+def _verified_own_shard(path: str, manifest: dict, group=None
                         ) -> dict[str, torch.Tensor]:
     """Every shard the manifest names, integrity-checked; returns this
-    rank's (shard 0 when the checkpoint has fewer shards than the group
-    has ranks: every shard holds the whole state)."""
+    rank's in ``group`` (shard 0 when the checkpoint has fewer shards than
+    the group has ranks: every shard holds the whole state)."""
     nproc = int(manifest.get("num_processes", 1))
-    own = _process()[0]
+    own = _process(group)[0]
     own = own if own < nproc else 0
     for proc in range(nproc):
         if proc != own:
@@ -233,15 +233,16 @@ def latest_checkpoint(directory: str, *, verify: bool = True) -> str | None:
     return None
 
 
-def load_checkpoint(path: str) -> dict[str, torch.Tensor]:
+def load_checkpoint(path: str, group=None) -> dict[str, torch.Tensor]:
     """The params of the checkpoint at ``path`` as a CPU ``state_dict``
-    (``"0_LSTM.wx"`` keys), integrity-checked. Works on checkpoints of
-    either package: leaves outside ``.params`` are skipped."""
+    (``"0_LSTM.wx"`` keys), integrity-checked; this rank's shard in
+    ``group`` (None: the default group). Works on checkpoints of either
+    package: leaves outside ``.params`` are skipped."""
     manifest = _read_manifest(path)
     paths = manifest.get("leaf_paths")
     if paths is None:
         raise CheckpointError(f"checkpoint {path} has no leaf_paths")
-    arrays = _verified_own_shard(path, manifest)
+    arrays = _verified_own_shard(path, manifest, group)
     if len(paths) != len(arrays):
         raise CheckpointError(
             f"manifest names {len(paths)} leaf paths for {len(arrays)} "
@@ -257,13 +258,14 @@ def load_checkpoint(path: str) -> dict[str, torch.Tensor]:
     return params
 
 
-def load_train_state(path: str, like):
+def load_train_state(path: str, like, group=None):
     """Restore the whole TrainState of the checkpoint at ``path`` (either
     package's) into the structure of ``like`` (an initialised
     ``TrainState``): the leaf paths must match ``like``'s exactly, and each
-    leaf takes ``like``'s shape, dtype and device."""
+    leaf takes ``like``'s shape, dtype and device. This rank's shard in
+    ``group`` is read (None: the default group)."""
     manifest = _read_manifest(path)
-    arrays = _verified_own_shard(path, manifest)
+    arrays = _verified_own_shard(path, manifest, group)
     want = _state_leaves(like)
     saved = manifest.get("leaf_paths")
     paths = [k for k, _ in want]

@@ -86,6 +86,9 @@ class Trainer:
         self._jsonl = JsonlMetricsWriter(metrics_jsonl) if metrics_jsonl else None
         # where fit() logs (the data-parallel trainer silences ranks > 0)
         self._logger = logger
+        # the process group fit()'s checkpoints are saved over (None: the
+        # default group; the data-parallel trainer's is its mesh's)
+        self._group = None
         # SIGTERM protocol: the handler only sets this flag; the epoch loop
         # checkpoints and stops at the next epoch boundary. `preempted`
         # reports whether the last fit() ended early.
@@ -285,7 +288,8 @@ class Trainer:
             if periodic or (checkpoint_dir and preempt):
                 from euromillioner_tpu_torch.train.checkpoint import save_checkpoint
 
-                save_checkpoint(checkpoint_dir, state, step=epoch + 1)
+                save_checkpoint(checkpoint_dir, state, step=epoch + 1,
+                                group=self._group)
             if preempt:
                 self.preempted = True
                 self._logger.warning(

@@ -232,6 +232,30 @@ def test_group_of_one_in_process_is_bit_equal_to_train(tmp_path, caplog):
     assert dp.read_bytes() == plain.read_bytes()
 
 
+@pytest.mark.parametrize("model,extra,out", [
+    ("mlp", ["model.hidden_sizes=16", "train.epochs=1"],
+     "step_00000001/arrays-00000.emt"),
+    ("wide_deep", ["model.wide_deep_target_params=200000", "train.epochs=1"],
+     "step_00000001/arrays-00000.emt"),
+    ("rf", ["--num-classes", "6", "forest.num_trees=4",
+            "forest.max_depth=3"], None)], ids=["mlp", "wide_deep", "rf"])
+def test_group_of_one_cli_is_bit_equal_for_the_row_families(tmp_path, model,
+                                                            extra, out):
+    """The other families ``train --distributed`` covers, as the LSTM
+    above: a group of one in this process writes what the plain ``train``
+    writes, bit for bit (the forest's model file; the others' shard)."""
+    base = ["train", "--model", model, "--device", "cpu", "--html-file",
+            PAGE, *extra]
+    assert cli.main([*base, "--distributed", "--save",
+                     str(tmp_path / "dp")]) == 0
+    assert not torch.distributed.is_initialized()
+    assert cli.main([*base, "--save", str(tmp_path / "plain")]) == 0
+    dp, plain = tmp_path / "dp", tmp_path / "plain"
+    if out is not None:
+        dp, plain = dp / out, plain / out
+    assert dp.read_bytes() == plain.read_bytes()
+
+
 def _cli(argv, env, timeout=120):
     full = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", **env)
     full.pop("JAX_PLATFORMS", None)

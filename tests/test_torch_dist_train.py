@@ -138,6 +138,7 @@ def run(tmp_path_factory):
         "ids": rng.integers(0, 4, size=(WORLD, 16)).astype(np.int32),
         "trainers": TRAINERS, "params": {}, "data": {},
         "ckpt_out": str(out / "port_ckpt"),
+        "subgroup_ckpt": str(out / "subgroup_ckpt"),
     }
     jax_states = {}
     for name in TRAINERS:
@@ -346,3 +347,23 @@ def test_jax_checkpoint_restores_on_two_ranks(run):
         for k, v in want.items():
             np.testing.assert_array_equal(res["mlp"]["jax_ckpt"][k], v,
                                           err_msg=k)
+
+
+def test_fit_saves_over_a_subgroup_mesh(run):
+    """A DistributedTrainer over a mesh of two ranks out of four saves its
+    periodic checkpoints over that pair's group (each pair its own
+    two-shard checkpoint, intact), and each rank reads its shard back."""
+    results, _, out = run
+    for p in range(2):
+        d = out / "subgroup_ckpt" / f"pair{p}"
+        assert sorted(c.name for c in d.iterdir()) == ["step_00000001",
+                                                       "step_00000002"]
+        path = jax_ck.latest_checkpoint(str(d))
+        assert path is not None and jax_ck.verify_checkpoint(path)
+        assert jax_ck._read_manifest(path)["num_processes"] == 2
+    for res in results:
+        for k, v in results[0]["mlp"]["subgroup"].items():
+            np.testing.assert_array_equal(res["mlp"]["subgroup"][k], v,
+                                          err_msg=k)
+            np.testing.assert_array_equal(res["mlp"]["subgroup_loaded"][k],
+                                          v, err_msg=k)

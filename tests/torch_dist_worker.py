@@ -145,7 +145,9 @@ def cases_train(mesh, inputs, out):
     from euromillioner_tpu_torch.models.lstm import build_lstm
     from euromillioner_tpu_torch.models.mlp import build_mlp
     from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
-    from euromillioner_tpu_torch.train.checkpoint import (load_train_state,
+    from euromillioner_tpu_torch.core.mesh import Mesh
+    from euromillioner_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                                          load_train_state,
                                                           save_checkpoint)
     from euromillioner_tpu_torch.train.optim import adam, sgd
     from euromillioner_tpu_torch.train.trainer import Trainer
@@ -218,13 +220,26 @@ def cases_train(mesh, inputs, out):
                     errs[what] = str(e)
             res["errors"] = errs
         if spec.get("checkpoint"):
-            pair = dist.new_group([0, 1])
+            # ranks {0, 1} and {2, 3}: a mesh of two over each pair
+            pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
             ckdir = inputs["ckpt_out"]
             if r < 2:
-                save_checkpoint(ckdir, state, step=3, group=pair)
+                save_checkpoint(ckdir, state, step=3, group=pairs[0])
                 like = Trainer(model(), opt, **kw).init_state(params)
                 res["jax_ckpt"] = _np(load_train_state(inputs["jax_ckpt"],
                                                        like).params)
+            # fit()'s periodic saves over the pair's mesh, read back there
+            pair = Mesh(data=2, rank=r % 2, device=mesh.device,
+                        group=pairs[r // 2])
+            sub_dir = os.path.join(inputs["subgroup_ckpt"], f"pair{r // 2}")
+            sub = DistributedTrainer(model(), opt, mesh=pair, **kw)
+            s2 = sub.fit(sub.init_state(params), ds, epochs=2,
+                         batch_size=spec["batch"], shuffle=False,
+                         checkpoint_dir=sub_dir, checkpoint_every=1)
+            like = Trainer(model(), opt, **kw).init_state(params)
+            res["subgroup"] = _np(s2.params)
+            res["subgroup_loaded"] = _np(load_train_state(
+                latest_checkpoint(sub_dir), like, group=pairs[r // 2]).params)
             dist.barrier()
         out[name] = res
 
