@@ -74,6 +74,25 @@ Phases, each reported on its own lines:
    parameter agree;
 7. serve the trained checkpoint — ``serve --smoke 8`` under
    ``serve.precision=fused``, no failed request;
+7e. govern (run right after 7) — the trained checkpoint behind
+   ``make_sequence_engine`` in an f32 and a bf16 pool, with the step
+   scheduler's governance parts: preemption (8 slots presaturated with 8
+   bulk sequences of 512 steps, then 32 interactive ones of 8-32 steps:
+   preemptions and restores, every bulk sequence done, none shed;
+   p50_step_ms preempt-off against preempt-on), the budget (a RAM ledger
+   of two victims' bytes and a spill directory: six victims spill and
+   restore; in f32 one spill file corrupted on purpose sheds its own
+   sequence, named), paging (2 pages of 4 rows, 32 sequences live, with a
+   spill directory: peak_live >= 4x the rows, every row freed, both tiers
+   drained; p50_step_ms dense against paged), the elastic pool (2 -> 32
+   under a flood, then an explicit shrink that evicts and restores) and
+   migration (in process, and in f32 through two ``serve --scheduler
+   continuous`` children: ``/admin/export`` of a tag, ``/admin/migrate``).
+   Every reply bit-equal to the same sequence served uninterrupted at the
+   same block rows and within tolerance of a direct apply; the walls, the
+   state bytes per slot and the counters printed; no kernel launched;
+   and how many replies of the block program differ at 2-16 rows from
+   32 rows on the card (why an elastic pool steps at max_slots rows);
 7a. train at the default bfloat16 compute dtype through the CLI (the
    same command without ``model.compute_dtype=float32``): two finite watch
    lines, bf16 K2 launched exactly layers x steps x epochs times and bf16
@@ -1629,6 +1648,479 @@ def phase_serve_trained(ckdir: Path) -> int:
     check(launches > 0, "serving the trained checkpoint never launched K1")
     print(f"serve trained checkpoint: K1 launches {launches}")
     return launches
+
+
+# -- phase 7e: the step scheduler's governance --------------------------------
+
+# The trained flagship behind make_sequence_engine with each governance part
+# on, in an f32 and a bf16 pool. bench.py's serve_preempt shape: 8 slots
+# presaturated with 8 bulk sequences of 512 steps, then 32 interactive ones
+# of 8-32 steps; serve_paged's: 2 pages of 4 rows, 32 sequences live, 85% of
+# 16-32 steps and 15% of 96-128; the elastic pool 2 -> 32 under a flood of
+# 64 such sequences; migration of a 512-step sequence in process and of a
+# 4096-step one between two ``serve --scheduler continuous`` children.
+GOVERN = {"slots": 8, "step_block": 8, "bulk": 8, "bulk_steps": 512,
+          "interactive": 32, "interactive_steps": (8, 33), "live": 32,
+          "pages": 2, "page_slots": 4, "flood": 64, "elastic": (2, 32),
+          "shrink_bulk": 4, "migrate_steps": 512,
+          "http_migrate_steps": 4096}
+# the rows of the block program whose bits phase 7e compares (elastic
+# resize changes the pool's rows, unless the block keeps them fixed)
+GOVERN_ROWS = (2, 4, 8, 16, 32)
+
+
+def wait_until(what: str, cond, timeout: float = HTTP_WAIT) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"timed out: {what}")
+        time.sleep(0.001)
+
+
+def governance_traffic(seed: int, n: int, mix=None, steps=None) -> list:
+    """``n`` sequences from numpy seed ``seed``: the paged mix (85% of
+    16-32 steps, 15% of 96-128) or lengths drawn from ``steps``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        if mix:
+            lo, hi = (96, 129) if rng.random() < 0.15 else (16, 33)
+        else:
+            lo, hi = steps
+        out.append(rng.normal(size=(int(rng.integers(lo, hi)),
+                                    FEATURES)).astype(np.float32))
+    return out
+
+
+def governance_engine(backend, *overrides: str):
+    """The step scheduler the serve CLI builds: make_sequence_engine over
+    ``serve.scheduler=continuous`` and GOVERN's pool, plus ``overrides``."""
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.serve.continuous import make_sequence_engine
+
+    cfg = apply_overrides(Config(), [
+        "serve.scheduler=continuous", f"serve.max_slots={GOVERN['slots']}",
+        f"serve.step_block={GOVERN['step_block']}", *overrides])
+    return make_sequence_engine(backend, cfg)
+
+
+def governance_served(eng, seqs, cls: str = "bulk") -> list:
+    return [f.result(timeout=HTTP_WAIT)
+            for f in [eng.submit(s, cls=cls) for s in seqs]]
+
+
+def governance_replies(what: str, got, ref, direct, profile: str) -> None:
+    """Every reply bit-equal to the uninterrupted run at the same block
+    rows, and within the profile's tolerance of a direct apply (f32:
+    F32_SERVE_TOL; bf16: its envelope)."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
+                                                        rel_error)
+
+    same = sum(np.array_equal(g, r) for g, r in zip(got, ref))
+    err = rel_error(torch.tensor(np.stack(got)), direct)
+    tol = F32_SERVE_TOL if profile == "f32" else \
+        SERVE_ENVELOPES[("lstm", profile)]
+    print(f"govern {profile} {what}: {same}/{len(got)} replies bit-equal "
+          f"to the uninterrupted run; rel to direct apply {err:.3e} (tol "
+          f"{tol:.0e}) [{CARD}]")
+    check(same == len(got), f"{profile} {what}: a reply moved")
+    check(err <= tol, f"{profile} {what}: replies off the direct apply")
+
+
+def governance_rows(backend, profile: str) -> None:
+    """Whether the block program's replies depend on its row count on the
+    card: a few sequences in every row, at each of GOVERN_ROWS, against
+    the same at 32 rows. Why an elastic pool steps at max_slots rows."""
+    import numpy as np
+
+    seqs = governance_traffic(21, 8, steps=(8, 33))
+    counts = []
+    for rows in GOVERN_ROWS:
+        differ = 0
+        for s in seqs:
+            x = torch.from_numpy(np.repeat(s[None], rows, 0)).cuda()
+            reset = torch.ones((rows, 1), dtype=torch.bool, device="cuda")
+            _, y = backend.block_fn(backend.init_states(rows), x, reset)
+            x32 = torch.from_numpy(np.repeat(s[None], 32, 0)).cuda()
+            _, y32 = backend.block_fn(
+                backend.init_states(32), x32,
+                torch.ones((32, 1), dtype=torch.bool, device="cuda"))
+            differ += int(not torch.equal(y[0, -1], y32[0, -1]))
+        counts.append(differ)
+    print(f"govern {profile} rows: replies differing from 32 rows at "
+          f"{list(GOVERN_ROWS)} rows: {counts} of {len(seqs)} [{CARD}]")
+
+
+def governance_preempt(backend, profile: str, direct_of) -> dict:
+    """Preempt-off, then preempt-on on the same presaturated traffic:
+    the on run preempts and restores, completes every bulk sequence, sheds
+    none, and replies bit-equal to the off run. Returns the traffic and
+    the off run's replies (the uninterrupted ones at GOVERN's rows)."""
+    bulk = governance_traffic(11, GOVERN["bulk"],
+                              steps=(GOVERN["bulk_steps"],
+                                     GOVERN["bulk_steps"] + 1))
+    inter = governance_traffic(12, GOVERN["interactive"],
+                               steps=GOVERN["interactive_steps"])
+    runs = {}
+    for name, extra in (("off", ()), ("on", ("serve.preempt.enabled=true",))):
+        t0 = time.perf_counter()
+        with governance_engine(backend, *extra) as eng:
+            fb = [eng.submit(s, cls="bulk") for s in bulk]
+            wait_until("presaturation", lambda: eng.stats()["active"]
+                       == GOVERN["slots"] and eng.stats()["steps"] >= 2)
+            fi = [eng.submit(s, cls="interactive") for s in inter]
+            got = [f.result(timeout=HTTP_WAIT) for f in fi + fb]
+            st = eng.stats()
+        runs[name] = (got, st, time.perf_counter() - t0)
+        print(f"govern {profile} preempt {name}: wall "
+              f"{runs[name][2]:.3f} s, p50_step_ms {st['p50_step_ms']}, "
+              f"p99_step_ms {st['p99_step_ms']}, preempt "
+              f"{json.dumps(st['preempt'])}, interactive "
+              f"{json.dumps(st['classes']['interactive'])} [{CARD}]")
+    st = runs["on"][1]
+    check(st["preempt"]["preempted"] >= 1, "no preemption")
+    check(st["preempt"]["restored"] >= 1, "no restore")
+    check(st["preempt"]["shed"] == 0 and st["failed"] == 0,
+          "a sequence was shed or failed")
+    check(st["sequences"] == len(bulk) + len(inter), "not all completed")
+    governance_replies("preempt", runs["on"][0], runs["off"][0],
+                       direct_of(inter + bulk), profile)
+    return {"seqs": inter + bulk, "ref": runs["off"][0], "bulk": bulk,
+            "inter": inter}
+
+
+def governance_budget(backend, profile: str, traffic: dict, direct_of,
+                      corrupt: bool, tmp: Path) -> None:
+    """The preempt traffic under a RAM ledger of two victims' bytes and a
+    spill directory: the victims past two spill, restore from disk and
+    reply bit-equal; with ``corrupt``, one spill file flipped on purpose
+    sheds its own sequence only, with a ServeError naming the file."""
+    import tempfile
+
+    from euromillioner_tpu_torch.serve.continuous import (PreemptPolicy,
+                                                          StepScheduler)
+    from euromillioner_tpu_torch.serve.session import BudgetPolicy
+    from euromillioner_tpu_torch.utils.errors import ServeError
+
+    t0 = time.perf_counter()
+    spill = Path(tempfile.mkdtemp(prefix="spill-", dir=str(tmp)))
+    per = 2 * LAYERS * HIDDEN * (4 if profile == "f32" else 2)
+    budget = BudgetPolicy(enabled=True, ledger_bytes=2 * per,
+                          spill_dir=str(spill), spill_bytes=1 << 30)
+    # the test thread holds the dispatcher so the spill files exist, and
+    # one can be corrupted, before any restore runs
+    eng = StepScheduler(backend, max_slots=GOVERN["slots"],
+                        step_block=GOVERN["step_block"],
+                        preempt=PreemptPolicy(enabled=True),
+                        budget=budget, start=False)
+    try:
+        check(eng._per_slot_state_bytes() == per, "state bytes per slot")
+        fb = [eng.submit(s, cls="bulk") for s in traffic["bulk"]]
+        with eng._cond:
+            eng._admit_locked()
+        for _ in range(2):
+            eng._dispatch_step()
+        fi = [eng.submit(s, cls="interactive") for s in traffic["inter"]]
+        eng._preempt_for_queue()
+        files = sorted(os.listdir(spill))
+        check(len(files) == GOVERN["bulk"] - 2,
+              f"{len(files)} spill files, not {GOVERN['bulk'] - 2}")
+        if corrupt:
+            raw = bytearray((spill / files[0]).read_bytes())
+            raw[-10] ^= 0xFF
+            (spill / files[0]).write_bytes(bytes(raw))
+        eng.start()
+        got, shed = [], []
+        for i, f in enumerate(fi + fb):
+            try:
+                got.append(f.result(timeout=HTTP_WAIT))
+            except ServeError as e:
+                shed.append((i, str(e)))
+                got.append(None)
+        st = eng.stats()
+    finally:
+        eng.close()
+    b = st["budget"]
+    print(f"govern {profile} budget: wall {time.perf_counter() - t0:.3f} s, "
+          f"state bytes per slot {per}, budget {json.dumps(b)}, "
+          f"preempt {json.dumps(st['preempt'])} [{CARD}]")
+    if corrupt:
+        check(len(shed) == 1 and files[0] in shed[0][1]
+              and "spill blob" in shed[0][1],
+              f"the corrupted spill file shed {shed}")
+        print(f"govern {profile} budget: corrupted {files[0]}: shed "
+              f"{shed[0][1]}")
+    else:
+        check(not shed, f"sequences shed: {shed}")
+    keep = [i for i, g in enumerate(got) if g is not None]
+    governance_replies("budget", [got[i] for i in keep],
+                       [traffic["ref"][i] for i in keep],
+                       direct_of([traffic["seqs"][i] for i in keep]),
+                       profile)
+    check(b["spills"] >= 1 and b["spill_restored"] >= 1, "no spill tier")
+    # restores admitted together read their spilled rows back before any
+    # scatter frees RAM, so the RAM tier's peak may pass its budget by
+    # those reads, in the JAX package as here: printed, not held
+    print(f"govern {profile} budget: RAM tier peak {b['peak']['ram']} "
+          f"bytes against its {2 * per}-byte budget")
+    check(b["bytes"]["ram"] == b["bytes"]["disk"] == 0, "tiers not drained")
+    check(not os.listdir(spill), "a spill file survived")
+    shutil.rmtree(spill, ignore_errors=True)
+
+
+def governance_paging(backend, profile: str, direct_of, tmp: Path) -> None:
+    """The paged mix, 32 sequences live on 2 pages of 4 rows with a RAM
+    ledger of four rows' bytes and a spill directory, against the dense
+    pool on the same traffic: bit-equal, peak_live >= 4x the rows, every
+    row back on the freelist, RAM and disk drained."""
+    import tempfile
+
+    seqs = governance_traffic(0, GOVERN["live"], mix=True)
+    spill = tempfile.mkdtemp(prefix="pages-", dir=str(tmp))
+    per = 2 * LAYERS * HIDDEN * (4 if profile == "f32" else 2)
+    runs = {}
+    for name, extra in (
+            ("dense", ()),
+            ("paged", ("serve.paging.enabled=true",
+                       f"serve.paging.pages={GOVERN['pages']}",
+                       f"serve.paging.page_slots={GOVERN['page_slots']}",
+                       f"serve.paging.max_live={GOVERN['live']}",
+                       "serve.budget.enabled=true",
+                       f"serve.budget.ledger_bytes={4 * per}",
+                       f"serve.budget.spill_dir={spill}"))):
+        t0 = time.perf_counter()
+        with governance_engine(backend, *extra) as eng:
+            got = governance_served(eng, seqs)
+            st = eng.stats()
+        runs[name] = (got, st)
+        print(f"govern {profile} {name}: wall "
+              f"{time.perf_counter() - t0:.3f} s, p50_step_ms "
+              f"{st['p50_step_ms']}, steps {st['steps']}, paging "
+              f"{json.dumps(st['paging'])}, budget spills "
+              f"{st['budget']['spills']} [{CARD}]")
+    pg, b = runs["paged"][1]["paging"], runs["paged"][1]["budget"]
+    check(pg["peak_live"] >= 4 * pg["rows"], "the live set never reached "
+          "4x the rows")
+    check(pg["free_rows"] == pg["rows"] and pg["live"] == 0, "rows leaked")
+    check(pg["demoted"] > 0 and pg["promoted"] > 0 and pg["shed"] == 0,
+          "no demote/promote round trip")
+    check(b["bytes"]["ram"] == b["bytes"]["disk"] == 0, "tiers not drained")
+    check(not os.listdir(spill), "a spill file survived")
+    shutil.rmtree(spill, ignore_errors=True)
+    governance_replies("paged", runs["paged"][0], runs["dense"][0],
+                       direct_of(seqs), profile)
+
+
+def governance_elastic(backend, profile: str, direct_of) -> None:
+    """A 2 -> 32 pool: a flood grows it and drains, bit-equal to a fixed
+    32-slot pool; then an explicit shrink under 4 mid-flight bulk
+    sequences evicts and restores them, bit-equal too."""
+    lo, hi = GOVERN["elastic"]
+    flood = governance_traffic(31, GOVERN["flood"], mix=True)
+    bulk = governance_traffic(32, GOVERN["shrink_bulk"],
+                              steps=(GOVERN["bulk_steps"],
+                                     GOVERN["bulk_steps"] + 1))
+    t0 = time.perf_counter()
+    with governance_engine(backend, f"serve.max_slots={hi}") as eng:
+        fixed = governance_served(eng, flood + bulk)
+    elastic = (f"serve.max_slots={hi}", "serve.preempt.elastic=true",
+               f"serve.preempt.min_slots={lo}")
+    with governance_engine(backend, *elastic, "serve.preempt.grow_load=0.9",
+                           "serve.preempt.resize_hysteresis=1") as eng:
+        check(eng.pool_slots == lo, "the elastic pool did not start small")
+        futures = [eng.submit(s) for s in flood]
+        peak = [lo]
+        while not all(f.done() for f in futures):
+            peak.append(eng.pool_slots)
+            time.sleep(0.001)
+        got = [f.result(timeout=HTTP_WAIT) for f in futures]
+        st = eng.stats()
+    print(f"govern {profile} elastic flood: wall "
+          f"{time.perf_counter() - t0:.3f} s, pool peak {max(peak)}, "
+          f"p50_step_ms {st['p50_step_ms']}, preempt "
+          f"{json.dumps(st['preempt'])} [{CARD}]")
+    check(st["preempt"]["resizes"] >= 2 and max(peak) > lo,
+          "the flood never grew the pool")
+    governance_replies("elastic flood", got, fixed[:len(flood)],
+                       direct_of(flood), profile)
+    t0 = time.perf_counter()
+    with governance_engine(backend, *elastic, "serve.preempt.grow_load=99",
+                           "serve.preempt.shrink_load=-1",
+                           "serve.preempt.resize_hysteresis=1") as eng:
+        eng.request_resize(hi)
+        wait_until("grow", lambda: eng.pool_slots == hi)
+        fb = [eng.submit(s, cls="bulk") for s in bulk]
+        wait_until("bulk mid-flight", lambda: eng.stats()["active"]
+                   == len(bulk) and eng.stats()["steps"] >= 2)
+        eng.request_resize(lo)
+        got = [f.result(timeout=HTTP_WAIT) for f in fb]
+        st = eng.stats()
+    print(f"govern {profile} elastic shrink: wall "
+          f"{time.perf_counter() - t0:.3f} s, preempt "
+          f"{json.dumps(st['preempt'])}, pool bytes "
+          f"{st['budget']['bytes']['pool']} [{CARD}]")
+    check(st["preempt"]["preempted"] >= 1
+          and st["preempt"]["restored"] == st["preempt"]["preempted"],
+          "the shrink did not evict and restore")
+    governance_replies("elastic shrink", got, fixed[len(flood):],
+                       direct_of(bulk), profile)
+
+
+def governance_migrate(backend, profile: str, direct_of) -> None:
+    """Export mid-flight from one scheduler, import into another, in
+    process: the reply bit-equal to the unmigrated one."""
+    from euromillioner_tpu_torch.serve.continuous import unpack_migration
+
+    x = governance_traffic(41, 1, steps=(GOVERN["migrate_steps"],
+                                         GOVERN["migrate_steps"] + 1))[0]
+    t0 = time.perf_counter()
+    with governance_engine(backend) as eng:
+        ref = eng.predict(x)
+    with governance_engine(backend) as src, governance_engine(backend) as dst:
+        fut = src.submit(x, cls="bulk", tag="migrate-0")
+        wait_until("mid-flight", lambda: src.stats()["steps"] >= 2)
+        blob = src.export_sequence("migrate-0")
+        check(blob is not None, "nothing exported")
+        header, _x, state = unpack_migration(blob)
+        check(header["pos"] > 0 and state is not None, "not mid-flight")
+        check(fut.exception(timeout=HTTP_WAIT) is not None,
+              "the source still served the exported sequence")
+        got = dst.import_sequence(blob).result(timeout=HTTP_WAIT)
+        loads = src.load_desc, dst.load_desc
+    print(f"govern {profile} migrate: wall {time.perf_counter() - t0:.3f} s,"
+          f" blob {len(blob)} bytes at pos {header['pos']} of "
+          f"{header['steps']}, pool_dtype {header['pool_dtype']}; "
+          f"migrations {loads[0]['migrations']} out, "
+          f"{loads[1]['migrations']} in [{CARD}]")
+    governance_replies("migrate", [got], [ref], direct_of([x]), profile)
+
+
+def governance_http_migrate(root: Path, ckdir: Path, backend,
+                            direct_of) -> dict:
+    """The same move through two ``serve --scheduler continuous``
+    children: ``/predict`` with a tag on one, ``/admin/export`` of that
+    tag mid-flight, ``/admin/migrate`` of the blob on the other; the
+    first reply is the 400 naming the move, the second bit-equal to the
+    unmigrated run. Returns the children's kernel launches."""
+    import base64
+    import signal
+
+    import numpy as np
+
+    from euromillioner_tpu_torch.serve.continuous import unpack_migration
+
+    x = governance_traffic(42, 1, steps=(GOVERN["http_migrate_steps"],
+                                         GOVERN["http_migrate_steps"] + 1))[0]
+    t0 = time.perf_counter()
+    with governance_engine(backend) as eng:
+        ref = eng.predict(x)
+    procs, urls, logs = [], [], []
+    try:
+        for name in ("source", "destination"):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            log = root / "build" / "chip_smoke" / f"migrate_{name}.log"
+            logs.append(log)
+            urls.append(f"http://127.0.0.1:{port}")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "euromillioner_tpu_torch", "serve",
+                 "--model-type", "lstm", "--checkpoint", str(ckdir),
+                 "--scheduler", "continuous", f"serve.port={port}",
+                 f"serve.max_slots={GOVERN['slots']}",
+                 f"serve.step_block={GOVERN['step_block']}",
+                 "model.compute_dtype=float32"],
+                cwd=root, stdout=open(log, "w"), stderr=subprocess.STDOUT))
+        for proc, url, log in zip(procs, urls, logs):
+            def up(url=url):
+                try:
+                    return http_call(url, "/healthz")[0] == 200
+                except OSError:
+                    check(proc.poll() is None, f"serve died: "
+                          f"{log.read_text()[-2000:]}")
+                    return False
+            wait_until("a migration child's /healthz", up)
+        src, dst = urls
+        with ThreadPoolExecutor(1) as pool:
+            first = pool.submit(http_call, src, "/predict", {
+                "rows": x.tolist(), "class": "bulk", "tag": "http-0"})
+            wait_until("mid-flight", lambda: http_call(
+                src, "/stats")[1]["steps"] >= 2)
+            status, body = http_call(src, "/admin/export",
+                                     {"target": "http-0"})
+            check(status == 200 and body["blob"], f"/admin/export {status}")
+            blob = base64.b64decode(body["blob"])
+            header = unpack_migration(blob)[0]
+            check(header["pos"] > 0, "the HTTP export was not mid-flight")
+            status, moved = http_call(dst, "/admin/migrate",
+                                      {"blob": body["blob"]})
+            check(status == 200 and moved["migrated"],
+                  f"/admin/migrate {status}: {moved}")
+            f_status, f_body = first.result(timeout=HTTP_WAIT)
+        check(f_status == 400 and "migrated off" in f_body["error"],
+              f"the source's /predict answered {f_status} {f_body}")
+        for proc in procs:
+            proc.send_signal(signal.SIGTERM)
+        rcs = [proc.wait(timeout=HTTP_WAIT) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=HTTP_WAIT)
+    check(rcs == [0, 0], f"migration children exited {rcs}")
+    launches = {}
+    for log in logs:
+        line = next(ln for ln in log.read_text().splitlines()
+                    if "kernel launches: " in ln)
+        for k, v in json.loads(line.split("kernel launches: ", 1)[1]).items():
+            launches[k] = launches.get(k, 0) + v
+    got = np.asarray(moved["predictions"], np.float32)
+    print(f"govern f32 http migrate: wall {time.perf_counter() - t0:.3f} s, "
+          f"{GOVERN['http_migrate_steps']} steps, exported at pos "
+          f"{header['pos']}, blob {len(blob)} bytes; children's kernel "
+          f"launches {json.dumps(launches)} [{CARD}]")
+    governance_replies("http migrate", [got], [ref], direct_of([x]), "f32")
+    return launches
+
+
+def phase_governance(root: Path, ckdir: Path) -> None:
+    """Phase 7e: the trained flagship behind make_sequence_engine with
+    preemption, the budget and its spill tier, paging, the elastic pool
+    and migration, in an f32 and a bf16 pool; every reply bit-equal to
+    the same sequence served uninterrupted at the same block rows and
+    within tolerance of a direct apply; no kernel launched (the step
+    scheduler scans)."""
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.serve.continuous import load_recurrent_backend
+
+    t_phase = time.perf_counter()
+    tmp = root / "build" / "chip_smoke"
+    tmp.mkdir(parents=True, exist_ok=True)
+    reset_lstm_counts()
+    for profile in ("f32", "bf16"):
+        cfg = apply_overrides(Config(), ["model.compute_dtype=float32",
+                                         f"serve.precision={profile}"])
+        backend = load_recurrent_backend(cfg, str(ckdir))
+        model = backend.model
+        direct_of = lambda seqs: direct_apply(model, seqs)  # noqa: E731
+        governance_rows(backend, profile)
+        traffic = governance_preempt(backend, profile, direct_of)
+        governance_budget(backend, profile, traffic, direct_of,
+                          corrupt=profile == "f32", tmp=tmp)
+        governance_paging(backend, profile, direct_of, tmp)
+        governance_elastic(backend, profile, direct_of)
+        governance_migrate(backend, profile, direct_of)
+        if profile == "f32":
+            launches = governance_http_migrate(root, ckdir, backend,
+                                               direct_of)
+    counts = lstm_counts()
+    print(f"govern: kernel launches in process {json.dumps(counts)}; wall "
+          f"{time.perf_counter() - t_phase:.3f} s [{CARD}]")
+    check(not any(counts.values()) and not any(launches.values()),
+          "a governance part launched a kernel (its blocks scan)")
 
 
 # -- the GBT path (K3) ----------------------------------------------------------
@@ -4701,6 +5193,7 @@ def main() -> int:
         train_k1, train_k2, ckdir = phase_train(root)
         phase_step(root)
         trained_k1 = phase_serve_trained(ckdir)
+        phase_governance(root, ckdir)
         bf16_train, bf16_ckdir = phase_train_bf16(root)
         bf16_serve_k1 = phase_serve_bf16_trained(bf16_ckdir)
         bench = phase_lstm_bench(k1b, k2b)

@@ -438,11 +438,17 @@ def _log_banner(backend, engine, cfg: Config) -> None:
                     "inflight=%d)", backend.name, where, list(s.buckets),
                     s.max_wait_ms, s.inflight)
     elif s.scheduler == "continuous":
+        pc = s.preempt
         logger.info("serving %s on %s (scheduler=continuous, max_slots=%d, "
                     "step_blocks=%s, classes=%s, inflight=%d, "
-                    "precision=%s)", backend.name, where, s.max_slots,
+                    "precision=%s, preempt=%s, elastic=%s, paging=%s, "
+                    "budget=%s)", backend.name, where, s.max_slots,
                     list(engine.step_blocks), list(s.classes), s.inflight,
-                    backend.precision)
+                    backend.precision, "on" if pc.enabled else "off",
+                    f"on[{engine.pool_slots}..{s.max_slots}]"
+                    if pc.elastic else "off",
+                    "on" if s.paging.enabled else "off",
+                    "on" if s.budget.enabled else "off")
     else:
         logger.info("serving %s on %s (scheduler=batch, row_buckets=%s, "
                     "time_buckets=%s, max_wait=%.1fms, inflight=%d)",

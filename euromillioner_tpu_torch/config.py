@@ -159,6 +159,74 @@ class TreesServeConfig:
 
 
 @dataclass
+class BudgetConfig:
+    """Byte-accounted memory governance of the serving stack
+    (``serve.budget.*``; serve/session.py ``MemoryLedger`` and the step
+    scheduler's budget governor). Disabled (the default), bytes are
+    tracked in ``stats()["budget"]`` and nothing is enforced."""
+
+    # Enforce the budgets below. As one is approached the governor
+    # degrades loudest-first: (1) stop preempting when the ledger's RAM
+    # and disk tiers cannot hold another victim; (2) a parked sequence
+    # whose restore needs RAM the ledger cannot free stays parked
+    # (counted as deferred); (3) a submit past queue_bytes is shed with a
+    # ServeError naming the budget.
+    enabled: bool = False
+    # Host-RAM bound of parked eviction state; colder blobs spill LRU to
+    # spill_dir as crc32-checked EMT1 files and restore bit-exactly.
+    ledger_bytes: int = 32 * 2**20
+    # The spill tier's directory; "" keeps parked state in RAM only.
+    spill_dir: str = ""
+    # Bound on spilled bytes on disk.
+    spill_bytes: int = 256 * 2**20
+    # Bound on queued request payload bytes; 0 = unbounded.
+    queue_bytes: int = 0
+
+
+@dataclass
+class PreemptConfig:
+    """Slot preemption and the elastic pool of the step scheduler
+    (``serve.preempt.*``). All off by default."""
+
+    # Evict the least urgent slot-holder (its per-layer (h, c) rows, in
+    # the pool's own dtype) when the admission heap holds a strictly more
+    # urgent class; the victim restores when pressure clears and finishes
+    # bit-equal to a never-preempted run.
+    enabled: bool = False
+    # Bound on parked victims; a full ledger stops preemption. A parked
+    # sequence whose deadline passes is failed loudly (a shed).
+    max_evicted: int = 64
+    # Grow and shrink the live pool by load between min_slots and
+    # serve.max_slots; a shrink evicts the occupied high slots.
+    elastic: bool = False
+    # Elastic floor (>= 2).
+    min_slots: int = 2
+    # Grow at (active + queued) / pool >= grow_load, shrink at <=
+    # shrink_load, after resize_hysteresis block boundaries in a row.
+    grow_load: float = 1.0
+    shrink_load: float = 0.25
+    resize_hysteresis: int = 8
+
+
+@dataclass
+class PagingConfig:
+    """Paged slot state of the step scheduler (``serve.paging.*``): the
+    per-layer (h, c) state lives in a page store of pages * page_slots
+    rows, the live set may oversubscribe the rows up to max_live, and
+    cold sequences demote to the ledger's RAM/disk tiers. Off by
+    default."""
+
+    enabled: bool = False
+    # Rows per page (a live sequence holds one row).
+    page_slots: int = 4
+    # Device pages; 0 = ceil(max_slots / page_slots), the dense pool's
+    # footprint.
+    pages: int = 0
+    # Live (admitted, unfinished) sequences; 0 = 4 x the device rows.
+    max_live: int = 0
+
+
+@dataclass
 class ServeConfig:
     """Serving: the HTTP front end (serve/transport.py), the sequence
     schedulers (serve/continuous.py) and the row engine
@@ -219,6 +287,12 @@ class ServeConfig:
     warmup: bool = True
     # Tree-ensemble serving (serve.trees.chunk=...).
     trees: TreesServeConfig = field(default_factory=TreesServeConfig)
+    # Step scheduler: preemption and the elastic pool (serve.preempt.*).
+    preempt: PreemptConfig = field(default_factory=PreemptConfig)
+    # Memory budgets and the spill tier (serve.budget.*).
+    budget: BudgetConfig = field(default_factory=BudgetConfig)
+    # Step scheduler: paged slot state (serve.paging.*).
+    paging: PagingConfig = field(default_factory=PagingConfig)
 
 
 @dataclass

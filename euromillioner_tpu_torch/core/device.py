@@ -31,12 +31,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device`` without a host sync: on CUDA through a
-    pinned copy and a non-blocking transfer on the current stream (the
-    pinned block is not reused before the copy ends); on the CPU the
-    array's own memory."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
+def upload(x: np.ndarray | torch.Tensor, device: torch.device
+           ) -> torch.Tensor:
+    """A host array or CPU tensor on ``device`` without a host sync: on
+    CUDA through a pinned copy and a non-blocking transfer on the current
+    stream (the pinned block is not reused before the copy ends); on the
+    CPU the host memory itself."""
+    t = (x.contiguous() if isinstance(x, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(x)))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t

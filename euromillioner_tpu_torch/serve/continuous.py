@@ -47,9 +47,41 @@ them to float32 at each call. Each but ``f32`` serves behind its pinned
 envelope of the oracle, with its drift sampled. ``profiles=`` serves extra
 profiles beside the default, each on a child scheduler of its own.
 
-Not ported yet (ROADMAP queue 1): preemption and spill, paging, elastic
-resize, live migration, budget enforcement, the serving mesh, the AOT
-store, telemetry and traces, and fault points; where the JAX package's
+The step scheduler's governance, each part off by default:
+
+* **Preemption** (``serve.preempt``): at a block boundary, when the
+  admission heap holds a strictly more urgent class than a slot-holder,
+  the least urgent holder's per-layer (h, c) rows are gathered to the
+  host in the pool's own dtype (one read, which returns once the copy is
+  done), parked in a bounded ledger, and the victim re-enters the heap
+  under its original ordering; its restore is uploaded ahead of the block
+  (pinned, non-blocking) and scattered back, so it finishes bit-equal to a
+  never-preempted run. A parked sequence whose deadline passes is shed
+  loudly (on a block boundary, a submit, ``stats()`` or ``close``).
+* **The elastic pool** (``serve.preempt.elastic``): the live pool grows
+  and shrinks between ``min_slots`` and ``max_slots`` by load; a shrink
+  evicts the occupied high slots. The block program runs at ``max_slots``
+  rows whatever the live size (the lanes past it idle, their carry
+  reset): on the card a product rounds otherwise at another row count.
+* **The budget** (``serve.budget``, serve/session.py ``MemoryLedger``):
+  every class of serving bytes is tracked; enabled, parked state beyond
+  ``ledger_bytes`` spills LRU to crc32-checked EMT1 files in the pool's
+  own dtype, and the governor degrades loudest-first — no preemption the
+  ledger cannot hold, a restore the RAM tier cannot take stays parked,
+  a submit past ``queue_bytes`` is shed naming the budget. A corrupt
+  spill file sheds its own sequence only.
+* **Paging** (``serve.paging``): the state lives in a page store; the live
+  set may oversubscribe its rows, each block gathers its scheduled rows
+  into a dense ``pool_slots`` block and scatters them back, and cold
+  sequences demote to the ledger and promote on their next block.
+* **Live migration**: :meth:`StepScheduler.export_sequence` packs a live
+  sequence (the JAX package's EMT1 migration container,
+  :func:`unpack_migration`) and :meth:`StepScheduler.import_sequence`
+  admits one from either package, judged by the params' fingerprint
+  (serve/aotstore.py) and the pool's layout.
+
+Not ported yet (ROADMAP queue 1): the serving mesh, the AOT store,
+telemetry and traces, and fault points; where the JAX package's
 ``serve.quant`` fault point falls back to f32 when a cast or quantization
 fails, this port raises.
 """
@@ -59,10 +91,13 @@ from __future__ import annotations
 import collections
 import copy
 import heapq
+import itertools
 import math
+import os
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import CancelledError, Future
+from concurrent.futures import TimeoutError as FutureTimeoutError
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -84,11 +119,17 @@ from euromillioner_tpu_torch.serve.batcher import (LATENCY_WINDOW,
                                                    percentile, pick_bucket,
                                                    resolve_future,
                                                    validate_buckets)
+from euromillioner_tpu_torch.serve.aotstore import params_fingerprint
 from euromillioner_tpu_torch.serve.engine import (DRIFT_EVERY, ClassStats,
-                                                  DriftStats,
+                                                  DriftStats, param_bytes,
                                                   resolve_classes,
                                                   resolve_request_class)
-from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
+from euromillioner_tpu_torch.serve.session import (BudgetPolicy,
+                                                   MemoryLedger,
+                                                   admit_queue_bytes)
+from euromillioner_tpu_torch.utils import serialization
+from euromillioner_tpu_torch.utils.errors import (CheckpointError,
+                                                  ConfigError, ServeError)
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
 logger = get_logger("serve.continuous")
@@ -308,12 +349,213 @@ def _profiles(engine) -> dict:
             **{p: c._profile_row() for p, c in engine._children.items()}}
 
 
+# Migration wire format: one EMT1 container (utils/serialization.py, crc32
+# per entry) holding a "migrate" header (json_entry: model fingerprint,
+# profile, pool dtype, per-layer row shapes, steps consumed, class,
+# deadline, arrival), the input "x", and for a mid-sequence export the
+# per-layer state rows "{i}.h" / "{i}.c" in the pool's own dtype — the JAX
+# package's layout byte for byte (tests/golden/migrate_blob_v1.emt1 pins
+# version 1), so a blob crosses between the two packages both ways.
+MIGRATE_VERSION = 1
+
+_MIGRATE_HEADER_FIELDS = ("migrate_version", "model", "family",
+                          "profile", "pool_dtype", "layers", "feat_dim",
+                          "steps", "pos", "cls", "priority", "arrival")
+
+# per-scheduler token: spill files of two schedulers never share a name
+_SCHEDULER_TOKENS = itertools.count()
+
+
+def unpack_migration(blob: bytes) -> tuple[dict, np.ndarray, list | None]:
+    """One migration blob → ``(header, x, state)``: ``x`` the (steps, F)
+    float32 input, ``state`` the per-layer ``(h, c)`` rows as CPU tensors
+    in their own dtype, or None for a never-dispatched sequence (``pos ==
+    0``). The container, the header's presence and fields and the version
+    are checked here (a newer ``migrate_version`` is refused with the
+    supported range); whether the blob fits a pool is the importing
+    scheduler's to judge."""
+    try:
+        arrays = serialization.loads(bytes(blob))
+    except Exception as e:  # noqa: BLE001 — name the corruption
+        raise ServeError(f"migration blob rejected: {e}") from e
+    if "migrate" not in arrays:
+        raise ServeError("migration blob rejected: no 'migrate' header "
+                         "entry (not a migration container)")
+    try:
+        header = serialization.json_value(arrays["migrate"])
+    except Exception as e:  # noqa: BLE001
+        raise ServeError(
+            f"migration blob rejected: malformed header ({e})") from e
+    if not isinstance(header, dict):
+        raise ServeError("migration blob rejected: header is not an "
+                         "object")
+    ver = header.get("migrate_version")
+    if not isinstance(ver, int) or not 1 <= ver <= MIGRATE_VERSION:
+        raise ServeError(
+            f"migration blob rejected: migrate_version {ver!r} outside "
+            f"the supported range [1, {MIGRATE_VERSION}]")
+    for key in _MIGRATE_HEADER_FIELDS:
+        if key not in header:
+            raise ServeError(
+                f"migration blob rejected: header field {key!r} missing")
+    if "x" not in arrays:
+        raise ServeError("migration blob rejected: no 'x' input entry")
+    x = arrays["x"].numpy()
+    pos, steps = int(header["pos"]), int(header["steps"])
+    if not 0 <= pos < steps:
+        raise ServeError(
+            f"migration blob rejected: header field 'pos' ({pos}) "
+            f"outside [0, steps={steps})")
+    state = None
+    if pos > 0:
+        state = []
+        for i in range(len(header["layers"])):
+            if f"{i}.h" not in arrays or f"{i}.c" not in arrays:
+                raise ServeError(
+                    f"migration blob rejected: state entry for layer "
+                    f"{i} missing (header names "
+                    f"{len(header['layers'])} layers)")
+            state.append((arrays[f"{i}.h"], arrays[f"{i}.c"]))
+    return header, x, state
+
+
+@dataclass(frozen=True)
+class PreemptPolicy:
+    """``serve.preempt``: slot preemption and the elastic pool of
+    :class:`StepScheduler` (the module docstring). The default (all off)
+    leaves the scheduler as it is without it."""
+
+    enabled: bool = False
+    max_evicted: int = 64
+    elastic: bool = False
+    min_slots: int = 2
+    grow_load: float = 1.0
+    shrink_load: float = 0.25
+    resize_hysteresis: int = 8
+
+    def validate(self) -> None:
+        if self.max_evicted < 1:
+            raise ServeError(f"serve.preempt.max_evicted must be >= 1, "
+                             f"got {self.max_evicted}")
+        if self.min_slots < 2:
+            raise ServeError(f"serve.preempt.min_slots must be >= 2 "
+                             f"(bit-parity needs M >= 2 rows), got "
+                             f"{self.min_slots}")
+        if self.resize_hysteresis < 1:
+            raise ServeError("serve.preempt.resize_hysteresis must be "
+                             f">= 1, got {self.resize_hysteresis}")
+        if self.shrink_load >= self.grow_load:
+            raise ServeError(
+                f"serve.preempt.shrink_load ({self.shrink_load}) must be "
+                f"< grow_load ({self.grow_load}) or the pool oscillates")
+
+    @classmethod
+    def from_config(cls, pc) -> "PreemptPolicy":
+        """``cfg.serve.preempt`` → a policy, validated when on."""
+        pol = cls(enabled=pc.enabled, max_evicted=pc.max_evicted,
+                  elastic=pc.elastic, min_slots=pc.min_slots,
+                  grow_load=pc.grow_load, shrink_load=pc.shrink_load,
+                  resize_hysteresis=pc.resize_hysteresis)
+        if pol.enabled or pol.elastic:
+            pol.validate()
+        return pol
+
+
+@dataclass(frozen=True)
+class PagingPolicy:
+    """``serve.paging``: the pool's (h, c) state lives in a page store of
+    ``pages * page_slots`` rows; each live sequence holds one row, the
+    live set may oversubscribe the rows up to ``max_live``, and each
+    dispatch gathers its scheduled rows into a dense ``pool_slots`` block,
+    runs the same block program and scatters the rows back. Cold
+    sequences (least recently dispatched) demote to the ledger's RAM and
+    disk tiers in their own dtype and promote on their next block."""
+
+    enabled: bool = False
+    page_slots: int = 4
+    pages: int = 0      # 0 → ceil(max_slots / page_slots)
+    max_live: int = 0   # 0 → 4 × device rows
+
+    def validate(self) -> None:
+        if self.page_slots < 1:
+            raise ServeError(f"serve.paging.page_slots must be >= 1, "
+                             f"got {self.page_slots}")
+        if self.pages < 0:
+            raise ServeError(f"serve.paging.pages must be >= 0, "
+                             f"got {self.pages}")
+        if self.max_live < 0:
+            raise ServeError(f"serve.paging.max_live must be >= 0, "
+                             f"got {self.max_live}")
+
+    def geometry(self, max_slots: int) -> tuple[int, int, int]:
+        """``(pages, rows, max_live)`` for a pool of ``max_slots`` lanes:
+        0 pages is the dense pool's footprint, 0 max_live 4x the rows."""
+        pages = self.pages or -(-max_slots // self.page_slots)
+        rows = pages * self.page_slots
+        return pages, rows, (self.max_live or 4 * rows)
+
+    @classmethod
+    def from_config(cls, pc) -> "PagingPolicy":
+        """``cfg.serve.paging`` → a policy, validated when on."""
+        if pc is None:
+            return cls()
+        pol = cls(enabled=pc.enabled, page_slots=pc.page_slots,
+                  pages=pc.pages, max_live=pc.max_live)
+        if pol.enabled:
+            pol.validate()
+        return pol
+
+
+@dataclass(frozen=True)
+class _Spilled:
+    """A parked state on the disk tier: a crc32-checked EMT1 file of the
+    per-layer (h, c) rows in their own dtype. ``nbytes`` is the file's
+    size, ``ram_bytes`` what the rows take once read back."""
+
+    path: str
+    nbytes: int
+    ram_bytes: int
+
+
+def _dtype_name(t) -> str:
+    """numpy's name of a tensor's or an array's dtype ("bfloat16" too)."""
+    if isinstance(t, torch.Tensor):
+        return str(t.dtype).removeprefix("torch.")
+    return np.dtype(t.dtype).name
+
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+
+
+def _state_nbytes(state: list) -> int:
+    return sum(h.numel() * h.element_size() + c.numel() * c.element_size()
+               for h, c in state)
+
+
+def _remove(path: str) -> None:
+    try:
+        os.remove(path)
+    except OSError:
+        pass
+
+
 @dataclass
 class SeqRequest:
     """One queued sequence: ``x`` is (T, F) float32. Admission orders by
-    (``priority``, ``deadline``, arrival ``seq``); ``deadline`` (absolute
-    monotonic, ``inf`` = none) from ``max_wait_s`` also bounds how long
-    the finished output may wait in the readback staging buffer."""
+    (``priority``, ``deadline``, ``arrival``, ``seq``); ``deadline``
+    (absolute monotonic, ``inf`` = none) from ``max_wait_s`` also bounds
+    how long the finished output may wait in the readback staging buffer.
+
+    ``seq`` is the local key (ledger, spill file names); ``arrival`` the
+    ordering ordinal — equal to ``seq`` for a local submit, the original
+    one for a migrated-in sequence. ``pos`` and ``evicted_state`` are a
+    parked sequence's resume point: steps consumed and its per-layer
+    (h, c) rows on the host in the pool's dtype (a :class:`_Spilled`
+    once on disk; None for a never-dispatched one). ``tag`` is a
+    client's export handle; ``row`` and ``last_block`` the page-store row
+    and the last dispatch ordinal of a paged sequence."""
 
     x: np.ndarray
     cls: str = "interactive"
@@ -322,10 +564,28 @@ class SeqRequest:
     future: Future = field(default_factory=Future)
     t_submit: float = field(default_factory=time.monotonic)
     seq: int = 0
+    arrival: int = 0
+    pos: int = 0
+    evicted_state: list | _Spilled | None = None
+    t_evicted: float = 0.0
+    state_bytes: int = 0  # RAM bytes the parked rows take or need
+    # the queue-class bytes were released while the heap entry still
+    # stood (a sweep or shed resolved it): the pop must not release twice
+    queue_released: bool = False
+    tag: str | None = None
+    row: int | None = None
+    last_block: int = -1
 
     @property
     def steps(self) -> int:
         return len(self.x)
+
+
+# the step scheduler's governance counters (stats() and load_desc)
+_COUNTERS = ("preempted", "restored", "preempt_shed", "resizes", "spills",
+             "spill_restored", "budget_deferred", "budget_shed",
+             "page_demoted", "page_promoted", "page_shed", "mig_in",
+             "mig_out")
 
 
 class StepScheduler:
@@ -343,7 +603,12 @@ class StepScheduler:
     ``readback_interval_ms`` coalesces finishers' reads (0: every step).
     ``profiles`` adds a child scheduler per extra profile, with its own
     pool in that profile's dtype. Pool sizes are >= 2, as in the JAX
-    package's bit rule for its programs."""
+    package's bit rule for its programs.
+
+    ``preempt``, ``budget`` and ``paging`` are the governance policies
+    (:class:`PreemptPolicy`, ``serve.session.BudgetPolicy``,
+    :class:`PagingPolicy`; all off by default); the children serve
+    without them."""
 
     kind = "sequence"  # transport: a request is one ordered sequence
 
@@ -353,7 +618,10 @@ class StepScheduler:
                  inflight: int = 2, warmup: bool = True, start: bool = True,
                  classes: Sequence[str] = ("interactive", "bulk"),
                  readback_interval_ms: float = 0.0, hysteresis: int = 3,
-                 profiles: Sequence[str] = ()):
+                 profiles: Sequence[str] = (),
+                 preempt: PreemptPolicy | None = None,
+                 budget: BudgetPolicy | None = None,
+                 paging: PagingPolicy | None = None):
         if max_slots < 2:
             raise ServeError(f"max_slots must be >= 2, got {max_slots}")
         extra = _extra_profiles(backend, profiles)
@@ -379,18 +647,92 @@ class StepScheduler:
         self._block_idx = 0      # current rung (dispatcher-only)
         self._block_want = 0     # rung the previous dispatch wanted
         self._block_streak = 0   # consecutive dispatches wanting it
+        # preemption and the elastic pool (serve.preempt)
+        self._preempt = preempt or PreemptPolicy()
+        if self._preempt.enabled or self._preempt.elastic:
+            self._preempt.validate()
+        self._min_slots = self._preempt.min_slots
+        if self._preempt.elastic and self._min_slots > max_slots:
+            raise ServeError(
+                f"serve.preempt.min_slots ({self._min_slots}) exceeds "
+                f"serve.max_slots ({max_slots})")
+        # the live pool: an elastic one starts at its floor
+        self.pool_slots = (self._min_slots if self._preempt.elastic
+                           else max_slots)
+        self._resize_want = 0    # +1 grow / -1 shrink (dispatcher-only)
+        self._resize_streak = 0
+        self._resize_request = 0  # request_resize's target
+        # paged slot state (serve.paging)
+        self._paging = paging or PagingPolicy()
+        self._page_rows = self.pool_slots
+        self._pages = self._max_live = 0
+        if self._paging.enabled:
+            self._paging.validate()
+            if self._preempt.elastic:
+                raise ServeError(
+                    "serve.paging needs a fixed page store; "
+                    "serve.preempt.elastic resizes the dense pool — "
+                    "enable one or the other")
+            self._pages, self._page_rows, self._max_live = \
+                self._paging.geometry(max_slots)
+            if self._page_rows < 2:
+                raise ServeError(
+                    f"serve.paging needs >= 2 device rows (bit-parity "
+                    f"needs M >= 2 dispatch lanes), got "
+                    f"{self._pages} pages x {self._paging.page_slots}")
+            self.pool_slots = min(max_slots, self._page_rows)
+        # the block program's row count. On the card (and on the CPU at
+        # narrow widths) a product rounds differently at another row
+        # count, so an elastic pool steps at max_slots rows whatever its
+        # live size: lanes past pool_slots idle with their carry reset,
+        # and a sequence that crosses a resize stays bit-equal
+        self._block_rows = (max_slots if self._preempt.elastic
+                            else self.pool_slots)
+        self._live: dict[int, SeqRequest] = {}  # paged: seq → request
+        self._row_free: list[int] = (list(range(self._page_rows))
+                                     if self._paging.enabled else [])
+        self._pg_dispatch = 0   # the paged LRU clock: dispatch ordinal
+        self._pg_peak_live = 0
+        # byte accounting (serve.budget): tracked always, enforced only
+        # under an enabled policy
+        self._budget = budget or BudgetPolicy()
+        if self._budget.enabled:
+            self._budget.validate()
+        self._mem = MemoryLedger(
+            {"ram": self._budget.ledger_bytes,
+             "disk": self._budget.spill_bytes
+                     if self._budget.spill_dir else 0,
+             "queue": self._budget.queue_bytes}
+            if self._budget.enabled else None)
+        self._defer_logged_seq = -1  # the last deferral warned about
+        self._deferred_head = None   # the head _admit_locked held back
+        self._token = next(_SCHEDULER_TOKENS)
+        # the eviction ledger: seq → parked request; mutated under
+        # self._cond (the deadline sweep also runs on submit/stats/close)
+        self._evicted: dict[int, SeqRequest] = {}
+        # exports filed by any thread, packed at the next block boundary
+        self._export_q: list[tuple[object, str, Future]] = []
+        # migration identity: the structure of the checkpoint's params
+        self._model_fingerprint = params_fingerprint(
+            backend.model.state_dict())
+        # restores admitted but not applied (slot → request), and their
+        # uploads staged ahead of the block
+        self._pending_restore: dict[int, SeqRequest] = {}
+        self._restore_staged: set[int] = set()
+        self._restore_buf = DoubleBuffer(depth=inflight)
+        self._restore_async = True  # tests pin staged == synchronous
         self._buffer = DoubleBuffer(depth=inflight)
         self._cond = threading.Condition()
-        # admission heap: (priority, deadline, arrival, request)
-        self._q: list[tuple[int, float, int, SeqRequest]] = []
+        # admission heap: (priority, deadline, arrival, seq, request)
+        self._q: list[tuple[int, float, int, int, SeqRequest]] = []
         self._n_submitted = 0
         self._closed = False
         self._aborted: BaseException | None = None
-        # slot bookkeeping, dispatcher-thread-only
+        # slot bookkeeping, dispatcher-thread-only (sized to the live pool)
         self._states = None
-        self._slot_req: list[SeqRequest | None] = [None] * max_slots
-        self._slot_pos = [0] * max_slots
-        self._free = list(range(max_slots))
+        self._slot_req: list[SeqRequest | None] = [None] * self.pool_slots
+        self._slot_pos = [0] * self.pool_slots
+        self._free = list(range(self.pool_slots))
         self._pending_reset: set[int] = set()
         # readback staging: (finished requests, flush deadline, device rows)
         self._staged: list[tuple[list[SeqRequest], float, torch.Tensor]] = []
@@ -406,6 +748,7 @@ class StepScheduler:
         self._errors = self._readbacks = self._steps = 0
         self._occupancy = 0.0
         self._block_hist = {k: 0 for k in ladder}
+        self._n = dict.fromkeys(_COUNTERS, 0)
         self._t_start = time.monotonic()
         self._started = threading.Event()
         self._ready = threading.Event()
@@ -418,6 +761,17 @@ class StepScheduler:
         self._ready.wait()
         if self._init_error is not None:
             raise self._init_error
+        # what a parked or migrated state must match: per layer, the h
+        # and c rows' dtype names and shapes
+        self._layout = [((_dtype_name(h), tuple(h.shape[1:])),
+                         (_dtype_name(c), tuple(c.shape[1:])))
+                        for h, c in self._states]
+        self._mem.set_bytes("pool", self._pool_state_bytes())
+        self._mem.set_bytes("params",
+                            param_bytes(backend.serving_params()))
+        if self._paging.enabled:
+            # the page store is the pool, under the paged name
+            self._mem.set_bytes("pages", self._pool_state_bytes())
         if start:
             self._started.set()
         self._children: dict[str, StepScheduler] = {}
@@ -442,20 +796,30 @@ class StepScheduler:
     def start(self) -> None:
         """Release the dispatcher (and the children's); idempotent."""
         self._started.set()
-        for child in self._children.values():
+        for child in getattr(self, "_children", {}).values():
             child.start()
 
+    def _bump(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self._n[key] += n
+
+    def _init_states(self) -> list:
+        """A zero pool: one row per slot, or the page store's rows."""
+        return self.backend.init_states(
+            self._page_rows if self._paging.enabled else self.pool_slots)
+
     def _warmup(self) -> None:
-        """Run each rung's block program once on a zero pool, then the
-        finisher gather and one read, so the first request pays for no
-        library initialisation or allocator growth."""
+        """Run each rung's block program once at the block's row count,
+        then the finisher gather and one read, so the first request pays
+        for no library initialisation or allocator growth."""
         y = None
+        rows = self._block_rows
         for k in self.step_blocks:
             _, y = self.backend.block_fn(
-                self._states,
-                self._put(np.zeros((self.max_slots, k,
-                                    self.backend.feat_dim), np.float32)),
-                self._put(np.ones((self.max_slots, 1), bool)))
+                self.backend.init_states(rows),
+                self._put(np.zeros((rows, k, self.backend.feat_dim),
+                                   np.float32)),
+                self._put(np.ones((rows, 1), bool)))
         idx = self._put(np.zeros((1,), np.int64))
         y[idx, idx].cpu()
 
@@ -464,7 +828,7 @@ class StepScheduler:
         hysteresis (single-rung ladders short-circuit)."""
         if len(self.step_blocks) == 1:
             return self.step_blocks[0]
-        load = (self._n_active + self.queue_depth) / self.max_slots
+        load = (self._n_active + self.queue_depth) / self.pool_slots
         rungs = len(self.step_blocks)
         want = 0
         for r in range(1, rungs):
@@ -491,12 +855,24 @@ class StepScheduler:
 
     @property
     def load_desc(self) -> dict:
-        """/healthz: constant-time load figures."""
-        n = self._steps
-        return {"queued": self.queue_depth, "active": self._n_active,
-                "slots": self.max_slots,
-                "mean_occupancy": round(self._occupancy / n, 4) if n
-                                  else 0.0}
+        """/healthz: constant-time load figures, the preemption, budget
+        and migration counts (and the live paged sequences) included."""
+        with self._lock:
+            n = self._steps
+            occ = self._occupancy
+            counts = dict(self._n)
+        out = {"queued": self.queue_depth, "active": self._n_active,
+               "slots": self.pool_slots,
+               "mean_occupancy": round(occ / n, 4) if n else 0.0,
+               "preempted": counts["preempted"],
+               "evicted_depth": len(self._evicted),
+               "ledger_bytes": int(self._mem.bytes("ram")
+                                   + self._mem.bytes("disk")),
+               "spilled": counts["spills"],
+               "migrations": counts["mig_in"] + counts["mig_out"]}
+        if self._paging.enabled:
+            out["pages_live"] = len(self._live)
+        return out
 
     @property
     def precision_desc(self) -> dict:
@@ -507,21 +883,23 @@ class StepScheduler:
             desc["profiles"] = [self.backend.precision, *self._children]
         return desc
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
+    def _put(self, x: np.ndarray | torch.Tensor) -> torch.Tensor:
         return upload(x, self.backend.device)
 
     # -- request side ---------------------------------------------------
     def submit(self, x: np.ndarray, max_wait_s: float | None = None,
-               cls: str | None = None, profile: str | None = None
-               ) -> Future:
+               cls: str | None = None, tag: str | None = None,
+               profile: str | None = None) -> Future:
         """Enqueue one sequence ``(T, F)``; resolves to ``(out_dim,)``.
         ``cls`` names the SLO class (default: the most urgent);
         ``max_wait_s`` sets the deadline that orders admission within a
-        class and bounds the output's wait for its readback; ``profile``
-        routes the request to that profile's child scheduler."""
+        class and bounds the output's wait for its readback; ``tag`` is
+        an export handle (:meth:`export_sequence`, ``/admin/export``);
+        ``profile`` routes the request to that profile's child
+        scheduler."""
         child = _route(self, profile)
         if child is not None:
-            return child.submit(x, max_wait_s=max_wait_s, cls=cls)
+            return child.submit(x, max_wait_s=max_wait_s, cls=cls, tag=tag)
         x = np.asarray(x, np.float32)
         cls, prio = resolve_request_class(self._class_priority, cls)
         if x.ndim != 2 or x.shape[1] != self.backend.feat_dim:
@@ -530,7 +908,11 @@ class StepScheduler:
                 f"got {x.shape}")
         if len(x) == 0:
             raise ServeError("sequence must have at least one step")
-        req = SeqRequest(x=x, cls=cls, priority=prio)
+        if self._evicted:
+            # a parked sequence past its deadline is shed here too, not
+            # only at the dispatcher's next block boundary
+            self._sweep_expired()
+        req = SeqRequest(x=x, cls=cls, priority=prio, tag=tag)
         if max_wait_s is not None:
             req.deadline = req.t_submit + max(0.0, float(max_wait_s))
         with self._cond:
@@ -540,55 +922,1068 @@ class StepScheduler:
                                  f"rejected")
             if self._closed:
                 raise ServeError("engine is closed; request rejected")
-            req.seq = self._n_submitted
+            if self._budget.enabled:
+                # the budget's front door: reserve or shed naming it
+                admit_queue_bytes(self._mem, self._budget, x.nbytes, cls,
+                                  lambda: self._bump("budget_shed"),
+                                  logger)
+            req.seq = req.arrival = self._n_submitted
             self._n_submitted += 1
             with self._lock:
                 self._requests += 1
-            heapq.heappush(self._q, (req.priority, req.deadline, req.seq,
-                                     req))
+            heapq.heappush(self._q, (req.priority, req.deadline,
+                                     req.arrival, req.seq, req))
             self._cond.notify_all()
         return req.future
 
     def predict(self, x: np.ndarray, max_wait_s: float | None = None,
-                cls: str | None = None, profile: str | None = None
-                ) -> np.ndarray:
-        return self.submit(x, max_wait_s=max_wait_s, cls=cls,
+                cls: str | None = None, tag: str | None = None,
+                profile: str | None = None) -> np.ndarray:
+        return self.submit(x, max_wait_s=max_wait_s, cls=cls, tag=tag,
                            profile=profile).result()
 
     # -- dispatcher thread ----------------------------------------------
     @property
     def _n_active(self) -> int:
-        return self.max_slots - len(self._free)
+        if self._paging.enabled:
+            # every admitted, unfinished sequence, row-holding or demoted
+            return len(self._live)
+        return self.pool_slots - len(self._free)
 
     def _admit_locked(self) -> None:
         """Fill freed slots in (class priority, deadline, arrival) order;
-        a request whose future is already done (cancelled) is dropped.
-        An admitted slot's state is zeroed in its first block."""
+        a request whose future is already done (cancelled, shed while
+        parked) is dropped. An admitted slot's state is zeroed in its
+        first block; a parked sequence's rows are restored instead (no
+        reset). Under an enabled budget a head whose spilled state needs
+        RAM the ledger cannot free stays parked (the backpressure
+        rung)."""
+        if self._paging.enabled:
+            self._admit_paged_locked()
+            return
+        self._deferred_head = None
         while self._free and self._q:
+            head = self._q[0][-1]
+            if (self._budget.enabled and not self._closed
+                    and isinstance(head.evicted_state, _Spilled)
+                    and not head.future.done()):
+                need = head.evicted_state.ram_bytes
+                if (self._mem.headroom("ram") < need
+                        and not self._restore_room_locked(need)):
+                    self._deferred_head = head
+                    self._bump("budget_deferred")
+                    if self._defer_logged_seq != head.seq:
+                        self._defer_logged_seq = head.seq
+                        logger.warning(
+                            "serve.budget: restore of one %s sequence "
+                            "deferred — %d blob bytes need RAM the "
+                            "ledger cannot free (ram %d, disk %d)",
+                            head.cls, need, self._mem.bytes("ram"),
+                            self._mem.bytes("disk"))
+                    break
             req = heapq.heappop(self._q)[-1]
+            self._release_queue_bytes(req)
             if req.future.done():
+                if self._evicted.pop(req.seq, None) is not None:
+                    self._unpark(req)
                 continue
             slot = self._free.pop()
             self._slot_req[slot] = req
-            self._slot_pos[slot] = 0
-            self._pending_reset.add(slot)
+            self._slot_pos[slot] = req.pos
+            # admission retires the ledger entry of both kinds of victim:
+            # a never-dispatched one (no state) must not leak a place
+            self._evicted.pop(req.seq, None)
+            if req.evicted_state is not None:
+                self._pending_restore[slot] = req
+            else:
+                self._pending_reset.add(slot)
+
+    def _admit_paged_locked(self) -> None:
+        """Paged admission: the live set fills from the heap in the same
+        order up to ``max_live``; a row is taken only when the sequence
+        is first scheduled, so admission moves no state."""
+        self._deferred_head = None
+        while self._q and len(self._live) < self._max_live:
+            req = heapq.heappop(self._q)[-1]
+            self._release_queue_bytes(req)
+            if req.future.done():
+                if self._evicted.pop(req.seq, None) is not None:
+                    self._unpark(req)
+                continue
+            self._evicted.pop(req.seq, None)
+            req.row = None
+            req.last_block = -1  # never scheduled: coldest, FIFO
+            self._live[req.seq] = req
+            self._pg_peak_live = max(self._pg_peak_live, len(self._live))
+
+    def _release_queue_bytes(self, req: SeqRequest) -> None:
+        """Retire a request's queue-class bytes once (enabled budgets)."""
+        if self._budget.enabled and not req.queue_released:
+            self._mem.sub("queue", req.x.nbytes)
+            req.queue_released = True
+
+    def _requeue_locked(self, req: SeqRequest) -> None:
+        """Park ``req`` in the ledger and back in the heap under its
+        original ordering (called under ``self._cond``)."""
+        self._evicted[req.seq] = req
+        if self._budget.enabled:
+            self._mem.add("queue", req.x.nbytes)
+            req.queue_released = False
+        heapq.heappush(self._q, (req.priority, req.deadline, req.arrival,
+                                 req.seq, req))
+
+    def _restore_room_locked(self, need: int) -> bool:
+        """Could spilling the RAM-parked blobs (LRU, up to the disk
+        tier's headroom) free ``need`` RAM bytes for a restore read?"""
+        if not self._budget.spill_dir:
+            return False
+        spillable = sum(r.state_bytes for r in self._evicted.values()
+                        if isinstance(r.evicted_state, list)
+                        and r.state_bytes and not r.future.done())
+        room = self._mem.headroom("ram") + min(
+            spillable, max(0.0, self._mem.headroom("disk")))
+        return room >= need
+
+    def _unpark(self, req: SeqRequest) -> None:
+        """Retire one parked state's accounting: RAM bytes released, a
+        spill file deleted and the disk tier shrunk."""
+        state = req.evicted_state
+        if isinstance(state, _Spilled):
+            self._mem.sub("disk", state.nbytes)
+            _remove(state.path)
+        elif state is not None and req.state_bytes:
+            self._mem.sub("ram", req.state_bytes)
+        req.evicted_state = None
+        req.state_bytes = 0
 
     def _admit_or_wait(self) -> bool:
-        """Admit queued sequences; block while fully idle. False once
-        closed and drained (the dispatcher exits)."""
-        with self._cond:
-            while True:
+        """One block boundary: shed expired parked sequences, pack filed
+        exports, preempt for the queue, tick the elastic pool, admit.
+        Blocks while fully idle; False once closed and drained (the
+        dispatcher exits)."""
+        while True:
+            self._sweep_expired()
+            self._process_exports()
+            self._preempt_for_queue()
+            self._maybe_resize()
+            shed_head: SeqRequest | None = None
+            with self._cond:
                 self._admit_locked()
-                if self._n_active or not self._buffer.empty or self._staged:
-                    return True
-                if self._closed and not self._q:
+                if (self._n_active or not self._buffer.empty
+                        or self._staged):
+                    pass  # work to do: stage the restores below
+                elif self._closed and not self._q:
                     return False
-                self._cond.wait()
+                else:
+                    timeout = self._parked_timeout_locked()
+                    head = self._deferred_head
+                    if (timeout is None and head is not None
+                            and not head.future.done()):
+                        # an idle pool and a deadline-less deferred head:
+                        # the RAM its restore needs is held by the blobs
+                        # queued behind it and will never free. Rung 3:
+                        # shed it naming the budget
+                        self._evicted.pop(head.seq, None)
+                        self._unpark(head)
+                        self._release_queue_bytes(head)
+                        self._deferred_head = None
+                        shed_head = head
+                    else:
+                        # a bounded wait: a parked deadline or a filed
+                        # export is noticed without a notify too
+                        self._cond.wait(1.0 if timeout is None
+                                        else min(timeout, 1.0))
+                        continue
+            if shed_head is not None:
+                logger.warning(
+                    "serve.budget: shedding one deferred %s sequence — "
+                    "its spill restore needs RAM the ledger can never "
+                    "free (idle pool, no deadline to wait for)",
+                    shed_head.cls)
+                self._bump("budget_shed")
+                self._fail([shed_head], ServeError(
+                    f"evicted {shed_head.cls} sequence shed: "
+                    f"serve.budget.ledger_bytes cannot free the RAM "
+                    f"its spill restore needs and the pool is idle"),
+                    "budget", error=False)
+                continue
+            # restores' uploads start outside the lock, ahead of the
+            # block that needs them
+            self._stage_restores()
+            return True
 
+    # -- preemption and the elastic pool --------------------------------
+    def _parked_timeout_locked(self) -> float | None:
+        """Seconds to the earliest parked deadline, None if none."""
+        dls = [r.deadline for r in self._evicted.values()
+               if r.deadline < math.inf]
+        if not dls:
+            return None
+        return max(0.0, min(dls) - time.monotonic()) + 0.001
+
+    def _sweep_expired(self) -> int:
+        """Fail every parked sequence whose deadline passed, loudly: a
+        ServeError naming the overrun, a shed count and a warning. Runs
+        at every block boundary and from submit, stats() and close, so
+        an idle dispatcher does not hide an expiry."""
+        if not self._evicted:
+            return 0
+        now = time.monotonic()
+        expired: list[SeqRequest] = []
+        with self._cond:
+            for seq, req in list(self._evicted.items()):
+                if req.deadline < now:
+                    del self._evicted[seq]
+                    self._unpark(req)
+                    # the heap entry is dead weight: its queue bytes go now
+                    self._release_queue_bytes(req)
+                    expired.append(req)
+        for req in expired:
+            overdue_ms = (now - req.deadline) * 1e3
+            logger.warning(
+                "shedding evicted %s sequence: deadline passed %.1f ms "
+                "ago while preempted (ledger depth %d)", req.cls,
+                overdue_ms, len(self._evicted))
+            self._bump("preempt_shed")
+            self._fail([req], ServeError(
+                f"evicted {req.cls} sequence shed: deadline passed "
+                f"{overdue_ms:.1f} ms ago while preempted"), "preempt",
+                error=False)
+        return len(expired)
+
+    def _ledger_blocked(self) -> bool:
+        """The ledger's bound or (rung 1) the budget refuses another
+        victim: warned and counted."""
+        if len(self._evicted) >= self._preempt.max_evicted:
+            logger.warning(
+                "preemption skipped: eviction ledger full (%d/%d parked)",
+                len(self._evicted), self._preempt.max_evicted)
+            return True
+        if not self._ledger_room(self._per_slot_state_bytes()):
+            self._bump("budget_deferred")
+            logger.warning(
+                "preemption skipped: serve.budget ledger cannot hold "
+                "another victim (ram %d/%s, disk %d/%s)",
+                self._mem.bytes("ram"), self._mem.budget("ram"),
+                self._mem.bytes("disk"), self._mem.budget("disk"))
+            return True
+        return False
+
+    def _preempt_for_queue(self) -> None:
+        """Evict slot-holders the heap's head outranks — a strictly more
+        urgent class only (same-class deadlines never preempt), one slot
+        per eviction, until the urgent backlog fits the free slots or the
+        ledger refuses."""
+        if not self._preempt.enabled:
+            return
+        if self._paging.enabled:
+            self._preempt_paged()
+            return
+        while True:
+            victim, vkey = None, None
+            for slot, req in enumerate(self._slot_req):
+                if req is None:
+                    continue
+                key = (req.priority, req.deadline, req.arrival, req.seq)
+                if vkey is None or key > vkey:
+                    victim, vkey = slot, key
+            if victim is None:
+                return
+            need = len(self._free) + 1
+            with self._cond:
+                if not self._q or self._q[0][0] >= vkey[0]:
+                    return  # nothing queued outranks the worst holder
+                urgent = 0
+                for p, _d, _a, _s, r in self._q:
+                    if p < vkey[0] and not r.future.done():
+                        urgent += 1
+                        if urgent >= need:
+                            break
+            if urgent <= len(self._free):
+                return  # the urgent backlog fits without evicting
+            if self._ledger_blocked():
+                return
+            self._evict_slot(victim, reason="preempt")
+
+    def _preempt_paged(self) -> None:
+        """Paged preemption: with the live set full and the heap's head
+        outranking (by class) the least urgent live sequence, that one
+        parks back in the ledger and the heap."""
+        while True:
+            with self._cond:
+                if len(self._live) < self._max_live:
+                    return  # admission has room already
+                victim, vkey = None, None
+                for req in self._live.values():
+                    if req.future.done():
+                        continue
+                    key = (req.priority, req.deadline, req.arrival,
+                           req.seq)
+                    if vkey is None or key > vkey:
+                        victim, vkey = req, key
+                if victim is None or not self._q \
+                        or self._q[0][0] >= vkey[0]:
+                    return
+            if self._ledger_blocked():
+                return
+            self._evict_live(victim, reason="preempt")
+
+    def _gather_rows(self, row: int) -> list:
+        """One pool row's per-layer (h, c) on the host in the pool's own
+        dtype: one device gather and one read, which returns only when
+        the copy is done — the row is on the host before the slot is
+        reused."""
+        parts = [t[row] for h, c in self._states for t in (h, c)]
+        flat = torch.cat(parts).cpu().split([p.numel() for p in parts])
+        return [(flat[2 * i].clone(), flat[2 * i + 1].clone())
+                for i in range(len(parts) // 2)]
+
+    def _scatter_row(self, row: int, payload: list) -> None:
+        """Write parked rows back into pool row ``row``: out of place, so
+        no block in flight reads a tensor being written."""
+        dev = self.backend.device
+        idx = self._put(np.array([row], np.int64))
+        self._states = [
+            (h.index_copy(0, idx, ph.to(dev).reshape(1, -1)),
+             c.index_copy(0, idx, pc.to(dev).reshape(1, -1)))
+            for (h, c), (ph, pc) in zip(self._states, payload)]
+
+    def _evict_live(self, req: SeqRequest, reason: str) -> bool:
+        """Park one live paged sequence in the ledger and back in the
+        heap under its original ordering (the paged :meth:`_evict_slot`).
+        A failed gather fails only this victim."""
+        row = req.row
+        try:
+            state = req.evicted_state
+            if state is None and row is not None and req.pos > 0:
+                state = self._gather_rows(row)
+        except Exception as e:  # noqa: BLE001 — lose only the victim
+            logger.warning("eviction fault for one %s sequence (%r); the "
+                           "victim fails, the pool keeps serving",
+                           req.cls, e)
+            self._drop_live(req)
+            self._fail([req], e, "eviction", error=False)
+            return False
+        if state is not None and req.evicted_state is None:
+            self._park_host_state(req, state)
+        self._free_row(req)
+        with self._cond:
+            self._live.pop(req.seq, None)
+            req.t_evicted = time.monotonic()
+            self._requeue_locked(req)
+        self._bump("preempted")
+        return True
+
+    def _park_host_state(self, req: SeqRequest, state: list) -> None:
+        """Account gathered rows to the RAM tier, spilling colder blobs
+        first under an enabled budget; an overshoot parks anyway,
+        loudly — never a drop."""
+        nb = _state_nbytes(state)
+        req.state_bytes = nb
+        req.evicted_state = state
+        req.t_evicted = time.monotonic()
+        if (self._budget.enabled and self._mem.headroom("ram") < nb
+                and not self._make_ledger_room(nb)):
+            logger.warning(
+                "serve.budget: ledger overshoot parking one %s sequence "
+                "(%d bytes, ram %d/%s) — parked anyway, never dropped",
+                req.cls, nb, self._mem.bytes("ram"),
+                self._mem.budget("ram"))
+        self._mem.add("ram", nb)
+
+    def _alloc_row(self) -> int:
+        """The lowest free page-store row (a heap): pages fill in order,
+        so free pages stay whole."""
+        return heapq.heappop(self._row_free)
+
+    def _free_row(self, req: SeqRequest) -> None:
+        if req.row is not None:
+            heapq.heappush(self._row_free, req.row)
+            req.row = None
+
+    def _drop_live(self, req: SeqRequest) -> None:
+        """Retire a live paged sequence that did not finish: row freed,
+        parked bytes released, live entry removed."""
+        self._free_row(req)
+        with self._cond:
+            self._live.pop(req.seq, None)
+            self._unpark(req)
+
+    def _pool_state_bytes(self) -> int:
+        """Device bytes of the pool's (or page store's) (h, c) state."""
+        return sum(h.numel() * h.element_size()
+                   + c.numel() * c.element_size() for h, c in self._states)
+
+    def _per_slot_state_bytes(self) -> int:
+        """Host bytes one victim's rows take (eviction is a row gather
+        in the pool's own dtype, so this is exact)."""
+        rows = self._page_rows if self._paging.enabled \
+            else self.pool_slots
+        return self._pool_state_bytes() // max(1, rows)
+
+    def _ledger_room(self, need: int) -> bool:
+        """Can the ledger hold ``need`` more bytes, in RAM or by spilling
+        cold RAM blobs to a disk tier with headroom? Always True with the
+        budget off."""
+        if not self._budget.enabled:
+            return True
+        if self._mem.headroom("ram") >= need:
+            return True
+        if not self._budget.spill_dir:
+            return False
+        return (self._mem.headroom("ram")
+                + max(0.0, self._mem.headroom("disk"))) >= need
+
+    def _free_slot(self, slot: int) -> None:
+        self._slot_req[slot] = None
+        self._slot_pos[slot] = 0
+        self._free.append(slot)
+        self._pending_reset.discard(slot)
+
+    def _evict_slot(self, slot: int, reason: str) -> bool:
+        """Park one slot-holder in the ledger and free its slot. A slot
+        whose restore is not applied yet still holds a previous
+        occupant's rows: its parked state stays the truth. A failed
+        gather or spill fails only this victim."""
+        req = self._slot_req[slot]
+        pos = self._slot_pos[slot]
+        restore_pending = self._pending_restore.get(slot) is not None
+        gathered = False
+        try:
+            if restore_pending:
+                state = req.evicted_state
+            elif slot in self._pending_reset or pos == 0:
+                state = None  # never dispatched: nothing on the device
+            else:
+                state = self._gather_rows(slot)
+                gathered = True
+        except Exception as e:  # noqa: BLE001 — lose only the victim
+            logger.warning("eviction fault for one %s sequence (%r); the "
+                           "victim fails, the pool keeps serving",
+                           req.cls, e)
+            if restore_pending:
+                self._pending_restore.pop(slot, None)
+                self._restore_staged.discard(slot)
+                self._unpark(req)
+            self._free_slot(slot)
+            self._fail([req], e, "eviction", error=False)
+            return False
+        if restore_pending:
+            self._pending_restore.pop(slot, None)
+            self._restore_staged.discard(slot)
+        if gathered:
+            # make RAM room first (LRU spill of colder blobs); with no
+            # colder blob to displace the victim spills to disk itself
+            nb = _state_nbytes(state)
+            req.state_bytes = nb
+            if (self._budget.enabled and self._mem.headroom("ram") < nb
+                    and not self._make_ledger_room(nb)):
+                spilled = None
+                if self._budget.spill_dir:
+                    try:
+                        path, fb = self._write_spill(req, state)
+                    except Exception as e:  # noqa: BLE001 — victim only
+                        logger.warning(
+                            "spill fault for one %s sequence (%r); the "
+                            "victim fails, the pool keeps serving",
+                            req.cls, e)
+                        self._free_slot(slot)
+                        req.state_bytes = 0
+                        self._fail([req], e, "spill", error=False)
+                        return False
+                    if self._mem.headroom("disk") >= fb:
+                        spilled = _Spilled(path, fb, nb)
+                        self._mem.add("disk", fb)
+                        self._bump("spills")
+                    else:
+                        _remove(path)
+                if spilled is not None:
+                    state = spilled
+                else:
+                    logger.warning(
+                        "serve.budget: ledger overshoot parking one %s "
+                        "victim (%d bytes, ram %d/%s) — parked anyway, "
+                        "never dropped", req.cls, nb,
+                        self._mem.bytes("ram"), self._mem.budget("ram"))
+                    self._mem.add("ram", nb)
+            else:
+                self._mem.add("ram", nb)
+        req.pos = pos
+        req.evicted_state = state
+        req.t_evicted = time.monotonic()
+        self._free_slot(slot)
+        with self._cond:
+            self._requeue_locked(req)
+        self._bump("preempted")
+        return True
+
+    # -- the spill tier (serve.budget) ----------------------------------
+    def _make_ledger_room(self, need: int) -> bool:
+        """Spill the coldest (longest-parked) RAM blobs to disk until
+        ``need`` bytes fit the RAM tier; whether they now fit."""
+        if not (self._budget.enabled and self._budget.spill_dir):
+            return self._mem.headroom("ram") >= need
+        while self._mem.headroom("ram") < need:
+            with self._cond:
+                cands = [r for r in self._evicted.values()
+                         if r.state_bytes
+                         and isinstance(r.evicted_state, list)
+                         and not r.future.done()]
+                if self._paging.enabled:
+                    # demoted live sequences' blobs are as cold
+                    cands += [r for r in self._live.values()
+                              if r.state_bytes
+                              and isinstance(r.evicted_state, list)
+                              and not r.future.done()]
+                victim = min(cands, key=lambda r: r.t_evicted,
+                             default=None)
+            if victim is None or not self._spill_one(victim):
+                break
+        return self._mem.headroom("ram") >= need
+
+    def _write_spill(self, req: SeqRequest, state: list) -> tuple[str, int]:
+        """One spill file: crc32-checked EMT1 in the pool's own dtype
+        (bfloat16 as code 6). Returns ``(path, file bytes)``; raises on
+        an IO failure (the caller loses only that victim)."""
+        path = os.path.join(self._budget.spill_dir,
+                            f"spill-{self._token}-{req.seq}.emt1")
+        try:
+            os.makedirs(self._budget.spill_dir, exist_ok=True)
+            serialization.save(path, {
+                f"{i}.{tag}": arr
+                for i, (h, c) in enumerate(state)
+                for tag, arr in (("h", h), ("c", c))})
+            return path, os.path.getsize(path)
+        except Exception:
+            _remove(path)
+            raise
+
+    def _spill_one(self, req: SeqRequest) -> bool:
+        """Move one RAM-parked blob to disk; False when the disk tier
+        cannot take it. A failed write fails only this victim (its RAM
+        is freed, so room was made)."""
+        paged_live = self._paging.enabled and req.seq in self._live
+        with self._cond:
+            state = req.evicted_state
+            if (req.seq not in self._evicted and not paged_live) \
+                    or not isinstance(state, list):
+                return True  # shed or cancelled meanwhile
+        try:
+            path, nbytes = self._write_spill(req, state)
+        except Exception as e:  # noqa: BLE001 — lose only this victim
+            if paged_live:
+                self._drop_live(req)
+            else:
+                with self._cond:
+                    gone = self._evicted.pop(req.seq, None)
+                if gone is None:
+                    return True
+                self._mem.sub("ram", req.state_bytes)
+                req.evicted_state = None
+                req.state_bytes = 0
+            logger.warning("spill fault for one %s sequence (%r); the "
+                           "victim fails, the pool keeps serving",
+                           req.cls, e)
+            self._fail([req], e, "spill", error=False)
+            return True
+        if self._mem.headroom("disk") < nbytes:
+            _remove(path)
+            return False  # the disk tier is full too (rung 1 gates)
+        drop = False
+        with self._cond:
+            if (req.seq not in self._evicted
+                    and not (self._paging.enabled
+                             and req.seq in self._live)) \
+                    or req.future.done():
+                drop = True  # shed while the file was written
+            else:
+                req.evicted_state = _Spilled(path, nbytes, req.state_bytes)
+                self._mem.sub("ram", req.state_bytes)
+                self._mem.add("disk", nbytes)
+        if drop:
+            _remove(path)
+            return True
+        self._bump("spills")
+        return True
+
+    def _read_parked_state(self, req: SeqRequest) -> list:
+        """``req.evicted_state`` as host (h, c) rows. A spilled state is
+        read back through the crc32-checked loader and its file retired
+        (the RAM tier holds the rows until the scatter); a corrupt or
+        unreadable file raises naming it, with its accounting retired."""
+        state = req.evicted_state
+        if not isinstance(state, _Spilled):
+            return state
+        try:
+            arrays = serialization.load(state.path)
+            host = [(arrays[f"{i}.h"], arrays[f"{i}.c"])
+                    for i in range(len(arrays) // 2)]
+        except Exception as e:
+            self._mem.sub("disk", state.nbytes)
+            _remove(state.path)
+            req.evicted_state = None
+            req.state_bytes = 0
+            raise CheckpointError(f"spill file {state.path}: {e}") from e
+        _remove(state.path)
+        self._mem.sub("disk", state.nbytes)
+        self._mem.add("ram", state.ram_bytes)
+        req.evicted_state = host
+        req.state_bytes = state.ram_bytes
+        self._bump("spill_restored")
+        return host
+
+    def _stage_restores(self) -> None:
+        """Start the uploads of newly admitted restores: each parked
+        state (read back from disk first when spilled; a corrupt file
+        sheds its sequence only) is checked against the pool and
+        uploaded without a host sync, so the copy overlaps the block in
+        flight; ``_apply_restores`` scatters it. ``_restore_async =
+        False`` keeps the payload on the host until the scatter."""
+        if not self._pending_restore:
+            return
+        for slot, req in list(self._pending_restore.items()):
+            if slot in self._restore_staged:
+                continue
+            try:
+                if (self._budget.enabled
+                        and isinstance(req.evicted_state, _Spilled)):
+                    self._make_ledger_room(req.evicted_state.ram_bytes)
+                payload = self._read_parked_state(req)
+                self._check_restore_payload(payload)
+            except Exception as e:  # noqa: BLE001 — shed one, keep serving
+                self._shed_spill_casualty(slot, req, e)
+                continue
+            if self._restore_async:
+                payload = [(self._put(h), self._put(c))
+                           for h, c in payload]
+            self._restore_staged.add(slot)
+            done = self._restore_buf.push((slot, req, payload))
+            if done is not None:
+                self._apply_restore_item(done)
+
+    def _shed_spill_casualty(self, slot: int, req: SeqRequest,
+                             exc: BaseException) -> None:
+        """A parked state that could not be read back or does not fit
+        the pool loses only its sequence: its future carries a ServeError
+        naming the failure and its slot frees."""
+        self._pending_restore.pop(slot, None)
+        self._restore_staged.discard(slot)
+        self._free_slot(slot)
+        logger.warning("spill restore failed for one %s sequence (%r); "
+                       "shedding it, the pool keeps serving", req.cls, exc)
+        self._bump("budget_shed")
+        self._fail([req], ServeError(
+            f"evicted {req.cls} sequence shed: spill blob failed to "
+            f"restore ({exc!r})"), "restore", error=False)
+
+    def _apply_restore_item(self, item) -> None:
+        """Scatter one staged restore into its slot; a stale item (the
+        holder was evicted again before the scatter) is skipped — its
+        parked state is still the truth."""
+        slot, req, payload = item
+        if self._pending_restore.get(slot) is not req:
+            return
+        self._scatter_row(slot, payload)
+        del self._pending_restore[slot]
+        self._restore_staged.discard(slot)
+        if req.state_bytes:
+            self._mem.sub("ram", req.state_bytes)
+        req.evicted_state = None
+        req.state_bytes = 0
+        self._bump("restored")
+
+    def _apply_restores(self) -> None:
+        """Apply every staged restore (staging stragglers first) before
+        the next dispatch."""
+        for item in self._restore_buf.drain():
+            self._apply_restore_item(item)
+        if self._pending_restore:
+            self._stage_restores()
+            for item in self._restore_buf.drain():
+                self._apply_restore_item(item)
+
+    # -- live migration ---------------------------------------------------
+    def export_sequence(self, target, *, reason: str = "migrate",
+                        timeout_s: float = 30.0) -> bytes | None:
+        """Evict and pack one live sequence into a migration blob and
+        remove it from this scheduler: its slot or row frees, its ledger
+        entry and bytes retire, and its future fails with a ServeError
+        naming the move. ``target`` is the future :meth:`submit`
+        returned, the sequence's ``tag``, or its local ordinal. None when
+        the sequence is not live here (finished, shed, unknown) or the
+        dispatcher did not pack it within ``timeout_s``. Thread-safe:
+        the dispatcher packs it at its next block boundary."""
+        fut: Future = Future()
+        with self._cond:
+            if self._closed:
+                return None
+            self._export_q.append((target, reason, fut))
+            self._cond.notify_all()
+        try:
+            return fut.result(timeout_s)
+        except FutureTimeoutError:
+            # cancel, so a late pass skips it rather than remove the
+            # sequence with no reader
+            if fut.cancel():
+                logger.warning(
+                    "export_sequence timed out after %.1fs (reason=%s); "
+                    "the sequence stays on this host", timeout_s, reason)
+                return None
+            return fut.result(timeout_s)  # the pack is under way
+        except CancelledError:
+            return None
+
+    def drain_export(self, *, reason: str = "respawn",
+                     timeout_s: float = 30.0) -> list[bytes]:
+        """Export every live sequence — slot-holders, parked, queued —
+        as migration blobs; those that finish meanwhile are absent."""
+        with self._cond:
+            targets: list[Future] = [
+                r.future for r in self._slot_req if r is not None]
+            targets += [r.future for r in self._live.values()]
+            targets += [r.future for r in self._evicted.values()]
+            targets += [e[-1].future for e in self._q
+                        if not e[-1].future.done()]
+        blobs, seen = [], set()
+        for tgt in targets:
+            if id(tgt) in seen:
+                continue
+            seen.add(id(tgt))
+            blob = self.export_sequence(tgt, reason=reason,
+                                        timeout_s=timeout_s)
+            if blob is not None:
+                blobs.append(blob)
+        return blobs
+
+    def import_sequence(self, blob: bytes) -> Future:
+        """Admit one migration blob of a peer scheduler (of either
+        package). Its header is judged against this pool first — model
+        fingerprint, family, profile, pool dtype, row shapes, feat_dim —
+        and a mismatch raises a ServeError naming the field. The sequence
+        queues under its original (class, deadline, arrival) ordering
+        (the deadline travels as remaining seconds) and its rows restore
+        through the same scatter as a preempted one."""
+        header, x, state = unpack_migration(blob)
+        self._check_migration_header(header)
+        x = np.asarray(x, np.float32)
+        if x.ndim != 2 or x.shape != (int(header["steps"]),
+                                      self.backend.feat_dim):
+            raise ServeError(
+                f"migration blob rejected: input entry 'x' is "
+                f"{x.shape}, header says ({header['steps']}, "
+                f"{self.backend.feat_dim})")
+        cls, prio = resolve_request_class(self._class_priority,
+                                          str(header["cls"]))
+        req = SeqRequest(x=x, cls=cls, priority=prio)
+        deadline_s = header.get("deadline_s")
+        if deadline_s is not None:
+            req.deadline = time.monotonic() + max(0.0, float(deadline_s))
+        req.pos = int(header["pos"])
+        if state is not None:
+            payload = [(_as_tensor(h), _as_tensor(c)) for h, c in state]
+            self._check_restore_payload(payload)
+            req.evicted_state = payload
+            req.state_bytes = _state_nbytes(payload)
+            req.t_evicted = time.monotonic()
+            if self._budget.enabled:
+                self._make_ledger_room(req.state_bytes)
+        with self._cond:
+            if self._closed:
+                raise ServeError("engine is closed; migration rejected")
+            if self._budget.enabled:
+                admit_queue_bytes(self._mem, self._budget, x.nbytes, cls,
+                                  lambda: self._bump("budget_shed"),
+                                  logger)
+            with self._lock:
+                self._requests += 1
+            req.seq = self._n_submitted
+            self._n_submitted += 1
+            req.arrival = int(header["arrival"])
+            if req.evicted_state is not None:
+                self._evicted[req.seq] = req
+                if req.state_bytes:
+                    if (self._budget.enabled and self._mem.headroom("ram")
+                            < req.state_bytes):
+                        logger.warning(
+                            "serve.budget: ledger overshoot parking one "
+                            "migrated-in %s sequence (%d bytes, ram "
+                            "%d/%s) — parked anyway, never dropped",
+                            req.cls, req.state_bytes,
+                            self._mem.bytes("ram"),
+                            self._mem.budget("ram"))
+                    self._mem.add("ram", req.state_bytes)
+            heapq.heappush(self._q, (req.priority, req.deadline,
+                                     req.arrival, req.seq, req))
+            self._cond.notify_all()
+        self._bump("mig_in")
+        return req.future
+
+    def _check_migration_header(self, header: dict) -> None:
+        """Judge a migration header against this pool: identity is the
+        params fingerprint, layout the profile, pool dtype, per-layer row
+        shapes and feat_dim. A mismatch is a ServeError naming the
+        field."""
+        for key, want in (("model", self._model_fingerprint),
+                          ("family", self.backend.family),
+                          ("profile", self.backend.precision),
+                          ("pool_dtype", self._layout[0][0][0]),
+                          ("feat_dim", int(self.backend.feat_dim)),
+                          ("layers", [list(h[1]) for h, _c in self._layout])):
+            got = header.get(key)
+            if got != want:
+                raise ServeError(
+                    f"migration blob rejected: header field {key!r} "
+                    f"does not match this pool (blob {got!r}, pool "
+                    f"{want!r})")
+
+    def _check_restore_payload(self, payload: list) -> None:
+        """Parked (h, c) rows must match the pool's per-layer dtype and
+        row shape exactly before any scatter; a mismatch sheds its one
+        sequence with the field named, never a scatter of reinterpreted
+        bytes."""
+        if len(payload) != len(self._layout):
+            raise ServeError(
+                f"restore blob rejected: field 'layers' mismatched "
+                f"(blob has {len(payload)} layers, pool has "
+                f"{len(self._layout)})")
+        for i, ((ph, pc), layout) in enumerate(zip(payload, self._layout)):
+            for tag, arr, (want_dt, shape) in (("h", ph, layout[0]),
+                                               ("c", pc, layout[1])):
+                got_dt = _dtype_name(arr)
+                if got_dt != want_dt:
+                    raise ServeError(
+                        f"restore blob rejected: field 'dtype' "
+                        f"mismatched at layer {i}.{tag} (blob "
+                        f"{got_dt}, pool {want_dt})")
+                if tuple(arr.shape) != shape:
+                    raise ServeError(
+                        f"restore blob rejected: field 'shape' "
+                        f"mismatched at layer {i}.{tag} (blob "
+                        f"{tuple(arr.shape)}, pool {shape})")
+
+    def _process_exports(self) -> None:
+        """The dispatcher's half of :meth:`export_sequence`: evict and
+        pack each filed target at the block boundary."""
+        if not self._export_q:
+            return
+        with self._cond:
+            batch, self._export_q = self._export_q, []
+        for target, reason, fut in batch:
+            if not fut.set_running_or_notify_cancel():
+                continue  # the exporter timed out and cancelled
+            try:
+                fut.set_result(self._export_one(target, reason))
+            except Exception as e:  # noqa: BLE001 — fail this export only
+                fut.set_exception(e)
+
+    def _export_one(self, target, reason: str) -> bytes | None:
+        """Evict and pack one export target on the dispatcher thread; None
+        when it is not live here (or its eviction failed it)."""
+        req = None
+        if self._paging.enabled:
+            with self._cond:
+                cand = next(
+                    (r for r in self._live.values()
+                     if self._export_matches(r, target)
+                     and not r.future.done()), None)
+            if cand is not None:
+                if not self._evict_live(cand, reason=reason):
+                    return None
+                req = cand
+        else:
+            for slot, r in enumerate(self._slot_req):
+                if r is not None and self._export_matches(r, target):
+                    if not self._evict_slot(slot, reason=reason):
+                        return None
+                    req = r
+                    break
+        if req is None:
+            with self._cond:
+                for r in self._evicted.values():
+                    if self._export_matches(r, target):
+                        req = r
+                        break
+                if req is None:
+                    for entry in self._q:
+                        r = entry[-1]
+                        if (self._export_matches(r, target)
+                                and not r.future.done()):
+                            req = r
+                            break
+        if req is None or req.future.done():
+            return None
+        if isinstance(req.evicted_state, _Spilled):
+            try:
+                self._read_parked_state(req)
+            except Exception as e:  # noqa: BLE001 — shed loudly, keep pool
+                with self._cond:
+                    self._evicted.pop(req.seq, None)
+                    self._release_queue_bytes(req)
+                logger.warning(
+                    "migration export failed reading the spilled blob "
+                    "for one %s sequence (%r); shedding it", req.cls, e)
+                self._fail([req], ServeError(
+                    f"evicted {req.cls} sequence shed: spill blob "
+                    f"failed to restore for export ({e!r})"), "export",
+                    error=False)
+                return None
+        blob = self._pack_migration(req)
+        with self._cond:
+            # every local claim retires: ledger entry, parked bytes, queue
+            # bytes (the heap entry is skipped once the future resolves)
+            self._evicted.pop(req.seq, None)
+            self._unpark(req)
+            self._release_queue_bytes(req)
+        resolve_future(req.future, exc=ServeError(
+            f"sequence migrated off this host (reason={reason})"))
+        self._bump("mig_out")
+        return blob
+
+    @staticmethod
+    def _export_matches(req: SeqRequest, target) -> bool:
+        if isinstance(target, Future):
+            return req.future is target
+        if isinstance(target, str):
+            return req.tag == target
+        return req.seq == int(target)
+
+    def _pack_migration(self, req: SeqRequest) -> bytes:
+        """One parked request → the migration container: the deadline as
+        remaining seconds, the arrival ordinal as it is, the rows in the
+        pool's own dtype."""
+        state = req.evicted_state
+        if req.pos > 0 and not isinstance(state, list):
+            raise ServeError(
+                f"cannot pack migration blob: sequence at pos "
+                f"{req.pos} has no parked state")
+        deadline_s = None
+        if req.deadline < math.inf:
+            deadline_s = max(0.0, req.deadline - time.monotonic())
+        header = {
+            "migrate_version": MIGRATE_VERSION,
+            "model": self._model_fingerprint,
+            "family": self.backend.family,
+            "profile": self.backend.precision,
+            "pool_dtype": self._layout[0][0][0],
+            "layers": [list(h[1]) for h, _c in self._layout],
+            "feat_dim": int(self.backend.feat_dim),
+            "steps": int(req.steps),
+            "pos": int(req.pos),
+            "cls": req.cls,
+            "priority": int(req.priority),
+            "deadline_s": deadline_s,
+            "arrival": int(req.arrival),
+        }
+        entries: dict[str, object] = {
+            "migrate": serialization.json_entry(header), "x": req.x}
+        if req.pos > 0:
+            for i, (h, c) in enumerate(state):
+                entries[f"{i}.h"] = h
+                entries[f"{i}.c"] = c
+        return serialization.dumps(entries)
+
+    # -- the elastic pool -------------------------------------------------
+    def request_resize(self, slots: int) -> None:
+        """Resize the live pool at the next block boundary (the elastic
+        policy drives the same path by load); clamped to [min_slots,
+        max_slots]. Needs an elastic policy."""
+        if not self._preempt.elastic:
+            raise ServeError("request_resize needs serve.preempt.elastic")
+        self._resize_request = max(self._min_slots,
+                                   min(self.max_slots, int(slots)))
+        with self._cond:
+            self._cond.notify_all()
+
+    def _maybe_resize(self) -> None:
+        """The elastic tick: double under sustained load >= grow_load,
+        halve under sustained load <= shrink_load (after
+        ``resize_hysteresis`` boundaries), or honour request_resize."""
+        p = self._preempt
+        if not p.elastic:
+            return
+        if self._resize_request:
+            target, self._resize_request = self._resize_request, 0
+        else:
+            load = (self._n_active + self.queue_depth) / self.pool_slots
+            want = 0
+            if load >= p.grow_load and self.pool_slots < self.max_slots:
+                want = 1
+            elif (load <= p.shrink_load
+                    and self.pool_slots > self._min_slots):
+                want = -1
+            if want == 0:
+                self._resize_streak = 0
+                self._resize_want = 0
+                return
+            self._resize_streak = (self._resize_streak + 1
+                                   if want == self._resize_want else 1)
+            self._resize_want = want
+            if self._resize_streak < p.resize_hysteresis:
+                return
+            self._resize_streak = 0
+            target = (min(self.max_slots, self.pool_slots * 2) if want > 0
+                      else max(self._min_slots, self.pool_slots // 2))
+        target = max(self._min_slots, min(self.max_slots, target))
+        if target != self.pool_slots:
+            self._resize(target)
+
+    def _resize(self, new: int) -> None:
+        """Resize the live pool to ``new`` slots. A shrink is an
+        eviction: occupied slots past ``new`` park in the ledger and
+        restore into the smaller pool. A shrink the ledger cannot take
+        is skipped, loudly."""
+        old = self.pool_slots
+        occupied_high = ([s for s in range(new, old)
+                          if self._slot_req[s] is not None]
+                         if new < old else [])
+        if new < old and (len(self._evicted) + len(occupied_high)
+                          > self._preempt.max_evicted):
+            logger.warning(
+                "pool shrink %d->%d skipped: eviction ledger cannot "
+                "hold %d occupied high slots (%d/%d parked)", old, new,
+                len(occupied_high), len(self._evicted),
+                self._preempt.max_evicted)
+            return
+        if new < old and occupied_high and not self._ledger_room(
+                self._per_slot_state_bytes() * len(occupied_high)):
+            self._bump("budget_deferred")
+            logger.warning(
+                "pool shrink %d->%d skipped: serve.budget ledger "
+                "cannot hold %d victims' bytes (ram %d/%s, disk %d/%s)",
+                old, new, len(occupied_high), self._mem.bytes("ram"),
+                self._mem.budget("ram"), self._mem.bytes("disk"),
+                self._mem.budget("disk"))
+            return
+        if new < old:
+            for slot in occupied_high:
+                # a failed eviction loses only that victim; the slot is
+                # free either way
+                self._evict_slot(slot, reason="shrink")
+            self._states = [(h[:new].clone(), c[:new].clone())
+                            for h, c in self._states]
+            self._slot_req = self._slot_req[:new]
+            self._slot_pos = self._slot_pos[:new]
+            self._free = [s for s in self._free if s < new]
+            self._pending_reset = {s for s in self._pending_reset
+                                   if s < new}
+        else:
+            self._states = [(torch.cat([h, h.new_zeros((new - old,
+                                                        *h.shape[1:]))]),
+                             torch.cat([c, c.new_zeros((new - old,
+                                                        *c.shape[1:]))]))
+                            for h, c in self._states]
+            self._slot_req.extend([None] * (new - old))
+            self._slot_pos.extend([0] * (new - old))
+            self._free.extend(range(old, new))
+        self.pool_slots = new
+        self._mem.set_bytes("pool", self._pool_state_bytes())
+        self._bump("resizes")
+
+    # -- the dispatch loop ------------------------------------------------
     def _run(self, warmup: bool) -> None:
         with torch.inference_mode():
             try:
-                self._states = self.backend.init_states(self.max_slots)
+                self._states = self._init_states()
                 if warmup:
                     self._warmup()
             except BaseException as e:  # noqa: BLE001 — the constructor raises it
@@ -610,18 +2005,29 @@ class StepScheduler:
                 for item in self._buffer.drain():
                     self._complete(item)
                 self._flush_readback(force=True)
+                # filed exports must not wait out their timeout
+                with self._cond:
+                    pending, self._export_q = self._export_q, []
+                for _target, _reason, fut in pending:
+                    if fut.set_running_or_notify_cancel():
+                        fut.set_result(None)
             except BaseException as e:  # noqa: BLE001 — no request hangs
                 self._abort(e)
 
     def _dispatch_step(self) -> None:
+        if self._paging.enabled:
+            self._dispatch_step_paged()
+            return
         t0 = time.monotonic()
-        pool = self.max_slots
+        pool = self.pool_slots
+        rows = self._block_rows
         active = self._n_active
-        admitted = len(self._pending_reset)
         k = self._pick_block()
         try:
-            x = np.zeros((pool, k, self.backend.feat_dim), np.float32)
-            reset = np.zeros((pool, 1), bool)
+            self._apply_restores()
+            x = np.zeros((rows, k, self.backend.feat_dim), np.float32)
+            reset = np.zeros((rows, 1), bool)
+            reset[pool:] = True  # idle lanes past the live pool
             for slot in self._pending_reset:
                 reset[slot] = True
             self._pending_reset.clear()
@@ -633,10 +2039,21 @@ class StepScheduler:
                 take = min(k, req.steps - pos)
                 takes[slot] = take
                 x[slot, :take] = req.x[pos:pos + take]
+            states = self._states
+            if rows > pool:
+                states = [(torch.cat([h, h.new_zeros((rows - pool,
+                                                      *h.shape[1:]))]),
+                           torch.cat([c, c.new_zeros((rows - pool,
+                                                      *c.shape[1:]))]))
+                          for h, c in states]
             # the upload and the block are enqueued, not waited for:
             # block N+1's copy overlaps block N's compute
-            self._states, y_dev = self.backend.block_fn(
-                self._states, self._put(x), self._put(reset))
+            states, y_dev = self.backend.block_fn(
+                states, self._put(x), self._put(reset))
+            if rows > pool:
+                states = [(h[:pool].clone(), c[:pool].clone())
+                          for h, c in states]
+            self._states = states
         except Exception as e:  # noqa: BLE001 — fail in-flight, keep serving
             self._fault(e)
             return
@@ -652,19 +2069,159 @@ class StepScheduler:
                 finished.append((slot, takes[slot] - 1, req))
                 self._slot_req[slot] = None
                 self._free.append(slot)
-        with self._lock:
-            self._steps += 1
-            self._occupancy += active / pool
-            self._block_hist[k] += 1
-        done = self._buffer.push((finished, active, admitted, k, t0, y_dev))
+        self._count_step(active / pool, k)
+        done = self._buffer.push((finished, k, t0, y_dev))
         if done is not None:
             self._complete(done)
+
+    def _count_step(self, occupancy: float, k: int) -> None:
+        with self._lock:
+            self._steps += 1
+            self._occupancy += occupancy
+            self._block_hist[k] += 1
+
+    def _dispatch_step_paged(self) -> None:
+        """One block over the page store: the ``pool_slots`` most urgent
+        live sequences (deadline order, least recently dispatched first
+        among ties) get rows — demoting the coldest holders, promoting
+        parked ones — their rows gather into a dense block, the same
+        block program runs, and the stepped rows scatter back. Gather
+        and scatter only move data, so replies are bit-equal to a dense
+        pool's in any dtype."""
+        t0 = time.monotonic()
+        pool = self.pool_slots
+        self._pg_dispatch += 1
+        with self._cond:
+            stale = [r for r in self._live.values() if r.future.done()]
+        for req in stale:  # cancelled by the client: row and bytes retire
+            self._drop_live(req)
+        if self._n_active == 0:
+            return
+        k = self._pick_block()
+        with self._cond:
+            order = sorted(
+                self._live.values(),
+                key=lambda r: (r.priority, r.deadline, r.last_block,
+                               r.arrival, r.seq))
+        scheduled = self._schedule_rows(order[:pool])
+        if not scheduled:
+            return
+        try:
+            x = np.zeros((pool, k, self.backend.feat_dim), np.float32)
+            # idle lanes: reset (carry zeroed in the block), gather row 0,
+            # and no scatter
+            reset = np.ones((pool, 1), bool)
+            gidx = np.zeros((pool,), np.int64)
+            takes = [0] * pool
+            for lane, req in enumerate(scheduled):
+                gidx[lane] = req.row
+                reset[lane] = req.pos == 0
+                take = min(k, req.steps - req.pos)
+                takes[lane] = take
+                x[lane, :take] = req.x[req.pos:req.pos + take]
+            n = len(scheduled)
+            g = self._put(gidx)
+            dense = [(h.index_select(0, g), c.index_select(0, g))
+                     for h, c in self._states]
+            dense, y_dev = self.backend.block_fn(dense, self._put(x),
+                                                 self._put(reset))
+            s = g[:n]
+            self._states = [(h.index_copy(0, s, dh[:n]),
+                             c.index_copy(0, s, dc[:n]))
+                            for (h, c), (dh, dc) in zip(self._states,
+                                                        dense)]
+        except Exception as e:  # noqa: BLE001 — fail in-flight, keep serving
+            self._fault(e)
+            return
+        finished: list[tuple[int, int, SeqRequest]] = []
+        with self._cond:
+            for lane, req in enumerate(scheduled):
+                req.pos += takes[lane]
+                req.last_block = self._pg_dispatch
+                if req.pos >= req.steps:
+                    finished.append((lane, takes[lane] - 1, req))
+                    self._live.pop(req.seq, None)
+                    self._free_row(req)
+        self._count_step(len(scheduled) / pool, k)
+        done = self._buffer.push((finished, k, t0, y_dev))
+        if done is not None:
+            self._complete(done)
+
+    def _schedule_rows(self, chosen: list[SeqRequest]) -> list[SeqRequest]:
+        """Give each sequence of this block a page-store row — a free one
+        (lowest first), else the coldest unscheduled holder's — and
+        promote a parked one's rows into it. A failed promotion sheds
+        only that sequence. Returns the block's sequences in lane
+        order."""
+        keep = {r.seq for r in chosen}
+        out: list[SeqRequest] = []
+        for req in chosen:
+            if req.row is None:
+                if not self._row_free:
+                    self._demote_coldest(keep)
+                if not self._row_free:
+                    continue  # more lanes than rows: waits a block
+                req.row = self._alloc_row()
+            if req.evicted_state is None:
+                out.append(req)
+                continue
+            try:
+                if (self._budget.enabled
+                        and isinstance(req.evicted_state, _Spilled)):
+                    self._make_ledger_room(req.evicted_state.ram_bytes)
+                payload = self._read_parked_state(req)
+                self._check_restore_payload(payload)
+                self._scatter_row(req.row, payload)
+            except Exception as e:  # noqa: BLE001 — shed one, keep serving
+                logger.warning(
+                    "page promotion failed for one %s sequence (%r); "
+                    "shedding it, the pool keeps serving", req.cls, e)
+                self._drop_live(req)
+                self._bump("page_shed")
+                self._fail([req], ServeError(
+                    f"paged {req.cls} sequence shed: promotion "
+                    f"failed ({e!r})"), "promotion", error=False)
+                continue
+            if req.state_bytes:
+                self._mem.sub("ram", req.state_bytes)
+            req.evicted_state = None
+            req.state_bytes = 0
+            self._bump("page_promoted")
+            out.append(req)
+        return out
+
+    def _demote_coldest(self, keep: set) -> None:
+        """Demote the least recently dispatched row-holder outside this
+        block: its rows park in the ledger's RAM tier (spilling colder
+        ones under a budget) in the pool's own dtype, and its row frees.
+        A failed gather loses only that sequence."""
+        with self._cond:
+            cands = [r for r in self._live.values()
+                     if r.row is not None and r.seq not in keep]
+        if not cands:
+            return
+        victim = min(cands, key=lambda r: (r.last_block, r.arrival,
+                                           r.seq))
+        try:
+            if victim.pos > 0:
+                self._park_host_state(victim,
+                                      self._gather_rows(victim.row))
+            # a holder at pos 0 has no carry yet: its row just frees
+        except Exception as e:  # noqa: BLE001 — lose only the victim
+            logger.warning(
+                "page demotion failed for one %s sequence (%r); the "
+                "victim fails, the pool keeps serving", victim.cls, e)
+            self._drop_live(victim)
+            self._fail([victim], e, "demotion", error=False)
+            return
+        self._free_row(victim)
+        self._bump("page_demoted")
 
     def _complete(self, item) -> None:
         """Retire one in-flight block: gather its finishers' output rows
         on the device (no host transfer) into the staging buffer, then
         flush it if due."""
-        finished, active, admitted, k, t0, y_dev = item
+        finished, k, t0, y_dev = item
         if finished:
             reqs = [req for _s, _b, req in finished]
             try:
@@ -682,6 +2239,7 @@ class StepScheduler:
                         flush_at = max(now, req.deadline)
                 self._staged.append((reqs, flush_at, y_sel))
                 self._staged_rows += len(reqs)
+                self._mem.add("staged", y_sel.numel() * y_sel.element_size())
         with self._lock:
             self._step_ms.append((time.monotonic() - t0) * 1e3)
         self._flush_readback()
@@ -692,12 +2250,14 @@ class StepScheduler:
         a pool's worth of rows waits, or ``force`` (idle, close, fault)."""
         if not self._staged:
             return
-        if (not force and self._staged_rows < self.max_slots
+        if (not force and self._staged_rows < self.pool_slots
                 and time.monotonic() < min(dl for _r, dl, _y
                                            in self._staged)):
             return
         entries, self._staged = self._staged, []
         self._staged_rows = 0
+        self._mem.sub("staged", sum(y.numel() * y.element_size()
+                                    for _r, _dl, y in entries))
         reqs = [req for e_reqs, _dl, _y in entries for req in e_reqs]
         try:
             rows = [y for _r, _dl, y in entries]
@@ -723,52 +2283,104 @@ class StepScheduler:
             self._drift_tick += 1
 
     def _fail(self, reqs: list[SeqRequest], exc: BaseException,
-              what: str) -> None:
-        logger.warning("%s failed for %d sequence(s): %r", what, len(reqs),
-                       exc)
+              what: str, error: bool = True) -> None:
+        """Fail ``reqs`` with ``exc``. ``error`` counts (and logs) a
+        failed program; a shed or a lost victim, already warned about,
+        counts as failed only."""
+        if error:
+            logger.warning("%s failed for %d sequence(s): %r", what,
+                           len(reqs), exc)
         with self._lock:
-            self._errors += 1
+            self._errors += int(error)
             self._failed += len(reqs)
         for req in reqs:
             resolve_future(req.future, exc=exc)
 
     def _fault(self, exc: BaseException) -> None:
-        """A failed dispatch fails only the sequences holding slots: blocks
-        already in flight retire first (their finishers' outputs are
-        valid), then every slot-holder gets the exception and the pool is
-        rebuilt empty; queued sequences admit and complete after it."""
+        """A failed dispatch fails only the sequences holding slots (or
+        device rows): blocks already in flight retire first (their
+        finishers' outputs are valid), then every holder gets the
+        exception and the pool is rebuilt empty; queued and parked
+        sequences admit and complete after it."""
         for item in self._buffer.drain():
             self._complete(item)
         self._flush_readback(force=True)
+        if self._paging.enabled:
+            self._fault_paged(exc)
+            return
         holders = [req for req in self._slot_req if req is not None]
-        self._slot_req = [None] * self.max_slots
-        self._slot_pos = [0] * self.max_slots
-        self._free = list(range(self.max_slots))
+        self._slot_req = [None] * self.pool_slots
+        self._slot_pos = [0] * self.pool_slots
+        self._free = list(range(self.pool_slots))
         self._pending_reset.clear()
+        # restores pending for the holders die with them; ledger entries
+        # survive (queued, not in flight) and restore into the new pool
+        for req in self._pending_restore.values():
+            self._unpark(req)
+        self._pending_restore.clear()
+        self._restore_staged.clear()
+        for _item in self._restore_buf.drain():
+            pass
         self._fail(holders, exc, "step block")
-        self._states = self.backend.init_states(self.max_slots)
+        self._states = self._init_states()
+
+    def _fault_paged(self, exc: BaseException) -> None:
+        """The paged fault: live sequences with a device row fail; those
+        whose carry is wholly parked on the host go back to the ledger
+        and the heap. The page store is rebuilt zeroed."""
+        requeue: list[SeqRequest] = []
+        failed: list[SeqRequest] = []
+        with self._cond:
+            live = list(self._live.values())
+            self._live.clear()
+        for req in live:
+            if req.evicted_state is not None and req.row is None:
+                requeue.append(req)
+                continue
+            req.row = None
+            with self._cond:
+                self._unpark(req)
+            failed.append(req)
+        with self._cond:
+            for req in requeue:
+                self._requeue_locked(req)
+        self._row_free = list(range(self._page_rows))  # sorted: a heap
+        self._fail(failed, exc, "step block")
+        self._states = self._init_states()
 
     def _abort(self, exc: BaseException) -> None:
         """The dispatcher cannot go on (a fault escaped ``_fault`` itself,
         e.g. a sticky device error that also fails the pool's rebuild):
         close the engine, so ``submit`` raises, and fail every request it
-        holds — queued, holding a slot, in flight or staged — with
-        ``exc``, so no client waits on a future nothing will resolve."""
+        holds — queued, parked, holding a slot or row, in flight or
+        staged — with ``exc``, so no client waits on a future nothing
+        will resolve."""
         logger.error("step dispatcher stopped: %r", exc)
         with self._cond:
             self._closed = True
             self._aborted = exc
             reqs = [entry[-1] for entry in self._q]
             self._q = []
+            reqs += [r for r in self._live.values()]
+            self._live.clear()
+            for req in reqs:
+                self._unpark(req)
+            self._evicted.clear()
+            exports, self._export_q = self._export_q, []
         reqs += [req for req in self._slot_req if req is not None]
         reqs += [req for item in self._buffer.drain()
                  for _s, _b, req in item[0]]
         reqs += [req for e_reqs, _dl, _y in self._staged for req in e_reqs]
         self._staged = []
         self._staged_rows = 0
-        self._slot_req = [None] * self.max_slots
-        self._free = list(range(self.max_slots))
-        self._fail(reqs, exc, "dispatcher")
+        self._slot_req = [None] * self.pool_slots
+        self._free = list(range(self.pool_slots))
+        self._pending_restore.clear()
+        self._fail(list({id(r): r for r in reqs}.values()), exc,
+                   "dispatcher")
+        for _target, _reason, fut in exports:
+            if fut.set_running_or_notify_cancel():
+                fut.set_exception(exc)
 
     # -- introspection / lifecycle --------------------------------------
     @property
@@ -784,19 +2396,25 @@ class StepScheduler:
                     "drift": self._drift.snapshot()}
 
     def stats(self) -> dict:
-        """The JAX step scheduler's stats() keys, less the sections of the
-        parts not ported yet (slo, trace, preempt, budget, paging, aot)."""
+        """The JAX step scheduler's stats() keys, ``preempt``, ``budget``
+        and ``paging`` included, less the sections of parts not ported
+        yet (slo, trace, aot). Reading them sheds an expired parked
+        sequence too."""
+        if self._evicted:
+            self._sweep_expired()
         queued = self.queue_depth
+        paging = self._paging_stats()
         with self._lock:
             lat = sorted(self._step_ms)
             n = self._steps
+            c = dict(self._n)
             out = {
                 "scheduler": "continuous",
                 "slots": self.max_slots,
                 "step_block": self.step_block,
                 "step_blocks": list(self.step_blocks),
-                "block_hist": {str(k): c for k, c
-                               in sorted(self._block_hist.items()) if c},
+                "block_hist": {str(k): v for k, v
+                               in sorted(self._block_hist.items()) if v},
                 "active": self._n_active,
                 "queued": queued,
                 "steps": n,
@@ -806,21 +2424,68 @@ class StepScheduler:
                 "readbacks": self._readbacks,
                 "classes": self._cls_stats.snapshot(),
                 "precision": self._drift.snapshot(),
+                "preempt": {
+                    "enabled": self._preempt.enabled,
+                    "elastic": self._preempt.elastic,
+                    "pool_slots": self.pool_slots,
+                    "preempted": c["preempted"],
+                    "restored": c["restored"],
+                    "shed": c["preempt_shed"],
+                    "evicted_depth": len(self._evicted),
+                    "resizes": c["resizes"],
+                },
                 "mean_occupancy": round(self._occupancy / n, 4) if n
                                   else 0.0,
                 "uptime_s": round(time.monotonic() - self._t_start, 3),
             }
+        defaults = ("pool", "params", "staged", "ram", "disk", "queue")
+        if self._paging.enabled:
+            defaults += ("pages",)
+        out["budget"] = {"enabled": self._budget.enabled,
+                         **self._mem.snapshot(defaults=defaults),
+                         "spills": c["spills"],
+                         "spill_restored": c["spill_restored"],
+                         "deferred": c["budget_deferred"],
+                         "shed": c["budget_shed"]}
+        if paging["enabled"]:
+            paging.update(demoted=c["page_demoted"],
+                          promoted=c["page_promoted"],
+                          shed=c["page_shed"])
+        out["paging"] = paging
         out["p50_step_ms"] = round(percentile(lat, 0.50), 3)
         out["p99_step_ms"] = round(percentile(lat, 0.99), 3)
         if self._children:
             out["profiles"] = _profiles(self)
         return out
 
+    def _paging_stats(self) -> dict:
+        """``stats()["paging"]``'s geometry and occupancy (the counters
+        are added by stats()); ``{"enabled": False}`` for a dense pool."""
+        out: dict = {"enabled": self._paging.enabled}
+        if not self._paging.enabled:
+            return out
+        ps = self._paging.page_slots
+        with self._cond:
+            free = set(self._row_free)
+            live = len(self._live)
+        free_pages = sum(
+            1 for p in range(self._pages)
+            if all(r in free for r in range(p * ps, (p + 1) * ps)))
+        out.update({"pages": self._pages, "page_slots": ps,
+                    "rows": self._page_rows, "free_rows": len(free),
+                    "free_pages": free_pages, "live": live,
+                    "max_live": self._max_live,
+                    "peak_live": self._pg_peak_live})
+        return out
+
     def close(self) -> None:
-        """Stop accepting requests, drain queued and in-flight work, join
-        the dispatcher (children first)."""
+        """Stop accepting requests, shed expired parked sequences, drain
+        queued and in-flight work, join the dispatcher (children
+        first)."""
         for child in self._children.values():
             child.close()
+        if self._evicted:
+            self._sweep_expired()
         with self._cond:
             self._closed = True
             self._cond.notify_all()
@@ -920,12 +2585,14 @@ class WholeSequenceScheduler:
 
     # -- request side ---------------------------------------------------
     def submit(self, x: np.ndarray, max_wait_s: float | None = None,
-               cls: str | None = None, profile: str | None = None
-               ) -> Future:
+               cls: str | None = None, tag: str | None = None,
+               profile: str | None = None) -> Future:
         """Enqueue one sequence ``(T, F)``; resolves to ``(out_dim,)``.
         ``max_wait_s`` shortens this request's flush deadline (clamped to
-        the configured ceiling); ``cls`` names its SLO class; ``profile``
-        routes it to that profile's child scheduler."""
+        the configured ceiling); ``cls`` names its SLO class; ``tag`` is
+        accepted as the step scheduler takes it and ignored (this
+        scheduler has nothing to export); ``profile`` routes it to that
+        profile's child scheduler."""
         child = _route(self, profile)
         if child is not None:
             return child.submit(x, max_wait_s=max_wait_s, cls=cls)
@@ -950,9 +2617,9 @@ class WholeSequenceScheduler:
         return req.future
 
     def predict(self, x: np.ndarray, max_wait_s: float | None = None,
-                cls: str | None = None, profile: str | None = None
-                ) -> np.ndarray:
-        return self.submit(x, max_wait_s=max_wait_s, cls=cls,
+                cls: str | None = None, tag: str | None = None,
+                profile: str | None = None) -> np.ndarray:
+        return self.submit(x, max_wait_s=max_wait_s, cls=cls, tag=tag,
                            profile=profile).result()
 
     # -- dispatcher thread ----------------------------------------------
@@ -1074,7 +2741,9 @@ class WholeSequenceScheduler:
 
 def make_sequence_engine(backend: RecurrentBackend, cfg):
     """``cfg.serve`` → the configured sequence scheduler ("batch" |
-    "continuous")."""
+    "continuous"), the step scheduler with ``serve.preempt``,
+    ``serve.budget`` and ``serve.paging``; the batch scheduler warns that
+    it has no slots for the first two."""
     serve = cfg.serve
     if serve.scheduler == "continuous":
         return StepScheduler(
@@ -1082,8 +2751,20 @@ def make_sequence_engine(backend: RecurrentBackend, cfg):
             step_blocks=serve.step_blocks or None, classes=serve.classes,
             readback_interval_ms=serve.readback_interval_ms,
             inflight=serve.inflight, warmup=serve.warmup,
-            profiles=serve.profiles)
+            profiles=serve.profiles,
+            preempt=PreemptPolicy.from_config(serve.preempt),
+            budget=BudgetPolicy.from_config(serve.budget),
+            paging=PagingPolicy.from_config(serve.paging))
     if serve.scheduler == "batch":
+        if serve.preempt.enabled or serve.preempt.elastic:
+            logger.warning("serve.preempt needs the slot pool; the "
+                           "batch scheduler has no slots to preempt — "
+                           "use serve.scheduler=continuous")
+        if serve.budget.enabled:
+            logger.warning("serve.budget governs the continuous "
+                           "scheduler's slot pool and eviction ledger; "
+                           "the batch scheduler ignores it — use "
+                           "serve.scheduler=continuous")
         return WholeSequenceScheduler(
             backend, row_buckets=serve.buckets,
             time_buckets=serve.seq_buckets, max_wait_ms=serve.max_wait_ms,

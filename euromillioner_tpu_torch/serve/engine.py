@@ -23,7 +23,12 @@ own batcher and dispatcher, so profiles never share a micro-batch; a
 request names its profile (``profile=``, the HTTP ``"profile"`` key) and
 an unknown one is refused by name.
 
-Not ported yet: memory budgets, telemetry and traces, workload capture,
+Memory budget (``serve.budget``): the engine accounts its serving params
+and its queued payloads in a :class:`~euromillioner_tpu_torch.serve.
+session.MemoryLedger`; under an enabled budget a submit past
+``queue_bytes`` is shed with a ServeError naming the budget.
+
+Not ported yet: telemetry and traces, workload capture,
 the serving mesh, the AOT store, and chunking of a request larger than
 the largest bucket (refused with a ServeError).
 """
@@ -50,6 +55,9 @@ from euromillioner_tpu_torch.serve.batcher import (LATENCY_WINDOW,
                                                    pick_bucket,
                                                    resolve_future,
                                                    validate_buckets)
+from euromillioner_tpu_torch.serve.session import (BudgetPolicy,
+                                                   MemoryLedger,
+                                                   admit_queue_bytes)
 from euromillioner_tpu_torch.utils.errors import ServeError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
@@ -191,7 +199,7 @@ class InferenceEngine:
                  warmup: bool = True,
                  classes: Sequence[str] = ("interactive", "bulk"),
                  precision: str | None = None,
-                 profiles: Sequence[str] = ()):
+                 profiles: Sequence[str] = (), budget=None):
         self.backend = backend
         self.precision = (resolve_serve_precision(precision) if precision
                           else backend.precision)
@@ -221,11 +229,20 @@ class InferenceEngine:
         self._feat_shape = tuple(backend.feat_shape)
         self._batcher = MicroBatcher(self.max_batch, max_wait_ms / 1000.0)
         self._buffer = DoubleBuffer(depth=inflight)
+        # byte accounting (serve.budget): serving params and queued
+        # payloads; queue_bytes is enforced only under an enabled policy
+        self._budget = budget or BudgetPolicy()
+        if self._budget.enabled:
+            self._budget.validate()
+        self._mem = MemoryLedger({"queue": self._budget.queue_bytes}
+                                 if self._budget.enabled else None)
+        self._mem.set_bytes("params", param_bytes(self._serve_params))
         self._lock = threading.Lock()
         self._latencies: collections.deque = collections.deque(
             maxlen=LATENCY_WINDOW)
         self._children: dict[str, InferenceEngine] = {}
         self._submitted = 0
+        self._budget_shed = 0
         self._requests = self._rows = self._batches = self._errors = 0
         self._fill = 0.0
         self._t_start = time.monotonic()
@@ -323,14 +340,31 @@ class InferenceEngine:
             raise ServeError(
                 f"request of {len(x)} rows exceeds the largest bucket "
                 f"{self.max_batch} (chunking is not ported yet)")
+        self._admit_bytes(cls, x.nbytes)
         req = Request(x=x, priority=prio, cls=cls)
         if max_wait_s is not None:
             req.deadline = req.t_submit + max(
                 0.0, min(float(max_wait_s), self._batcher.max_wait_s))
-        self._batcher.submit(req)
+        try:
+            self._batcher.submit(req)
+        except Exception:
+            if self._budget.enabled:
+                self._mem.sub("queue", x.nbytes)
+            raise
         with self._lock:
             self._submitted += 1
         return req.future
+
+    def _admit_bytes(self, cls: str, nbytes: int) -> None:
+        """The budget's front door: reserve ``nbytes`` of the ``queue``
+        class or shed the submit with a ServeError naming the budget.
+        Admitted payloads stay accounted until their batch dispatches."""
+        def shed() -> None:
+            with self._lock:
+                self._budget_shed += 1
+
+        admit_queue_bytes(self._mem, self._budget, nbytes, cls, shed,
+                          logger)
 
     def predict(self, x: np.ndarray, max_wait_s: float | None = None,
                 cls: str | None = None, profile: str | None = None
@@ -357,6 +391,9 @@ class InferenceEngine:
     def _dispatch(self, batch: list[Request]) -> None:
         t0 = time.monotonic()
         rows = sum(r.rows for r in batch)
+        if self._budget.enabled:
+            # the batch left the queue, whatever its dispatch's outcome
+            self._mem.sub("queue", sum(r.x.nbytes for r in batch))
         try:
             bucket = pick_bucket(rows, self.buckets)
             x = (batch[0].x if len(batch) == 1
@@ -428,6 +465,12 @@ class InferenceEngine:
                 "classes": self._cls_stats.snapshot(),
                 "precision": self._drift.snapshot(),
             }
+            shed = self._budget_shed
+        out["budget"] = {
+            "enabled": self._budget.enabled,
+            **self._mem.snapshot(defaults=("params", "queue")),
+            "shed": shed,
+        }
         out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
         out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
         if self._children:
@@ -462,10 +505,13 @@ class InferenceEngine:
 
 
 def make_row_engine(backend, cfg) -> InferenceEngine:
-    """``cfg.serve`` → the row engine over ``backend``."""
+    """``cfg.serve`` → the row engine over ``backend``, its budget
+    included."""
     return InferenceEngine(backend, buckets=cfg.serve.buckets,
                            max_wait_ms=cfg.serve.max_wait_ms,
                            inflight=cfg.serve.inflight,
                            warmup=cfg.serve.warmup,
                            classes=cfg.serve.classes,
-                           profiles=cfg.serve.profiles)
+                           profiles=cfg.serve.profiles,
+                           budget=BudgetPolicy.from_config(
+                               cfg.serve.budget))

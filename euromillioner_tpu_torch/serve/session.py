@@ -13,6 +13,11 @@ JAX package. A neural backend keeps its f32 ``predict`` as the oracle;
 ``quantized_apply`` where it has one (Wide&Deep's dequantized gather),
 else the model's forward on the tree dequantized at each call.
 
+:class:`MemoryLedger`, :func:`admit_queue_bytes` and :class:`BudgetPolicy`
+are the byte accounting and the front-door budget every engine shares
+(``serve.budget``; the row engine's ``queue`` class, the step
+scheduler's every class).
+
 Not ported yet: the JAX package's chunked tree dispatch
 (``serve.trees.chunk``), ``ModelSession`` (executable cache, AOT store,
 mesh placement) and the ``serve.quant`` fault point with its fallback to
@@ -23,7 +28,10 @@ dispatch is a :class:`ConfigError` that names it.
 from __future__ import annotations
 
 import copy
-from typing import Callable
+import math
+import threading
+from dataclasses import dataclass
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
@@ -36,10 +44,160 @@ from euromillioner_tpu_torch.core.precision import (cast_floats,
                                                     resolve_serve_precision,
                                                     serve_envelope)
 from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
+from euromillioner_tpu_torch.utils.logging_utils import get_logger
+
+logger = get_logger("serve.session")
 
 # row families this port serves through load_backend
 PORTED_ROW_FAMILIES = ("gbt", "rf", "mlp", "wide_deep", "classic")
 _TREE_FAMILIES = ("gbt", "rf")
+
+
+class MemoryLedger:
+    """Bytes held by each class of serving residency: the device slot
+    pool's (h, c) state (``pool``), the serving params (``params``),
+    staged readback rows (``staged``), parked eviction state on the host
+    (``ram``) and on disk (``disk``), queued request payloads
+    (``queue``) and, when paging is on, the page store (``pages``, the
+    same device bytes as ``pool``). Engines ``add``/``sub`` as bytes come
+    and go; a class with a budget is bounded by it, the others are only
+    tracked. Thread-safe; peaks are kept per class."""
+
+    def __init__(self, budgets: Mapping[str, int] | None = None):
+        self._lock = threading.Lock()
+        self._bytes: dict[str, int] = {}
+        self._peak: dict[str, int] = {}
+        self._budgets = {k: int(v) for k, v in (budgets or {}).items()
+                         if int(v) > 0}
+
+    def add(self, klass: str, n: int) -> None:
+        with self._lock:
+            cur = self._bytes.get(klass, 0) + int(n)
+            self._bytes[klass] = cur
+            if cur > self._peak.get(klass, 0):
+                self._peak[klass] = cur
+
+    def try_add(self, klass: str, n: int) -> bool:
+        """Add ``n`` unless the class's budget would be exceeded (then
+        nothing is added): the check and the add are one lock hold, so
+        concurrent admitters cannot overshoot together."""
+        with self._lock:
+            cur = self._bytes.get(klass, 0)
+            b = self._budgets.get(klass)
+            if b is not None and cur + int(n) > b:
+                return False
+            cur += int(n)
+            self._bytes[klass] = cur
+            if cur > self._peak.get(klass, 0):
+                self._peak[klass] = cur
+            return True
+
+    def sub(self, klass: str, n: int) -> None:
+        with self._lock:
+            cur = self._bytes.get(klass, 0) - int(n)
+            if cur < 0:
+                # a sub without its add is a bookkeeping fault: say so
+                logger.warning("MemoryLedger %r went %d bytes negative; "
+                               "clamping to 0", klass, cur)
+                cur = 0
+            self._bytes[klass] = cur
+
+    def set_bytes(self, klass: str, n: int) -> None:
+        """Overwrite a recomputed class (the pool after a resize)."""
+        with self._lock:
+            self._bytes[klass] = int(n)
+            if n > self._peak.get(klass, 0):
+                self._peak[klass] = int(n)
+
+    def bytes(self, klass: str | None = None) -> int:
+        with self._lock:
+            if klass is not None:
+                return self._bytes.get(klass, 0)
+            return sum(self._bytes.values())
+
+    def peak(self, klass: str) -> int:
+        with self._lock:
+            return self._peak.get(klass, 0)
+
+    def budget(self, klass: str) -> int | None:
+        return self._budgets.get(klass)
+
+    def headroom(self, klass: str) -> float:
+        """``budget - bytes`` of one class; +inf without a budget."""
+        b = self._budgets.get(klass)
+        if b is None:
+            return math.inf
+        with self._lock:
+            return b - self._bytes.get(klass, 0)
+
+    def snapshot(self, defaults: tuple[str, ...] = ()) -> dict:
+        """``stats()["budget"]``'s bytes, peaks and budgets; the classes
+        in ``defaults`` read 0 when nothing was recorded."""
+        with self._lock:
+            by = dict(self._bytes)
+            pk = dict(self._peak)
+        for k in defaults:
+            by.setdefault(k, 0)
+            pk.setdefault(k, 0)
+        return {"bytes": {k: int(v) for k, v in sorted(by.items())},
+                "peak": {k: int(v) for k, v in sorted(pk.items())},
+                "budgets": {k: int(v) for k, v
+                            in sorted(self._budgets.items())}}
+
+
+def admit_queue_bytes(mem: MemoryLedger, policy: "BudgetPolicy",
+                      nbytes: int, cls: str, on_shed: Callable[[], None],
+                      log) -> None:
+    """The front door of every engine under an enabled budget: reserve
+    ``nbytes`` of the ``queue`` class, or call ``on_shed`` (the engine's
+    shed counter) and raise a ServeError naming the exhausted budget."""
+    if not policy.enabled:
+        return
+    if mem.try_add("queue", nbytes):
+        return
+    on_shed()
+    queued = mem.bytes("queue")
+    log.warning(
+        "serve.budget.queue_bytes exhausted: shedding one %s request "
+        "(%d queued + %d new > %d budget)", cls, queued, nbytes,
+        policy.queue_bytes)
+    raise ServeError(
+        f"serve.budget.queue_bytes exhausted: admitting {nbytes} "
+        f"payload bytes would exceed the {policy.queue_bytes}-byte "
+        f"queue budget ({queued} bytes queued); request shed")
+
+
+@dataclass(frozen=True)
+class BudgetPolicy:
+    """``serve.budget`` as the engines read it (config.BudgetConfig's
+    fields). Disabled, bytes are tracked and nothing is enforced."""
+
+    enabled: bool = False
+    ledger_bytes: int = 32 * 2**20
+    spill_dir: str = ""
+    spill_bytes: int = 256 * 2**20
+    queue_bytes: int = 0
+
+    def validate(self) -> None:
+        if self.ledger_bytes < 1:
+            raise ServeError("serve.budget.ledger_bytes must be >= 1, "
+                             f"got {self.ledger_bytes}")
+        if self.spill_dir and self.spill_bytes < 1:
+            raise ServeError("serve.budget.spill_bytes must be >= 1 "
+                             f"with a spill_dir, got {self.spill_bytes}")
+        if self.queue_bytes < 0:
+            raise ServeError("serve.budget.queue_bytes must be >= 0, "
+                             f"got {self.queue_bytes}")
+
+    @classmethod
+    def from_config(cls, bc) -> "BudgetPolicy":
+        """``cfg.serve.budget`` → a policy, validated when enabled."""
+        pol = cls(enabled=bc.enabled, ledger_bytes=bc.ledger_bytes,
+                  spill_dir=bc.spill_dir, spill_bytes=bc.spill_bytes,
+                  queue_bytes=bc.queue_bytes)
+        if pol.enabled:
+            pol.validate()
+        return pol
 
 
 def _bind(model: torch.nn.Module, params: dict) -> torch.nn.Module:

@@ -9,17 +9,26 @@ HTTP (stdlib ``ThreadingHTTPServer``; one blocking ``predict`` per handler
 thread, the engine coalesces across threads):
 
 * ``POST /predict`` ``{"rows": [[...], ...]}`` (optional ``max_wait_s``,
-  ``class``, ``profile``) → ``{"predictions": [...], "rows": n}``;
+  ``class``, ``profile``, and for a sequence engine ``tag``, the handle
+  ``/admin/export`` names it by) → ``{"predictions": [...], "rows": n}``;
 * ``GET /healthz`` — liveness and what is alive (:func:`healthz_body`);
-* ``GET /stats`` — the engine's ``stats()``.
+* ``GET /stats`` — the engine's ``stats()``;
+* ``POST /admin/export`` ``{"target": tag}`` → ``{"blob": base64 | null}``
+  (one live sequence packed as a migration blob and removed here), or
+  ``{"all": true}`` → ``{"blobs": [...]}`` (every live sequence);
+* ``POST /admin/migrate`` ``{"blob": base64}`` → the imported sequence's
+  ``{"predictions": [...], "migrated": true}`` once it finishes.
 
-The port's engines have no telemetry yet, so ``GET /metrics`` and ``GET
-/trace`` answer the JAX handler's 404 for such an engine, and so do the
-``/admin/*`` routes (no live migration, no fleet supervisor).
+Only the step scheduler has the migration surface (``export_sequence``,
+``drain_export``, ``import_sequence``); the row engine and the batch
+scheduler answer both admin routes with the JAX handler's 404. The port's
+engines have no telemetry yet, so ``GET /metrics`` and ``GET /trace``
+answer 404 too, and so does ``/admin/release`` (no fleet supervisor).
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import threading
 import urllib.parse
@@ -37,7 +46,9 @@ logger = get_logger("serve.transport")
 # ejection policy on fields of this body
 HEALTHZ_VERSION = 1
 
-# the JAX handler's answers for an engine without these surfaces
+# the JAX handler's answers where the engine lacks the surface: the
+# migration routes for a row engine or the batch scheduler, the release
+# route always (the fleet supervisor is not ported)
 _ADMIN_404 = {"/admin/export": "this engine has no live-migration surface",
               "/admin/migrate": "this engine has no live-migration surface",
               "/admin/release": "this endpoint has no fleet supervisor"}
@@ -59,8 +70,8 @@ def handle_request(engine, payload: Any) -> tuple[int, dict]:
     and replies with its single prediction. Optional ``max_wait_s``
     shortens the request's flush deadline and orders admission; ``class``
     names its SLO class and ``profile`` its precision profile (an unknown
-    one is a 400 naming the valid ones). ``tag`` (live migration) is not
-    ported yet: a 400."""
+    one is a 400 naming the valid ones); ``tag`` is a sequence's export
+    handle (a non-empty string, sequence engines only, else a 400)."""
     if not isinstance(payload, dict) or "rows" not in payload:
         return 400, {"error": 'payload must be {"rows": [[...], ...]}'}
     try:
@@ -81,11 +92,18 @@ def handle_request(engine, payload: Any) -> tuple[int, dict]:
     profile = payload.get("profile")
     if profile is not None and not isinstance(profile, str):
         return 400, {"error": "profile must be a string (serve.profiles)"}
-    if "tag" in payload:
-        return 400, {"error": "tag (live migration) is not ported yet"}
+    kw = {}
+    tag = payload.get("tag")
+    if tag is not None:
+        if not isinstance(tag, str) or not tag:
+            return 400, {"error": "tag must be a non-empty string"}
+        if getattr(engine, "kind", "rows") != "sequence":
+            return 400, {"error": "tag is only valid for sequence "
+                                  "engines (nothing to export)"}
+        kw["tag"] = tag
     try:
         pred = engine.predict(x, max_wait_s=max_wait_s, cls=cls,
-                              profile=profile)
+                              profile=profile, **kw)
     except ServeError as e:
         return 400, {"error": str(e)}
     except Exception as e:  # noqa: BLE001 — engine faults → 500, not crash
@@ -146,6 +164,57 @@ def run_smoke(engine, n: int, concurrency: int = 4) -> dict:
             "stats": engine.stats(), "predictions": preds}
 
 
+def _admin_export(engine, payload: Any) -> tuple[int, dict]:
+    """``/admin/export``: ``{"target": tag}`` packs that sequence
+    (``{"blob": base64 | null}``), ``{"all": true}`` every live one
+    (``{"blobs": [...]}``); 404 without the surface, 400 on a bad body."""
+    exp = getattr(engine, "export_sequence", None)
+    drain = getattr(engine, "drain_export", None)
+    if exp is None or drain is None:
+        return 404, {"error": _ADMIN_404["/admin/export"]}
+    shape = 'body must be {"target": tag} or {"all": true}'
+    if not isinstance(payload, dict):
+        return 400, {"error": shape}
+    try:
+        if payload.get("all") is True:
+            return 200, {"blobs": [base64.b64encode(b).decode()
+                                   for b in drain(reason="drain")]}
+        target = payload.get("target")
+        if not isinstance(target, str) or not target:
+            return 400, {"error": shape}
+        blob = exp(target, reason="drain")
+    except ServeError as e:
+        return 400, {"error": str(e)}
+    except Exception as e:  # noqa: BLE001 — engine faults → 500, not crash
+        return 500, {"error": f"{type(e).__name__}: {e}"}
+    return 200, {"blob": None if blob is None
+                 else base64.b64encode(blob).decode()}
+
+
+def _admin_migrate(engine, payload: Any) -> tuple[int, dict]:
+    """``/admin/migrate``: ``{"blob": base64}`` imports one migration blob
+    and answers with its prediction once it finishes; a header that does
+    not fit the pool is a 400 naming the field, an engine without the
+    surface a 404."""
+    imp = getattr(engine, "import_sequence", None)
+    if imp is None:
+        return 404, {"error": _ADMIN_404["/admin/migrate"]}
+    blob64 = payload.get("blob") if isinstance(payload, dict) else None
+    if not isinstance(blob64, str) or not blob64:
+        return 400, {"error": 'body must be {"blob": base64}'}
+    try:
+        blob = base64.b64decode(blob64, validate=True)
+    except (ValueError, TypeError) as e:
+        return 400, {"error": f"bad base64 blob: {e}"}
+    try:
+        pred = np.asarray(imp(blob).result())
+    except ServeError as e:
+        return 400, {"error": str(e)}
+    except Exception as e:  # noqa: BLE001 — engine faults → 500, not crash
+        return 500, {"error": f"{type(e).__name__}: {e}"}
+    return 200, {"predictions": pred.tolist(), "migrated": True}
+
+
 class _Handler(BaseHTTPRequestHandler):
     engine: Any  # set by make_server on the subclass
 
@@ -178,10 +247,14 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError as e:  # JSONDecodeError is a ValueError
             self._reply(400, {"error": f"bad JSON body: {e}"})
             return
-        if self.path in _ADMIN_404:
+        if self.path == "/admin/export":
+            self._reply(*_admin_export(self.engine, payload))
+        elif self.path == "/admin/migrate":
+            self._reply(*_admin_migrate(self.engine, payload))
+        elif self.path in _ADMIN_404:
             self._reply(404, {"error": _ADMIN_404[self.path]})
-            return
-        self._reply(*handle_request(self.engine, payload))
+        else:
+            self._reply(*handle_request(self.engine, payload))
 
     def log_message(self, fmt: str, *args: Any) -> None:
         logger.debug("http: " + fmt, *args)

@@ -10,14 +10,17 @@ bfloat16: numpy has no bfloat16 of its own, so its bits are read as raw
 bfloat16 registration (jax or ml_dtypes) is needed to read or write one.
 :func:`loads` returns CPU tensors; :func:`dumps` takes tensors or numpy
 arrays (a numpy array whose dtype is named ``bfloat16`` is written as code
-6 from its raw bits).
+6 from its raw bits). :func:`json_entry` / :func:`json_value` carry a JSON
+object as a ``uint8`` entry (the migration header), byte for byte as the
+JAX package writes one.
 """
 
 from __future__ import annotations
 
+import json
 import struct
 import zlib
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -95,6 +98,31 @@ def loads(data: bytes) -> dict[str, torch.Tensor]:
         # a truncated or garbled container: one failure type for callers
         raise CheckpointError(f"malformed EMT1 container: {e}") from e
     return out
+
+
+def json_entry(obj: Any) -> np.ndarray:
+    """A JSON-serializable object as a ``uint8`` entry: sorted keys and
+    compact separators, so the bytes are stable; the container's length
+    and crc32 framing guard it like any tensor."""
+    raw = json.dumps(obj, sort_keys=True,
+                     separators=(",", ":")).encode("utf-8")
+    return np.frombuffer(raw, dtype=np.uint8).copy()
+
+
+def json_value(arr) -> Any:
+    """Decode a :func:`json_entry` (numpy array or CPU tensor)."""
+    if isinstance(arr, torch.Tensor):
+        if arr.dtype != torch.uint8:
+            raise CheckpointError(
+                f"json entry must be uint8, got {arr.dtype}")
+        arr = arr.numpy()
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint8:
+        raise CheckpointError(f"json entry must be uint8, got {arr.dtype}")
+    try:
+        return json.loads(arr.tobytes().decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as exc:
+        raise CheckpointError(f"malformed json entry: {exc}") from exc
 
 
 def save(path: str, arrays: Mapping[str, object]) -> None:

@@ -259,8 +259,8 @@ def test_cli_serves_jax_checkpoint_on_cpu(jax_ckpt):
     (["--model-type", "lstm", "--scheduler", "continuous",
       "serve.step_blocks=2,8", "serve.profiles=bf16"], 0),
     (["--model-type", "lstm", "serve.profiles=fp8"], 17),
-    # parts of the step scheduler not ported yet have no port setting
-    (["--model-type", "lstm", "serve.preempt.enabled=true"], 2),
+    # a field the port's (and the JAX package's) section lacks
+    (["--model-type", "lstm", "serve.preempt.no_such_field=1"], 2),
     (["--model-type", "wide_deep", "--scheduler", "continuous"], 16),
     (["--model-type", "lstm", "serve.precision=bf16"], 0),
     (["--model-type", "lstm", "serve.precision=fp8"], 17),
@@ -275,6 +275,17 @@ def test_cli_serves_jax_checkpoint_on_cpu(jax_ckpt):
     # classic serves a model JSON at f32 only (JAX CLI: 16 and 17)
     (["--model-type", "classic"], 16),
     (["--model-type", "classic", "serve.precision=int8w"], 17),
+    # the step scheduler's governance sections parse as the JAX CLI's;
+    # the batch scheduler warns that it has no slots and serves
+    (["--model-type", "lstm", "serve.preempt.enabled=true"], 0),
+    (["--model-type", "lstm", "--scheduler", "continuous",
+      "serve.preempt.enabled=true", "serve.preempt.elastic=true",
+      "serve.max_slots=4", "serve.budget.enabled=true",
+      "serve.budget.queue_bytes=100000"], 0),
+    (["--model-type", "lstm", "--scheduler", "continuous",
+      "serve.paging.enabled=true", "serve.paging.page_slots=2"], 0),
+    (["--model-type", "lstm", "--scheduler", "continuous",
+      "serve.preempt.elastic=true", "serve.paging.enabled=true"], 16),
 ])
 def test_cli_exit_codes(jax_ckpt, argv, rc):
     assert cli.main(["serve", "--checkpoint", jax_ckpt, "--smoke", "2",

@@ -106,7 +106,10 @@ def test_single_rows_coalesce_and_pad(backend, rows):
     assert 0 < st["mean_fill_ratio"] <= 1
     assert set(st) == {"requests", "rows", "batches", "errors",
                        "queue_depth", "mean_fill_ratio", "uptime_s",
-                       "classes", "precision", "p50_ms", "p99_ms"}
+                       "classes", "precision", "budget", "p50_ms",
+                       "p99_ms"}
+    assert st["budget"]["enabled"] is False
+    assert set(st["budget"]["bytes"]) == {"params", "queue"}
 
 
 def test_handle_request_and_smoke(backend, rows):

@@ -361,7 +361,7 @@ def test_stats_keys_are_the_jax_schedulers_less_the_left_out_parts(
     """The JAX StepScheduler.stats() keys without the sections of the
     parts not ported yet, with and without a child profile."""
     jb, backend = models
-    left_out = {"slo", "trace", "preempt", "budget", "paging", "aot"}
+    left_out = {"slo", "trace", "aot"}
     for profiles in ((), ("bf16",)):
         with JaxStepScheduler(jb, max_slots=2, warmup=False,
                               profiles=profiles) as eng:

@@ -51,10 +51,9 @@ RTOL = 1e-5
 ATOL = 1e-6
 WAIT = 60  # seconds any request, future or join may take
 # /healthz keys of the JAX engines that come from parts not ported yet:
-# its telemetry (taken from the engine itself below) and the load figures
-# of preemption, the memory budget and live migration
-LEFT_OUT_LOAD_KEYS = {"preempted", "evicted_depth", "ledger_bytes",
-                      "spilled", "migrations"}
+# its telemetry (taken from the engine itself below); the load figures of
+# preemption, the memory budget and live migration are ported
+LEFT_OUT_LOAD_KEYS: set = set()
 TINY = ["model.lstm_hidden=8", "model.lstm_layers=1", "model.seq_len=8",
         "model.compute_dtype=float32"]
 
@@ -199,9 +198,14 @@ def test_stats(urls, kind, key):
     ("POST", "/admin/release", "this endpoint has no fleet supervisor"),
 ])
 def test_routes_without_a_surface_are_404s(urls, method, path, error):
-    status, body = call(urls["continuous"], path,
-                        {} if method == "POST" else None)
-    assert (status, body) == (404, {"error": error})
+    # the step scheduler has the migration surface (test_torch_serve_
+    # migrate.py); the batch scheduler and the row engine have not
+    kinds = (("batch", "gbt") if path in ("/admin/export", "/admin/migrate")
+             else ("continuous", "batch", "gbt"))
+    for kind in kinds:
+        status, body = call(urls[kind], path,
+                            {} if method == "POST" else None)
+        assert (status, body) == (404, {"error": error}), kind
 
 
 @pytest.mark.parametrize("body,error", [
@@ -210,7 +214,7 @@ def test_routes_without_a_surface_are_404s(urls, method, path, error):
      "serving classes are ['interactive', 'bulk']"),
     ({"rows": [[0.0] * FEAT], "profile": "bf16"},
      "serving profiles are ['f32']"),
-    ({"rows": [[0.0] * FEAT], "tag": "a"}, "not ported yet"),
+    ({"rows": [[0.0] * FEAT], "tag": 7}, "tag must be a non-empty string"),
     ({"rows": "abc"}, "not numeric"),
     ({"x": 1}, "payload must be"),
 ])
