@@ -1193,9 +1193,9 @@ def serve_http(root: Path, ckdir: Path, name: str, seqs) -> dict:
             check(status == 200 and health["ok"], f"{name} /healthz")
             print(f"serve http {name}: up in {up_s:.1f} s; /healthz "
                   f"{json.dumps(health)}")
-            status, body = http_call(url, "/metrics")
-            check(status == 404 and body["error"]
-                  == "engine has no telemetry", f"{name} /metrics")
+            status, ctype, text = http_text(url, "/metrics")
+            check(status == 200 and ctype.startswith("text/plain")
+                  and "serve_requests_total" in text, f"{name} /metrics")
             mixed = http_pass(url, seqs, lambda i: profile
                               if i % every == 0 else None)
             f32 = http_pass(url, seqs, lambda i: None)
@@ -2121,6 +2121,467 @@ def phase_governance(root: Path, ckdir: Path) -> None:
           f"{time.perf_counter() - t_phase:.3f} s [{CARD}]")
     check(not any(counts.values()) and not any(launches.values()),
           "a governance part launched a kernel (its blocks scan)")
+
+
+# -- phases 7f-7j: resilience and observability ------------------------------
+
+# The replay cells: the port's seeded generators at their default rates and
+# shapes, replayed open-loop at speed 1.0 against the trained flagship behind
+# the step scheduler (32 slots, ladder 2/8/32, classes interactive,bulk,
+# serve.obs.slo_ms=50,2000) and behind the batch scheduler's fused profile
+# (K1). The batch scheduler runs at one row bucket and one time bucket (the
+# generators' sequences are 2-48 steps), so every program has one shape and
+# a reply does not depend on which requests shared its micro-batch.
+REPLAY_TRACES = ("poisson_burst", "flash_crowd")
+REPLAY_STEP = ["serve.scheduler=continuous", "serve.max_slots=32",
+               "serve.step_blocks=2,8,32", "serve.classes=interactive,bulk",
+               "serve.obs.slo_ms=50,2000"]
+REPLAY_BATCH = ["serve.scheduler=batch", "serve.buckets=32",
+                "serve.seq_buckets=64", "serve.classes=interactive,bulk",
+                "serve.obs.slo_ms=50,2000"]
+# the chaos run: the flagship at the CLI's defaults (bf16) for 3 epochs on
+# the golden page (cut from the default 20), B=64, a checkpoint an epoch
+CHAOS_EPOCHS = 3
+CHAOS_URL = "http://127.0.0.1:9/results"  # never reached: fetch faults first
+
+
+def http_text(url: str, path: str) -> tuple[int, str, str]:
+    """GET ``path``: status, Content-Type and the body as text."""
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=HTTP_WAIT) as reply:
+        return (reply.status, reply.headers["Content-Type"],
+                reply.read().decode())
+
+
+def replay_engine(backend, overrides: list[str], obs: bool):
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.serve.continuous import make_sequence_engine
+
+    cfg = apply_overrides(Config(), [*overrides,
+                                     f"serve.obs.enabled={str(obs).lower()}"])
+    return make_sequence_engine(backend, cfg)
+
+
+def span_breakdown(spans: list[dict]) -> str:
+    """Mean ms from each span's admit stamp to each later stage."""
+    sums: dict = {}
+    for span in spans:
+        for stage, ms in span["stages"].items():
+            sums.setdefault(stage, []).append(ms)
+    return ", ".join(f"{s} {statistics.mean(v):.3f}" for s, v in
+                     sums.items())
+
+
+def phase_replay(ckdir: Path) -> int:
+    """Phase 7f: REPLAY_TRACES replayed open-loop at speed 1.0 against the
+    trained f32 flagship behind the step scheduler and the batch
+    scheduler's fused profile, each with telemetry on and then off: every
+    reply bit-equal between the two runs and within F32_SERVE_TOL of a
+    direct apply, no event failed; per-class attainment, clock lag,
+    requests/s and K1 launches printed, and the spans' mean stage offsets
+    of the telemetry-on step run. Returns K1's launches in the runs."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.core.precision import rel_error
+    from euromillioner_tpu_torch.obs.replay import payload_for, replay_trace
+    from euromillioner_tpu_torch.obs.workload import generate
+    from euromillioner_tpu_torch.ops.fused_lstm import FUSED_LSTM_FWD
+    from euromillioner_tpu_torch.serve.continuous import load_recurrent_backend
+
+    t_phase = time.perf_counter()
+    backends = {}
+    for name, prec in (("step", "f32"), ("batch_fused", "fused")):
+        cfg = apply_overrides(Config(), ["model.compute_dtype=float32",
+                                         f"serve.precision={prec}"])
+        backends[name] = load_recurrent_backend(cfg, str(ckdir))
+    model = backends["step"].model
+    k1 = 0
+    for trace_name in REPLAY_TRACES:
+        trace = generate(trace_name, seed=0)
+        for name, overrides in (("step", REPLAY_STEP),
+                                ("batch_fused", REPLAY_BATCH)):
+            runs = {}
+            for obs in (True, False):
+                eng = replay_engine(backends[name], overrides, obs)
+                try:
+                    seqs = [payload_for(ev, eng) for ev in trace.events]
+                    FUSED_LSTM_FWD.launches = 0
+                    rep = replay_trace(eng, trace, speed=1.0, collect=True,
+                                       timeout_s=HTTP_WAIT)
+                    launches = FUSED_LSTM_FWD.launches
+                    spans = eng.telemetry.trace.last(512)
+                finally:
+                    eng.close()
+                k1 += launches
+                runs[obs] = rep
+                rps = rep["completed"] / rep["wall_s"]
+                slo = {c: v["attainment"] for c, v
+                       in rep["engines"]["lstm"]["slo"].items()}
+                card(f"replay {trace_name} {name} telemetry "
+                     f"{'on' if obs else 'off'}: {rep['events']} events, "
+                     f"completed {rep['completed']}, failed "
+                     f"{rep['errors']}, {rps:.2f} requests/s over "
+                     f"{rep['wall_s']} s; lag p50 "
+                     f"{rep['clock']['lag_p50_ms']} ms p99 "
+                     f"{rep['clock']['lag_p99_ms']} ms; attainment "
+                     f"{json.dumps(slo)}; classes "
+                     f"{json.dumps(rep['classes'])}; K1 launches "
+                     f"{launches}")
+                check(rep["errors"] == 0
+                      and rep["completed"] == rep["events"],
+                      f"replay {trace_name} {name}: events failed")
+                if obs and name == "step":
+                    card(f"replay {trace_name} step spans ({len(spans)}): "
+                         f"mean ms from admit: {span_breakdown(spans)}")
+                if name == "batch_fused":
+                    check(launches > 0, f"replay {trace_name}: the fused "
+                          f"profile never launched K1")
+            on, off = runs[True]["outputs"], runs[False]["outputs"]
+            same = sum(np.array_equal(a, b) for a, b in zip(on, off))
+            got = torch.tensor(np.stack(on))
+            err = rel_error(got, direct_apply(model, seqs))
+            card(f"replay {trace_name} {name}: {same}/{len(on)} replies "
+                 f"bit-equal telemetry on/off; rel to direct apply "
+                 f"{err:.3e} (tol {F32_SERVE_TOL:.0e}); requests/s on/off "
+                 f"{runs[True]['completed'] / runs[True]['wall_s']:.2f} / "
+                 f"{runs[False]['completed'] / runs[False]['wall_s']:.2f}")
+            check(same == len(on), f"replay {trace_name} {name}: telemetry "
+                  f"moved a reply")
+            check(err <= F32_SERVE_TOL, f"replay {trace_name} {name}: "
+                  f"replies off the direct apply")
+    card(f"replay: wall {time.perf_counter() - t_phase:.3f} s")
+    return k1
+
+
+def phase_obs_http(root: Path, ckdir: Path) -> None:
+    """Phase 7g: a ``serve --scheduler continuous`` child of the trained
+    checkpoint, phase 4a's traffic over HTTP, then /metrics (its request
+    and completion counters equal /stats and the requests sent),
+    /trace?n=16 (16 complete spans, stages in order, offsets monotonic)
+    and ``obs-top --url <child> --once`` (one summary line)."""
+    import signal
+
+    from euromillioner_tpu_torch import cli
+    from euromillioner_tpu_torch.obs.top import parse_prometheus
+    from euromillioner_tpu_torch.obs.trace import STAGES
+
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    log = root / "build" / "chip_smoke" / "http_obs.log"
+    argv = [sys.executable, "-m", "euromillioner_tpu_torch", "serve",
+            "--model-type", "lstm", "--checkpoint", str(ckdir),
+            "--scheduler", "continuous", f"serve.port={port}",
+            "model.compute_dtype=float32", "serve.max_slots=32",
+            "serve.step_blocks=2,8,32", "serve.obs.slo_ms=50,2000"]
+    seqs = http_traffic()
+    t_start = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(argv, cwd=root, stdout=fh,
+                                stderr=subprocess.STDOUT)
+        try:
+            while True:
+                try:
+                    http_call(url, "/healthz")
+                    break
+                except OSError:
+                    check(proc.poll() is None and time.perf_counter()
+                          - t_start < HTTP_WAIT, f"obs child never "
+                          f"answered: {log.read_text()[-2000:]}")
+                    time.sleep(0.2)
+            p = http_pass(url, seqs, lambda i: None)
+            check(all(r is not None for r in p["replies"]),
+                  "obs http: requests failed")
+            status, ctype, text = http_text(url, "/metrics")
+            _, stats = http_call(url, "/stats")
+            _, trace = http_call(url, "/trace?n=16")
+            _, health = http_call(url, "/healthz")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["obs-top", "--url", url, "--once"])
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=HTTP_WAIT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=HTTP_WAIT)
+    fams = parse_prometheus(text)
+
+    def total(name: str) -> float:
+        return sum(v for _l, v in fams.get(name, ()))
+
+    req, done = (total("serve_requests_total"),
+                 total("serve_requests_completed_total"))
+    print(f"obs http: /metrics {status} {ctype}, {len(fams)} sample "
+          f"names; serve_requests_total {req:.0f}, completed {done:.0f}, "
+          f"/stats sequences {stats['sequences']}, sent {len(seqs)}; "
+          f"/healthz attainment {json.dumps(health.get('attainment'))}")
+    card(f"obs http: {p['rps']:.2f} requests/s, client p50 "
+         f"{p['p50_ms']:.3f} ms, p99 {p['p99_ms']:.3f} ms")
+    check(status == 200 and ctype.startswith("text/plain; version=0.0.4"),
+          "obs http: /metrics status or type")
+    check(req == done == stats["sequences"] == len(seqs),
+          "obs http: /metrics counters disagree with /stats")
+    spans = trace["spans"]
+    check(len(spans) == 16, f"obs http: /trace gave {len(spans)} spans")
+    for span in spans:
+        names = list(span["stages"])
+        offsets = list(span["stages"].values())
+        check(names[-1] == "reply" and names == [s for s in STAGES
+                                                 if s in names]
+              and offsets == sorted(offsets),
+              f"obs http: span {span['trace_id']} incomplete or "
+              f"not monotonic: {span}")
+    card(f"obs http: /trace?n=16 mean ms from admit: "
+         f"{span_breakdown(spans)}")
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    print(f"obs http: obs-top --url --once: exit {rc}: {lines}")
+    check(rc == 0 and len(lines) == 1 and "rps=" in lines[0],
+          "obs http: obs-top did not print one summary line")
+
+
+def chaos_trainer():
+    """The flagship trainer ``cli train --model lstm`` builds at the CLI's
+    defaults (bf16 compute, Adam), from the seeded weights."""
+    from euromillioner_tpu_torch.config import Config
+    from euromillioner_tpu_torch.core.precision import from_names
+    from euromillioner_tpu_torch.models.registry import build_model
+    from euromillioner_tpu_torch.train.optim import from_train_config
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    cfg = Config()
+    cfg.model.name = "lstm"
+    model = build_model(cfg.model, in_features=FEATURES,
+                        generator=torch.Generator().manual_seed(
+                            cfg.train.seed), device="cuda")
+    return cfg, Trainer(model, from_train_config(cfg.train), loss="mse",
+                        precision=from_names(cfg.model.param_dtype,
+                                             cfg.model.compute_dtype))
+
+
+def chaos_windows(tr, va):
+    from euromillioner_tpu_torch.data.dataset import Dataset
+    from euromillioner_tpu_torch.models.lstm import make_sequences
+
+    return tuple(Dataset(*make_sequences(ds.full_rows(), SEQ_LEN))
+                 for ds in (tr, va))
+
+
+def chaos_fit(tr, ckdir: Path, resume: bool):
+    """One attempt: restore the newest intact checkpoint when asked, then
+    fit to CHAOS_EPOCHS with a checkpoint an epoch."""
+    from euromillioner_tpu_torch.train.checkpoint import (checkpoint_step,
+                                                          latest_checkpoint,
+                                                          load_train_state)
+
+    cfg, trainer = chaos_trainer()
+    state = trainer.init_state()
+    start = 0
+    ck = latest_checkpoint(str(ckdir)) if resume else None
+    if ck is not None:
+        state = load_train_state(ck, state)
+        start = checkpoint_step(ck)
+    state = trainer.fit(state, tr, epochs=CHAOS_EPOCHS,
+                        batch_size=cfg.data.batch_size, seed=cfg.train.seed,
+                        shuffle=cfg.data.shuffle, checkpoint_dir=str(ckdir),
+                        checkpoint_every=1, start_epoch=start)
+    return trainer, state
+
+
+def phase_chaos_train(root: Path) -> dict:
+    """Phase 7h: the flagship at the CLI's defaults (bf16 K1/K2) for
+    CHAOS_EPOCHS epochs, fault-free and then faulted — its data through
+    pipeline_from_url from a localhost URL never reached (a fetch.request
+    storm served from the stale cache), the second checkpoint truncated
+    after its rename, a train.step crash mid-epoch 2 restarted by the
+    supervisor: final eval metrics and parameters bitwise equal. Returns
+    the bf16 K1/K2 launches of both runs."""
+    import glob as globmod
+
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import DataConfig
+    from euromillioner_tpu_torch.data.pipeline import (draws_from_html,
+                                                       pipeline_from_html,
+                                                       pipeline_from_url,
+                                                       write_cache)
+    from euromillioner_tpu_torch.dist.failure import run_with_restart
+    from euromillioner_tpu_torch.resilience import FaultPlan, FaultSpec, inject
+    from euromillioner_tpu_torch.utils.errors import FetchError, TrainError
+    from euromillioner_tpu_torch.utils.retry import RetryPolicy
+
+    t_phase = time.perf_counter()
+    out = root / "build" / "chip_smoke" / "chaos"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    html = (root / GOLDEN_HTML).read_text()
+    cfg = DataConfig(url=CHAOS_URL)
+    cache = out / "draws.csv"
+    write_cache(str(cache), draws_from_html(html, cfg))
+    fast = RetryPolicy(max_attempts=3, base_delay_s=0.0, max_delay_s=0.0,
+                       pre_jitter_s=0.0)
+
+    def truncate(ctx) -> None:
+        (path,) = globmod.glob(os.path.join(ctx["path"], "arrays-*.emt"))
+        with open(path, "r+b") as fh:
+            fh.truncate(os.path.getsize(path) // 2)
+
+    reset_lstm_counts()
+    tr, va = chaos_windows(*pipeline_from_html(html, cfg))
+    ref_trainer, ref = chaos_fit(tr, out / "ref", resume=False)
+    ref_counts = lstm_counts()
+    steps = -(-len(tr) // DataConfig().batch_size)
+    plan = FaultPlan([
+        FaultSpec("fetch.request",
+                  raises=lambda: FetchError("injected 503", status=503)),
+        FaultSpec("checkpoint.save.post", hits=(2,), action=truncate),
+        FaultSpec("train.step", hits=(2 * steps + 2,),
+                  raises=lambda: TrainError("injected mid-epoch crash"))])
+    reset_lstm_counts()
+    with inject(plan):
+        ftr, fva = chaos_windows(*pipeline_from_url(
+            cfg, cache_path=str(cache), policy=fast))
+        trainer, state = run_with_restart(
+            lambda n: chaos_fit(ftr, out / "chaos", resume=n > 0),
+            max_restarts=2, backoff_s=0.0)
+    counts = lstm_counts()
+    fired = {p: plan.fired_count(p) for p in ("fetch.request",
+                                              "checkpoint.save.post",
+                                              "train.step")}
+    got = {w: trainer.evaluate(state.params, ds)["rmse"]
+           for w, ds in (("train", ftr), ("test", fva))}
+    want = {w: ref_trainer.evaluate(ref.params, ds)["rmse"]
+            for w, ds in (("train", tr), ("test", va))}
+    same = [k for k, v in ref.params.items()
+            if torch.equal(state.params[k], v)]
+    print(f"chaos train: {len(tr)} windows, {steps} steps/epoch, "
+          f"{CHAOS_EPOCHS} epochs; faults fired {json.dumps(fired)}; final "
+          f"rmse faulted {json.dumps(got)} fault-free {json.dumps(want)}; "
+          f"{len(same)}/{len(ref.params)} params bitwise equal; launches "
+          f"fault-free {json.dumps(ref_counts)} faulted "
+          f"{json.dumps(counts)}")
+    card(f"chaos train: wall {time.perf_counter() - t_phase:.3f} s")
+    check(fired == {"fetch.request": 3, "checkpoint.save.post": 1,
+                    "train.step": 1}, "chaos train: a fault did not fire")
+    check(np.array_equal(ftr.x, tr.x), "chaos train: the stale cache "
+          "served other data")
+    check(got == want, "chaos train: eval metrics differ")
+    check(len(same) == len(ref.params), "chaos train: params differ")
+    check(ref_counts["K1.bf16"] > 0 and ref_counts["K2.bf16"] > 0
+          and counts["K2.bf16"] > ref_counts["K2.bf16"],
+          "chaos train: the bf16 kernels did not carry the runs")
+    shutil.rmtree(out, ignore_errors=True)
+    return {k: ref_counts[k] + counts[k] for k in ("K1.bf16", "K2.bf16")}
+
+
+def phase_quant_fallback(root: Path, ckdir: Path) -> None:
+    """Phase 7i: a plan firing serve.quant at the bf16, fused and int8w
+    sequence tiers' restore and at the row engine's bf16 child: each falls
+    back to f32 and replies bit-equal to the f32 profile, and the fired
+    counter is in /metrics."""
+    import threading
+
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.models.mlp import build_mlp
+    from euromillioner_tpu_torch.obs.top import parse_prometheus
+    from euromillioner_tpu_torch.resilience import FaultPlan, FaultSpec, inject
+    from euromillioner_tpu_torch.serve.continuous import (
+        load_recurrent_backend, make_sequence_engine)
+    from euromillioner_tpu_torch.serve.engine import InferenceEngine
+    from euromillioner_tpu_torch.serve.session import NNBackend
+    from euromillioner_tpu_torch.serve.transport import make_server
+
+    seqs = governance_traffic(31, 16, steps=(8, 65))
+
+    def served(prec: str, plan=None):
+        cfg = apply_overrides(Config(), ["model.compute_dtype=float32",
+                                         f"serve.precision={prec}",
+                                         *REPLAY_STEP])
+        with (inject(plan) if plan else contextlib.nullcontext()):
+            backend = load_recurrent_backend(cfg, str(ckdir))
+        eng = make_sequence_engine(backend, cfg)
+        try:
+            return backend, governance_served(eng, seqs)
+        finally:
+            eng.close()
+
+    _, want = served("f32")
+    for prec in ("bf16", "fused", "int8w"):
+        plan = FaultPlan([FaultSpec("serve.quant", raises=RuntimeError,
+                                    hits=(1,))])
+        backend, got = served(prec, plan)
+        same = sum(np.array_equal(g, w) for g, w in zip(got, want))
+        print(f"serve.quant {prec}: fired {plan.fired_count('serve.quant')}"
+              f", served as {backend.precision}; {same}/{len(got)} replies "
+              f"bit-equal to the f32 profile")
+        check(plan.fired_count("serve.quant") == 1
+              and backend.precision == "f32" and same == len(got),
+              f"serve.quant {prec}: no f32 fallback")
+    model = build_mlp((256, 256), 1, in_features=10,
+                      generator=torch.Generator().manual_seed(SEED),
+                      device="cuda")
+    plan = FaultPlan([FaultSpec("serve.quant", raises=RuntimeError,
+                                hits=(1,))])
+    with inject(plan):
+        backend = NNBackend(model, (10,), profiles=("bf16",))
+    rows = np.random.default_rng(5).normal(size=(32, 10)).astype(np.float32)
+    eng = InferenceEngine(backend, profiles=("bf16",))
+    server = make_server(eng, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        f32 = eng.predict(rows)
+        bf16 = eng.predict(rows, profile="bf16")
+        _, _, text = http_text(f"http://127.0.0.1:"
+                               f"{server.server_address[1]}", "/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+        eng.close()
+    fired = {lab.get("point"): v for lab, v in parse_prometheus(text).get(
+        "resilience_faults_fired_total", ())}
+    print(f"serve.quant row bf16 child: fallbacks "
+          f"{sorted(backend.fallbacks)}; replies bit-equal to f32 "
+          f"{np.array_equal(f32, bf16)}; /metrics fired counter "
+          f"{json.dumps(fired)}")
+    check(backend.fallbacks == {"bf16"} and np.array_equal(f32, bf16),
+          "serve.quant row bf16 child: no f32 fallback")
+    check(fired.get("serve.quant", 0) >= 4,
+          "serve.quant: the fired counter is not in /metrics")
+
+
+def phase_profile_dir(root: Path) -> None:
+    """Phase 7j: one bf16 training epoch of the flagship with
+    ``Trainer.fit(profile_dir=...)``: the torch.profiler trace it writes
+    names the bf16 K1 and K2 kernels."""
+    from euromillioner_tpu_torch.data.pipeline import pipeline_from_html
+    from euromillioner_tpu_torch.utils.profiling import TRACE_FILE
+
+    out = root / "build" / "chip_smoke" / "profile"
+    shutil.rmtree(out, ignore_errors=True)
+    tr, _ = chaos_windows(*pipeline_from_html(
+        (root / GOLDEN_HTML).read_text()))
+    cfg, trainer = chaos_trainer()
+    reset_lstm_counts()
+    trainer.fit(trainer.init_state(), tr, epochs=1,
+                batch_size=cfg.data.batch_size, shuffle=False,
+                profile_dir=str(out))
+    counts = lstm_counts()
+    events = json.loads((out / TRACE_FILE).read_text())
+    events = events.get("traceEvents", events)
+    names = {e.get("name", "") for e in events
+             if e.get("cat") in ("kernel", "Kernel")}
+    ours = sorted(n for n in names if "lstm_" in n or "dwh_" in n)
+    print(f"profile_dir: {len(events)} trace events, {len(names)} kernel "
+          f"names; ours: {ours}; launches {json.dumps(counts)}")
+    k1 = any("lstm_fwd_kernel" in n and "bfloat16" in n for n in ours)
+    k2 = any("lstm_bwd_kernel" in n and "bfloat16" in n for n in ours)
+    check(counts["K1.bf16"] > 0 and counts["K2.bf16"] > 0,
+          "profile_dir: the epoch did not launch bf16 K1/K2")
+    check(k1 and k2, "profile_dir: the trace does not name bf16 K1 and K2")
+    shutil.rmtree(out, ignore_errors=True)
 
 
 # -- the GBT path (K3) ----------------------------------------------------------
@@ -5194,6 +5655,11 @@ def main() -> int:
         phase_step(root)
         trained_k1 = phase_serve_trained(ckdir)
         phase_governance(root, ckdir)
+        replay_k1 = phase_replay(ckdir)
+        phase_obs_http(root, ckdir)
+        chaos = phase_chaos_train(root)
+        phase_quant_fallback(root, ckdir)
+        phase_profile_dir(root)
         bf16_train, bf16_ckdir = phase_train_bf16(root)
         bf16_serve_k1 = phase_serve_bf16_trained(bf16_ckdir)
         bench = phase_lstm_bench(k1b, k2b)
@@ -5233,7 +5699,7 @@ def main() -> int:
         "serve": serve_k1, "train": train_k1, "serve_trained": trained_k1,
         "serve_bf16_ckpt_fused": bf16_serve_k1["fused"],
         "serve_bf16_ckpt_int8w": bf16_serve_k1["int8w"],
-        "serve_http_fused": http_k1,
+        "serve_http_fused": http_k1, "replay_fused": replay_k1,
         "train_dp_gloo": ranks["lstm"]["K1.f32"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {"train": train_k2,
@@ -5242,11 +5708,13 @@ def main() -> int:
     k1b["launches_by_path"] = {"train": bf16_train["K1.bf16"],
                                "bench_step": bench["K1.bf16"],
                                "train_dp": dp1["K1.bf16"],
+                               "train_chaos": chaos["K1.bf16"],
                                "train_dp_gloo": ranks["lstm"]["K1.bf16"]}
     k1b["launches"] = sum(k1b["launches_by_path"].values())
     k2b["launches_by_path"] = {"train": bf16_train["K2.bf16"],
                                "bench_step": bench["K2.bf16"],
                                "train_dp": dp1["K2.bf16"],
+                               "train_chaos": chaos["K2.bf16"],
                                "train_dp_gloo": ranks["lstm"]["K2.bf16"]}
     k2b["launches"] = sum(k2b["launches_by_path"].values())
     k3["launches"] = reference_k3 + scaled_k3 + cli_k3

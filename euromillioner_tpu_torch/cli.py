@@ -1,4 +1,5 @@
-"""CLI: ``python -m euromillioner_tpu_torch fetch|train|predict|reference|serve``.
+"""CLI: ``python -m euromillioner_tpu_torch fetch|train|predict|reference|serve|
+replay|trace-export|obs-top``.
 
 The JAX package's subcommands for the ported paths, with the same flags,
 dotted config overrides and exit codes (the error taxonomy's
@@ -13,8 +14,10 @@ JSON (``--model-file``) and ``serve --model-type mlp|lstm|wide_deep`` a
 checkpoint, the neural families at ``serve.precision=f32|bf16|int8w``
 (and ``fused`` for the LSTM). ``--device`` picks ``cuda``
 (the default) or ``cpu``. Data comes from a saved results page
-(``--html-file``) or a featurized CSV (``--csv``); fetching the live page
-is not ported yet. ``train --distributed`` trains mlp, lstm and wide_deep
+(``--html-file``), a featurized CSV (``--csv``) or, for ``fetch`` and
+``train``, the page at ``data.url`` (retried with backoff; with
+``data.cache_path`` set, the last good rows are kept there and served when
+the fetch's retries are exhausted). ``train --distributed`` trains mlp, lstm and wide_deep
 data-parallel and grows rf row-sharded over a ``torch.distributed`` group
 of one process per device (NCCL on the card, gloo on the CPU): with
 ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID`` set this process
@@ -23,7 +26,14 @@ card, or ``EUROMILLIONER_CPU_DEVICES`` ranks under ``--device cpu``, and
 exits non-zero if any rank does. ``serve`` answers HTTP on
 ``serve.host:serve.port`` (``--scheduler batch|continuous`` picks the
 LSTM's scheduler) until SIGTERM or Ctrl-C, or pushes ``--smoke N``
-requests through the in-process transport and exits.
+requests through the in-process transport and exits. ``replay`` drives a
+workload trace (``--trace`` file or ``--generate`` seeded generator)
+open-loop against an engine loaded as ``serve`` loads it, or against tiny
+seeded in-process engines (``--smoke``), and prints the attainment report;
+``trace-export`` turns a capture file or metrics JSONL into a replay
+trace; ``obs-top`` prints one summary line per second from a metrics
+JSONL (``--jsonl``), a server's ``/stats`` (``--url``) or several servers'
+``/metrics`` (``--fleet``).
 """
 
 from __future__ import annotations
@@ -43,20 +53,18 @@ from pathlib import Path
 import numpy as np
 
 from euromillioner_tpu_torch.config import Config, apply_overrides
-from euromillioner_tpu_torch.utils.errors import (ConfigError,
-                                                  EuromillionerError,
+from euromillioner_tpu_torch.utils.errors import (EuromillionerError,
                                                   ServeError)
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
 logger = get_logger("cli")
 
 
-def _load_html(args) -> str:
+def _load_html(args) -> str | None:
     if args.html_file:
         with open(args.html_file, encoding="utf-8") as fh:
             return fh.read()
-    raise ConfigError("fetching the results page is not ported yet; pass "
-                      "--html-file PAGE")
+    return None
 
 
 def _gbt_device(args, cfg: Config) -> None:
@@ -66,27 +74,33 @@ def _gbt_device(args, cfg: Config) -> None:
 
 
 def _load_datasets(args, cfg: Config):
-    """(train, validation) Datasets from --csv or --html-file, with the
-    reference's chronological split."""
+    """(train, validation) Datasets from --csv, --html-file or the page at
+    ``data.url`` (with the stale-cache path), with the reference's
+    chronological split."""
     from euromillioner_tpu_torch.data.dataset import Dataset, chronological_split
-    from euromillioner_tpu_torch.data.pipeline import pipeline_from_html
+    from euromillioner_tpu_torch.data.pipeline import (pipeline_from_html,
+                                                       pipeline_from_url)
 
     if args.csv:
         ds = Dataset.from_csv(args.csv, label_column=cfg.data.label_column)
         return chronological_split(ds, cfg.data.train_percent)
-    if args.html_file:
-        with open(args.html_file, encoding="utf-8") as fh:
-            return pipeline_from_html(fh.read(), cfg.data)
-    raise ConfigError("fetching the results page is not ported yet; pass "
-                      "--html-file PAGE or --csv FILE")
+    html = _load_html(args)
+    if html is not None:
+        return pipeline_from_html(html, cfg.data)
+    return pipeline_from_url(cfg.data)
 
 
 def cmd_fetch(args, cfg: Config) -> int:
-    """Parse a saved results page and write the featurized CSV."""
+    """Fetch the page at ``data.url`` (or parse a saved one) and write the
+    featurized CSV."""
     from euromillioner_tpu_torch.data.csvio import write_csv
+    from euromillioner_tpu_torch.data.fetch import fetch_url
     from euromillioner_tpu_torch.data.pipeline import draws_from_html
 
-    rows = draws_from_html(_load_html(args), cfg.data)
+    html = _load_html(args)
+    if html is None:
+        html = fetch_url(cfg.data.url)
+    rows = draws_from_html(html, cfg.data)
     write_csv(args.output, rows, compat=cfg.data.compat_csv)
     logger.info("wrote %d rows to %s", len(rows), args.output)
     print(args.output)
@@ -429,6 +443,158 @@ def cmd_serve(args, cfg: Config) -> int:
         engine.close()
 
 
+def _replay_smoke_engines(families, cfg: Config, device) -> dict:
+    """family → a tiny seeded engine on ``device``, one per family of the
+    trace (``replay --smoke``: the whole trace → payload → open-loop
+    submit → report path with no saved artifacts). ``wide_deep`` gets an
+    MLP stand-in on the same row-engine path."""
+    import torch
+
+    from euromillioner_tpu_torch.serve.engine import (InferenceEngine,
+                                                      obs_kwargs)
+
+    known = ("nn", "mlp", "wide_deep", "gbt", "rf", "classic", "lstm")
+    bad = [f for f in families if f not in known]
+    if bad:
+        raise ServeError(f"replay --smoke has no synthetic backend for "
+                         f"families {bad}; known: {list(known)}")
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(200, 9)).astype(np.float32)
+    y = (x[:, 0] > 0).astype(np.float32)
+    engines: dict = {}
+    obs = obs_kwargs(cfg.serve)
+    obs["metrics_jsonl"] = obs["capture_path"] = None
+    for fam in families:
+        if fam == "lstm":
+            from euromillioner_tpu_torch.models.lstm import build_lstm
+            from euromillioner_tpu_torch.serve.continuous import (
+                RecurrentBackend, make_sequence_engine)
+
+            model = build_lstm(16, 1, 7, fused="off", device=device)
+            backend = RecurrentBackend(model, feat_dim=11,
+                                       compute_dtype=torch.float32)
+            engines[fam] = make_sequence_engine(backend, cfg)
+            continue
+        if fam in ("nn", "mlp", "wide_deep"):
+            from euromillioner_tpu_torch.models.mlp import build_mlp
+            from euromillioner_tpu_torch.serve.session import NNBackend
+
+            model = build_mlp((16, 16), 1, in_features=9, device=device)
+            backend = NNBackend(model, (9,), compute_dtype=torch.float32)
+        elif fam == "gbt":
+            from euromillioner_tpu_torch.serve.session import GBTBackend
+            from euromillioner_tpu_torch.trees import DMatrix, train
+
+            backend = GBTBackend(train(
+                {"objective": "binary:logistic", "max_depth": 2,
+                 "device": str(device)},
+                DMatrix(x, y), 2, verbose_eval=False))
+        elif fam == "rf":
+            from euromillioner_tpu_torch.serve.session import RFBackend
+            from euromillioner_tpu_torch.trees import train_classifier
+
+            backend = RFBackend(train_classifier(
+                x, y.astype(np.int32), 2, num_trees=3, max_depth=3, seed=0,
+                device=device))
+        else:  # classic
+            from euromillioner_tpu_torch.classic import LogisticRegression
+            from euromillioner_tpu_torch.serve.session import ClassicBackend
+
+            backend = ClassicBackend(LogisticRegression(
+                steps=50, device=device).fit(x, y.astype(np.int32),
+                                             num_classes=2))
+        engines[fam] = InferenceEngine(
+            backend, buckets=(8, 32), max_wait_ms=cfg.serve.max_wait_ms,
+            warmup=False, classes=cfg.serve.classes, **obs)
+    return engines
+
+
+def cmd_replay(args, cfg: Config) -> int:
+    """``replay``: drive an engine with a recorded or generated workload
+    trace at its arrival times (open loop: the clock never waits for a
+    reply) and print the attainment report as one JSON line; exit 1 if
+    any event failed. ``--smoke`` replays against tiny seeded in-process
+    engines; otherwise the engine loads from what ``serve`` takes."""
+    from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.obs.replay import replay_trace
+    from euromillioner_tpu_torch.obs.workload import (generate, read_trace,
+                                                      write_trace)
+
+    if bool(args.trace) == bool(args.generate):
+        raise ValueError("replay needs exactly one of --trace (a "
+                         "recorded file) or --generate (a seeded "
+                         "generator name)")
+    device = resolve_device(args.device)  # no card: fail before any work
+    trace = (read_trace(args.trace) if args.trace
+             else generate(args.generate, seed=args.seed))
+    if args.out:
+        write_trace(args.out, trace)
+        logger.info("wrote %d-event trace to %s", len(trace.events),
+                    args.out)
+    if args.scheduler:
+        cfg.serve.scheduler = args.scheduler
+    if args.smoke:
+        engines = _replay_smoke_engines(trace.families, cfg, device)
+    elif args.model_type == "lstm":
+        from euromillioner_tpu_torch.serve.continuous import (
+            load_recurrent_backend, make_sequence_engine)
+
+        backend = load_recurrent_backend(cfg, args.checkpoint,
+                                         args.num_features, device=device)
+        # one engine for every family of the trace: per-family engines
+        # would race for the device and split the report
+        eng = make_sequence_engine(backend, cfg)
+        engines = {f: eng for f in trace.families}
+    else:
+        from euromillioner_tpu_torch.serve.engine import make_row_engine
+        from euromillioner_tpu_torch.serve.session import load_backend
+
+        backend = load_backend(args.model_type, args.checkpoint, cfg,
+                               args.num_features, device=device,
+                               model_file=args.model_file)
+        eng = make_row_engine(backend, cfg)
+        engines = {f: eng for f in trace.families}
+    try:
+        report = replay_trace(engines, trace, speed=args.speed,
+                              fifo=args.fifo, timeout_s=args.timeout_s)
+    finally:
+        for eng in {id(e): e for e in engines.values()}.values():
+            eng.close()
+    print(json.dumps(report))
+    return 0 if report["errors"] == 0 else 1
+
+
+def cmd_trace_export(args, cfg: Config) -> int:
+    """``trace-export``: the request events of a capture file or metrics
+    JSONL as a canonical versioned replay trace."""
+    from euromillioner_tpu_torch.obs.workload import export_trace
+
+    n = export_trace(args.jsonl, args.out)
+    print(json.dumps({"events": n, "out": args.out}))
+    return 0
+
+
+def cmd_obs_top(args, cfg: Config) -> int:
+    """``obs-top``: one summary line per second (rps, p50/p99, SLO
+    attainment, occupancy) from a metrics JSONL tail, a polled ``/stats``
+    or several servers' ``/metrics``."""
+    from euromillioner_tpu_torch.obs import top
+
+    modes = [bool(args.jsonl), bool(args.url), bool(args.fleet)]
+    if sum(modes) != 1:
+        raise ValueError("obs-top needs exactly one of --jsonl, --url, "
+                         "or --fleet")
+    if args.jsonl:
+        return top.run_jsonl(args.jsonl, follow=not args.once,
+                             max_seconds=args.idle_exit_s or None)
+    if args.fleet:
+        urls = [u.strip() for u in args.fleet.split(",") if u.strip()]
+        return top.run_fleet(urls, interval_s=args.interval,
+                             iterations=1 if args.once else None)
+    return top.run_url(args.url, interval_s=args.interval,
+                       iterations=1 if args.once else None)
+
+
 def _log_banner(backend, engine, cfg: Config) -> None:
     """The JAX CLI's serving line for each engine kind."""
     s = cfg.serve
@@ -462,9 +628,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA port of the Euromillioner CLI")
     sub = p.add_subparsers(dest="command", required=True)
     device_help = "default: cuda; the CPU runs only when asked for"
-    fe = sub.add_parser("fetch", help="parse a saved results page and write "
-                                      "the featurized CSV")
-    fe.add_argument("--html-file", help="saved results page")
+    fe = sub.add_parser("fetch", help="fetch (data.url) or parse a saved "
+                                      "results page and write the "
+                                      "featurized CSV")
+    fe.add_argument("--html-file",
+                    help="parse a saved page instead of fetching")
     fe.add_argument("--output", default="euromillions.csv")
     tr = sub.add_parser("train", help="train a booster (gbt), a random "
                                       "forest, the MLP, the LSTM or "
@@ -472,7 +640,8 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--model", default="gbt",
                     choices=["gbt", "rf", "mlp", "lstm", "wide_deep"])
     tr.add_argument("--csv", help="featurized CSV input")
-    tr.add_argument("--html-file", help="saved results page")
+    tr.add_argument("--html-file",
+                    help="saved results page (default: fetch data.url)")
     tr.add_argument("--save", help="model JSON (gbt, rf) or checkpoint "
                                    "directory (mlp, lstm, wide_deep)")
     tr.add_argument("--num-classes", type=int, default=0,
@@ -523,14 +692,80 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="serving device (default: cuda; the CPU runs only "
                          "when asked for)")
-    for s in (fe, tr, pr, rf, sv):
+    ot = sub.add_parser(
+        "obs-top", help="one-line-per-second serving summary (rps, "
+                        "p50/p99 per class, SLO attainment, occupancy) "
+                        "from a metrics JSONL tail, a polled /stats "
+                        "endpoint, or N servers' /metrics")
+    ot.add_argument("--jsonl", help="tail this serve metrics JSONL "
+                                    "(serve.metrics_jsonl output)")
+    ot.add_argument("--url", help="poll GET <url>/stats instead of "
+                                  "tailing a file")
+    ot.add_argument("--fleet", help="comma-separated host URLs: poll "
+                                    "each GET <url>/metrics and print one "
+                                    "per-host attainment line per poll")
+    ot.add_argument("--interval", type=float, default=1.0,
+                    help="poll interval seconds (--url, --fleet)")
+    ot.add_argument("--once", action="store_true",
+                    help="render what exists and exit (no tail or poll "
+                         "loop)")
+    ot.add_argument("--idle-exit-s", type=float, default=0.0,
+                    help="tail mode: exit after this many seconds with "
+                         "no new records (0 = run until Ctrl-C)")
+    rp = sub.add_parser(
+        "replay", help="replay a workload trace open-loop against a "
+                       "serving engine at its recorded arrival times and "
+                       "report per-class latency and SLO attainment")
+    rp.add_argument("--trace", help="trace JSONL to replay (generated, "
+                                    "captured or trace-export output)")
+    rp.add_argument("--generate",
+                    help="generate the workload instead: poisson_burst | "
+                         "diurnal | flash_crowd")
+    rp.add_argument("--seed", type=int, default=0,
+                    help="generator seed (same seed = byte-identical "
+                         "trace)")
+    rp.add_argument("--out", help="also write the trace file here")
+    rp.add_argument("--speed", type=float, default=1.0,
+                    help="clock scale (2.0 replays twice as fast)")
+    rp.add_argument("--fifo", action="store_true",
+                    help="strip class tags and explicit deadlines (the "
+                         "classless FIFO baseline on identical arrivals)")
+    rp.add_argument("--smoke", action="store_true",
+                    help="replay against tiny seeded in-process engines "
+                         "(no artifacts)")
+    rp.add_argument("--model-type", default="gbt",
+                    choices=["gbt", "rf", "mlp", "lstm", "wide_deep",
+                             "classic"])
+    rp.add_argument("--model-file", help="model JSON (gbt, rf, classic)")
+    rp.add_argument("--checkpoint",
+                    help="checkpoint dir (latest intact step is used)")
+    rp.add_argument("--num-features", type=int, default=0,
+                    help="input feature count (default: family standard)")
+    rp.add_argument("--scheduler", choices=["batch", "continuous"],
+                    help="lstm: the sequence scheduler (overrides "
+                         "serve.scheduler)")
+    rp.add_argument("--timeout-s", type=float, default=300.0,
+                    help="post-replay drain timeout per request")
+    rp.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help=f"serving device ({device_help})")
+    te = sub.add_parser(
+        "trace-export", help="extract request events from a capture file "
+                             "or metrics JSONL into a canonical "
+                             "versioned replay trace")
+    te.add_argument("--jsonl", required=True,
+                    help="source JSONL (serve.obs.capture_path or "
+                         "serve.metrics_jsonl output)")
+    te.add_argument("--out", required=True, help="trace output path")
+    for s in (fe, tr, pr, rf, sv, ot, rp, te):
         s.add_argument("overrides", nargs="*", default=[],
                        help="config overrides: section.field=value")
     return p
 
 
 _COMMANDS = {"fetch": cmd_fetch, "train": cmd_train, "predict": cmd_predict,
-             "reference": cmd_reference, "serve": cmd_serve}
+             "reference": cmd_reference, "serve": cmd_serve,
+             "replay": cmd_replay, "trace-export": cmd_trace_export,
+             "obs-top": cmd_obs_top}
 
 
 def main(argv: list[str] | None = None) -> int:

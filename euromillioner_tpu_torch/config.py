@@ -12,6 +12,13 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
 
+# The results page the reference scrapes, verbatim (its hard toDate cap
+# included): ``data.url``'s default.
+REFERENCE_URL = (
+    "http://portalseven.com/lottery/euromillions_winning_numbers.jsp"
+    "?fromDate=1900-01-01&toDate=2020-06-14&viewType=3"
+)
+
 # the featurized row: 4 date columns, then the 7 balls
 FEATURE_COLUMNS = (
     "day_of_week", "month", "day", "year",
@@ -29,9 +36,10 @@ REFERENCE_CSV_HEADER = (
 
 @dataclass
 class DataConfig:
-    """ETL from a saved results page or a featurized CSV (fetching the
-    live page is not ported yet)."""
+    """Acquisition and ETL: the results page (fetched from ``url``, or
+    saved), or a featurized CSV."""
 
+    url: str = REFERENCE_URL
     # Bootstrap-table class string of the results table.
     table_class: str = (
         "table table-bordered table-condensed table-striped text-center table-hover"
@@ -42,6 +50,10 @@ class DataConfig:
     # compat=True reproduces the reference CSV writer's bytes: no
     # newlines, header typos, a trailing ", " after every value.
     compat_csv: bool = False
+    # Stale-while-revalidate snapshot of the last good featurized rows:
+    # refreshed on every successful fetch, served (with a warning) when
+    # fetch retries exhaust. "" disables the degraded path.
+    cache_path: str = ""
     batch_size: int = 64
     shuffle: bool = False               # the split is chronological, unshuffled
 
@@ -156,6 +168,28 @@ class TreesServeConfig:
     dispatch's other knobs come with it."""
 
     chunk: int = 0
+
+
+@dataclass
+class ObsServeConfig:
+    """Serving telemetry (obs/): metrics registry, trace spans and SLO
+    attainment (``serve.obs.*``)."""
+
+    # Master switch for the telemetry extras: per-request trace spans,
+    # SLO-attainment judging and the 1 Hz JSONL stats snapshots. The
+    # metrics registry stays on: it is the engines' stats() store.
+    enabled: bool = True
+    # Bounded ring of completed trace spans served by GET /trace?n=K.
+    trace_buffer: int = 512
+    # Per-class default SLO deadline in ms, aligned by position with
+    # serve.classes (serve.obs.slo_ms=50,2000: interactive at 50 ms, bulk
+    # at 2 s). A request carrying an explicit max_wait_s is judged against
+    # that instead; () judges only explicit deadlines.
+    slo_ms: tuple[int, ...] = ()
+    # Workload capture (obs/workload.py): when set, every admitted request
+    # is appended here as one replayable trace line. Best-effort: one
+    # write failure disables capture with a single warning. "" = off.
+    capture_path: str = ""
 
 
 @dataclass
@@ -285,6 +319,11 @@ class ServeConfig:
     fused_unroll: int = 8
     # Run every (row bucket, time bucket) program once before serving.
     warmup: bool = True
+    # Per-micro-batch / per-step observability records (queue depth, fill
+    # ratio, latency, trace ids) through the shared obs emitter.
+    metrics_jsonl: str = ""
+    # Telemetry knobs (serve.obs.enabled / trace_buffer / slo_ms / ...).
+    obs: ObsServeConfig = field(default_factory=ObsServeConfig)
     # Tree-ensemble serving (serve.trees.chunk=...).
     trees: TreesServeConfig = field(default_factory=TreesServeConfig)
     # Step scheduler: preemption and the elastic pool (serve.preempt.*).

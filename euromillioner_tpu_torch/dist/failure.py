@@ -3,9 +3,9 @@
 
 File-based heartbeats (each process beats; anyone can detect a stale
 peer) and a restart-from-latest-checkpoint supervisor for the training
-loop. No elasticity — a restart resumes the same topology. The JAX
-package's ``fault_point`` hooks (``heartbeat.beat``,
-``supervisor.attempt``) come with the port's ``resilience/``.
+loop. No elasticity — a restart resumes the same topology. The
+``heartbeat.beat`` and ``supervisor.attempt`` fault points
+(resilience/inject.py) sit in each beat and each supervised attempt.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import threading
 import time
 from typing import Callable, TypeVar
 
+from euromillioner_tpu_torch.resilience import fault_point
 from euromillioner_tpu_torch.utils.errors import TrainError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
@@ -45,6 +46,7 @@ class Heartbeat:
         self.step = 0
 
     def beat(self) -> None:
+        fault_point("heartbeat.beat", name=self.name, step=self.step)
         os.makedirs(self.directory, exist_ok=True)
         tmp = self.path + ".tmp"
         with open(tmp, "w", encoding="utf-8") as fh:
@@ -124,6 +126,7 @@ def run_with_restart(
     attempt = 0
     while True:
         try:
+            fault_point("supervisor.attempt", attempt=attempt)
             return fn(attempt)
         except retry_on as e:
             attempt += 1

@@ -10,7 +10,8 @@ SLO classes (``serve.classes``): a request carries its class's priority
 rank, the cut takes requests in (priority, deadline, arrival) order, and
 a queue that mixes priorities flushes at once, so an urgent request never
 waits out bulk coalescing. Classless traffic batches exactly as before.
-Trace spans are not ported yet.
+The batcher stamps each request's cut time (``t_cut``, the ``batch_cut``
+stage of its trace span, obs/trace.py).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Sequence
 
 import numpy as np
 
+from euromillioner_tpu_torch.obs.metrics import percentile  # noqa: F401 — re-export
 from euromillioner_tpu_torch.utils.errors import ServeError
 
 # ring size for the latency percentile window
@@ -40,15 +42,6 @@ def resolve_future(future: Future, value=None,
             future.set_result(value)
     except InvalidStateError:
         pass  # client cancelled: it no longer wants the answer
-
-
-def percentile(sorted_vals: list[float], q: float) -> float:
-    """Nearest-rank percentile over an already sorted list (the JAX
-    package's obs/metrics.percentile)."""
-    if not sorted_vals:
-        return 0.0
-    idx = min(int(q * (len(sorted_vals) - 1) + 0.5), len(sorted_vals) - 1)
-    return sorted_vals[idx]
 
 
 def validate_buckets(buckets: Sequence[int]) -> tuple[int, ...]:
@@ -84,7 +77,13 @@ class Request:
     """One queued request: ``x`` is (rows, *feat). ``deadline`` (absolute
     monotonic) shortens the batcher's flush deadline for this request;
     ``priority`` is its SLO class's rank (0 = most urgent) and ``cls`` the
-    class name; ``seq`` is the arrival ordinal (the tie-break)."""
+    class name; ``seq`` is the arrival ordinal (the tie-break).
+
+    ``span`` is the request's trace id (None: tracing off) and ``t_cut``
+    the monotonic time the batcher cut it into a micro-batch.
+    ``slo_deadline`` is the client's raw ``max_wait_s`` deadline, judged
+    for SLO attainment unclamped (``deadline`` is clamped to the
+    batcher's coalescing ceiling)."""
 
     x: np.ndarray
     future: Future = field(default_factory=Future)
@@ -93,6 +92,9 @@ class Request:
     priority: int = 0
     cls: str = ""
     seq: int = 0
+    span: int | None = None
+    t_cut: float = 0.0
+    slo_deadline: float | None = None
 
     @property
     def rows(self) -> int:
@@ -189,4 +191,7 @@ class MicroBatcher:
             self._q = collections.deque(
                 r for r in self._q if id(r) not in picked)
             self._rows -= rows
+            t_cut = time.monotonic()
+            for req in batch:
+                req.t_cut = t_cut
             return batch

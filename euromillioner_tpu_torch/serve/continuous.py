@@ -80,10 +80,19 @@ The step scheduler's governance, each part off by default:
   admits one from either package, judged by the params' fingerprint
   (serve/aotstore.py) and the pool's layout.
 
-Not ported yet (ROADMAP queue 1): the serving mesh, the AOT store,
-telemetry and traces, and fault points; where the JAX package's
-``serve.quant`` fault point falls back to f32 when a cast or quantization
-fails, this port raises.
+Telemetry (obs/telemetry.py): each scheduler's counters live in its
+metrics registry (``stats()`` reads them, ``GET /metrics`` renders them),
+each request carries a trace span over the seven stages of obs/trace.py
+stamped on the host clock (no sync is added for them), and SLO attainment
+is judged per class. The fault points of resilience/inject.py sit where
+the JAX package has them: ``serve.request``, ``serve.budget``,
+``serve.admit``, ``serve.step``, ``serve.preempt``, ``serve.spill``,
+``serve.resize``, ``serve.page`` and (the batch scheduler)
+``serve.dispatch``; ``serve.quant`` covers a profile's restore-time cast
+or quantization, whose failure falls the backend back to the f32 programs
+(a fused kernel that fails to build still raises).
+
+Not ported yet (ROADMAP queue 1): the serving mesh and the AOT store.
 """
 
 from __future__ import annotations
@@ -120,8 +129,12 @@ from euromillioner_tpu_torch.serve.batcher import (LATENCY_WINDOW,
                                                    resolve_future,
                                                    validate_buckets)
 from euromillioner_tpu_torch.serve.aotstore import params_fingerprint
+from euromillioner_tpu_torch.obs.telemetry import ServeTelemetry
+from euromillioner_tpu_torch.obs.trace import Span
+from euromillioner_tpu_torch.resilience import fault_point
 from euromillioner_tpu_torch.serve.engine import (DRIFT_EVERY, ClassStats,
-                                                  DriftStats, param_bytes,
+                                                  DriftStats, MetricsSink,
+                                                  obs_kwargs, param_bytes,
                                                   resolve_classes,
                                                   resolve_request_class)
 from euromillioner_tpu_torch.serve.session import (BudgetPolicy,
@@ -223,19 +236,35 @@ class RecurrentBackend:
                 f"{self._fused_unroll}")
         self.precision = resolve_serve_precision(precision)
         self.envelope = serve_envelope(self.family, self.precision)
+        # cast / quantize once, here (the serve.quant fault point): a
+        # failure falls this backend back to the f32 programs, whose
+        # replies are bit-equal to the oracle's. The try holds the cast
+        # and the quantization only: the fused kernel's build stays out
+        self.serve_params = None
+        if self.precision != "f32":
+            try:
+                fault_point("serve.quant", profile=self.precision,
+                            family=self.family)
+                if self.precision == "bf16":
+                    self.serve_params = cast_floats(model.state_dict(),
+                                                    torch.bfloat16)
+                elif self.precision == "int8w":
+                    # min_size=16, as the JAX package: small models
+                    # quantize too
+                    self.serve_params = quantize_int8w(model.state_dict(),
+                                                       min_size=16)
+            except Exception as e:  # noqa: BLE001 — degrade, don't die
+                logger.warning(
+                    "serve.precision=%s setup failed at restore (%r); "
+                    "falling back to the f32 programs for this session",
+                    self.precision, e)
+                self.precision = "f32"
+                self.envelope = 0.0
+                self.serve_params = None
         fused = self.precision in ("fused", "int8w")
         self.serve_dtype = {"f32": self.compute_dtype,
                             "bf16": torch.bfloat16}.get(self.precision,
                                                         torch.float32)
-        # cast / quantize once, here; a failure raises
-        self.serve_params = None
-        if self.precision == "bf16":
-            self.serve_params = cast_floats(model.state_dict(),
-                                            torch.bfloat16)
-        elif self.precision == "int8w":
-            # min_size=16, as the JAX package: small models quantize too
-            self.serve_params = quantize_int8w(model.state_dict(),
-                                               min_size=16)
         if fused and self.device.type == "cuda":
             # build here, on the constructing thread — never lazily on
             # the scheduler's dispatcher thread
@@ -575,20 +604,22 @@ class SeqRequest:
     tag: str | None = None
     row: int | None = None
     last_block: int = -1
+    span: Span | None = None  # trace span (None: tracing off)
 
     @property
     def steps(self) -> int:
         return len(self.x)
 
 
-# the step scheduler's governance counters (stats() and load_desc)
+# the step scheduler's governance counters (stats() and load_desc): each
+# is the telemetry registry's counter of the same name; the paging ones
+# exist while serve.paging is enabled
 _COUNTERS = ("preempted", "restored", "preempt_shed", "resizes", "spills",
              "spill_restored", "budget_deferred", "budget_shed",
-             "page_demoted", "page_promoted", "page_shed", "mig_in",
-             "mig_out")
+             "page_demoted", "page_promoted", "page_shed")
 
 
-class StepScheduler:
+class StepScheduler(MetricsSink):
     """Continuous batching over a device-resident slot pool
     (``serve.scheduler="continuous"``): ``submit`` returns a future of the
     sequence's final-step output ``(out_dim,)``, ``predict`` blocks. See
@@ -608,7 +639,10 @@ class StepScheduler:
     ``preempt``, ``budget`` and ``paging`` are the governance policies
     (:class:`PreemptPolicy`, ``serve.session.BudgetPolicy``,
     :class:`PagingPolicy`; all off by default); the children serve
-    without them."""
+    without them. ``metrics_jsonl``, ``obs_enabled``, ``trace_capacity``,
+    ``slo_ms`` and ``capture_path`` are the telemetry's
+    (``serve.metrics_jsonl``, ``serve.obs.*``); the counters ``stats()``
+    reports live in its registry."""
 
     kind = "sequence"  # transport: a request is one ordered sequence
 
@@ -621,7 +655,10 @@ class StepScheduler:
                  profiles: Sequence[str] = (),
                  preempt: PreemptPolicy | None = None,
                  budget: BudgetPolicy | None = None,
-                 paging: PagingPolicy | None = None):
+                 paging: PagingPolicy | None = None,
+                 metrics_jsonl: str | None = None, obs_enabled: bool = True,
+                 trace_capacity: int = 512, slo_ms: Sequence[float] = (),
+                 capture_path: str | None = None):
         if max_slots < 2:
             raise ServeError(f"max_slots must be >= 2, got {max_slots}")
         extra = _extra_profiles(backend, profiles)
@@ -744,11 +781,41 @@ class StepScheduler:
         self._cls_stats = ClassStats(self.classes)
         self._drift = DriftStats(backend.precision, backend.envelope)
         self._drift_tick = 0
-        self._requests = self._completed = self._failed = 0
-        self._errors = self._readbacks = self._steps = 0
-        self._occupancy = 0.0
-        self._block_hist = {k: 0 for k in ladder}
-        self._n = dict.fromkeys(_COUNTERS, 0)
+        self.telemetry = ServeTelemetry(
+            kind="slots", family=backend.family, profile=backend.precision,
+            classes=self.classes, enabled=obs_enabled,
+            trace_capacity=trace_capacity, slo_ms=slo_ms,
+            metrics_jsonl=metrics_jsonl, capture_path=capture_path,
+            queue_depth_fn=lambda: self.queue_depth,
+            evicted_depth_fn=lambda: len(self._evicted),
+            pool_slots_fn=lambda: self.pool_slots,
+            pool_bytes_fn=lambda: self._mem.bytes("pool"),
+            ram_bytes_fn=lambda: self._mem.bytes("ram"),
+            disk_bytes_fn=lambda: self._mem.bytes("disk"),
+            pages_fn=(self._pages_snapshot if self._paging.enabled
+                      else None))
+        tm = self.telemetry
+        tm.register_drift(self._drift)
+        tm.registry.gauge(
+            "serve_slot_occupancy", "Active slots / pool size",
+            ("family", "profile")).labels(
+            family=backend.family, profile=backend.precision).set_function(
+            lambda: self._n_active / self.pool_slots)
+        mig = tm.registry.counter(
+            "serve_migrations_total",
+            "Live sequences exported off / imported into this pool",
+            ("family", "profile", "dir"))
+        self._counters = {key: getattr(tm, key) for key in _COUNTERS
+                          if hasattr(tm, key)}
+        self._counters["mig_out"] = mig.labels(
+            family=backend.family, profile=backend.precision, dir="out")
+        self._counters["mig_in"] = mig.labels(
+            family=backend.family, profile=backend.precision, dir="in")
+        self._block_counters = {
+            k: tm.block_dispatch.labels(family=backend.family,
+                                        profile=backend.precision,
+                                        block=str(k))
+            for k in ladder}
         self._t_start = time.monotonic()
         self._started = threading.Event()
         self._ready = threading.Event()
@@ -772,16 +839,22 @@ class StepScheduler:
         if self._paging.enabled:
             # the page store is the pool, under the paged name
             self._mem.set_bytes("pages", self._pool_state_bytes())
+        tm.stats_fn = self.stats
         if start:
             self._started.set()
+        # children: their own pools and telemetry (JSONL and capture stay
+        # the parent's); their registries render in the parent's /metrics
         self._children: dict[str, StepScheduler] = {}
         for p in extra:
-            self._children[p] = StepScheduler(
+            child = StepScheduler(
                 backend.with_profile(p), max_slots=max_slots,
                 step_block=step_block, step_blocks=step_blocks,
                 inflight=inflight, warmup=warmup, start=start,
                 classes=classes, readback_interval_ms=readback_interval_ms,
-                hysteresis=hysteresis)
+                hysteresis=hysteresis, obs_enabled=obs_enabled,
+                trace_capacity=trace_capacity, slo_ms=slo_ms)
+            self._children[p] = child
+            tm.extra_registries += (child.telemetry.registry,)
 
     @property
     def children(self) -> dict:
@@ -800,8 +873,18 @@ class StepScheduler:
             child.start()
 
     def _bump(self, key: str, n: int = 1) -> None:
-        with self._lock:
-            self._n[key] += n
+        self._counters[key].inc(n)
+
+    def _count(self, key: str) -> int:
+        return int(self._counters[key].get())
+
+    def _pages_snapshot(self) -> dict:
+        """The ``serve_pages`` gauges' figures."""
+        with self._cond:
+            free = len(self._row_free)
+            live = len(self._live)
+        return {"pages": self._pages, "rows": self._page_rows,
+                "free_rows": free, "live": live}
 
     def _init_states(self) -> list:
         """A zero pool: one row per slot, or the page store's rows."""
@@ -857,19 +940,18 @@ class StepScheduler:
     def load_desc(self) -> dict:
         """/healthz: constant-time load figures, the preemption, budget
         and migration counts (and the live paged sequences) included."""
-        with self._lock:
-            n = self._steps
-            occ = self._occupancy
-            counts = dict(self._n)
+        tm = self.telemetry
+        n = int(tm.steps.get())
+        occ = tm.occupancy_sum.get()
         out = {"queued": self.queue_depth, "active": self._n_active,
                "slots": self.pool_slots,
                "mean_occupancy": round(occ / n, 4) if n else 0.0,
-               "preempted": counts["preempted"],
+               "preempted": self._count("preempted"),
                "evicted_depth": len(self._evicted),
                "ledger_bytes": int(self._mem.bytes("ram")
                                    + self._mem.bytes("disk")),
-               "spilled": counts["spills"],
-               "migrations": counts["mig_in"] + counts["mig_out"]}
+               "spilled": self._count("spills"),
+               "migrations": self._count("mig_in") + self._count("mig_out")}
         if self._paging.enabled:
             out["pages_live"] = len(self._live)
         return out
@@ -908,11 +990,18 @@ class StepScheduler:
                 f"got {x.shape}")
         if len(x) == 0:
             raise ServeError("sequence must have at least one step")
+        fault_point("serve.request", rows=len(x))
         if self._evicted:
             # a parked sequence past its deadline is shed here too, not
             # only at the dispatcher's next block boundary
             self._sweep_expired()
-        req = SeqRequest(x=x, cls=cls, priority=prio, tag=tag)
+        if self._budget.enabled:
+            # a fire rejects only this submit
+            fault_point("serve.budget", rows=len(x),
+                        queue_bytes=int(self._mem.bytes("queue")))
+        tm = self.telemetry
+        req = SeqRequest(x=x, cls=cls, priority=prio, tag=tag,
+                         span=tm.span_start(cls))
         if max_wait_s is not None:
             req.deadline = req.t_submit + max(0.0, float(max_wait_s))
         with self._cond:
@@ -925,15 +1014,17 @@ class StepScheduler:
             if self._budget.enabled:
                 # the budget's front door: reserve or shed naming it
                 admit_queue_bytes(self._mem, self._budget, x.nbytes, cls,
-                                  lambda: self._bump("budget_shed"),
-                                  logger)
+                                  tm.budget_shed.inc, logger)
+            # counted only past the closed check: a rejected submit is
+            # not a request
+            tm.requests.inc()
             req.seq = req.arrival = self._n_submitted
             self._n_submitted += 1
-            with self._lock:
-                self._requests += 1
             heapq.heappush(self._q, (req.priority, req.deadline,
                                      req.arrival, req.seq, req))
             self._cond.notify_all()
+        # captured after admission: a rejected submit is not workload
+        tm.capture_request(cls, steps=len(x), deadline_s=max_wait_s)
         return req.future
 
     def predict(self, x: np.ndarray, max_wait_s: float | None = None,
@@ -950,17 +1041,19 @@ class StepScheduler:
             return len(self._live)
         return self.pool_slots - len(self._free)
 
-    def _admit_locked(self) -> None:
+    def _admit_locked(self) -> list[tuple[SeqRequest, BaseException]]:
         """Fill freed slots in (class priority, deadline, arrival) order;
         a request whose future is already done (cancelled, shed while
         parked) is dropped. An admitted slot's state is zeroed in its
         first block; a parked sequence's rows are restored instead (no
         reset). Under an enabled budget a head whose spilled state needs
         RAM the ledger cannot free stays parked (the backpressure
-        rung)."""
+        rung). A fired ``serve.admit`` fault fails only that request:
+        returned as ``(request, exception)`` pairs, failed by the caller
+        outside the lock."""
         if self._paging.enabled:
-            self._admit_paged_locked()
-            return
+            return self._admit_paged_locked()
+        failed: list[tuple[SeqRequest, BaseException]] = []
         self._deferred_head = None
         while self._free and self._q:
             head = self._q[0][-1]
@@ -987,6 +1080,14 @@ class StepScheduler:
                 if self._evicted.pop(req.seq, None) is not None:
                     self._unpark(req)
                 continue
+            try:
+                fault_point("serve.admit", cls=req.cls,
+                            queued=len(self._q), free=len(self._free))
+            except Exception as e:  # noqa: BLE001 — fail this request only
+                if self._evicted.pop(req.seq, None) is not None:
+                    self._unpark(req)
+                failed.append((req, e))
+                continue
             slot = self._free.pop()
             self._slot_req[slot] = req
             self._slot_pos[slot] = req.pos
@@ -997,11 +1098,18 @@ class StepScheduler:
                 self._pending_restore[slot] = req
             else:
                 self._pending_reset.add(slot)
+                # slot admission is this scheduler's batch cut (a
+                # restored sequence keeps its first one)
+                self.telemetry.span_stage(req.span, "batch_cut")
+        return failed
 
-    def _admit_paged_locked(self) -> None:
+    def _admit_paged_locked(self) -> list[tuple[SeqRequest,
+                                                BaseException]]:
         """Paged admission: the live set fills from the heap in the same
         order up to ``max_live``; a row is taken only when the sequence
-        is first scheduled, so admission moves no state."""
+        is first scheduled, so admission moves no state. The same
+        ``serve.admit`` contract as the dense path."""
+        failed: list[tuple[SeqRequest, BaseException]] = []
         self._deferred_head = None
         while self._q and len(self._live) < self._max_live:
             req = heapq.heappop(self._q)[-1]
@@ -1010,11 +1118,23 @@ class StepScheduler:
                 if self._evicted.pop(req.seq, None) is not None:
                     self._unpark(req)
                 continue
+            try:
+                fault_point("serve.admit", cls=req.cls,
+                            queued=len(self._q),
+                            free=self._max_live - len(self._live))
+            except Exception as e:  # noqa: BLE001 — fail this request only
+                if self._evicted.pop(req.seq, None) is not None:
+                    self._unpark(req)
+                failed.append((req, e))
+                continue
             self._evicted.pop(req.seq, None)
             req.row = None
             req.last_block = -1  # never scheduled: coldest, FIFO
             self._live[req.seq] = req
             self._pg_peak_live = max(self._pg_peak_live, len(self._live))
+            if req.evicted_state is None and req.pos == 0:
+                self.telemetry.span_stage(req.span, "batch_cut")
+        return failed
 
     def _release_queue_bytes(self, req: SeqRequest) -> None:
         """Retire a request's queue-class bytes once (enabled budgets)."""
@@ -1068,9 +1188,9 @@ class StepScheduler:
             self._maybe_resize()
             shed_head: SeqRequest | None = None
             with self._cond:
-                self._admit_locked()
-                if (self._n_active or not self._buffer.empty
-                        or self._staged):
+                failed = self._admit_locked()
+                if failed or (self._n_active or not self._buffer.empty
+                              or self._staged):
                     pass  # work to do: stage the restores below
                 elif self._closed and not self._q:
                     return False
@@ -1106,6 +1226,13 @@ class StepScheduler:
                     f"serve.budget.ledger_bytes cannot free the RAM "
                     f"its spill restore needs and the pool is idle"),
                     "budget", error=False)
+                continue
+            if failed:
+                for req, exc in failed:
+                    logger.warning("admission fault for one %s sequence "
+                                   "(%r); it fails, the pool keeps "
+                                   "serving", req.cls, exc)
+                    self._fail([req], exc, "admission", error=False)
                 continue
             # restores' uploads start outside the lock, ahead of the
             # block that needs them
@@ -1254,6 +1381,8 @@ class StepScheduler:
         A failed gather fails only this victim."""
         row = req.row
         try:
+            fault_point("serve.preempt", cls=req.cls, pos=req.pos,
+                        slot=-1 if row is None else row, reason=reason)
             state = req.evicted_state
             if state is None and row is not None and req.pos > 0:
                 state = self._gather_rows(row)
@@ -1350,6 +1479,8 @@ class StepScheduler:
         restore_pending = self._pending_restore.get(slot) is not None
         gathered = False
         try:
+            fault_point("serve.preempt", cls=req.cls, pos=pos, slot=slot,
+                        reason=reason)
             if restore_pending:
                 state = req.evicted_state
             elif slot in self._pending_reset or pos == 0:
@@ -1444,10 +1575,13 @@ class StepScheduler:
     def _write_spill(self, req: SeqRequest, state: list) -> tuple[str, int]:
         """One spill file: crc32-checked EMT1 in the pool's own dtype
         (bfloat16 as code 6). Returns ``(path, file bytes)``; raises on
-        an IO failure (the caller loses only that victim)."""
+        an IO failure or a fired ``serve.spill`` fault (the caller loses
+        only that victim)."""
         path = os.path.join(self._budget.spill_dir,
                             f"spill-{self._token}-{req.seq}.emt1")
         try:
+            fault_point("serve.spill", cls=req.cls, seq=req.seq,
+                        bytes=req.state_bytes)
             os.makedirs(self._budget.spill_dir, exist_ok=True)
             serialization.save(path, {
                 f"{i}.{tag}": arr
@@ -1674,7 +1808,8 @@ class StepScheduler:
                 f"{self.backend.feat_dim})")
         cls, prio = resolve_request_class(self._class_priority,
                                           str(header["cls"]))
-        req = SeqRequest(x=x, cls=cls, priority=prio)
+        req = SeqRequest(x=x, cls=cls, priority=prio,
+                         span=self.telemetry.span_start(cls))
         deadline_s = header.get("deadline_s")
         if deadline_s is not None:
             req.deadline = time.monotonic() + max(0.0, float(deadline_s))
@@ -1692,10 +1827,8 @@ class StepScheduler:
                 raise ServeError("engine is closed; migration rejected")
             if self._budget.enabled:
                 admit_queue_bytes(self._mem, self._budget, x.nbytes, cls,
-                                  lambda: self._bump("budget_shed"),
-                                  logger)
-            with self._lock:
-                self._requests += 1
+                                  self.telemetry.budget_shed.inc, logger)
+            self.telemetry.requests.inc()
             req.seq = self._n_submitted
             self._n_submitted += 1
             req.arrival = int(header["arrival"])
@@ -1716,6 +1849,9 @@ class StepScheduler:
                                      req.arrival, req.seq, req))
             self._cond.notify_all()
         self._bump("mig_in")
+        self._observe({"event": "migrate_import", "cls": cls,
+                       "pos": req.pos, "steps": req.steps,
+                       "arrival": req.arrival})
         return req.future
 
     def _check_migration_header(self, header: dict) -> None:
@@ -1837,6 +1973,9 @@ class StepScheduler:
         resolve_future(req.future, exc=ServeError(
             f"sequence migrated off this host (reason={reason})"))
         self._bump("mig_out")
+        self._observe({"event": "migrate_export", "cls": req.cls,
+                       "pos": req.pos, "steps": req.steps,
+                       "reason": reason, "bytes": len(blob)})
         return blob
 
     @staticmethod
@@ -1954,6 +2093,15 @@ class StepScheduler:
                 self._mem.budget("ram"), self._mem.bytes("disk"),
                 self._mem.budget("disk"))
             return
+        try:
+            fault_point("serve.resize", slots=old, target=new,
+                        active=self._n_active)
+        except Exception as e:  # noqa: BLE001 — lose only this resize
+            logger.warning("resize fault (%d->%d slots aborted): %r",
+                           old, new, e)
+            self._observe({"event": "resize_error", "from": old,
+                           "to": new, "error": repr(e)[:200]})
+            return
         if new < old:
             for slot in occupied_high:
                 # a failed eviction loses only that victim; the slot is
@@ -1978,6 +2126,7 @@ class StepScheduler:
         self.pool_slots = new
         self._mem.set_bytes("pool", self._pool_state_bytes())
         self._bump("resizes")
+        self._observe({"event": "resize", "from": old, "to": new})
 
     # -- the dispatch loop ------------------------------------------------
     def _run(self, warmup: bool) -> None:
@@ -2023,12 +2172,17 @@ class StepScheduler:
         rows = self._block_rows
         active = self._n_active
         k = self._pick_block()
+        tm = self.telemetry
+        admitted = len(self._pending_reset)
         try:
             self._apply_restores()
+            fault_point("serve.step", step=int(tm.steps.get()),
+                        active=active, queued=self.queue_depth)
             x = np.zeros((rows, k, self.backend.feat_dim), np.float32)
             reset = np.zeros((rows, 1), bool)
             reset[pool:] = True  # idle lanes past the live pool
-            for slot in self._pending_reset:
+            new_slots = tuple(self._pending_reset)  # first-block spans
+            for slot in new_slots:
                 reset[slot] = True
             self._pending_reset.clear()
             takes = [0] * pool
@@ -2048,8 +2202,9 @@ class StepScheduler:
                           for h, c in states]
             # the upload and the block are enqueued, not waited for:
             # block N+1's copy overlaps block N's compute
-            states, y_dev = self.backend.block_fn(
-                states, self._put(x), self._put(reset))
+            x_dev, reset_dev = self._put(x), self._put(reset)
+            t_h2d = time.monotonic()  # upload enqueued (span stamp)
+            states, y_dev = self.backend.block_fn(states, x_dev, reset_dev)
             if rows > pool:
                 states = [(h[:pool].clone(), c[:pool].clone())
                           for h, c in states]
@@ -2057,6 +2212,14 @@ class StepScheduler:
         except Exception as e:  # noqa: BLE001 — fail in-flight, keep serving
             self._fault(e)
             return
+        t_disp = time.monotonic()
+        # a span keeps its first block's put and dispatch stamps: only
+        # this block's newly admitted slots stamp
+        for slot in new_slots:
+            req = self._slot_req[slot]
+            if req is not None:
+                tm.span_stage(req.span, "h2d_put", t_h2d)
+                tm.span_stage(req.span, "dispatch", t_disp)
         finished: list[tuple[int, int, SeqRequest]] = []
         for slot, req in enumerate(self._slot_req):
             if req is None:
@@ -2070,15 +2233,15 @@ class StepScheduler:
                 self._slot_req[slot] = None
                 self._free.append(slot)
         self._count_step(active / pool, k)
-        done = self._buffer.push((finished, k, t0, y_dev))
+        done = self._buffer.push((finished, active, admitted, k, t0,
+                                  y_dev, pool))
         if done is not None:
             self._complete(done)
 
     def _count_step(self, occupancy: float, k: int) -> None:
-        with self._lock:
-            self._steps += 1
-            self._occupancy += occupancy
-            self._block_hist[k] += 1
+        self.telemetry.steps.inc()
+        self.telemetry.occupancy_sum.inc(occupancy)
+        self._block_counters[k].inc()
 
     def _dispatch_step_paged(self) -> None:
         """One block over the page store: the ``pool_slots`` most urgent
@@ -2106,7 +2269,11 @@ class StepScheduler:
         scheduled = self._schedule_rows(order[:pool])
         if not scheduled:
             return
+        tm = self.telemetry
+        admitted = sum(1 for r in scheduled if r.pos == 0)
         try:
+            fault_point("serve.step", step=int(tm.steps.get()),
+                        active=self._n_active, queued=self.queue_depth)
             x = np.zeros((pool, k, self.backend.feat_dim), np.float32)
             # idle lanes: reset (carry zeroed in the block), gather row 0,
             # and no scatter
@@ -2123,8 +2290,9 @@ class StepScheduler:
             g = self._put(gidx)
             dense = [(h.index_select(0, g), c.index_select(0, g))
                      for h, c in self._states]
-            dense, y_dev = self.backend.block_fn(dense, self._put(x),
-                                                 self._put(reset))
+            x_dev, reset_dev = self._put(x), self._put(reset)
+            t_h2d = time.monotonic()
+            dense, y_dev = self.backend.block_fn(dense, x_dev, reset_dev)
             s = g[:n]
             self._states = [(h.index_copy(0, s, dh[:n]),
                              c.index_copy(0, s, dc[:n]))
@@ -2133,6 +2301,12 @@ class StepScheduler:
         except Exception as e:  # noqa: BLE001 — fail in-flight, keep serving
             self._fault(e)
             return
+        t_disp = time.monotonic()
+        for req in scheduled:
+            if req.pos == 0:
+                tm.span_stage(req.span, "h2d_put", t_h2d)
+                tm.span_stage(req.span, "dispatch", t_disp)
+        active = len(scheduled)
         finished: list[tuple[int, int, SeqRequest]] = []
         with self._cond:
             for lane, req in enumerate(scheduled):
@@ -2142,8 +2316,9 @@ class StepScheduler:
                     finished.append((lane, takes[lane] - 1, req))
                     self._live.pop(req.seq, None)
                     self._free_row(req)
-        self._count_step(len(scheduled) / pool, k)
-        done = self._buffer.push((finished, k, t0, y_dev))
+        self._count_step(active / pool, k)
+        done = self._buffer.push((finished, active, admitted, k, t0, y_dev,
+                                  pool))
         if done is not None:
             self._complete(done)
 
@@ -2166,6 +2341,8 @@ class StepScheduler:
                 out.append(req)
                 continue
             try:
+                fault_point("serve.page", cls=req.cls, seq=req.seq,
+                            row=req.row, pos=req.pos)
                 if (self._budget.enabled
                         and isinstance(req.evicted_state, _Spilled)):
                     self._make_ledger_room(req.evicted_state.ram_bytes)
@@ -2221,7 +2398,8 @@ class StepScheduler:
         """Retire one in-flight block: gather its finishers' output rows
         on the device (no host transfer) into the staging buffer, then
         flush it if due."""
-        finished, k, t0, y_dev = item
+        finished, active, admitted, k, t0, y_dev, pool = item
+        tm = self.telemetry
         if finished:
             reqs = [req for _s, _b, req in finished]
             try:
@@ -2234,14 +2412,29 @@ class StepScheduler:
                 now = time.monotonic()
                 flush_at = now + self.readback_interval_s
                 for req in reqs:
+                    # the finishing block is enqueued and its rows
+                    # gathered (host clock: no sync is added for it)
+                    tm.span_stage(req.span, "compute", now)
                     # a finisher's own deadline bounds its staging wait
                     if req.deadline < flush_at:
                         flush_at = max(now, req.deadline)
                 self._staged.append((reqs, flush_at, y_sel))
                 self._staged_rows += len(reqs)
                 self._mem.add("staged", y_sel.numel() * y_sel.element_size())
+        now = time.monotonic()
         with self._lock:
-            self._step_ms.append((time.monotonic() - t0) * 1e3)
+            self._step_ms.append((now - t0) * 1e3)
+        tm.batch_latency.observe(now - t0)
+        tm.step_latency.observe(now - t0)
+        rec = {"event": "step", "active": active, "admitted": admitted,
+               "finished": len(finished), "queued": self.queue_depth,
+               "block": k, "occupancy": round(active / pool, 4),
+               "step_ms": round((now - t0) * 1e3, 3)}
+        if tm.enabled and finished:
+            rec["trace_ids"] = [req.span.trace_id
+                                for _s, _b, req in finished
+                                if req.span is not None]
+        self._observe(rec)
         self._flush_readback()
 
     def _flush_readback(self, force: bool = False) -> None:
@@ -2259,28 +2452,50 @@ class StepScheduler:
         self._mem.sub("staged", sum(y.numel() * y.element_size()
                                     for _r, _dl, y in entries))
         reqs = [req for e_reqs, _dl, _y in entries for req in e_reqs]
+        tm = self.telemetry
         try:
             rows = [y for _r, _dl, y in entries]
             out = (rows[0] if len(rows) == 1 else torch.cat(rows)).cpu(
             ).numpy().astype(self.backend.out_dtype)
         except Exception as e:  # noqa: BLE001 — fail staged, keep serving
             self._fail(reqs, e, "readback")
+            self._observe({"event": "readback_error",
+                           "sequences": len(reqs), "error": repr(e)[:200]})
             return
         now = time.monotonic()
+        # accounting BEFORE futures resolve: a returned predict() sees
+        # itself in stats()
+        for req in reqs:
+            tm.span_stage(req.span, "readback", now)
+            tm.span_end(req.span)
         with self._lock:
             for req in reqs:
                 self._cls_stats.observe(req.cls, now - req.t_submit)
-            self._completed += len(reqs)
-            self._readbacks += 1
+        tm.observe_batch([(r.cls, now - r.t_submit, r.deadline, r.t_submit)
+                          for r in reqs], now)
+        tm.completed.inc(len(reqs))
+        tm.rows.inc(sum(r.steps for r in reqs))
+        tm.readbacks.inc()
         for i, req in enumerate(reqs):
             resolve_future(req.future, out[i].copy())
+        drift = None
         if self.backend.precision != "f32":
             # the oracle runs after the futures resolve: no client waits
             if self._drift_tick % DRIFT_EVERY == 0:
-                self._drift.sample(
+                drift = self._drift.sample(
                     out[0], lambda: self.backend.predict(reqs[0].x),
                     self._lock)
             self._drift_tick += 1
+        rec = {"event": "readback", "sequences": len(reqs),
+               "steps_coalesced": len(entries)}
+        if tm.enabled:
+            rec["trace_ids"] = [r.span.trace_id for r in reqs
+                                if r.span is not None]
+        if self.backend.precision != "f32":
+            rec["precision"] = self.backend.precision
+            if drift is not None:
+                rec["drift"] = round(drift, 8)
+        self._observe(rec)
 
     def _fail(self, reqs: list[SeqRequest], exc: BaseException,
               what: str, error: bool = True) -> None:
@@ -2290,9 +2505,8 @@ class StepScheduler:
         if error:
             logger.warning("%s failed for %d sequence(s): %r", what,
                            len(reqs), exc)
-        with self._lock:
-            self._errors += int(error)
-            self._failed += len(reqs)
+            self.telemetry.errors.inc()
+        self.telemetry.failed.inc(len(reqs))
         for req in reqs:
             resolve_future(req.future, exc=exc)
 
@@ -2322,6 +2536,8 @@ class StepScheduler:
         for _item in self._restore_buf.drain():
             pass
         self._fail(holders, exc, "step block")
+        self._observe({"event": "step_error", "failed": len(holders),
+                       "error": repr(exc)[:200]})
         self._states = self._init_states()
 
     def _fault_paged(self, exc: BaseException) -> None:
@@ -2390,54 +2606,62 @@ class StepScheduler:
 
     def _profile_row(self) -> dict:
         """This scheduler's row of ``stats()["profiles"]``."""
+        tm = self.telemetry
         with self._lock:
-            return {"requests": self._requests,
-                    "completed": self._completed, "active": self._n_active,
-                    "drift": self._drift.snapshot()}
+            drift = self._drift.snapshot()
+        return {"requests": int(tm.requests.get()),
+                "completed": int(tm.completed.get()),
+                "active": self._n_active, "drift": drift}
 
     def stats(self) -> dict:
         """The JAX step scheduler's stats() keys, ``preempt``, ``budget``
-        and ``paging`` included, less the sections of parts not ported
-        yet (slo, trace, aot). Reading them sheds an expired parked
-        sequence too."""
+        and ``paging`` included, the counters read from the telemetry
+        registry. The JAX package's ``slo`` and ``trace`` sections are the
+        telemetry's ``attainment()`` and ``trace_snapshot()`` (and
+        ``/metrics``, ``/trace``) here; its ``aot`` waits for the AOT
+        store. Reading them sheds an expired parked sequence too."""
         if self._evicted:
             self._sweep_expired()
         queued = self.queue_depth
         paging = self._paging_stats()
+        tm = self.telemetry
+        c = {key: self._count(key) for key in self._counters}
+        n = int(tm.steps.get())
         with self._lock:
             lat = sorted(self._step_ms)
-            n = self._steps
-            c = dict(self._n)
-            out = {
-                "scheduler": "continuous",
-                "slots": self.max_slots,
-                "step_block": self.step_block,
-                "step_blocks": list(self.step_blocks),
-                "block_hist": {str(k): v for k, v
-                               in sorted(self._block_hist.items()) if v},
-                "active": self._n_active,
-                "queued": queued,
-                "steps": n,
-                "sequences": self._completed,
-                "failed": self._failed,
-                "errors": self._errors,
-                "readbacks": self._readbacks,
-                "classes": self._cls_stats.snapshot(),
-                "precision": self._drift.snapshot(),
-                "preempt": {
-                    "enabled": self._preempt.enabled,
-                    "elastic": self._preempt.elastic,
-                    "pool_slots": self.pool_slots,
-                    "preempted": c["preempted"],
-                    "restored": c["restored"],
-                    "shed": c["preempt_shed"],
-                    "evicted_depth": len(self._evicted),
-                    "resizes": c["resizes"],
-                },
-                "mean_occupancy": round(self._occupancy / n, 4) if n
-                                  else 0.0,
-                "uptime_s": round(time.monotonic() - self._t_start, 3),
-            }
+            cls_snap = self._cls_stats.snapshot()
+            prec_snap = self._drift.snapshot()
+        out = {
+            "scheduler": "continuous",
+            "slots": self.max_slots,
+            "step_block": self.step_block,
+            "step_blocks": list(self.step_blocks),
+            "block_hist": {str(k): int(ctr.get()) for k, ctr
+                           in sorted(self._block_counters.items())
+                           if ctr.get()},
+            "active": self._n_active,
+            "queued": queued,
+            "steps": n,
+            "sequences": int(tm.completed.get()),
+            "failed": int(tm.failed.get()),
+            "errors": int(tm.errors.get()),
+            "readbacks": int(tm.readbacks.get()),
+            "classes": cls_snap,
+            "precision": prec_snap,
+            "preempt": {
+                "enabled": self._preempt.enabled,
+                "elastic": self._preempt.elastic,
+                "pool_slots": self.pool_slots,
+                "preempted": c["preempted"],
+                "restored": c["restored"],
+                "shed": c["preempt_shed"],
+                "evicted_depth": len(self._evicted),
+                "resizes": c["resizes"],
+            },
+            "mean_occupancy": (round(tm.occupancy_sum.get() / n, 4) if n
+                               else 0.0),
+            "uptime_s": round(time.monotonic() - self._t_start, 3),
+        }
         defaults = ("pool", "params", "staged", "ram", "disk", "queue")
         if self._paging.enabled:
             defaults += ("pages",)
@@ -2491,6 +2715,7 @@ class StepScheduler:
             self._cond.notify_all()
         self.start()  # a never-started scheduler still drains and exits
         self._thread.join()
+        self.telemetry.close()
 
     def __enter__(self) -> "StepScheduler":
         return self
@@ -2499,14 +2724,15 @@ class StepScheduler:
         self.close()
 
 
-class WholeSequenceScheduler:
+class WholeSequenceScheduler(MetricsSink):
     """Request-granular sequence batching (``serve.scheduler="batch"``).
 
     One micro-batch is one ``padded_fn`` call at a (row bucket, time
     bucket) shape; rows past the batch and steps past each row's length
     are zero padding, and each row's output is read at its true last
     step. Cuts order by (class priority, deadline, arrival); ``profiles``
-    adds a child scheduler per extra profile."""
+    adds a child scheduler per extra profile. The telemetry keywords are
+    the step scheduler's."""
 
     kind = "sequence"  # transport: a request is one ordered sequence
 
@@ -2516,7 +2742,10 @@ class WholeSequenceScheduler:
                  max_wait_ms: float = 2.0, inflight: int = 2,
                  warmup: bool = False,
                  classes: Sequence[str] = ("interactive", "bulk"),
-                 profiles: Sequence[str] = ()):
+                 profiles: Sequence[str] = (),
+                 metrics_jsonl: str | None = None, obs_enabled: bool = True,
+                 trace_capacity: int = 512, slo_ms: Sequence[float] = (),
+                 capture_path: str | None = None):
         self.backend = backend
         extra = _extra_profiles(backend, profiles)
         self._class_priority = resolve_classes(classes)
@@ -2534,12 +2763,27 @@ class WholeSequenceScheduler:
         self._lock = threading.Lock()
         self._latencies: collections.deque = collections.deque(
             maxlen=LATENCY_WINDOW)
-        self._requests = self._batches = self._sequences = self._errors = 0
-        self._row_fill = self._time_fill = 0.0
+        self.telemetry = ServeTelemetry(
+            kind="sequence", family=backend.family,
+            profile=backend.precision, classes=self.classes,
+            enabled=obs_enabled, trace_capacity=trace_capacity,
+            slo_ms=slo_ms, metrics_jsonl=metrics_jsonl,
+            capture_path=capture_path,
+            queue_depth_fn=lambda: self._batcher.queue_depth)
+        self.telemetry.register_drift(self._drift)
+        # row/time fill-ratio sums (this scheduler's two fill figures)
+        fills = self.telemetry.registry.counter(
+            "serve_seq_fill_ratio_total",
+            "Sum of per-batch fill ratios (axis=row|time)",
+            ("family", "profile", "axis"))
+        lab = {"family": backend.family, "profile": backend.precision}
+        self._row_fill = fills.labels(**lab, axis="row")
+        self._time_fill = fills.labels(**lab, axis="time")
         self._t_start = time.monotonic()
         self._closed = False
         if warmup:
             self.warmup()
+        self.telemetry.stats_fn = self.stats
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serve-seq-dispatch")
         self._thread.start()
@@ -2547,8 +2791,12 @@ class WholeSequenceScheduler:
             p: WholeSequenceScheduler(
                 backend.with_profile(p), row_buckets=row_buckets,
                 time_buckets=time_buckets, max_wait_ms=max_wait_ms,
-                inflight=inflight, warmup=warmup, classes=classes)
+                inflight=inflight, warmup=warmup, classes=classes,
+                obs_enabled=obs_enabled, trace_capacity=trace_capacity,
+                slo_ms=slo_ms)
             for p in extra}
+        for child in self._children.values():
+            self.telemetry.extra_registries += (child.telemetry.registry,)
 
     @property
     def children(self) -> dict:
@@ -2606,14 +2854,25 @@ class WholeSequenceScheduler:
             raise ServeError(
                 f"sequence of {len(x)} steps outside [1, "
                 f"{self.time_buckets[-1]}] (largest time bucket)")
+        fault_point("serve.request", rows=len(x))
+        tm = self.telemetry
         # (1, T, F): one request = one row
-        req = Request(x=x[None], priority=prio, cls=cls)
+        req = Request(x=x[None], priority=prio, cls=cls,
+                      span=tm.trace_id(cls))
         if max_wait_s is not None:
+            # the flush deadline is clamped to the coalescing ceiling;
+            # the SLO deadline is the client's raw ask
             req.deadline = req.t_submit + max(
                 0.0, min(float(max_wait_s), self.max_wait_s))
-        self._batcher.submit(req)
-        with self._lock:
-            self._requests += 1
+            req.slo_deadline = req.t_submit + max(0.0, float(max_wait_s))
+        tm.requests.inc()
+        try:
+            self._batcher.submit(req)
+        except Exception:
+            tm.requests.inc(-1)  # rejected, never admitted
+            raise
+        # captured after admission: a rejected submit is not workload
+        tm.capture_request(cls, steps=len(x), deadline_s=max_wait_s)
         return req.future
 
     def predict(self, x: np.ndarray, max_wait_s: float | None = None,
@@ -2640,6 +2899,7 @@ class WholeSequenceScheduler:
         t0 = time.monotonic()
         lens = [r.x.shape[1] for r in batch]
         try:
+            fault_point("serve.dispatch", sequences=len(batch))
             tb = pick_bucket(max(lens), self.time_buckets)
             rb = pick_bucket(len(batch), self.row_buckets)
             x = np.zeros((rb, tb, self.backend.feat_dim), np.float32)
@@ -2651,20 +2911,27 @@ class WholeSequenceScheduler:
         except Exception as e:  # noqa: BLE001 — fail the batch, keep serving
             self._fail(batch, e)
             return
-        done = self._buffer.push((batch, rb, tb, lens, t0, y_dev))
+        # the program takes the host batch: put and dispatch share one
+        # enqueue stamp
+        t_disp = time.monotonic()
+        done = self._buffer.push((batch, rb, tb, lens, t0, t_disp, y_dev))
         if done is not None:
             self._complete(done)
 
     def _fail(self, batch: list[Request], exc: BaseException) -> None:
         logger.warning("sequence micro-batch of %d failed: %r",
                        len(batch), exc)
-        with self._lock:
-            self._errors += 1
+        self.telemetry.errors.inc()
+        self.telemetry.failed.inc(len(batch))
         for req in batch:
             resolve_future(req.future, exc=exc)
+        self._observe({"event": "batch_error", "sequences": len(batch),
+                       "error": repr(exc)[:200]})
 
     def _complete(self, item) -> None:
-        batch, rb, tb, lens, t0, y_dev = item
+        batch, rb, tb, lens, t0, t_disp, y_dev = item
+        tm = self.telemetry
+        t_fin = time.monotonic()
         try:
             y = y_dev.cpu().numpy().astype(self.backend.out_dtype)
         except Exception as e:  # noqa: BLE001 — a device fault fails the batch
@@ -2672,51 +2939,79 @@ class WholeSequenceScheduler:
             return
         now = time.monotonic()
         # accounting BEFORE futures resolve: a returned predict() sees
-        # itself in stats()
+        # itself in stats(); spans and attainment are bulk calls
+        waits = [now - r.t_submit for r in batch]
+        tm.record_batch(batch, (("h2d_put", t_disp), ("dispatch", t_disp),
+                                ("compute", t_fin), ("readback", now)), now)
+        tm.observe_batch([(r.cls, w, r.slo_deadline, r.t_submit)
+                          for r, w in zip(batch, waits)], now)
         with self._lock:
-            for r in batch:
-                self._latencies.append(now - r.t_submit)
-                self._cls_stats.observe(r.cls, now - r.t_submit)
-            self._batches += 1
-            self._sequences += len(batch)
-            self._row_fill += len(batch) / rb
-            self._time_fill += sum(lens) / (len(batch) * tb)
+            self._latencies.extend(waits)
+            for r, w in zip(batch, waits):
+                self._cls_stats.observe(r.cls, w)
+        tm.batches.inc()
+        tm.completed.inc(len(batch))
+        tm.rows.inc(sum(lens))
+        tm.batch_latency.observe(now - t0)
+        self._row_fill.inc(len(batch) / rb)
+        self._time_fill.inc(sum(lens) / (len(batch) * tb))
         for i, req in enumerate(batch):
             resolve_future(req.future, y[i].copy())
+        drift = None
         if self.backend.precision != "f32":
             # the oracle runs after the futures resolve: no client waits
             if self._drift_tick % DRIFT_EVERY == 0:
-                self._drift.sample(
+                drift = self._drift.sample(
                     y[0], lambda: self.backend.predict(batch[0].x[0]),
                     self._lock)
             self._drift_tick += 1
+        rec = {
+            "event": "batch", "sequences": len(batch), "rows_bucket": rb,
+            "time_bucket": tb, "row_fill": round(len(batch) / rb, 4),
+            "time_fill": round(sum(lens) / (len(batch) * tb), 4),
+            "dispatch_to_done_ms": round((now - t0) * 1e3, 3)}
+        if tm.enabled:
+            rec["trace_ids"] = [r.span for r in batch if r.span is not None]
+        if self.backend.precision != "f32":
+            rec["precision"] = self.backend.precision
+            if drift is not None:
+                rec["drift"] = round(drift, 8)
+        self._observe(rec)
 
     # -- introspection / lifecycle --------------------------------------
     def _profile_row(self) -> dict:
         """This scheduler's row of ``stats()["profiles"]``."""
         with self._lock:
-            return {"requests": self._requests,
-                    "completed": self._sequences,
-                    "drift": self._drift.snapshot()}
+            drift = self._drift.snapshot()
+        return {"requests": int(self.telemetry.requests.get()),
+                "completed": int(self.telemetry.completed.get()),
+                "drift": drift}
 
     def stats(self) -> dict:
-        """The JAX batch scheduler's stats() keys, less the sections of the
-        parts not ported yet (slo, trace)."""
+        """The JAX batch scheduler's stats() keys less ``slo`` and
+        ``trace`` (the telemetry's ``attainment()`` and
+        ``trace_snapshot()``); the counters are read from the telemetry
+        registry."""
+        tm = self.telemetry
         with self._lock:
             lat = sorted(self._latencies)
-            n = self._batches
-            out = {
-                "scheduler": "batch",
-                "batches": n,
-                "sequences": self._sequences,
-                "errors": self._errors,
-                "queued": self._batcher.queue_depth,
-                "mean_row_fill": round(self._row_fill / n, 4) if n else 0.0,
-                "mean_time_fill": round(self._time_fill / n, 4) if n else 0.0,
-                "classes": self._cls_stats.snapshot(),
-                "precision": self._drift.snapshot(),
-                "uptime_s": round(time.monotonic() - self._t_start, 3),
-            }
+            cls_snap = self._cls_stats.snapshot()
+            prec_snap = self._drift.snapshot()
+        n = int(tm.batches.get())
+        out = {
+            "scheduler": "batch",
+            "batches": n,
+            "sequences": int(tm.completed.get()),
+            "errors": int(tm.errors.get()),
+            "queued": self._batcher.queue_depth,
+            "mean_row_fill": (round(self._row_fill.get() / n, 4) if n
+                              else 0.0),
+            "mean_time_fill": (round(self._time_fill.get() / n, 4) if n
+                               else 0.0),
+            "classes": cls_snap,
+            "precision": prec_snap,
+            "uptime_s": round(time.monotonic() - self._t_start, 3),
+        }
         out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
         out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
         if self._children:
@@ -2731,6 +3026,7 @@ class WholeSequenceScheduler:
         self._closed = True
         self._batcher.close()
         self._thread.join()
+        self.telemetry.close()
 
     def __enter__(self) -> "WholeSequenceScheduler":
         return self
@@ -2745,6 +3041,7 @@ def make_sequence_engine(backend: RecurrentBackend, cfg):
     ``serve.budget`` and ``serve.paging``; the batch scheduler warns that
     it has no slots for the first two."""
     serve = cfg.serve
+    obs = obs_kwargs(serve)
     if serve.scheduler == "continuous":
         return StepScheduler(
             backend, max_slots=serve.max_slots, step_block=serve.step_block,
@@ -2754,7 +3051,7 @@ def make_sequence_engine(backend: RecurrentBackend, cfg):
             profiles=serve.profiles,
             preempt=PreemptPolicy.from_config(serve.preempt),
             budget=BudgetPolicy.from_config(serve.budget),
-            paging=PagingPolicy.from_config(serve.paging))
+            paging=PagingPolicy.from_config(serve.paging), **obs)
     if serve.scheduler == "batch":
         if serve.preempt.enabled or serve.preempt.elastic:
             logger.warning("serve.preempt needs the slot pool; the "
@@ -2769,7 +3066,7 @@ def make_sequence_engine(backend: RecurrentBackend, cfg):
             backend, row_buckets=serve.buckets,
             time_buckets=serve.seq_buckets, max_wait_ms=serve.max_wait_ms,
             inflight=serve.inflight, warmup=serve.warmup,
-            classes=serve.classes, profiles=serve.profiles)
+            classes=serve.classes, profiles=serve.profiles, **obs)
     raise ServeError(f"serve.scheduler must be batch|continuous, "
                      f"got {serve.scheduler!r}")
 

@@ -28,9 +28,17 @@ and its queued payloads in a :class:`~euromillioner_tpu_torch.serve.
 session.MemoryLedger`; under an enabled budget a submit past
 ``queue_bytes`` is shed with a ServeError naming the budget.
 
-Not ported yet: telemetry and traces, workload capture,
-the serving mesh, the AOT store, and chunking of a request larger than
-the largest bucket (refused with a ServeError).
+Telemetry (obs/telemetry.py ``ServeTelemetry``, ``serve.obs.*``): the
+engine's counters live in a metrics registry, which ``stats()`` reads and
+``GET /metrics`` renders; each request gets a trace span (``GET /trace``)
+and is judged against its SLO deadline; ``serve.metrics_jsonl`` receives
+one record per micro-batch and ``serve.obs.capture_path`` one replayable
+trace line per admitted request. The fault points ``serve.request``,
+``serve.budget`` and ``serve.dispatch`` (resilience/inject.py) sit at the
+submit, the budget's front door and each micro-batch's dispatch.
+
+Not ported yet: the serving mesh, the AOT store, and chunking of a
+request larger than the largest bucket (refused with a ServeError).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import collections
 import threading
 import time
 from concurrent.futures import Future
+from types import SimpleNamespace
 from typing import Sequence
 
 import numpy as np
@@ -49,6 +58,8 @@ from euromillioner_tpu_torch.core.precision import (rel_error,
                                                     resolve_serve_precision,
                                                     serve_envelope)
 from euromillioner_tpu_torch.core.prefetch import DoubleBuffer
+from euromillioner_tpu_torch.obs.telemetry import ServeTelemetry
+from euromillioner_tpu_torch.resilience import fault_point
 from euromillioner_tpu_torch.serve.batcher import (LATENCY_WINDOW,
                                                    MicroBatcher, Request,
                                                    pad_rows, percentile,
@@ -185,12 +196,31 @@ class DriftStats:
         return drift
 
 
-class InferenceEngine:
+class MetricsSink:
+    """JSONL records of a serving engine, through the one best-effort
+    emitter of its :class:`~euromillioner_tpu_torch.obs.telemetry.
+    ServeTelemetry` (a failing sink is disabled with one warning and
+    serving continues)."""
+
+    telemetry: ServeTelemetry
+
+    @property
+    def _jsonl(self):
+        """The live JSONL writer, or None once disabled or closed."""
+        return self.telemetry.emitter.writer
+
+    def _observe(self, record: dict) -> None:
+        self.telemetry.emit(record)
+
+
+class InferenceEngine(MetricsSink):
     """Dynamic micro-batching over one row backend (``serve.session``'s
     ``NNBackend``, ``GBTBackend``, ``RFBackend`` or ``ClassicBackend``):
     ``submit`` returns a future, ``predict`` blocks. ``precision`` is the
     profile this engine serves (default: the backend's); ``profiles``
-    adds a child engine for each other one."""
+    adds a child engine for each other one. ``obs_enabled``,
+    ``trace_capacity``, ``slo_ms``, ``capture_path`` and
+    ``metrics_jsonl`` are the telemetry's (``serve.obs.*``)."""
 
     kind = "rows"  # transport: a request is a batch of independent rows
 
@@ -199,8 +229,14 @@ class InferenceEngine:
                  warmup: bool = True,
                  classes: Sequence[str] = ("interactive", "bulk"),
                  precision: str | None = None,
-                 profiles: Sequence[str] = (), budget=None):
+                 profiles: Sequence[str] = (), budget=None,
+                 metrics_jsonl: str | None = None, obs_enabled: bool = True,
+                 trace_capacity: int = 512, slo_ms: Sequence[float] = (),
+                 capture_path: str | None = None):
         self.backend = backend
+        # where the JAX package's engine holds its backend (a session);
+        # replay's payload_for reads the feature shape there
+        self.session = SimpleNamespace(backend=backend)
         self.precision = (resolve_serve_precision(precision) if precision
                           else backend.precision)
         self.envelope = serve_envelope(backend.family, self.precision)
@@ -237,29 +273,41 @@ class InferenceEngine:
         self._mem = MemoryLedger({"queue": self._budget.queue_bytes}
                                  if self._budget.enabled else None)
         self._mem.set_bytes("params", param_bytes(self._serve_params))
+        # the telemetry: registry counters (the stats() store), trace
+        # ring, SLO attainment, the shared JSONL emitter
+        self.telemetry = ServeTelemetry(
+            kind="rows", family=backend.family, profile=self.precision,
+            classes=self.classes, enabled=obs_enabled,
+            trace_capacity=trace_capacity, slo_ms=slo_ms,
+            metrics_jsonl=metrics_jsonl, capture_path=capture_path,
+            queue_depth_fn=lambda: self._batcher.queue_depth)
+        self.telemetry.register_drift(self._drift)
         self._lock = threading.Lock()
         self._latencies: collections.deque = collections.deque(
             maxlen=LATENCY_WINDOW)
         self._children: dict[str, InferenceEngine] = {}
-        self._submitted = 0
-        self._budget_shed = 0
-        self._requests = self._rows = self._batches = self._errors = 0
-        self._fill = 0.0
         self._t_start = time.monotonic()
         self._closed = False
-        if warmup:
-            self.warmup()
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="serve-dispatch")
-        self._thread.start()
-        # children once the parent is live: same backend, their own
-        # batcher and dispatcher
+        self._thread = None
         try:
+            if warmup:
+                self.warmup()
+            self.telemetry.stats_fn = self.stats
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name="serve-dispatch")
+            self._thread.start()
+            # children once the parent is live: same backend, their own
+            # batcher, dispatcher and telemetry; their registries render
+            # in the parent's /metrics
             for p in extra:
-                self._children[p] = InferenceEngine(
+                child = InferenceEngine(
                     backend, buckets=buckets, max_wait_ms=max_wait_ms,
                     inflight=inflight, warmup=warmup, classes=classes,
-                    precision=p)
+                    precision=p, obs_enabled=obs_enabled,
+                    trace_capacity=trace_capacity, slo_ms=slo_ms)
+                self._children[p] = child
+                self.telemetry.extra_registries += (
+                    child.telemetry.registry,)
         except BaseException:
             self.close()
             raise
@@ -332,6 +380,7 @@ class InferenceEngine:
             raise ServeError(
                 f"request rows have feature shape {x.shape[1:]}, model "
                 f"wants {self._feat_shape}")
+        fault_point("serve.request", rows=len(x))
         if len(x) == 0:
             f: Future = Future()
             f.set_result(np.empty((0,), self.backend.out_dtype))
@@ -340,31 +389,39 @@ class InferenceEngine:
             raise ServeError(
                 f"request of {len(x)} rows exceeds the largest bucket "
                 f"{self.max_batch} (chunking is not ported yet)")
+        tm = self.telemetry
         self._admit_bytes(cls, x.nbytes)
-        req = Request(x=x, priority=prio, cls=cls)
+        req = Request(x=x, priority=prio, cls=cls, span=tm.trace_id(cls))
         if max_wait_s is not None:
+            # the flush deadline is clamped to the engine's coalescing
+            # ceiling; the SLO deadline is the client's raw ask
             req.deadline = req.t_submit + max(
                 0.0, min(float(max_wait_s), self._batcher.max_wait_s))
+            req.slo_deadline = req.t_submit + max(0.0, float(max_wait_s))
+        tm.requests.inc()
         try:
             self._batcher.submit(req)
         except Exception:
+            tm.requests.inc(-1)  # rejected, never admitted
             if self._budget.enabled:
                 self._mem.sub("queue", x.nbytes)
             raise
-        with self._lock:
-            self._submitted += 1
+        # captured after admission: a rejected submit is not workload
+        tm.capture_request(cls, rows=len(x), deadline_s=max_wait_s)
         return req.future
 
     def _admit_bytes(self, cls: str, nbytes: int) -> None:
         """The budget's front door: reserve ``nbytes`` of the ``queue``
-        class or shed the submit with a ServeError naming the budget.
-        Admitted payloads stay accounted until their batch dispatches."""
-        def shed() -> None:
-            with self._lock:
-                self._budget_shed += 1
-
-        admit_queue_bytes(self._mem, self._budget, nbytes, cls, shed,
-                          logger)
+        class or shed the submit with a ServeError naming the budget
+        (counted in ``serve_budget_shed_total``). Admitted payloads stay
+        accounted until their batch dispatches. The ``serve.budget``
+        fault point rides here: a fire rejects only this submit."""
+        if not self._budget.enabled:
+            return
+        fault_point("serve.budget", rows=0,
+                    queue_bytes=int(self._mem.bytes("queue")))
+        admit_queue_bytes(self._mem, self._budget, nbytes, cls,
+                          self.telemetry.budget_shed.inc, logger)
 
     def predict(self, x: np.ndarray, max_wait_s: float | None = None,
                 cls: str | None = None, profile: str | None = None
@@ -395,11 +452,16 @@ class InferenceEngine:
             # the batch left the queue, whatever its dispatch's outcome
             self._mem.sub("queue", sum(r.x.nbytes for r in batch))
         try:
+            fault_point("serve.dispatch", rows=rows, requests=len(batch))
             bucket = pick_bucket(rows, self.buckets)
             x = (batch[0].x if len(batch) == 1
                  else np.concatenate([r.x for r in batch]))
-            x_dev = self._put(self.backend.prepare(pad_rows(x, bucket)))
+            prepared = self.backend.prepare(pad_rows(x, bucket))
+            t_put = time.monotonic()
+            x_dev = self._put(prepared)
+            t_h2d = time.monotonic()
             y_dev = self._program(x_dev)
+            t_disp = time.monotonic()
             ref_dev = None
             if self.precision != "f32":
                 # the sampled drift check: the same padded batch through
@@ -410,66 +472,106 @@ class InferenceEngine:
         except Exception as e:  # noqa: BLE001 — fail the batch, keep serving
             self._fail(batch, e)
             return
-        done = self._buffer.push((batch, rows, bucket, t0, y_dev, ref_dev))
+        done = self._buffer.push((batch, rows, bucket, t0, y_dev, ref_dev,
+                                  t_put, t_h2d, t_disp))
         if done is not None:
             self._complete(done)
 
     def _fail(self, batch: list[Request], exc: BaseException) -> None:
         logger.warning("micro-batch of %d request(s) failed: %r", len(batch),
                        exc)
-        with self._lock:
-            self._errors += 1
+        self.telemetry.errors.inc()
+        self.telemetry.failed.inc(len(batch))
         for req in batch:
             resolve_future(req.future, exc=exc)
+        self._observe({"event": "batch_error", "requests": len(batch),
+                       "error": repr(exc)[:200]})
 
     def _complete(self, item) -> None:
-        batch, rows, bucket, t0, y_dev, ref_dev = item
+        batch, rows, bucket, t0, y_dev, ref_dev, t_put, t_h2d, t_disp = item
+        tm = self.telemetry
+        t_fin = time.monotonic()
         try:
             y = y_dev.cpu().numpy().astype(self.backend.out_dtype)
         except Exception as e:  # noqa: BLE001 — a device fault fails the batch
             self._fail(batch, e)
             return
+        t_read = time.monotonic()
+        drift = None
         if ref_dev is not None:
-            self._drift.sample(y, lambda: ref_dev.cpu().numpy(), self._lock)
+            drift = self._drift.sample(y, lambda: ref_dev.cpu().numpy(),
+                                       self._lock)
         now = time.monotonic()
         # accounting BEFORE futures resolve: a returned predict() sees
-        # itself in stats()
+        # itself in stats(). The spans share the batch's host stamps (the
+        # device work ends inside the blocking read: its start and end
+        # bound the compute and readback stages); no sync is added.
+        waits = [now - r.t_submit for r in batch]
+        tm.record_batch(batch, (("h2d_put", t_h2d), ("dispatch", t_disp),
+                                ("compute", t_fin), ("readback", t_read)),
+                        now)
+        tm.observe_batch([(r.cls, w, r.slo_deadline, r.t_submit)
+                          for r, w in zip(batch, waits)], now)
         with self._lock:
-            for r in batch:
-                self._latencies.append(now - r.t_submit)
-                self._cls_stats.observe(r.cls, now - r.t_submit)
-            self._requests += len(batch)
-            self._rows += rows
-            self._batches += 1
-            self._fill += rows / bucket
+            self._latencies.extend(waits)
+            for r, w in zip(batch, waits):
+                self._cls_stats.observe(r.cls, w)
+        tm.completed.inc(len(batch))
+        tm.rows.inc(rows)
+        tm.batches.inc()
+        tm.fill_sum.inc(rows / bucket)
+        tm.batch_latency.observe(now - t0)
         off = 0
         for req in batch:
             resolve_future(req.future, y[off:off + req.rows].copy())
             off += req.rows
+        rec = {
+            "event": "batch", "requests": len(batch), "rows": rows,
+            "bucket": bucket, "fill_ratio": round(rows / bucket, 4),
+            "queue_depth": self._batcher.queue_depth,
+            "dispatch_to_done_ms": round((now - t0) * 1e3, 3),
+            "oldest_e2e_ms": round(max(waits) * 1e3, 3)}
+        if tm.enabled:
+            rec["trace_ids"] = [r.span for r in batch if r.span is not None]
+            rec["stage_ms"] = {
+                "put": round((t_h2d - t_put) * 1e3, 3),
+                "compute": round((t_fin - t0) * 1e3, 3),
+                "readback": round((t_read - t_fin) * 1e3, 3)}
+        if self.precision != "f32":
+            rec["precision"] = self.precision
+            if drift is not None:
+                rec["drift"] = round(drift, 8)
+        self._observe(rec)
 
     # -- introspection / lifecycle --------------------------------------
     def stats(self) -> dict:
         """Counters and p50/p99 request latency over the recent window,
-        under the JAX row engine's key names."""
+        under the JAX row engine's key names (its ``slo`` and ``trace``
+        sections are the telemetry's ``attainment()`` and
+        ``trace_snapshot()``); the counters are read from the telemetry
+        registry (the store ``GET /metrics`` renders)."""
+        tm = self.telemetry
         with self._lock:
             lat = sorted(self._latencies)
-            n = self._batches
-            out = {
-                "requests": self._requests,
-                "rows": self._rows,
-                "batches": n,
-                "errors": self._errors,
-                "queue_depth": self._batcher.queue_depth,
-                "mean_fill_ratio": round(self._fill / n, 4) if n else 0.0,
-                "uptime_s": round(time.monotonic() - self._t_start, 3),
-                "classes": self._cls_stats.snapshot(),
-                "precision": self._drift.snapshot(),
-            }
-            shed = self._budget_shed
+            cls_snap = self._cls_stats.snapshot()
+            prec_snap = self._drift.snapshot()
+        n = int(tm.batches.get())
+        out = {
+            "requests": int(tm.completed.get()),
+            "rows": int(tm.rows.get()),
+            "batches": n,
+            "errors": int(tm.errors.get()),
+            "queue_depth": self._batcher.queue_depth,
+            "mean_fill_ratio": (round(tm.fill_sum.get() / n, 4) if n
+                                else 0.0),
+            "uptime_s": round(time.monotonic() - self._t_start, 3),
+            "classes": cls_snap,
+            "precision": prec_snap,
+        }
         out["budget"] = {
             "enabled": self._budget.enabled,
             **self._mem.snapshot(defaults=("params", "queue")),
-            "shed": shed,
+            "shed": int(tm.budget_shed.get()),
         }
         out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
         out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
@@ -482,20 +584,23 @@ class InferenceEngine:
     def _profile_row(self) -> dict:
         """This engine's row of ``stats()["profiles"]``."""
         with self._lock:
-            return {"requests": self._submitted,
-                    "completed": self._requests,
-                    "drift": self._drift.snapshot()}
+            drift = self._drift.snapshot()
+        return {"requests": int(self.telemetry.requests.get()),
+                "completed": int(self.telemetry.completed.get()),
+                "drift": drift}
 
     def close(self) -> None:
         """Stop accepting requests, drain queued work, join the
-        dispatcher (children first)."""
+        dispatcher (children first), flush the telemetry's sinks."""
         if self._closed:
             return
         self._closed = True
         for child in self._children.values():
             child.close()
         self._batcher.close()
-        self._thread.join()
+        if self._thread is not None:
+            self._thread.join()
+        self.telemetry.close()
 
     def __enter__(self) -> "InferenceEngine":
         return self
@@ -507,11 +612,20 @@ class InferenceEngine:
 def make_row_engine(backend, cfg) -> InferenceEngine:
     """``cfg.serve`` → the row engine over ``backend``, its budget
     included."""
-    return InferenceEngine(backend, buckets=cfg.serve.buckets,
-                           max_wait_ms=cfg.serve.max_wait_ms,
-                           inflight=cfg.serve.inflight,
-                           warmup=cfg.serve.warmup,
-                           classes=cfg.serve.classes,
-                           profiles=cfg.serve.profiles,
-                           budget=BudgetPolicy.from_config(
-                               cfg.serve.budget))
+    sc = cfg.serve
+    return InferenceEngine(backend, buckets=sc.buckets,
+                           max_wait_ms=sc.max_wait_ms,
+                           inflight=sc.inflight, warmup=sc.warmup,
+                           classes=sc.classes, profiles=sc.profiles,
+                           budget=BudgetPolicy.from_config(sc.budget),
+                           **obs_kwargs(sc))
+
+
+def obs_kwargs(sc) -> dict:
+    """``serve.metrics_jsonl`` and ``serve.obs.*`` → the telemetry keyword
+    arguments every engine takes."""
+    return {"metrics_jsonl": sc.metrics_jsonl or None,
+            "obs_enabled": sc.obs.enabled,
+            "trace_capacity": sc.obs.trace_buffer,
+            "slo_ms": tuple(sc.obs.slo_ms),
+            "capture_path": sc.obs.capture_path or None}

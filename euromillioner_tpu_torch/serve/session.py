@@ -18,11 +18,15 @@ are the byte accounting and the front-door budget every engine shares
 (``serve.budget``; the row engine's ``queue`` class, the step
 scheduler's every class).
 
+A fault in a narrow profile's restore-time cast or quantization (the
+``serve.quant`` fault point) falls that profile back to the f32 params,
+logged once: its replies are then bit-equal to the f32 oracle. Only the
+cast or quantization is covered: a kernel that fails to build raises.
+
 Not ported yet: the JAX package's chunked tree dispatch
-(``serve.trees.chunk``), ``ModelSession`` (executable cache, AOT store,
-mesh placement) and the ``serve.quant`` fault point with its fallback to
-f32 (a failed cast or quantization raises here). Asking for chunked
-dispatch is a :class:`ConfigError` that names it.
+(``serve.trees.chunk``) and ``ModelSession`` (executable cache, AOT store,
+mesh placement). Asking for chunked dispatch is a :class:`ConfigError`
+that names it.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from euromillioner_tpu_torch.core.precision import (cast_floats,
                                                     quantize_int8w,
                                                     resolve_serve_precision,
                                                     serve_envelope)
+from euromillioner_tpu_torch.resilience import fault_point
 from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
@@ -224,7 +229,10 @@ class NNBackend:
     the model reads ids from it (``cast_inputs = False``, as Wide&Deep);
     such a model casts after the lookup to its own compute dtype. The
     narrow trees and programs of ``precision`` and of every profile in
-    ``profiles`` are built here, on the constructing thread."""
+    ``profiles`` are built here, on the constructing thread; a profile
+    whose cast or quantization fails (``serve.quant``) serves the f32
+    params and program instead (``fallbacks`` names it), and when that
+    profile is ``precision`` the backend's precision becomes ``f32``."""
 
     def __init__(self, model, feat_shape: tuple[int, ...],
                  compute_dtype=None, precision: str = "f32",
@@ -249,8 +257,27 @@ class NNBackend:
                 WIDE_ONEHOT_FWD
 
             WIDE_ONEHOT_FWD.build()
-        for p in (self.precision, *profiles):
-            self.serve_apply(p)
+        self.fallbacks: set[str] = set()
+        for p in dict.fromkeys((self.precision, *profiles)):
+            prof = resolve_serve_precision(p)
+            serve_envelope(self.family, prof)  # unpinned → ConfigError
+            if prof == "f32":
+                continue
+            try:
+                self.serve_params(prof)
+            except Exception as e:  # noqa: BLE001 — degrade to f32
+                logger.warning(
+                    "serve.precision=%s cast/quantize failed at restore "
+                    "(%r); falling back to f32 params for this profile",
+                    prof, e)
+                self.fallbacks.add(prof)
+                self._serve_params[prof] = self._params
+                self._serve_apply[prof] = self.apply
+                if prof == self.precision:
+                    self.precision = "f32"
+                    self.envelope = 0.0
+                continue
+            self.serve_apply(prof)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -267,6 +294,7 @@ class NNBackend:
         tree = self._serve_params.get(prof)
         if tree is None:
             serve_envelope(self.family, prof)  # unpinned → ConfigError
+            fault_point("serve.quant", profile=prof, family=self.family)
             if prof == "bf16":
                 tree = cast_floats(self._params, torch.bfloat16)
             else:

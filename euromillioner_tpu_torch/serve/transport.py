@@ -13,6 +13,11 @@ thread, the engine coalesces across threads):
   ``/admin/export`` names it by) → ``{"predictions": [...], "rows": n}``;
 * ``GET /healthz`` — liveness and what is alive (:func:`healthz_body`);
 * ``GET /stats`` — the engine's ``stats()``;
+* ``GET /metrics`` — the engine's telemetry registry (its profile
+  children's and the process's fault-point counters too) in Prometheus
+  text exposition format 0.0.4;
+* ``GET /trace?n=K`` — the last ``K`` (default 32) completed request
+  spans, with the ring's recorded, buffered and dropped counts;
 * ``POST /admin/export`` ``{"target": tag}`` → ``{"blob": base64 | null}``
   (one live sequence packed as a migration blob and removed here), or
   ``{"all": true}`` → ``{"blobs": [...]}`` (every live sequence);
@@ -21,9 +26,8 @@ thread, the engine coalesces across threads):
 
 Only the step scheduler has the migration surface (``export_sequence``,
 ``drain_export``, ``import_sequence``); the row engine and the batch
-scheduler answer both admin routes with the JAX handler's 404. The port's
-engines have no telemetry yet, so ``GET /metrics`` and ``GET /trace``
-answer 404 too, and so does ``/admin/release`` (no fleet supervisor).
+scheduler answer both admin routes with the JAX handler's 404, and every
+engine answers ``/admin/release`` with it (no fleet supervisor).
 """
 
 from __future__ import annotations
@@ -57,9 +61,11 @@ _ADMIN_404 = {"/admin/export": "this engine has no live-migration surface",
 def healthz_body(engine) -> dict:
     """The /healthz JSON: liveness, the SLO classes (and the step-block
     ladder), the precision profile with its envelope, and constant-time
-    load figures."""
+    load figures, with the telemetry's health view (attainment per class,
+    drift breaches, span count, uptime) between the last two."""
     return {"ok": True, "healthz_version": HEALTHZ_VERSION,
-            **engine.slo_desc, **engine.precision_desc, **engine.load_desc}
+            **engine.slo_desc, **engine.precision_desc,
+            **engine.telemetry.health(), **engine.load_desc}
 
 
 def handle_request(engine, payload: Any) -> tuple[int, dict]:
@@ -226,14 +232,36 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
+    def _reply_text(self, status: int, text: str, content_type: str) -> None:
+        data = text.encode()
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
     def do_GET(self) -> None:  # noqa: N802 — http.server API
-        path = urllib.parse.urlsplit(self.path).path
-        if path == "/healthz":
+        parsed = urllib.parse.urlsplit(self.path)
+        telemetry = self.engine.telemetry
+        if parsed.path == "/healthz":
             self._reply(200, healthz_body(self.engine))
-        elif path == "/stats":
+        elif parsed.path == "/stats":
             self._reply(200, self.engine.stats())
-        elif path in ("/metrics", "/trace"):
-            self._reply(404, {"error": "engine has no telemetry"})
+        elif parsed.path == "/metrics":
+            self._reply_text(200, telemetry.render(),
+                             "text/plain; version=0.0.4")
+        elif parsed.path == "/trace":
+            q = urllib.parse.parse_qs(parsed.query)
+            try:
+                n = int(q.get("n", ["32"])[0])
+            except ValueError:
+                self._reply(400, {"error": "n must be an integer"})
+                return
+            snap = telemetry.trace_snapshot()
+            self._reply(200, {"spans": telemetry.trace.last(n),
+                              "recorded": snap["spans"],
+                              "buffered": snap["buffered"],
+                              "dropped": snap["dropped"]})
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 

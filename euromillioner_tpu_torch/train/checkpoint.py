@@ -35,6 +35,7 @@ from typing import Any, Callable, Mapping
 
 import torch
 
+from euromillioner_tpu_torch.resilience import fault_point
 from euromillioner_tpu_torch.utils import serialization
 from euromillioner_tpu_torch.utils.errors import CheckpointError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
@@ -123,6 +124,7 @@ def save_checkpoint(directory: str, state, *, step: int, group=None) -> str:
     if proc == 0:
         os.makedirs(tmp, exist_ok=True)
     barrier()
+    fault_point("checkpoint.save.write", step=step, path=tmp, process=proc)
     serialization.save(os.path.join(tmp, _ARRAYS.format(proc=proc)), arrays)
     with open(os.path.join(tmp, _CHECKSUMS.format(proc=proc)), "w") as fh:
         json.dump({k: _crc(v) for k, v in arrays.items()}, fh)
@@ -148,6 +150,7 @@ def save_checkpoint(directory: str, state, *, step: int, group=None) -> str:
         os.replace(tmp, target)
     barrier()
     logger.info("saved checkpoint %s (%d leaves)", target, len(arrays))
+    fault_point("checkpoint.save.post", step=step, path=target, process=proc)
     return target
 
 
@@ -238,6 +241,7 @@ def load_checkpoint(path: str, group=None) -> dict[str, torch.Tensor]:
     (``"0_LSTM.wx"`` keys), integrity-checked; this rank's shard in
     ``group`` (None: the default group). Works on checkpoints of either
     package: leaves outside ``.params`` are skipped."""
+    fault_point("checkpoint.load", path=path)
     manifest = _read_manifest(path)
     paths = manifest.get("leaf_paths")
     if paths is None:
@@ -264,6 +268,7 @@ def load_train_state(path: str, like, group=None):
     ``TrainState``): the leaf paths must match ``like``'s exactly, and each
     leaf takes ``like``'s shape, dtype and device. This rank's shard in
     ``group`` is read (None: the default group)."""
+    fault_point("checkpoint.load", path=path)
     manifest = _read_manifest(path)
     arrays = _verified_own_shard(path, manifest, group)
     want = _state_leaves(like)

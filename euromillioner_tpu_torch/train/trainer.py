@@ -37,12 +37,13 @@ from euromillioner_tpu_torch.core.prefetch import DoubleBuffer
 from euromillioner_tpu_torch.data.dataset import Batch, Dataset
 from euromillioner_tpu_torch.nn import losses as L
 from euromillioner_tpu_torch.nn.module import Module
+from euromillioner_tpu_torch.resilience import fault_point
 from euromillioner_tpu_torch.train.metrics import METRICS, eval_line
 from euromillioner_tpu_torch.train.optim import Optimizer, apply_updates
 from euromillioner_tpu_torch.utils.errors import TrainError
 from euromillioner_tpu_torch.utils.logging_utils import (JsonlMetricsWriter,
                                                          get_logger)
-from euromillioner_tpu_torch.utils.profiling import StepTimer
+from euromillioner_tpu_torch.utils.profiling import StepTimer, trace
 
 logger = get_logger("train.trainer")
 
@@ -197,9 +198,12 @@ class Trainer:
             batch_size: int, watches: Mapping[str, Dataset] | None = None,
             seed: int = 0, shuffle: bool = True, log_every: int = 1,
             checkpoint_dir: str | None = None, checkpoint_every: int = 0,
-            start_epoch: int = 0) -> TrainState:
+            start_epoch: int = 0, profile_dir: str | None = None
+            ) -> TrainState:
         """Run epochs ``start_epoch..epochs-1``; after each, log one
-        xgboost-style line over all ``watches``. A SIGTERM during fit()
+        xgboost-style line over all ``watches``. ``profile_dir`` writes a
+        ``torch.profiler`` trace of the whole fit there (host and device
+        activity; utils/profiling.py ``trace``). A SIGTERM during fit()
         (main thread only) checkpoints at the next epoch boundary (when
         ``checkpoint_dir`` is set) and returns early with
         ``self.preempted = True``; a non-finite epoch loss raises
@@ -224,10 +228,11 @@ class Trainer:
             prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
             handler_installed = True
         try:
-            state, seen = self._run_epochs(
-                state, train_ds, epochs, batch_size, watches, seed, shuffle,
-                log_every, checkpoint_dir, checkpoint_every, start_epoch,
-                timer)
+            with trace(profile_dir):
+                state, seen = self._run_epochs(
+                    state, train_ds, epochs, batch_size, watches, seed,
+                    shuffle, log_every, checkpoint_dir, checkpoint_every,
+                    start_epoch, timer)
         finally:
             if handler_installed:
                 # None means a C-level handler was installed, which Python
@@ -266,10 +271,12 @@ class Trainer:
             batches = train_ds.batches(batch_size, shuffle=shuffle,
                                        seed=shuffle_seed)
             loss = torch.zeros(())
-            for n, batch in self._staged(batches):
+            for i, (n, batch) in enumerate(self._staged(batches)):
+                fault_point("train.step", epoch=epoch, batch=i)
                 state, loss = self.train_step(state, batch, generator)
                 seen += n
                 timer.tick(n)
+            fault_point("train.epoch_end", epoch=epoch)
             if not np.isfinite(float(loss)):
                 raise TrainError(f"non-finite training loss at epoch {epoch}")
             if watches and (epoch % log_every == 0 or epoch == epochs - 1):

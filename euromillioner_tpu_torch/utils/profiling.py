@@ -1,5 +1,8 @@
-"""Step timing for the training loop (the JAX package's
-``utils/profiling.StepTimer``).
+"""Tracing and step timing for the training loop (the JAX package's
+``utils/profiling.py``): :func:`trace` writes a ``torch.profiler`` trace of
+a block (host operators and, on the card, every kernel the process
+launches, the hand-written ones included), and :class:`StepTimer` counts
+step wall-clock and throughput.
 
 The timer reads the host clock. CUDA work is asynchronous, so on the card
 the trainer hands it ``sync=torch.cuda.synchronize``: each tick then waits
@@ -10,9 +13,38 @@ device.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable
+
+from euromillioner_tpu_torch.utils.logging_utils import get_logger
+
+logger = get_logger("utils.profiling")
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None):
+    """Write a ``torch.profiler`` trace of the block to
+    ``log_dir/trace.json`` (Chrome trace format; a no-op when ``log_dir``
+    is None). CUDA activity is recorded when a card is present."""
+    if not log_dir:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, TRACE_FILE)
+    logger.info("profiler trace → %s", path)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(path)
 
 
 @dataclass

@@ -313,8 +313,9 @@ def test_cli_trains_the_default_mlp_then_serves(tmp_path, caplog, capsys):
 
 
 def test_cli_mlp_errors():
-    """Serving without a checkpoint is a ServeError (16); training without
-    a data source a ConfigError (17): fetching the page is not ported."""
+    """Serving without a checkpoint is a ServeError (16); training from a
+    ``data.url`` nothing answers a FetchError (10)."""
     assert cli.main(["serve", "--model-type", "mlp", "--smoke", "2",
                      "--device", "cpu"]) == 16
-    assert cli.main(["train", "--model", "mlp", "--device", "cpu"]) == 17
+    assert cli.main(["train", "--model", "mlp", "--device", "cpu",
+                     "data.url=http://127.0.0.1:9/results"]) == 10

@@ -530,7 +530,8 @@ def test_cli_trains_then_serves_on_cpu(tmp_path, caplog, capsys):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    ([], 17),                                      # no data source
+    (["data.url=http://127.0.0.1:9/results"], 10),  # nothing listens:
+                                                   # FetchError
     (["--html-file", "missing.html", "train.no_such=1"], 2),
 ])
 def test_cli_train_errors(argv, rc):

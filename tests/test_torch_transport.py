@@ -51,8 +51,8 @@ RTOL = 1e-5
 ATOL = 1e-6
 WAIT = 60  # seconds any request, future or join may take
 # /healthz keys of the JAX engines that come from parts not ported yet:
-# its telemetry (taken from the engine itself below); the load figures of
-# preemption, the memory budget and live migration are ported
+# none (the telemetry's health view and the load figures of preemption,
+# the memory budget and live migration are ported)
 LEFT_OUT_LOAD_KEYS: set = set()
 TINY = ["model.lstm_hidden=8", "model.lstm_layers=1", "model.seq_len=8",
         "model.compute_dtype=float32"]
@@ -168,7 +168,7 @@ def test_healthz_is_the_jax_body_less_its_left_out_parts(urls, lstm, gbt,
     eng = _jax_engine(kind, lstm, gbt)
     try:
         want = jax_healthz_body(eng)
-        left_out = set(eng.telemetry.health()) | LEFT_OUT_LOAD_KEYS
+        left_out = LEFT_OUT_LOAD_KEYS
     finally:
         eng.close()
     status, body = call(urls[kind], "/healthz")
@@ -188,9 +188,32 @@ def test_stats(urls, kind, key):
     assert set(body["classes"]) == {"interactive", "bulk"}
 
 
+@pytest.mark.parametrize("kind", ["continuous", "batch", "gbt"])
+def test_metrics_and_trace_answer_from_the_telemetry(urls, kind):
+    """``GET /metrics`` is Prometheus text whose request counter equals
+    /stats; ``GET /trace?n=K`` returns at most K complete spans."""
+    from euromillioner_tpu_torch.obs.top import parse_prometheus
+
+    url = urls[kind]
+    status, _ = call(url, "/predict", {"rows": [[0.0] * FEAT] * 3})
+    assert status == 200
+    with urllib.request.urlopen(url + "/metrics", timeout=WAIT) as resp:
+        assert resp.status == 200
+        assert resp.headers["Content-Type"].startswith("text/plain")
+        metrics = parse_prometheus(resp.read().decode())
+    _, st = call(url, "/stats")
+    done = sum(v for _l, v in metrics["serve_requests_completed_total"])
+    key = "requests" if kind == "gbt" else "sequences"
+    assert done == st[key] >= 1
+    status, body = call(url, "/trace?n=1")
+    assert status == 200 and len(body["spans"]) == 1
+    assert body["recorded"] >= 1
+    assert set(body["spans"][0]["stages"]) >= {"admit", "reply"}
+    status, body = call(url, "/trace?n=x")
+    assert status == 400 and "n must be an integer" in body["error"]
+
+
 @pytest.mark.parametrize("method,path,error", [
-    ("GET", "/metrics", "engine has no telemetry"),
-    ("GET", "/trace?n=4", "engine has no telemetry"),
     ("GET", "/nope", "no route /nope"),
     ("POST", "/nope", "no route /nope"),
     ("POST", "/admin/export", "this engine has no live-migration surface"),
