@@ -251,14 +251,41 @@ Phases, each reported on its own lines:
 29. parameter averaging — one rank (a group of one over NCCL), the MLP at
    its defaults, two local steps a round: bit-equal to the plain trainer's
    replay on the card;
-30. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
+30. TBPTT (runs right after 7d) — ``train --model lstm --tbptt`` at the
+   CLI defaults (H=512, 2 layers, chunk 50, 8 lanes of the golden
+   history, bf16 inputs), 2 epochs (cut from 20): two finite epoch
+   records, no K1/K2 launch in either dtype (counted from 0: TBPTT carries
+   (h, c) into every chunk, so the layers scan), the checkpoint reloaded
+   as a whole TrainState and its validation mse recomputed, ms per epoch
+   and per chunk timed on the step; then the command in f32 on the card
+   and on the CPU, per-epoch mse within TBPTT_F32_TOL;
+31. chunked trees (runs after 21) — bench.py's serve_trees shape: a
+   2048-tree synthetic GBT served in chunks of 256 (threshold 512, one
+   bucket of 32), replies bit-equal to ``Booster.predict`` and to the
+   unchunked engine, the ledger's tree-table peak within two blocks,
+   ``serve_tree_chunks_total`` from ``/metrics`` over HTTP, one
+   ``serve.chunk`` fault failing only its batch; the 256-tree ensemble on
+   the whole-ensemble path with rows/s beside the plain engine's (a miss
+   of bench.py's 0.9 is printed as one); RF_SHAPE's classifier in chunks
+   of 4 bit-equal, its regressor's approximate mean inside the (rf,
+   chunked_mean) envelope;
+32. libemtpu and ``reference`` fetching (runs right after 9) — the port's
+   loader builds ``native/emtpu.cpp`` here (the phase fails on the Python
+   path), the golden ``fetch`` CSV read natively bit-equal to the Python
+   parse; ``reference`` with ``data.url`` at a localhost server of the
+   golden page whose first GET answers 503: one retry, the printed
+   boolean and both predictions bit-equal to phase 9's ``--html-file``
+   run, timed, K3 launched 4000 times;
+33. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
    ``serve_http_fused``, K4a's phase 24's ``serve_bf16`` and the int8w
    run's drift oracle, bf16 K1's and K2's ``train_dp`` (phase 26), K4a's
    and K4b's ``train_dp`` and the class forest's ``cli_train_dp`` (phase
    27), every K1/K2 row's ``train_dp_gloo`` (phase 28, summed over the
-   ranks), the forest set forms' ``rf_mesh``), the ``nvidia-smi`` line,
+   ranks), the forest set forms' ``rf_mesh``, every K1/K2 row's
+   ``train_tbptt`` (phase 30, 0), K3's ``reference_fetch`` (phase 32)),
+   the ``nvidia-smi`` line,
    and last the ``{"ok": true, "device": ...}`` line. The lines phases
-   22-29 measure carry the card's name and power limit.
+   22-32 measure carry the card's name and power limit.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -3317,10 +3344,11 @@ def golden_matrices(root: Path, binary: bool):
     return DMatrix(x[:cut], y[:cut]), DMatrix(x[cut:], y[cut:])
 
 
-def phase_reference(root: Path) -> int:
+def phase_reference(root: Path) -> tuple[int, dict]:
     """The reference pipeline through the CLI at the full 500 rounds (the
-    main path; returns K3's launches during it), then through the API on
-    the card and on the CPU: trees equal in structure, predictions close."""
+    main path; returns K3's launches during it, with the printed boolean
+    and the card's API run for phase 32), then through the API on the
+    card and on the CPU: trees equal in structure, predictions close."""
     import numpy as np
 
     from euromillioner_tpu_torch import cli
@@ -3375,7 +3403,7 @@ def phase_reference(root: Path) -> int:
               f"{GBT_PRED_TOL:.0e})")
         check(rel <= GBT_PRED_TOL, f"predictions differ by {rel:.3e}")
     check(card.predicts_equal == cpu.predicts_equal, "printed booleans differ")
-    return launches
+    return launches, {"printed": out[-1], "run": card}
 
 
 def phase_golden_trajectories(root: Path) -> None:
@@ -5600,6 +5628,559 @@ def phase_param_avg(root: Path) -> None:
     check(same, "parameter averaging with one rank differs from the replay")
 
 
+# -- phases 30-32: truncated BPTT, chunked tree serving, libemtpu -----------
+
+# train --model lstm --tbptt at the CLI defaults (H=512, 2 layers, chunk 50,
+# 8 lanes, bf16 inputs) on the golden page: 1193 train rows fold into 8
+# lanes x 149 steps, trimmed to 100 (2 chunks); 2 epochs (cut from 20)
+TBPTT_EPOCHS = 2
+TBPTT_TIMED_EPOCHS = 5
+# the same command in f32 on the card and on the CPU: each per-epoch
+# train/test mse within this of the CPU's, relative (measured 6.497e-08 on
+# the H100; pinned at ~15x that)
+TBPTT_F32_TOL = 1e-6
+# bench.py's serve_trees shape (_bench_serve_trees, _synth_gbt): 2048
+# synthetic trees of depth 3 over 8 features and 32 bins (seed 7), chunks
+# of 256 above 512 trees, one bucket of 32 rows, 96 request rows; the
+# 256-tree ensemble of the same config stays whole
+TREES = {"trees": 2048, "small": 256, "depth": 3, "features": 8,
+         "bins": 32, "seed": 7, "small_seed": 3, "chunk": 256,
+         "threshold": 512, "bucket": 32, "rows": 96, "rps_requests": 512}
+# RF_SHAPE's forests through the chunked dispatch: 20 trees in chunks of 4
+RF_CHUNK = {"chunk": 4, "threshold": 8}
+# bench.py's gate on the small ensemble's rows/s under the chunked config
+# against the plain engine's (best of 3 each)
+SMALL_RPS_GATE = 0.9
+
+
+def tbptt_cli(root: Path, name: str, args: list[str]
+              ) -> tuple[dict, list, Path, float]:
+    """``train --model lstm --tbptt`` through the CLI on the golden page
+    for TBPTT_EPOCHS epochs (plus ``args``), with a JSONL record per epoch
+    and a checkpoint, every LSTM kernel counter reset just before and read
+    just after. Returns the counts, the epoch records, the checkpoint
+    directory and the wall seconds."""
+    from euromillioner_tpu_torch import cli
+
+    out = root / "build" / "chip_smoke"
+    ckdir = out / name
+    jsonl = out / f"{name}.jsonl"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out.mkdir(parents=True, exist_ok=True)
+    jsonl.unlink(missing_ok=True)
+    argv = ["train", "--model", "lstm", "--tbptt", "--html-file",
+            str(root / GOLDEN_HTML), f"train.epochs={TBPTT_EPOCHS}",
+            f"train.metrics_jsonl={jsonl}", "--save", str(ckdir), *args]
+    reset_lstm_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = lstm_counts()
+    check(rc == 0, f"{name} exited {rc}")
+    rounds = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+    for r in rounds:
+        print(f"{name} [{r['round']}]: train-mse {r['train-mse']!r} "
+              f"test-mse {r['test-mse']!r}")
+    check(len(rounds) == TBPTT_EPOCHS,
+          f"{name}: {len(rounds)} epoch records, expected {TBPTT_EPOCHS}")
+    check(all(math.isfinite(r[k]) for r in rounds
+              for k in ("train-mse", "test-mse")), f"{name}: non-finite mse")
+    return counts, rounds, ckdir, wall
+
+
+def tbptt_setup(root: Path, device: str, dtype):
+    """The CLI's TBPTT run set up by hand: the model from seed 0, its f32
+    params, adam, the step, the folded train history (inputs in ``dtype``)
+    and the validation fold."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config
+    from euromillioner_tpu_torch.data.pipeline import pipeline_from_html
+    from euromillioner_tpu_torch.models.lstm import build_tbptt_lstm
+    from euromillioner_tpu_torch.nn import losses
+    from euromillioner_tpu_torch.train.optim import from_train_config
+    from euromillioner_tpu_torch.train.tbptt import (fold_history,
+                                                     make_tbptt_train_step)
+
+    cfg = Config()
+    tr, va = pipeline_from_html((root / GOLDEN_HTML).read_text())
+    chunk, lanes = cfg.train.tbptt_chunk_len, cfg.train.tbptt_lanes
+    x, y = fold_history(tr.full_rows(), lanes)
+    t = (x.shape[1] // chunk) * chunk
+    xv, yv = fold_history(va.full_rows(), 1)
+
+    def put(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    model = build_tbptt_lstm(HIDDEN, LAYERS, OUTPUTS, in_features=FEATURES,
+                             generator=torch.Generator().manual_seed(
+                                 cfg.train.seed), device=device)
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    opt = from_train_config(cfg.train)
+    step = make_tbptt_train_step(model, opt, losses.mse, chunk_len=chunk)
+    return {"model": model, "params": params, "opt": opt, "step": step,
+            "x": put(x[:, -t:], dtype), "y": put(y[:, -t:], torch.float32),
+            "xv": put(xv, dtype), "yv": put(yv, torch.float32),
+            "chunks": t // chunk, "lanes": lanes, "steps": t}
+
+
+def phase_tbptt(root: Path) -> dict:
+    """Phase 30: ``train --model lstm --tbptt`` at the CLI defaults (bf16)
+    for TBPTT_EPOCHS epochs — no kernel launched (TBPTT carries (h, c)
+    into each chunk, so every LSTM layer scans: the fused kernels start
+    from a zero carry), the checkpoint reloaded into the TrainState and
+    its validation mse recomputed; ms per epoch and per chunk timed on the
+    step itself; then the same command in f32 on the card and on the CPU,
+    per-epoch mse within TBPTT_F32_TOL. Returns the LSTM kernels' launches
+    over the card's CLI runs (all 0)."""
+    from euromillioner_tpu_torch.nn import losses
+    from euromillioner_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                                          load_train_state)
+    from euromillioner_tpu_torch.train.tbptt import (apply_with_states,
+                                                     init_states)
+    from euromillioner_tpu_torch.train.trainer import TrainState
+
+    t_phase = time.perf_counter()
+    counts, rounds, ckdir, wall = tbptt_cli(root, "tbptt_bf16", [])
+    su = tbptt_setup(root, "cuda", torch.bfloat16)
+    card(f"train --tbptt (bf16 inputs, H={HIDDEN}, {LAYERS} layers, "
+         f"{su['lanes']} lanes x {su['steps']} steps, {su['chunks']} chunks "
+         f"of 50 an epoch): {TBPTT_EPOCHS} epochs in {wall:.3f} s of CLI "
+         f"wall (data, model, evals and checkpoint included); launches "
+         f"{json.dumps(counts)}")
+    check(not any(counts.values()),
+          f"train --tbptt launched a fused kernel: {counts}")
+
+    # the checkpoint: the whole TrainState back, and its validation mse
+    path = latest_checkpoint(str(ckdir))
+    like = TrainState(params=su["params"],
+                      opt_state=su["opt"].init(su["params"]),
+                      step=torch.zeros((), dtype=torch.int32, device="cuda"))
+    t0 = time.perf_counter()
+    state = load_train_state(path, like)
+    reload_s = time.perf_counter() - t0
+    with torch.no_grad():
+        out, _ = apply_with_states(
+            su["model"], state.params, su["xv"],
+            init_states(su["model"], 1, su["xv"].dtype))
+        val = float(losses.mse(out.to(torch.float32), su["yv"]))
+    want = rounds[-1]["test-mse"]
+    card(f"train --tbptt checkpoint {Path(path).name}: "
+         f"{len(state.params)} params + adam state reloaded in "
+         f"{reload_s * 1e3:.3f} ms, step {int(state.step)}, adam count "
+         f"{int(state.opt_state['count'])}; validation mse {val!r} against "
+         f"the logged {want!r} (bit-equal {val == want})")
+    check(int(state.step) == TBPTT_EPOCHS and int(state.opt_state["count"])
+          == TBPTT_EPOCHS * su["chunks"], "checkpoint step or count")
+    check(abs(val - want) <= 1e-6 * abs(want),
+          "the reloaded params' validation mse differs from the log")
+
+    # ms per epoch and per chunk, on the step itself
+    reset_lstm_counts()
+    su["step"](su["params"], su["opt"].init(su["params"]), su["x"], su["y"])
+    opt_state = su["opt"].init(su["params"])
+    walls = []
+    for _ in range(TBPTT_TIMED_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        su["step"](su["params"], opt_state, su["x"], su["y"])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(walls)
+    check(not any(lstm_counts().values()), "the timed TBPTT step launched "
+          "a fused kernel")
+    card(f"tbptt step (bf16, B={su['lanes']}, {su['chunks']} chunks of 50): "
+         f"{ms:.3f} ms/epoch (median of {TBPTT_TIMED_EPOCHS}: "
+         f"{[round(w, 3) for w in walls]}), {ms / su['chunks']:.3f} "
+         f"ms/chunk (forward, backward and adam)")
+
+    # f32 on the card against f32 on the CPU
+    f32, rounds_c, ck_c, wall_c = tbptt_cli(
+        root, "tbptt_f32", ["model.compute_dtype=float32"])
+    check(not any(f32.values()), f"f32 train --tbptt launched {f32}")
+    _, rounds_h, ck_h, wall_h = tbptt_cli(
+        root, "tbptt_f32_cpu", ["model.compute_dtype=float32", "--device",
+                                "cpu"])
+    rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(rounds_c, rounds_h)
+              for k in ("train-mse", "test-mse"))
+    card(f"train --tbptt f32: card {wall_c:.3f} s, CPU {wall_h:.3f} s; "
+         f"per-epoch mse card vs CPU max rel {rel:.3e} (tol "
+         f"{TBPTT_F32_TOL:.0e})")
+    check(rel <= TBPTT_F32_TOL, f"f32 TBPTT card vs CPU mse differ by {rel}")
+    for d in (ckdir, ck_c, ck_h):
+        shutil.rmtree(d, ignore_errors=True)
+    card(f"tbptt: wall {time.perf_counter() - t_phase:.3f} s")
+    return {k: counts[k] + f32[k] for k in counts}
+
+
+def synth_gbt(n_trees: int, seed: int):
+    """bench.py's _synth_gbt on the card: ``n_trees`` stacked complete
+    trees of TREES' depth over its features and bins, leaves N(0, 0.1^2),
+    base margin 0, reg:logistic."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.trees import binning
+    from euromillioner_tpu_torch.trees.gbt import Booster
+
+    d, f, bins = TREES["depth"], TREES["features"], TREES["bins"]
+    rng = np.random.default_rng(seed)
+    cuts = binning.quantile_cuts(
+        rng.normal(size=(256, f)).astype(np.float32), bins)
+    n_nodes = 2 ** (d + 1) - 1
+    trees = {
+        "feature": rng.integers(0, f, (n_trees, n_nodes)).astype(np.int32),
+        "split_bin": rng.integers(0, bins,
+                                  (n_trees, n_nodes)).astype(np.int32),
+        "is_leaf": np.zeros((n_trees, n_nodes), bool),
+        "leaf_value": rng.normal(
+            scale=0.1, size=(n_trees, n_nodes)).astype(np.float32),
+    }
+    trees["is_leaf"][:, 2 ** d - 1:] = True
+    return Booster({"objective": "reg:logistic", "max_depth": d}, cuts,
+                   trees, 0.0, device="cuda")
+
+
+def tree_engine(backend, bucket: int, **kw):
+    from euromillioner_tpu_torch.serve.engine import InferenceEngine
+
+    return InferenceEngine(backend, buckets=(bucket,), max_wait_ms=1.0, **kw)
+
+
+def tree_replies(eng, x, bucket: int):
+    """Replies to ``x`` sent as bucket-sized requests at once."""
+    import numpy as np
+
+    futs = [eng.submit(x[i:i + bucket]) for i in range(0, len(x), bucket)]
+    return np.concatenate([f.result(HTTP_WAIT) for f in futs])
+
+
+def tree_pass_ms(eng, x, bucket: int, runs: int = 5) -> float:
+    """Median wall milliseconds of one pass of ``x`` through the engine."""
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        tree_replies(eng, x, bucket)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def tree_rps(backend, rows) -> float:
+    """bench.py's rps: 64 single-row warmup requests, then the best of 3
+    passes of TREES['rps_requests'] single-row requests."""
+    n = TREES["rps_requests"]
+    with tree_engine(backend, TREES["bucket"]) as eng:
+        for f in [eng.submit(rows[i]) for i in range(64)]:
+            f.result(HTTP_WAIT)
+        best = 0.0
+        for _ in range(3):
+            t0 = time.perf_counter()
+            futs = [eng.submit(rows[i % len(rows)]) for i in range(n)]
+            for f in futs:
+                f.result(HTTP_WAIT)
+            best = max(best, n / (time.perf_counter() - t0))
+    return best
+
+
+def phase_chunked_trees(root: Path) -> None:
+    """Phase 31: the chunked tree dispatch (``serve.trees.chunk``) at
+    bench.py's serve_trees shape on the card: a 2048-tree GBT in chunks of
+    256 served bit-equal to ``Booster.predict`` and to the unchunked
+    engine, the ledger's tree-table peak within two blocks, a ``serve.chunk``
+    fault failing only its batch, ``serve_tree_chunks_total`` read from
+    ``/metrics`` over HTTP; the 256-tree ensemble under the same config on
+    the whole-ensemble path with its rows/s beside the plain engine's;
+    then RF_SHAPE's classifier (chunks of 4) bit-equal and its regressor
+    with the approximate mean inside the (rf, chunked_mean) envelope.
+    bench.py's AOT half of serve_trees (warm restart, compile counts)
+    waits for the port's AOT store."""
+    import threading
+
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import serve_envelope
+    from euromillioner_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                    inject)
+    from euromillioner_tpu_torch.serve.session import GBTBackend, RFBackend
+    from euromillioner_tpu_torch.serve.transport import make_server
+    from euromillioner_tpu_torch.trees import DMatrix
+
+    t_phase = time.perf_counter()
+    bucket, chunk, thr = TREES["bucket"], TREES["chunk"], TREES["threshold"]
+    rows = np.random.default_rng(1).normal(
+        size=(256, TREES["features"])).astype(np.float32)
+    sample = rows[:TREES["rows"]]
+    big = synth_gbt(TREES["trees"], TREES["seed"])
+    direct = big.predict(DMatrix(sample))
+    backend = GBTBackend(big, chunk=chunk, chunk_threshold=thr)
+    check(backend.chunked is not None, "2048 trees did not serve chunked")
+    bb = backend.chunked.block_bytes
+    with tree_engine(backend, bucket) as eng:
+        out = tree_replies(eng, sample, bucket)
+        chunked_ms = tree_pass_ms(eng, sample, bucket)
+        st = eng.stats()
+        srv = make_server(eng, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            _, _, metrics = http_text(url, "/metrics")
+            _, _, health = http_text(url, "/healthz")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+    with tree_engine(GBTBackend(synth_gbt(TREES["trees"], TREES["seed"])),
+                     bucket) as eng:
+        whole = tree_replies(eng, sample, bucket)
+        whole_ms = tree_pass_ms(eng, sample, bucket)
+    same_direct = out.tobytes() == direct.tobytes()
+    same_whole = out.tobytes() == whole.tobytes()
+    trees = st["trees"]
+    peak = st["budget"]["peak"]["tree_tables"]
+    counter = [ln for ln in metrics.splitlines()
+               if ln.startswith("serve_tree_chunks_total")]
+    print(f"chunked GBT ({TREES['trees']} trees, depth {TREES['depth']}, "
+          f"{trees['n_chunks']} chunks of {chunk}, {bb} bytes a block): "
+          f"replies bit-equal to Booster.predict {same_direct}, to the "
+          f"unchunked engine {same_whole}; stats trees {json.dumps(trees)}; "
+          f"ledger tree_tables peak {peak} bytes (<= 2 x {bb}), now "
+          f"{st['budget']['bytes']['tree_tables']}; /metrics {counter}; "
+          f"/healthz tree_chunks {json.loads(health).get('tree_chunks')}")
+    card(f"chunked GBT pass of {len(sample)} rows in {bucket}-row "
+         f"requests: {chunked_ms:.3f} ms chunked, {whole_ms:.3f} ms whole "
+         f"ensemble (median of 5)")
+    check(same_direct and same_whole, "chunked GBT replies differ")
+    check(0 < peak <= 2 * bb, f"tree_tables peak {peak} > 2 x {bb}")
+    check(st["budget"]["bytes"]["tree_tables"] == 0, "window not unwound")
+    check(len(counter) == 1 and int(float(counter[0].split()[-1]))
+          == trees["chunks"], "serve_tree_chunks_total")
+
+    plan = FaultPlan([FaultSpec(point="serve.chunk", raises=RuntimeError,
+                                hits=(3,))])
+    with inject(plan):
+        with tree_engine(backend, bucket, warmup=False) as eng:
+            try:
+                eng.submit(sample[:bucket]).result(HTTP_WAIT)
+                failed = False
+            except RuntimeError:
+                failed = True
+            again = eng.submit(sample[:bucket]).result(HTTP_WAIT)
+            fst = eng.stats()
+    print(f"chunked GBT serve.chunk fault at the 3rd chunk: batch failed "
+          f"{failed}, fired {plan.fired_count('serve.chunk')}, next batch "
+          f"bit-equal {again.tobytes() == direct[:bucket].tobytes()}, "
+          f"errors {fst['errors']}, tree_tables now "
+          f"{fst['budget']['bytes']['tree_tables']}")
+    check(failed and plan.fired_count("serve.chunk") == 1
+          and fst["errors"] == 1, "the serve.chunk fault")
+    check(again.tobytes() == direct[:bucket].tobytes()
+          and fst["budget"]["bytes"]["tree_tables"] == 0,
+          "the batch after the fault")
+
+    small = GBTBackend(synth_gbt(TREES["small"], TREES["small_seed"]),
+                       chunk=chunk, chunk_threshold=thr)
+    check(small.chunked is None, "256 trees took the chunked path")
+    rps_cfg = tree_rps(small, rows)
+    rps_plain = tree_rps(GBTBackend(synth_gbt(TREES["small"],
+                                              TREES["small_seed"])), rows)
+    ratio = rps_cfg / rps_plain
+    card(f"{TREES['small']}-tree GBT under serve.trees.chunk={chunk} "
+         f"(threshold {thr}): whole-ensemble path; {rps_cfg:.1f} rows/s "
+         f"against the plain engine's {rps_plain:.1f} (best of 3): "
+         f"{ratio:.3f}, bench.py's gate {SMALL_RPS_GATE} "
+         f"{'met' if ratio >= SMALL_RPS_GATE else 'MISSED'}")
+
+    x, y, score = rf_data()
+    rsample = x[:TREES["rows"]]
+    for classification, label in ((True, y), (False, score)):
+        model = grow_forest(classification, x, label, RF_SHAPE["trees"],
+                            "cuda")[0]
+        what = "classifier" if classification else "regressor"
+        b = RFBackend(model, chunk=RF_CHUNK["chunk"],
+                      chunk_threshold=RF_CHUNK["threshold"],
+                      approx_mean=not classification)
+        check(b.chunked is not None, f"the RF {what} did not serve chunked")
+        with tree_engine(b, bucket) as eng:
+            got = tree_replies(eng, rsample, bucket)
+            rst = eng.stats()
+        want = model.predict(rsample)
+        if classification:
+            with tree_engine(RFBackend(model), bucket) as eng:
+                plain = tree_replies(eng, rsample, bucket)
+            ok = (got.tobytes() == want.tobytes()
+                  and got.tobytes() == plain.tobytes())
+            print(f"chunked RF classifier ({RF_SHAPE['trees']} trees in "
+                  f"{b.chunked.n_chunks} chunks of {RF_CHUNK['chunk']}): "
+                  f"replies bit-equal to predict and to the unchunked "
+                  f"engine {ok}")
+            check(ok, "chunked RF classifier replies differ")
+        else:
+            env = serve_envelope("rf", "chunked_mean")
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            prec = rst["precision"]
+            print(f"chunked RF regressor, approx mean ({b.chunked.n_chunks}"
+                  f" chunks of {RF_CHUNK['chunk']}): profile "
+                  f"{prec['profile']}, rel error {rel:.3e} against the "
+                  f"whole-forest predict (envelope {env:.0e}), drift checks "
+                  f"{prec['drift_checks']}, breaches "
+                  f"{prec['envelope_breaches']}")
+            check(prec["profile"] == "chunked_mean" and rel <= env
+                  and prec["envelope_breaches"] == 0,
+                  "the approximate chunked mean left its envelope")
+    print("serve_trees: bench.py's AOT half (warm restart, compile counts) "
+          "waits for the port's AOT store (ROADMAP queue 1 item 10)")
+    card(f"chunked trees: wall {time.perf_counter() - t_phase:.3f} s")
+
+
+class _PageStub:
+    """A localhost HTTP server answering GETs with the statuses of
+    ``script`` in order (the last repeats); 200 carries ``body``."""
+
+    def __init__(self, script: list[int], body: bytes):
+        import http.server
+        import threading
+
+        hits: list = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 — http.server API
+                hits.append(self.path)
+                status = script[min(len(hits), len(script)) - 1]
+                data = body if status == 200 else b"unavailable"
+                self.send_response(status)
+                self.send_header("Content-Type", "text/html; charset=utf-8")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.hits = hits
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/results"
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def phase_native_reference(root: Path, reference: dict) -> int:
+    """Phase 32: ``libemtpu`` built from ``native/emtpu.cpp`` by the
+    port's loader on this machine (the phase fails on the Python path);
+    the ``fetch`` CSV of the golden page read natively bit-equal to the
+    Python parse; then ``reference`` without ``--html-file``, its
+    ``data.url`` a localhost server of the golden page whose first GET
+    answers 503: one retry, the printed boolean and both boosters'
+    predictions bit-equal to phase 9's ``--html-file`` run, timed, K3
+    launched as there. Returns K3's launches in that run."""
+    import numpy as np
+
+    from euromillioner_tpu_torch import app, cli
+    from euromillioner_tpu_torch.config import Config
+    from euromillioner_tpu_torch.data import csvio
+    from euromillioner_tpu_torch.ops.fused_histogram import FUSED_HISTOGRAM
+    from euromillioner_tpu_torch.utils import native_lib
+
+    # a build of its own into a fresh directory, timed: the one this
+    # process loaded may come from an earlier phase's first use
+    import tempfile
+
+    kept = native_lib.BUILD_DIR
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        native_lib.BUILD_DIR = Path(tmp)
+        try:
+            t0 = time.perf_counter()
+            fresh = native_lib.build()
+            build_s = time.perf_counter() - t0
+        finally:
+            native_lib.BUILD_DIR = kept
+    lib = native_lib.get()
+    print(f"libemtpu: {native_lib.SOURCE.name} built by the loader with "
+          f"{native_lib._compiler()} {' '.join(native_lib.CXX_FLAGS)} in "
+          f"{build_s:.3f} s ({'ok' if fresh else 'FAILED'}); this process "
+          f"loaded {lib.version() if lib else None}")
+    check(fresh is not None and native_lib.available(),
+          "libemtpu did not build or load")
+
+    out = root / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    csv = str(out / "fetch.csv")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["fetch", "--html-file", str(root / GOLDEN_HTML),
+                       "--output", csv])
+    check(rc == 0, f"fetch exited {rc}")
+    native, _ = csvio._read_csv_native(csv, True)
+    check(native is not None, "the native CSV parse failed")
+    fast = csvio.read_csv(csv, label_column=0)
+    real = native_lib.get
+    native_lib.get = lambda: None
+    try:
+        slow = csvio.read_csv(csv, label_column=0)
+    finally:
+        native_lib.get = real
+    same = (fast[0].tobytes() == slow[0].tobytes()
+            and fast[1].tobytes() == slow[1].tobytes() and fast[2] == slow[2])
+    print(f"fetch CSV {native.shape[0]} x {native.shape[1]}: native read "
+          f"bit-equal to the Python parse {same}")
+    check(same, "native and Python CSV parses differ")
+
+    stub = _PageStub([503, 200], (root / GOLDEN_HTML).read_bytes())
+    runs = []
+    pipeline = app.run_reference_pipeline
+
+    def recorded(*args, **kw):
+        runs.append(pipeline(*args, **kw))
+        return runs[-1]
+
+    class Messages(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.seen: list[str] = []
+
+        def emit(self, record):
+            self.seen.append(record.getMessage())
+
+    buf = io.StringIO()
+    messages = Messages()
+    port_logger = logging.getLogger("euromillioner_tpu_torch")
+    port_logger.addHandler(messages)
+    app.run_reference_pipeline = recorded
+    FUSED_HISTOGRAM.launches = 0
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["reference", f"data.url={stub.url}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        app.run_reference_pipeline = pipeline
+        port_logger.removeHandler(messages)
+        stub.close()
+    launches = FUSED_HISTOGRAM.launches
+    lines = buf.getvalue().strip().splitlines() or [None]
+    retries = sum("retrying" in m for m in messages.seen)
+    check(rc == 0 and len(runs) == 1, f"reference exited {rc}")
+    got, ref = runs[0], reference["run"]
+    same = {name: getattr(got, name).tobytes() == getattr(ref, name).tobytes()
+            for name in ("predictions", "predictions_test")}
+    cfg = Config()
+    want = 2 * cfg.gbt.nround * (cfg.gbt.max_depth + 1)
+    card(f"reference fetching data.url (localhost, first GET 503): exit "
+         f"{rc}, {len(stub.hits)} GETs, {retries} retry line, printed "
+         f"{lines[-1]!r} (the --html-file run printed "
+         f"{reference['printed']!r}), predictions bit-equal {same}, K3 "
+         f"launches {launches}, wall {wall:.3f} s (backoff and the "
+         f"reference's pre-request jitter included)")
+    check(len(stub.hits) == 2 and retries == 1, "not exactly one retry")
+    check(lines[-1] == reference["printed"] and all(same.values()),
+          "reference through data.url differs from --html-file")
+    check(launches == want, f"K3 launched {launches}, expected {want}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5664,11 +6245,14 @@ def main() -> int:
         bf16_serve_k1 = phase_serve_bf16_trained(bf16_ckdir)
         bench = phase_lstm_bench(k1b, k2b)
         phase_step_bf16(root)
+        tbptt = phase_tbptt(root)
         shutil.rmtree(ckdir.parent, ignore_errors=True)
         # the boosters' per-round eval lines: 3,000 lines of stdout
         logging.getLogger("euromillioner_tpu_torch.trees.gbt").setLevel(
             logging.WARNING)
-        reference_k3 = phase_reference(root)
+        reference_k3, reference_run = phase_reference(root)
+        fetch_k3 = phase_native_reference(root, reference_run)
+        del reference_run
         phase_golden_trajectories(root)
         scaled_k3 = phase_scaled(k3["ms_by_shape"])
         cli_k3, gbt_out = phase_cli_train_predict(root)
@@ -5677,6 +6261,7 @@ def main() -> int:
         rf_reg_k3 = phase_rf_regressor()
         rf_cls_k3["cli_train"] = phase_rf_cli(root, gbt_out)
         shutil.rmtree(gbt_out, ignore_errors=True)
+        phase_chunked_trees(root)
         WIDE_ONEHOT_DW.build()  # loads the library K4a's build made
         k4a, k4b = phase_k4()
         serve_k4a, wd_ckdir = phase_wd_serve(root)
@@ -5700,26 +6285,31 @@ def main() -> int:
         "serve_bf16_ckpt_fused": bf16_serve_k1["fused"],
         "serve_bf16_ckpt_int8w": bf16_serve_k1["int8w"],
         "serve_http_fused": http_k1, "replay_fused": replay_k1,
-        "train_dp_gloo": ranks["lstm"]["K1.f32"]}
+        "train_dp_gloo": ranks["lstm"]["K1.f32"],
+        "train_tbptt": tbptt["K1.f32"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {"train": train_k2,
-                              "train_dp_gloo": ranks["lstm"]["K2.f32"]}
+                              "train_dp_gloo": ranks["lstm"]["K2.f32"],
+                              "train_tbptt": tbptt["K2.f32"]}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k1b["launches_by_path"] = {"train": bf16_train["K1.bf16"],
                                "bench_step": bench["K1.bf16"],
                                "train_dp": dp1["K1.bf16"],
                                "train_chaos": chaos["K1.bf16"],
-                               "train_dp_gloo": ranks["lstm"]["K1.bf16"]}
+                               "train_dp_gloo": ranks["lstm"]["K1.bf16"],
+                               "train_tbptt": tbptt["K1.bf16"]}
     k1b["launches"] = sum(k1b["launches_by_path"].values())
     k2b["launches_by_path"] = {"train": bf16_train["K2.bf16"],
                                "bench_step": bench["K2.bf16"],
                                "train_dp": dp1["K2.bf16"],
                                "train_chaos": chaos["K2.bf16"],
-                               "train_dp_gloo": ranks["lstm"]["K2.bf16"]}
+                               "train_dp_gloo": ranks["lstm"]["K2.bf16"],
+                               "train_tbptt": tbptt["K2.bf16"]}
     k2b["launches"] = sum(k2b["launches_by_path"].values())
-    k3["launches"] = reference_k3 + scaled_k3 + cli_k3
     k3["launches_by_path"] = {"reference": reference_k3,
+                              "reference_fetch": fetch_k3,
                               "scaled_gbt": scaled_k3, "cli_train": cli_k3}
+    k3["launches"] = sum(k3["launches_by_path"].values())
     k4a["launches_by_path"] = {"serve": serve_k4a, "train": train_k4a,
                                "bench_step": wd_bench["launches"]["K4a"],
                                "serve_bf16": tiers_k4a["bf16"],

@@ -9,7 +9,8 @@ shared ``{train, test}`` watches → predict with both → ``check_predicts``
 on the validation matrix, and the exact comparison of two different
 models is in effect always false. The CSV bugs (no newlines, the typo'd
 header) are fixed unless ``data.compat_csv`` asks for the reference's
-bytes. Fetching the live page is not ported: pass the page's HTML.
+bytes. Without the page's HTML the page at ``data.url`` is fetched
+(data/fetch.py: retried with backoff; a FetchError exits 10).
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from euromillioner_tpu_torch.data.pipeline import draws_from_html
 from euromillioner_tpu_torch.train.trainer import check_predicts
 from euromillioner_tpu_torch.trees import Booster, DMatrix, train
 from euromillioner_tpu_torch.trees.gbt import resolve_train_device
-from euromillioner_tpu_torch.utils.errors import ConfigError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
 logger = get_logger("app")
@@ -51,15 +51,17 @@ def run_reference_pipeline(
 ) -> ReferenceRunResult:
     """The Main.java program, end to end, on ``device`` — the card unless
     ``"cpu"`` (None keeps ``cfg.gbt.device``, whose default ``auto`` is the
-    card). ``html`` is the results page (e.g. the golden fixture)."""
+    card). ``html`` is the results page (e.g. the golden fixture);
+    ``html=None`` fetches ``cfg.data.url``."""
     cfg = cfg or Config()
-    if html is None:
-        raise ConfigError("fetching the live results page is not ported "
-                          "yet; pass the saved page (--html-file PAGE)")
     params = cfg.gbt.xgb_params()
     if device is not None:
         params["device"] = str(device)
     resolve_train_device(params["device"])  # no card: fail before any work
+    if html is None:
+        from euromillioner_tpu_torch.data.fetch import fetch_url
+
+        html = fetch_url(cfg.data.url)
 
     rows = draws_from_html(html, cfg.data)
     # chronological row split at write time

@@ -7,15 +7,16 @@ dotted config overrides and exit codes (the error taxonomy's
 featurized CSV; ``train --model gbt|rf|mlp|lstm|wide_deep`` trains a
 booster or a random forest (``--save`` writes its model JSON;
 ``--num-classes C`` makes the forest a classifier), the MLP, the LSTM or
-Wide&Deep (``--save`` writes the TrainState); ``predict --model-type
-gbt|rf`` predicts with a saved model JSON; ``reference`` runs the
-Main.java pipeline; ``serve --model-type gbt|rf|classic`` serves a model
+Wide&Deep (``--save`` writes the TrainState); ``train --model lstm
+--tbptt`` trains the LSTM by truncated BPTT over the whole draw history;
+``predict --model-type gbt|rf`` predicts with a saved model JSON;
+``reference`` runs the Main.java pipeline; ``serve --model-type gbt|rf|classic`` serves a model
 JSON (``--model-file``) and ``serve --model-type mlp|lstm|wide_deep`` a
 checkpoint, the neural families at ``serve.precision=f32|bf16|int8w``
 (and ``fused`` for the LSTM). ``--device`` picks ``cuda``
 (the default) or ``cpu``. Data comes from a saved results page
-(``--html-file``), a featurized CSV (``--csv``) or, for ``fetch`` and
-``train``, the page at ``data.url`` (retried with backoff; with
+(``--html-file``), a featurized CSV (``--csv``) or, for ``fetch``,
+``train`` and ``reference``, the page at ``data.url`` (retried with backoff; with
 ``data.cache_path`` set, the last good rows are kept there and served when
 the fetch's retries are exhausted). ``train --distributed`` trains mlp, lstm and wide_deep
 data-parallel and grows rf row-sharded over a ``torch.distributed`` group
@@ -111,13 +112,20 @@ def cmd_train(args, cfg: Config) -> int:
     """Train a booster (``--model gbt``, the default), a random forest or
     a neural family with the {train, test} watches, then save it
     (``--save``); ``--distributed`` over a data-parallel group."""
+    tbptt = args.model == "lstm" and args.tbptt
     if not args.distributed:
+        if tbptt:
+            return _train_tbptt(args, cfg)
         return (_train_gbt(args, cfg) if args.model == "gbt"
                 else _train_model(args, cfg, None))
     from euromillioner_tpu_torch.core.mesh import MeshSpec, require_data_only
 
     spec = MeshSpec.from_config(cfg.mesh)
     require_data_only(spec)
+    if tbptt:
+        logger.warning("--tbptt trains as one single-device program; "
+                       "mesh ignored")
+        return _train_tbptt(args, cfg)
     if args.model == "gbt":
         logger.warning(
             "--distributed: gbt trains as one single-device program; "
@@ -331,6 +339,117 @@ def _train_nn(args, cfg: Config, mesh) -> int:
                               step=cfg.train.epochs,
                               group=mesh.group if mesh is not None else None)
         logger.info("saved checkpoint to %s", out)
+    return 0
+
+
+def _train_tbptt(args, cfg: Config) -> int:
+    """``train --model lstm --tbptt``: truncated BPTT over the whole
+    chronological draw history (train/tbptt.py) instead of sliding
+    windows. State carries across ``train.tbptt_chunk_len``-step chunks;
+    the history is folded into ``train.tbptt_lanes`` parallel lanes, its
+    oldest steps trimmed to a multiple of the chunk. Inputs in the compute
+    dtype, targets and loss in float32; one eval line (and JSONL record)
+    per logged epoch; the TrainState is saved every
+    ``train.checkpoint_every`` epochs and at the end in the JAX package's
+    layout."""
+    import torch
+
+    from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.core.precision import from_names
+    from euromillioner_tpu_torch.models.lstm import build_tbptt_lstm
+    from euromillioner_tpu_torch.nn import losses as L
+    from euromillioner_tpu_torch.train.checkpoint import save_checkpoint
+    from euromillioner_tpu_torch.train.metrics import eval_line
+    from euromillioner_tpu_torch.train.optim import from_train_config
+    from euromillioner_tpu_torch.train.tbptt import (apply_with_states,
+                                                     fold_history,
+                                                     init_states,
+                                                     make_tbptt_train_step)
+    from euromillioner_tpu_torch.train.trainer import TrainState, epoch_seeds
+    from euromillioner_tpu_torch.utils.logging_utils import \
+        JsonlMetricsWriter
+
+    device = resolve_device(args.device)
+    train_ds, val_ds = _load_datasets(args, cfg)
+    precision = from_names(cfg.model.param_dtype, cfg.model.compute_dtype)
+    chunk = cfg.train.tbptt_chunk_len
+    lanes = cfg.train.tbptt_lanes
+    # the whole 11-column featurized table (label column first)
+    x, y = fold_history(train_ds.full_rows(), lanes)
+    t = (x.shape[1] // chunk) * chunk
+    if t == 0:
+        raise SystemExit(
+            f"history too short: {x.shape[1]} steps/lane < chunk {chunk}")
+    if t < x.shape[1]:
+        logger.info("trimming %d oldest steps/lane to a multiple of "
+                    "chunk_len=%d (tune train.tbptt_chunk_len to keep "
+                    "more)", x.shape[1] - t, chunk)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    # drop the OLDEST steps (front), keeping the newest draws
+    xt = put(x[:, -t:], precision.compute_dtype)
+    yt = put(y[:, -t:], torch.float32)
+    xv, yv = fold_history(val_ds.full_rows(), 1)
+    xvt = put(xv, precision.compute_dtype)
+    yvt = put(yv, torch.float32)
+
+    model = build_tbptt_lstm(
+        hidden=cfg.model.lstm_hidden, num_layers=cfg.model.lstm_layers,
+        out_dim=y.shape[-1], peepholes=cfg.model.graves_peepholes,
+        dropout=cfg.model.dropout, in_features=x.shape[-1],
+        generator=torch.Generator().manual_seed(cfg.train.seed),
+        device=device)
+    params = {k: v.detach().to(precision.param_dtype).clone()
+              for k, v in model.named_parameters()}
+    optimizer = from_train_config(cfg.train)
+    opt_state = optimizer.init(params)
+    step = make_tbptt_train_step(model, optimizer, L.mse, chunk_len=chunk)
+
+    def val_loss() -> float:
+        with torch.no_grad():
+            out, _ = apply_with_states(
+                model, params, xvt,
+                init_states(model, xvt.shape[0], xvt.dtype))
+            return float(L.mse(out.to(torch.float32), yvt))
+
+    ck_dir = args.save or cfg.train.checkpoint_dir
+    jsonl = (JsonlMetricsWriter(cfg.train.metrics_jsonl)
+             if cfg.train.metrics_jsonl else None)
+
+    def save(step_no: int) -> None:
+        out = save_checkpoint(ck_dir, TrainState(
+            params=params, opt_state=opt_state,
+            step=torch.tensor(step_no, dtype=torch.int32)), step=step_no)
+        logger.info("saved checkpoint to %s", out)
+
+    logger.info("tbptt: %d lanes x %d steps, chunk %d (%d chunks/epoch)",
+                lanes, t, chunk, t // chunk)
+    try:
+        for epoch in range(cfg.train.epochs):
+            gen = None
+            if cfg.model.dropout > 0:
+                gen = torch.Generator(device).manual_seed(
+                    epoch_seeds(cfg.train.seed + 1, epoch)[1])
+            _, _, losses = step(params, opt_state, xt, yt, gen)
+            if (epoch % cfg.train.log_every == 0
+                    or epoch == cfg.train.epochs - 1):
+                results = {"train": {"mse": float(losses.mean())},
+                           "test": {"mse": val_loss()}}
+                logger.info(eval_line(epoch, results))
+                if jsonl:
+                    jsonl.write({"round": epoch, **{
+                        f"{w}-{m}": v for w, ms in results.items()
+                        for m, v in ms.items()}})
+            if (ck_dir and cfg.train.checkpoint_every
+                    and (epoch + 1) % cfg.train.checkpoint_every == 0):
+                save(epoch + 1)
+        if ck_dir:
+            save(cfg.train.epochs)
+    finally:
+        if jsonl:
+            jsonl.close()
     return 0
 
 
@@ -646,6 +765,9 @@ def build_parser() -> argparse.ArgumentParser:
                                    "directory (mlp, lstm, wide_deep)")
     tr.add_argument("--num-classes", type=int, default=0,
                     help="rf: train a classifier with this many classes")
+    tr.add_argument("--tbptt", action="store_true",
+                    help="lstm: truncated-BPTT over the whole draw history "
+                         "(train.tbptt_chunk_len / train.tbptt_lanes)")
     tr.add_argument("--distributed", action="store_true",
                     help="train mlp/lstm/wide_deep data-parallel, rf "
                          "row-sharded, over one rank per device "
@@ -665,7 +787,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help=f"prediction device ({device_help})")
     rf = sub.add_parser("reference",
                         help="run the full Main.java-equivalent pipeline")
-    rf.add_argument("--html-file", help="saved results page")
+    rf.add_argument("--html-file",
+                    help="saved results page (default: fetch data.url)")
     rf.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help=f"device of both boosters ({device_help})")
     sv = sub.add_parser(

@@ -154,6 +154,11 @@ class TrainConfig:
     momentum: float = 0.9
     epochs: int = 20
     log_every: int = 1
+    # Truncated BPTT over the whole draw history (train/tbptt.py, ``train
+    # --tbptt``): the gradient horizon per chunk, and the number of
+    # parallel batch lanes the history is folded into.
+    tbptt_chunk_len: int = 50
+    tbptt_lanes: int = 8
     checkpoint_dir: str = ""
     checkpoint_every: int = 0           # epochs; 0 disables
     metrics_jsonl: str = ""
@@ -162,12 +167,24 @@ class TrainConfig:
 
 @dataclass
 class TreesServeConfig:
-    """The tree families' ensemble dispatch (``serve.trees.*``). Only
-    ``chunk=0`` (whole-ensemble programs, the default) is ported: a
-    positive chunk is refused by name (serve/session.py). The chunked
-    dispatch's other knobs come with it."""
+    """Chunked ensemble dispatch for the tree families (``serve.trees.*``;
+    serve/session.py, trees/chunked.py): the ensemble's tables are cut
+    into fixed-size tree chunks streamed to the device one window at a
+    time, and an f32 carry threads chunk to chunk in tree order, so the
+    replies stay bit-equal to ``predict``. The default (chunk=0) serves
+    whole-ensemble programs."""
 
+    # Trees per chunk (the tail pads with no-op trees); must be >= 2 when
+    # set. 0 (default) = whole-ensemble programs.
     chunk: int = 0
+    # Ensembles at or below this tree count keep the whole-ensemble path
+    # even with chunk > 0.
+    chunk_threshold: int = 512
+    # Opt-in chunked mean for REGRESSION forests: an f32 sum carry divided
+    # once at the end, served behind the pinned (rf, chunked_mean)
+    # envelope with the whole-forest predict as the drift oracle. False
+    # (the default) keeps the whole-forest program for a regressor.
+    approx_mean: bool = False
 
 
 @dataclass

@@ -1,5 +1,4 @@
-"""Featurized CSV reading and writing (the JAX package's ``data/csvio.py``,
-its pure-Python path; the native threaded parser is not ported yet).
+"""Featurized CSV reading and writing (the JAX package's ``data/csvio.py``).
 
 Reading implements xgboost's DMatrix URI semantics
 ``?format=csv&label_column=k``: column k is split out as the label and
@@ -8,6 +7,15 @@ the remaining columns become features. Writing produces the fixed schema
 under ``compat=True`` the reference writer's bytes: its header with the
 typos, no newline anywhere, and ``", "`` after every value. Both modes
 are byte-identical to the JAX package's writer.
+
+Reading takes the native library's threaded parser (utils/native_lib.py)
+when it is built, with the Python parser's rules: the header is the
+first non-blank line, and any native failure falls back to the Python
+parse, so errors keep their precise messages. The two agree bit for bit
+on what this writer writes (integers and ``repr`` of floats); strtof
+rounds a decimal to float32 once where the Python parse rounds it to
+float64 first, which can differ only for a decimal within a float64 ulp
+of a float32 rounding midpoint.
 """
 
 from __future__ import annotations
@@ -56,6 +64,28 @@ def split_label(data: np.ndarray, names: list[str], label_column: int
     return feats, labels, names
 
 
+def _read_csv_native(path: str, has_header: bool):
+    """(data, names) via libemtpu, or (None, []) when it is unavailable or
+    its parse fails."""
+    from euromillioner_tpu_torch.utils import native_lib
+
+    lib = native_lib.get()
+    if lib is None:
+        return None, []
+    try:
+        blob = lib.read_file(path)
+        names: list[str] = []
+        if has_header:
+            # the first NON-BLANK line: the native parser skips blank
+            # lines, so the header is found the same way
+            head = next((ln for ln in blob.split(b"\n") if ln.strip()), b"")
+            head_s = head.decode("utf-8", errors="replace")
+            names = [c.strip() for c in head_s.split(",") if c.strip()]
+        return lib.parse_csv(blob, has_header), names
+    except (OSError, ValueError):
+        return None, []
+
+
 def _parse_row(ln: str, path: str) -> list[float]:
     cells = [c.strip() for c in ln.split(",")]
     if cells and cells[-1] == "":
@@ -71,7 +101,13 @@ def read_csv(path: str, *, label_column: int | None = 0,
              ) -> tuple[np.ndarray, np.ndarray | None, list[str]]:
     """A fixed-schema CSV → ``(features, labels, feature_names)`` float32;
     ``label_column=None`` returns every column as a feature and no
-    labels. Blank lines are skipped."""
+    labels. Blank lines are skipped. The native parser runs first when
+    the library is built; its failure falls back to the Python parse."""
+    data, names = _read_csv_native(path, has_header)
+    if data is not None:
+        if label_column is None:
+            return data, None, names
+        return split_label(data, names, label_column)
     with open(path, "r", encoding="utf-8") as fh:
         lines = [ln.strip() for ln in fh if ln.strip()]
     if not lines:

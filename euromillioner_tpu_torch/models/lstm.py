@@ -1,7 +1,9 @@
 """GravesLSTM-equivalent sequence model over draw-date time series (the
 JAX package's ``models/lstm.py``): stacked peephole LSTMs, last-step
 readout, dense head. Sliding windows of past draws' 11-feature rows
-predict the next draw's 7 ball numbers.
+predict the next draw's 7 ball numbers. ``build_tbptt_lstm`` is the
+variant truncated BPTT trains over the whole history (a prediction at
+every step), and ``step_apply`` runs one timestep through the stack.
 """
 
 from __future__ import annotations
@@ -46,12 +48,64 @@ def build_lstm(
     return Sequential(layers)
 
 
+def build_tbptt_lstm(
+    hidden: int = 512,
+    num_layers: int = 2,
+    out_dim: int = 7,
+    peepholes: bool = True,
+    dropout: float = 0.0,
+    head_activation: str = "identity",
+    *,
+    in_features: int = 11,
+    generator: torch.Generator | None = None,
+    device=None,
+) -> Sequential:
+    """The variant for truncated-BPTT training over one long history
+    (train/tbptt.py): every LSTM keeps ``return_sequences=True`` and the
+    head applies per step, so the model emits a prediction at every draw
+    and state can be threaded across chunks. ``fused`` is ``"off"``: the
+    fused kernels start from a zero carry, and a chunk starts from the
+    previous chunk's."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    layers = []
+    width = in_features
+    for i in range(num_layers):
+        layers.append(LSTM(width, hidden, return_sequences=True,
+                           peepholes=peepholes, fused="off", generator=gen,
+                           device=dev))
+        width = hidden
+        if dropout > 0 and i < num_layers - 1:
+            layers.append(Dropout(dropout))
+    layers.append(Dense(width, out_dim, activation=head_activation,
+                        generator=gen, device=dev))
+    return Sequential(layers)
+
+
 def init_step_states(model: Sequential, batch: int, dtype=None):
     """Zero (h, c) carries for every LSTM layer in ``model``."""
     dtype = dtype or torch.float32
     return [layer.initial_state(batch, dtype)
             for _, layer in model.named_layers()
             if isinstance(layer, LSTM)]
+
+
+def step_apply(model: Sequential, states, x_t):
+    """One timestep through the whole stack: ``[B, F] → [B, out]``.
+    ``states`` holds one (h, c) per LSTM layer in layer order (the list
+    from :func:`init_step_states`); every other layer applies per step
+    (Dropout is the identity here). Returns ``(new_states, y_t)``."""
+    new_states = []
+    si = 0
+    h = x_t
+    for _, layer in model.named_layers():
+        if isinstance(layer, LSTM):
+            carry, h = layer.step_apply(states[si], h)
+            new_states.append(carry)
+            si += 1
+        else:
+            h = layer.apply(h)
+    return new_states, h
 
 
 def padded_apply(model: Sequential, x, last_idx, unroll=None, fused=False):

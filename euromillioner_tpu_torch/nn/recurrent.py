@@ -141,11 +141,19 @@ class LSTM(LSTMCell):
                         device=self.wh.device)
         return z, z.clone()
 
+    def step_apply(self, carry, x_t):
+        """One timestep: ``((h, c), [B, F]) → ((h, c), [B, H])`` — this
+        step's input projection, then the cell math the scan body runs
+        (:meth:`LSTMCell.apply`)."""
+        return LSTMCell.apply(self, (carry, x_t))
+
     def scan_with_state(self, x, carry, unroll=None):
         """Run the sequence from an explicit (h, c) carry:
-        ``([B, T, F], (h0, c0)) → ((hT, cT), [B, T, H])``. ``unroll`` is
-        the JAX package's scan-unroll knob, accepted and ignored (a Python
-        loop has no loop lowering to tune)."""
+        ``([B, T, F], (h0, c0)) → ((hT, cT), [B, T, H])`` — the stateful
+        half of truncated BPTT (train/tbptt.py), always on the scan: the
+        fused kernels start from a zero carry. ``unroll`` is the JAX
+        package's scan-unroll knob, accepted and ignored (a Python loop
+        has no loop lowering to tune)."""
         del unroll
         x_proj = self._input_proj(x)
         carry_out, hs = self._scan(x_proj, carry)

@@ -103,8 +103,8 @@ class ServeTelemetry:
     a default deadline for attainment judging when a request carries no
     explicit ``max_wait_s``. The pull-model gauges take callables
     (``queue_depth_fn`` etc.) evaluated only at collect time. The JAX
-    package's executable-cache, AOT-store and chunked-ensemble gauges come
-    with the modules that feed them (not ported yet).
+    package's executable-cache and AOT-store gauges have no counterpart:
+    the port runs its programs eagerly.
     """
 
     def __init__(self, *, kind: str, family: str, profile: str,
@@ -120,6 +120,8 @@ class ServeTelemetry:
                  ram_bytes_fn: Callable[[], float] | None = None,
                  disk_bytes_fn: Callable[[], float] | None = None,
                  pages_fn: Callable[[], Mapping[str, float]] | None
+                 = None,
+                 tree_counts_fn: Callable[[], Mapping[str, float]] | None
                  = None):
         self.kind = kind
         self.family = family
@@ -233,6 +235,35 @@ class ServeTelemetry:
             reg.gauge("serve_queue_depth",
                       "Requests queued, not yet cut into a batch",
                       lf).labels(**lab).set_function(queue_depth_fn)
+        # chunked ensemble dispatch (serve.trees.chunk): the chunk counter
+        # and figure gauges exist only while the chunked path is active —
+        # the chunk=0 default grows no permanently-zero families. One
+        # tree_counts_fn() snapshot serves a scrape's five gauges.
+        self.tree_chunks = None
+        if tree_counts_fn is not None:
+            self.tree_chunks = _c(
+                "serve_tree_chunks_total",
+                "Chunk dispatches of the chunked tree-ensemble path (one "
+                "per chunk per micro-batch)")
+            tg = reg.gauge("serve_trees",
+                           "Chunked-ensemble figures (chunk, n_chunks, "
+                           "chunks, dispatches, chunk_h2d_ms)",
+                           ("family", "stat"))
+            tsnap: dict[str, Any] = {"t": -1.0, "counts": {}}
+            tsnap_lock = threading.Lock()
+
+            def _tree_stat(stat: str) -> float:
+                now = time.monotonic()
+                with tsnap_lock:
+                    if now - tsnap["t"] > 0.05:
+                        tsnap["counts"] = tree_counts_fn()
+                        tsnap["t"] = now
+                    return tsnap["counts"].get(stat, 0)
+
+            for stat in ("chunk", "n_chunks", "chunks", "dispatches",
+                         "chunk_h2d_ms"):
+                tg.labels(family=family, stat=stat).set_function(
+                    lambda s=stat: _tree_stat(s))
         # -- slot-pool (continuous scheduler) extras --------------------
         # kind="slots" — the whole-sequence scheduler is kind="sequence"
         # and must NOT grow permanently-zero step/readback/occupancy

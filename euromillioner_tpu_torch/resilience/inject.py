@@ -27,8 +27,8 @@ check and immediate return — no allocation, no locking, no logging — so the
 points can live on per-step training and serving paths.
 
 Registered points (grep ``fault_point(`` for ground truth). The JAX
-package's ``serve.chunk``, ``serve.aot``, ``serve.shard`` and ``fleet.*``
-points come with the modules that hold them (ROADMAP queue 1):
+package's ``serve.aot``, ``serve.shard`` and ``fleet.*`` points come with
+the modules that hold them (ROADMAP queue 1):
 
 ========================  ====================================================
 ``fetch.request``         before each HTTP attempt (``data/fetch.py``)
@@ -107,6 +107,14 @@ points come with the modules that hold them (ROADMAP queue 1):
                           the request being admitted — the engine keeps
                           serving and a fault-free rerun is
                           bit-identical
+``serve.chunk``           before each chunk of the chunked tree-ensemble
+                          dispatch (serve/session.py
+                          ``_TreeBackend._dispatch_chunked``, only while
+                          ``serve.trees.chunk`` routes a backend
+                          chunked); a fire fails ONLY that micro-batch's
+                          requests — the device carry is dropped, the
+                          ``tree_tables`` window unwinds and the engine
+                          keeps serving
 ``serve.replay``          around each trace event's submission in the
                           open-loop replay loop (obs/replay.py); a
                           fire fails ONLY that event — the clock keeps

@@ -960,7 +960,7 @@ class StepScheduler(MetricsSink):
     def precision_desc(self) -> dict:
         """/healthz and the banner: profile, envelope, params' size, and
         the served profiles where children serve more."""
-        desc = self._drift.desc(self.backend.serving_params())
+        desc = self._drift.desc(param_bytes(self.backend.serving_params()))
         if self._children:
             desc["profiles"] = [self.backend.precision, *self._children]
         return desc
@@ -2826,7 +2826,7 @@ class WholeSequenceScheduler(MetricsSink):
     def precision_desc(self) -> dict:
         """/healthz and the banner: profile, envelope, params' size, and
         the served profiles where children serve more."""
-        desc = self._drift.desc(self.backend.serving_params())
+        desc = self._drift.desc(param_bytes(self.backend.serving_params()))
         if self._children:
             desc["profiles"] = [self.backend.precision, *self._children]
         return desc

@@ -37,6 +37,13 @@ trace line per admitted request. The fault points ``serve.request``,
 ``serve.budget`` and ``serve.dispatch`` (resilience/inject.py) sit at the
 submit, the budget's front door and each micro-batch's dispatch.
 
+Chunked tree dispatch (``serve.trees.chunk``): a tree backend that
+serves chunked streams its chunk tables through this engine's ledger
+(the ``tree_tables`` class); ``stats()["trees"]``, the ``/healthz``
+``tree_chunks`` key and the ``serve_tree_chunks_total`` counter and
+``serve_trees`` gauges appear only then, and a ``chunked_mean`` forest
+is sampled against its whole-forest ``predict``.
+
 Not ported yet: the serving mesh, the AOT store, and chunking of a
 request larger than the largest bucket (refused with a ServeError).
 """
@@ -174,12 +181,11 @@ class DriftStats:
                 "drift_checks": self.checks,
                 "envelope_breaches": self.breaches}
 
-    def desc(self, serve_params) -> dict:
+    def desc(self, nbytes: int) -> dict:
         """The /healthz and banner surface: profile, pinned envelope and
-        the serving params' size."""
+        the serving params' size (``nbytes``)."""
         return {"precision": self.profile, "envelope": self.envelope,
-                "serve_param_mb": round(param_bytes(serve_params) / 2**20,
-                                        3)}
+                "serve_param_mb": round(nbytes / 2**20, 3)}
 
     def sample(self, got, oracle_fn, lock) -> float | None:
         """One drift measurement of ``got`` against ``oracle_fn()``,
@@ -272,7 +278,14 @@ class InferenceEngine(MetricsSink):
             self._budget.validate()
         self._mem = MemoryLedger({"queue": self._budget.queue_bytes}
                                  if self._budget.enabled else None)
-        self._mem.set_bytes("params", param_bytes(self._serve_params))
+        self._mem.set_bytes("params", self._param_bytes())
+        # chunked tree dispatch (serve.trees.chunk): the backend streams
+        # its chunk tables through THIS engine's ledger, and the telemetry
+        # grows the chunk counter and the serve_trees gauges
+        self._n_chunks = 0  # chunk dispatches a batch; 0: unchunked
+        if getattr(backend, "chunked", None) is not None:
+            backend.attach_ledger(self._mem)
+            self._n_chunks = backend.tree_counts()["n_chunks"]
         # the telemetry: registry counters (the stats() store), trace
         # ring, SLO attainment, the shared JSONL emitter
         self.telemetry = ServeTelemetry(
@@ -280,7 +293,9 @@ class InferenceEngine(MetricsSink):
             classes=self.classes, enabled=obs_enabled,
             trace_capacity=trace_capacity, slo_ms=slo_ms,
             metrics_jsonl=metrics_jsonl, capture_path=capture_path,
-            queue_depth_fn=lambda: self._batcher.queue_depth)
+            queue_depth_fn=lambda: self._batcher.queue_depth,
+            tree_counts_fn=(backend.tree_counts if self._n_chunks
+                            else None))
         self.telemetry.register_drift(self._drift)
         self._lock = threading.Lock()
         self._latencies: collections.deque = collections.deque(
@@ -317,15 +332,26 @@ class InferenceEngine(MetricsSink):
         """The child engines, by the extra profile each serves."""
         return dict(self._children)
 
+    def _param_bytes(self) -> int:
+        """Device bytes of the params this engine's profile serves: a tree
+        backend's resident tables (the chunked dispatch's two-block
+        window), else every tensor of ``serve_params``."""
+        own = getattr(self.backend, "serve_param_bytes", None)
+        return own if own is not None else param_bytes(self._serve_params)
+
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return upload(x, self.backend.device)
 
     def warmup(self) -> None:
         """Run every bucket's program once, so the first request pays for
         no kernel build, allocator growth or library initialisation."""
+        run = self._program
+        if self._n_chunks:  # warmups are no chunk dispatches
+            def run(x):
+                return self.backend.apply(x, counted=False)
         for b in self.buckets:
             x = np.zeros((b, *self._feat_shape), np.float32)
-            self._program(self._put(self.backend.prepare(x))).cpu()
+            run(self._put(self.backend.prepare(x))).cpu()
 
     @property
     def slo_desc(self) -> dict:
@@ -334,14 +360,18 @@ class InferenceEngine(MetricsSink):
 
     @property
     def load_desc(self) -> dict:
-        """/healthz: constant-time load figures (no percentile sort)."""
-        return {"queue_depth": self._batcher.queue_depth}
+        """/healthz: constant-time load figures (no percentile sort);
+        ``tree_chunks`` only while the chunked tree dispatch is active."""
+        out = {"queue_depth": self._batcher.queue_depth}
+        if self._n_chunks:
+            out["tree_chunks"] = int(self.backend.tree_counts()["chunks"])
+        return out
 
     @property
     def precision_desc(self) -> dict:
         """/healthz and the banner: profile, envelope, params' size, and
         the served profiles where children serve more."""
-        desc = self._drift.desc(self._serve_params)
+        desc = self._drift.desc(self._param_bytes())
         if self._children:
             desc["profiles"] = [self.precision, *self._children]
         return desc
@@ -456,18 +486,26 @@ class InferenceEngine(MetricsSink):
             bucket = pick_bucket(rows, self.buckets)
             x = (batch[0].x if len(batch) == 1
                  else np.concatenate([r.x for r in batch]))
-            prepared = self.backend.prepare(pad_rows(x, bucket))
+            padded = pad_rows(x, bucket)
+            prepared = self.backend.prepare(padded)
             t_put = time.monotonic()
             x_dev = self._put(prepared)
             t_h2d = time.monotonic()
             y_dev = self._program(x_dev)
             t_disp = time.monotonic()
+            if self._n_chunks:
+                # one chunked batch = n_chunks chunk dispatches
+                self.telemetry.tree_chunks.inc(self._n_chunks)
             ref_dev = None
             if self.precision != "f32":
                 # the sampled drift check: the same padded batch through
-                # the f32 oracle program, compared in _complete
+                # the f32 oracle program, compared in _complete; a chunked
+                # tree backend's profile is the chunk stream itself, so
+                # its oracle is the whole-ensemble predict, deferred
                 if self._n_dispatched % DRIFT_EVERY == 0:
-                    ref_dev = self.backend.apply(x_dev)
+                    ref_dev = ((lambda _x=padded: self.backend.predict(_x))
+                               if self._n_chunks
+                               else self.backend.apply(x_dev))
                 self._n_dispatched += 1
         except Exception as e:  # noqa: BLE001 — fail the batch, keep serving
             self._fail(batch, e)
@@ -499,8 +537,9 @@ class InferenceEngine(MetricsSink):
         t_read = time.monotonic()
         drift = None
         if ref_dev is not None:
-            drift = self._drift.sample(y, lambda: ref_dev.cpu().numpy(),
-                                       self._lock)
+            oracle = (ref_dev if callable(ref_dev)
+                      else lambda: ref_dev.cpu().numpy())
+            drift = self._drift.sample(y, oracle, self._lock)
         now = time.monotonic()
         # accounting BEFORE futures resolve: a returned predict() sees
         # itself in stats(). The spans share the batch's host stamps (the
@@ -573,6 +612,10 @@ class InferenceEngine(MetricsSink):
             **self._mem.snapshot(defaults=("params", "queue")),
             "shed": int(tm.budget_shed.get()),
         }
+        if self._n_chunks:
+            # chunk size, chunk dispatches, cumulative upload wall: only
+            # while the chunked path is active
+            out["trees"] = self.backend.tree_counts()
         out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
         out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
         if self._children:

@@ -23,10 +23,17 @@ A fault in a narrow profile's restore-time cast or quantization (the
 logged once: its replies are then bit-equal to the f32 oracle. Only the
 cast or quantization is covered: a kernel that fails to build raises.
 
-Not ported yet: the JAX package's chunked tree dispatch
-(``serve.trees.chunk``) and ``ModelSession`` (executable cache, AOT store,
-mesh placement). Asking for chunked dispatch is a :class:`ConfigError`
-that names it.
+Chunked ensemble dispatch (``serve.trees.chunk``; trees/chunked.py): a
+GBT or classifier-forest ensemble above ``serve.trees.chunk_threshold``
+trees serves through fixed-size tree chunks instead of one
+whole-ensemble program. An f32 carry threads chunk to chunk in the
+whole-ensemble order, so replies stay bit-equal to ``predict``; each
+chunk's tables are uploaded in turn on their own stream while the
+previous chunk computes, so only ~2 chunks of tables are device-resident
+at once (the ``tree_tables`` class of the engine's ledger). The
+``serve.chunk`` fault point covers each chunk: a fire fails only that
+batch. The JAX package's ``ModelSession`` (executable cache, AOT store,
+mesh placement) has no counterpart: the port's programs run eagerly.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 import copy
 import math
 import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Mapping
 
@@ -42,11 +50,13 @@ import torch
 from torch.func import functional_call
 
 from euromillioner_tpu_torch.config import Config
+from euromillioner_tpu_torch.core.device import upload
 from euromillioner_tpu_torch.core.precision import (cast_floats,
                                                     dequantize_int8w,
                                                     quantize_int8w,
                                                     resolve_serve_precision,
                                                     serve_envelope)
+from euromillioner_tpu_torch.core.prefetch import DoubleBuffer
 from euromillioner_tpu_torch.resilience import fault_point
 from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
@@ -372,28 +382,170 @@ class _TreeBackend(_F32Backend):
     ``predict_program`` split — ``prepare`` bins the rows on the host,
     ``apply`` runs the ensemble program on the device — so replies are
     bit-identical to the model's direct ``predict`` by construction. f32
-    only: routing and leaf sums have no narrow-dtype profile."""
+    only: routing and leaf sums have no narrow-dtype profile.
 
-    def __init__(self, model, program, out_dtype):
+    With a :class:`~euromillioner_tpu_torch.trees.chunked.
+    ChunkedTreeProgram` (``chunked``), ``apply`` is the chunked dispatch
+    instead (:meth:`_dispatch_chunked`) and the whole ensemble's tables
+    are never uploaded; ``attach_ledger`` hands it the engine's byte
+    ledger and ``tree_counts`` feeds ``stats()["trees"]``."""
+
+    def __init__(self, model, program, out_dtype, chunked=None):
         self.device = model.device
         self.feat_shape = (len(model.cuts),)
         self.out_dtype = out_dtype
-        self._params, self._apply, self.prepare = program
+        self.chunked = chunked
+        self._ledger: MemoryLedger | None = None
+        self._tree_lock = threading.Lock()
+        self._tree_counts = {"chunks": 0, "dispatches": 0,
+                             "chunk_h2d_ms": 0.0}
+        if chunked is None:
+            self._params, self._apply, self.prepare = program()
+            return
+        self._params = {}
+        self.prepare = chunked.prepare
+        cuda = self.device.type == "cuda"
+        # host blocks as CPU tensors, pinned on CUDA so each upload is an
+        # asynchronous copy; uploads run on their own stream
+        self._blocks = [
+            {k: (torch.from_numpy(a).pin_memory() if cuda
+                 else torch.from_numpy(a)) for k, a in blk.items()}
+            for blk in chunked.blocks]
+        self._copy_stream = (torch.cuda.Stream(self.device) if cuda
+                             else None)
 
-    def apply(self, binned: torch.Tensor) -> torch.Tensor:
+    @property
+    def serve_param_bytes(self) -> int:
+        """Device bytes of the tables a dispatch keeps resident: the whole
+        ensemble's, or the chunked dispatch's two-block window."""
+        if self.chunked is not None:
+            return 2 * self.chunked.block_bytes
+        return sum(t.numel() * t.element_size()
+                   for t in self._params.values())
+
+    def apply(self, binned: torch.Tensor, *, counted: bool = True
+              ) -> torch.Tensor:
+        """The ensemble's replies to ``binned`` on the device; a chunked
+        dispatch with ``counted=False`` (an engine's warmup) leaves
+        :meth:`tree_counts` as it was."""
         with torch.inference_mode():
+            if self.chunked is not None:
+                return self._dispatch_chunked(binned, counted)
             return self._apply(self._params, binned)
+
+    # -- chunked tree dispatch (serve.trees.chunk) -----------------------
+    def attach_ledger(self, mem: MemoryLedger) -> None:
+        """Adopt the engine's byte ledger: the chunked dispatch accounts
+        its streamed tables there in the ``tree_tables`` class."""
+        self._ledger = mem
+
+    def tree_counts(self) -> dict:
+        """The chunked dispatch's figures — ``stats()["trees"]`` and the
+        ``serve_trees{stat=...}`` gauges (one locked snapshot)."""
+        ch = self.chunked
+        with self._tree_lock:
+            return {"chunk": ch.chunk if ch else 0,
+                    "n_chunks": ch.n_chunks if ch else 0,
+                    "chunks": self._tree_counts["chunks"],
+                    "dispatches": self._tree_counts["dispatches"],
+                    "chunk_h2d_ms": round(
+                        self._tree_counts["chunk_h2d_ms"], 3)}
+
+    def _upload(self, blk: dict) -> dict:
+        """One block's tables on the device. On CUDA the copies run on
+        the upload stream, so the next block crosses while the compute
+        stream still runs the current chunk; the compute stream waits
+        for them before it reads the block."""
+        if self._copy_stream is None:
+            return blk
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            dev = {k: v.to(self.device, non_blocking=True)
+                   for k, v in blk.items()}
+        compute.wait_stream(self._copy_stream)
+        for t in dev.values():
+            t.record_stream(compute)  # freed only after compute reads it
+        return dev
+
+    def _dispatch_chunked(self, binned: torch.Tensor, counted: bool = True
+                          ) -> torch.Tensor:
+        """One padded micro-batch through the chunk loop (the JAX
+        package's ``ModelSession._dispatch_chunked``): the f32 carry
+        stays on the device and threads chunk to chunk in the
+        whole-ensemble order while each chunk's tables are uploaded in
+        turn through a :class:`DoubleBuffer` window of depth 1 — pushing
+        a block retires the one before it, whose compute is already
+        enqueued — so the ``tree_tables`` ledger class peaks at two
+        blocks' bytes. Only device work is enqueued here; the engine's
+        readback is the one sync. Each chunk passes the ``serve.chunk``
+        fault point: a fire fails only this batch (the carry is dropped
+        and the window's accounting unwound)."""
+        ch = self.chunked
+        mem, bb = self._ledger, ch.block_bytes
+        carry = upload(ch.init_carry(binned.shape[0]), self.device)
+        h2d_ms = 0.0
+        buf = DoubleBuffer(depth=1)
+        try:
+            for i, blk in enumerate(self._blocks):
+                fault_point("serve.chunk", chunk=i, chunks=ch.n_chunks,
+                            rows=int(binned.shape[0]))
+                t1 = time.perf_counter()
+                dev_blk = self._upload(blk)
+                h2d_ms += (time.perf_counter() - t1) * 1e3
+                # accounted and in the window BEFORE the chunk runs: if it
+                # raises, the drain below still unwinds this block
+                if mem is not None:
+                    mem.add("tree_tables", bb)
+                if buf.push(dev_blk) is not None and mem is not None:
+                    mem.sub("tree_tables", bb)
+                carry = ch.chunk_apply(dev_blk, carry, binned)
+            out = ch.finish_apply(carry)
+        finally:
+            for _ in buf.drain():
+                if mem is not None:
+                    mem.sub("tree_tables", bb)
+        if not counted:
+            return out
+        with self._tree_lock:
+            self._tree_counts["dispatches"] += 1
+            self._tree_counts["chunks"] += ch.n_chunks
+            self._tree_counts["chunk_h2d_ms"] += h2d_ms
+        return out
+
+
+def _chunked_log(family: str, chunked) -> None:
+    logger.info("%s serving chunked: %d trees in %d chunks of %d (%.2f "
+                "MB/chunk streamed, whole-ensemble tables never "
+                "device-resident)", family, chunked.n_trees,
+                chunked.n_chunks, chunked.chunk,
+                chunked.block_bytes / 2**20)
 
 
 class GBTBackend(_TreeBackend):
     """Booster serving via ``Booster.predict_program`` (whole ensemble):
-    transformed predictions, or raw margins with ``output_margin``."""
+    transformed predictions, or raw margins with ``output_margin``.
+
+    **Chunked dispatch** (``serve.trees.chunk``): with ``chunk`` > 0 and
+    an ensemble of more than ``chunk_threshold`` trees, serving runs
+    ``Booster.chunked_predict_program`` instead — fixed-size tree chunks
+    streamed to the device with an f32 margin carry threaded chunk to
+    chunk in tree order, so replies stay bit-equal to ``predict``. At or
+    below the threshold (or at chunk=0, the default) the whole-ensemble
+    program serves."""
 
     name = family = "gbt"
 
-    def __init__(self, booster, output_margin: bool = False):
-        super().__init__(booster, booster.predict_program(
-            len(booster.cuts), output_margin=output_margin), np.float32)
+    def __init__(self, booster, output_margin: bool = False,
+                 chunk: int = 0, chunk_threshold: int = 0):
+        lo, hi = booster._resolve_range(None)
+        chunked = None
+        if int(chunk) > 0 and (hi - lo) > int(chunk_threshold):
+            chunked = booster.chunked_predict_program(
+                len(booster.cuts), chunk, output_margin=output_margin)
+            _chunked_log("gbt", chunked)
+        super().__init__(booster, lambda: booster.predict_program(
+            len(booster.cuts), output_margin=output_margin), np.float32,
+            chunked)
         self.booster = booster
         self._output_margin = output_margin
 
@@ -406,13 +558,51 @@ class GBTBackend(_TreeBackend):
 
 class RFBackend(_TreeBackend):
     """Random-forest serving via ``RandomForestModel.predict_program``
-    (whole forest): int32 majority votes, or f32 means for a regressor."""
+    (whole forest): int32 majority votes, or f32 means for a regressor.
+
+    **Chunked dispatch** (``serve.trees.chunk``): a classifier of more
+    than ``chunk_threshold`` trees serves through
+    ``RandomForestModel.chunked_predict_program`` (exact vote counts: the
+    replies stay bit-equal). A regressor keeps the whole-forest program
+    with a warning — its mean's reduce order is not a sequential carry's
+    — unless ``approx_mean`` (``serve.trees.approx_mean``) opts in: the
+    chunked sum-carry mean then serves behind the pinned ``(rf,
+    chunked_mean)`` envelope, and this backend's profile is
+    ``chunked_mean``, which the engine samples against the whole-forest
+    ``predict``."""
 
     name = family = "rf"
 
-    def __init__(self, model):
-        super().__init__(model, model.predict_program(len(model.cuts)),
-                         np.int32 if model.classification else np.float32)
+    def __init__(self, model, chunk: int = 0, chunk_threshold: int = 0,
+                 approx_mean: bool = False):
+        n_trees = int(np.asarray(model.trees["feature"]).shape[0])
+        chunked = None
+        if int(chunk) > 0 and n_trees > int(chunk_threshold):
+            chunked = model.chunked_predict_program(
+                len(model.cuts), chunk, approx_mean=bool(approx_mean))
+            if chunked is None:
+                logger.warning(
+                    "serve.trees.chunk=%d requested but this forest is a "
+                    "REGRESSOR — the mean-over-trees reduce is "
+                    "order-sensitive, so chunking would break the "
+                    "engine-vs-predict bit pin; serving the whole-forest "
+                    "program (serve.trees.approx_mean opts into a "
+                    "pinned-envelope chunked mean)", int(chunk))
+            else:
+                if not model.classification:
+                    # the backend's own approximate profile: the engine
+                    # inherits it and samples drift against predict
+                    self.precision = "chunked_mean"
+                    logger.info(
+                        "rf regression serving the OPT-IN chunked "
+                        "approximate mean (serve.trees.approx_mean): a "
+                        "sequential sum carry against the whole-forest "
+                        "reduce, behind the pinned (rf, chunked_mean) "
+                        "envelope — NOT bit-pinned to predict()")
+                _chunked_log("rf", chunked)
+        super().__init__(model, lambda: model.predict_program(
+            len(model.cuts)),
+            np.int32 if model.classification else np.float32, chunked)
         self.model = model
 
     def predict(self, x) -> np.ndarray:
@@ -481,18 +671,17 @@ def _load_tree_backend(model_type: str, model_file: str | None, cfg: Config,
     if not model_file:
         raise ServeError(f"serve --model-type {model_type} needs "
                          "--model-file")
-    if cfg.serve.trees.chunk > 0:
-        raise ConfigError(
-            f"serve.trees.chunk={cfg.serve.trees.chunk} (chunked tree "
-            f"dispatch) is not ported yet; this port serves whole-ensemble "
-            f"programs (serve.trees.chunk=0)")
+    tc = cfg.serve.trees
     if model_type == "gbt":
         from euromillioner_tpu_torch.trees import Booster
 
-        return GBTBackend(Booster.load_model(model_file, device=device))
+        return GBTBackend(Booster.load_model(model_file, device=device),
+                          chunk=tc.chunk, chunk_threshold=tc.chunk_threshold)
     from euromillioner_tpu_torch.trees import RandomForestModel
 
-    return RFBackend(RandomForestModel.load_model(model_file, device=device))
+    return RFBackend(RandomForestModel.load_model(model_file, device=device),
+                     chunk=tc.chunk, chunk_threshold=tc.chunk_threshold,
+                     approx_mean=tc.approx_mean)
 
 
 def load_backend(model_type: str, checkpoint: str | None = None,

@@ -1,2 +1,3 @@
-"""Training: optimizers, the Trainer with watch lists, metrics and
-checkpoints (the JAX package's ``train/``)."""
+"""Training: optimizers, the Trainer with watch lists, metrics,
+checkpoints and truncated BPTT over a whole history (the JAX package's
+``train/``)."""

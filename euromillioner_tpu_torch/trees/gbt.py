@@ -32,7 +32,8 @@ import torch
 from euromillioner_tpu_torch.core.device import resolve_device
 from euromillioner_tpu_torch.train.metrics import eval_line
 from euromillioner_tpu_torch.trees import binning
-from euromillioner_tpu_torch.trees.growth import (grow_level, grow_level_sub,
+from euromillioner_tpu_torch.trees.growth import (accumulate_leaves,
+                                                  grow_level, grow_level_sub,
                                                   predict_margin, route)
 from euromillioner_tpu_torch.trees.objectives import (Objective, get_metric,
                                                       get_objective)
@@ -299,6 +300,59 @@ class Booster:
             return margin if output_margin else transform(margin)
 
         return params, apply, prepare
+
+    def chunked_predict_program(self, num_col: int, chunk: int,
+                                iteration_range: tuple[int, int] | None
+                                = None, output_margin: bool = False):
+        """The chunk-sliced split of :meth:`predict_program` for the
+        serving engine's chunked dispatch (``serve.trees.chunk``;
+        trees/chunked.py): the range's tree tables cut into ``chunk``-tree
+        host blocks (the tail padded with trees whose ``-0.0`` leaves are
+        bitwise no-ops), ``chunk_apply(block, margin, binned)`` adding each
+        tree's leaf to the f32 margin carry in tree order with
+        :func:`~euromillioner_tpu_torch.trees.growth.accumulate_leaves`
+        (the whole-ensemble program's arithmetic), ``init_carry`` the
+        ``base_margin`` every row starts from, and ``finish_apply`` the
+        objective's transform (nothing under ``output_margin``). The
+        replies are bit-equal to :meth:`predict`. A chunk below 2 is
+        refused, as in the JAX package (there a 1-tree scan rounds
+        otherwise)."""
+        from euromillioner_tpu_torch.trees.chunked import (ChunkedTreeProgram,
+                                                           slice_blocks)
+
+        chunk = int(chunk)
+        if chunk < 2:
+            raise TrainError(
+                f"serve.trees.chunk must be >= 2, got {chunk}")
+        if num_col != len(self.cuts):
+            raise DataError(f"the booster has {len(self.cuts)} features, "
+                            f"got {num_col}")
+        lo, hi = self._resolve_range(iteration_range)
+        blocks = slice_blocks(self.trees, lo, hi, chunk,
+                              pad_leaf_value=-0.0)
+        transform = self.objective.transform
+        base_margin, max_depth = self.base_margin, self.max_depth
+        cuts = self.cuts
+
+        def prepare(x: np.ndarray) -> np.ndarray:
+            return binning.apply_bins(np.asarray(x, np.float32), cuts)
+
+        def init_carry(n_rows: int) -> np.ndarray:
+            # the same f32 value predict_margin's torch.full starts from
+            return np.full(int(n_rows), base_margin, np.float32)
+
+        def chunk_apply(p, carry, binned):
+            return accumulate_leaves(carry, binned, p["feature"],
+                                     p["split_bin"], p["is_leaf"],
+                                     p["leaf_value"], max_depth=max_depth)
+
+        def finish_apply(carry):
+            return carry if output_margin else transform(carry)
+
+        return ChunkedTreeProgram(
+            chunk=chunk, n_trees=hi - lo, blocks=blocks,
+            chunk_apply=chunk_apply, finish_apply=finish_apply,
+            init_carry=init_carry, prepare=prepare)
 
     def predict(self, dmat: DMatrix, output_margin: bool = False,
                 iteration_range: tuple[int, int] | None = None,

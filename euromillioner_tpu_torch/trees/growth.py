@@ -293,13 +293,12 @@ def route(binned, feature, split_bin, is_leaf, *, max_depth: int):
     return node[0] if single else node
 
 
-def predict_margin(binned, features, split_bins, is_leafs, leaf_values,
-                   base_margin: float, *, max_depth: int):
-    """Ensemble margin over stacked tree arrays (T, n_nodes): every row
-    starts at ``base_margin`` and adds each tree's leaf value in tree
-    order, as the JAX package's scan does."""
-    margin = torch.full((binned.shape[0],), base_margin, dtype=torch.float32,
-                        device=binned.device)
+def accumulate_leaves(margin, binned, features, split_bins, is_leafs,
+                      leaf_values, *, max_depth: int):
+    """``margin`` (N,) f32 plus each tree's leaf value, one add per tree
+    in tree order, as the JAX package's scan over trees does — THE
+    summation order of a margin: the whole-ensemble program and the
+    chunked one (trees/chunked.py) both run it."""
     if features.shape[0] == 0:
         return margin
     leaves = route(binned, features, split_bins, is_leafs,
@@ -308,3 +307,14 @@ def predict_margin(binned, features, split_bins, is_leafs, leaf_values,
     for t in range(values.shape[0]):
         margin = margin + values[t]
     return margin
+
+
+def predict_margin(binned, features, split_bins, is_leafs, leaf_values,
+                   base_margin: float, *, max_depth: int):
+    """Ensemble margin over stacked tree arrays (T, n_nodes): every row
+    starts at ``base_margin`` and adds each tree's leaf value in tree
+    order (:func:`accumulate_leaves`)."""
+    margin = torch.full((binned.shape[0],), base_margin, dtype=torch.float32,
+                        device=binned.device)
+    return accumulate_leaves(margin, binned, features, split_bins, is_leafs,
+                             leaf_values, max_depth=max_depth)

@@ -411,6 +411,89 @@ class RandomForestModel:
 
         return params, apply, prepare
 
+    def chunked_predict_program(self, num_features: int, chunk: int,
+                                approx_mean: bool = False):
+        """The chunk-sliced split of :meth:`predict_program` for the
+        serving engine's chunked dispatch (``serve.trees.chunk``;
+        trees/chunked.py). A classifier's carry is the ``(rows,
+        num_classes)`` f32 vote count, exact in any order, so the replies
+        are bit-equal to :meth:`predict`; pad trees vote class ``-1``,
+        which matches no class. A regressor returns None: its mean sums
+        the trees in the reduce order of ``ordered_sum``, which a
+        sequential carry cannot replay. ``approx_mean=True``
+        (``serve.trees.approx_mean``) serves a regressor anyway: a
+        ``(rows,)`` f32 sum carry in tree order (pad trees add ``0.0``),
+        divided once by the TRUE tree count — a reassociation of the
+        whole-forest mean, held to the pinned ``(rf, chunked_mean)``
+        envelope rather than bit-pinned. A chunk below 2 is refused, as in
+        the JAX package."""
+        if not self.classification and not approx_mean:
+            return None
+        from euromillioner_tpu_torch.trees.chunked import (ChunkedTreeProgram,
+                                                           slice_blocks)
+
+        chunk = int(chunk)
+        if chunk < 2:
+            raise TrainError(
+                f"serve.trees.chunk must be >= 2, got {chunk}")
+        if num_features != len(self.cuts):
+            raise DataError(f"the forest has {len(self.cuts)} features, "
+                            f"got {num_features}")
+        n_trees = int(np.asarray(self.trees["feature"]).shape[0])
+        regression = not self.classification
+        blocks = slice_blocks(self.trees, 0, n_trees, chunk,
+                              pad_leaf_value=0.0 if regression else -1.0)
+        max_depth, num_classes = self.max_depth, self.num_classes
+        cuts = self.cuts
+
+        def prepare(x: np.ndarray) -> np.ndarray:
+            return binning.apply_bins(np.asarray(x, np.float32), cuts)
+
+        def preds(p, binned):
+            leaves = route(binned, p["feature"], p["split_bin"],
+                           p["is_leaf"], max_depth=max_depth)
+            return p["leaf_value"].gather(1, leaves)          # (chunk, N)
+
+        if regression:
+            def init_carry(n_rows: int) -> np.ndarray:
+                return np.zeros((int(n_rows),), np.float32)
+
+            def chunk_apply(p, carry, binned):
+                values = preds(p, binned)
+                for t in range(values.shape[0]):
+                    carry = carry + values[t]
+                return carry
+
+            # one divide by the TRUE tree count (pad trees added 0.0), as
+            # XLA computes it: times the f32 reciprocal of the count
+            recip = float(np.float32(1) / np.float32(n_trees))
+
+            def finish_apply(acc):
+                return acc * recip
+
+            return ChunkedTreeProgram(
+                chunk=chunk, n_trees=n_trees, blocks=blocks,
+                chunk_apply=chunk_apply, finish_apply=finish_apply,
+                init_carry=init_carry, prepare=prepare)
+
+        def init_carry(n_rows: int) -> np.ndarray:
+            return np.zeros((int(n_rows), num_classes), np.float32)
+
+        def chunk_apply(p, carry, binned):
+            classes = torch.arange(num_classes, device=binned.device)
+            votes = (preds(p, binned).long()[..., None] == classes).sum(0)
+            return carry + votes.to(torch.float32)
+
+        def finish_apply(votes):
+            # the whole-forest argmax over the same exact counts: ties
+            # break the same way
+            return torch.argmax(votes, dim=-1).int()
+
+        return ChunkedTreeProgram(
+            chunk=chunk, n_trees=n_trees, blocks=blocks,
+            chunk_apply=chunk_apply, finish_apply=finish_apply,
+            init_carry=init_carry, prepare=prepare)
+
     def predict(self, x: np.ndarray) -> np.ndarray:
         x = np.asarray(x, np.float32)
         params, apply, prepare = self.predict_program(x.shape[1])

@@ -1,1 +1,2 @@
-"""Host-side utilities: error taxonomy, logging, EMT1 serialization."""
+"""Host-side utilities: error taxonomy, logging, EMT1 serialization, the
+native host library's loader."""

@@ -126,11 +126,28 @@ def json_value(arr) -> Any:
 
 
 def save(path: str, arrays: Mapping[str, object]) -> None:
+    """Write the container to ``path`` (through the native library's
+    atomic write when it is built)."""
+    native = _native()
     blob = dumps(arrays)
-    with open(path, "wb") as fh:
-        fh.write(blob)
+    if native is not None:
+        native.write_file(path, blob)
+    else:
+        with open(path, "wb") as fh:
+            fh.write(blob)
 
 
 def load(path: str) -> dict[str, torch.Tensor]:
+    native = _native()
+    if native is not None:
+        return loads(native.read_file(path))
     with open(path, "rb") as fh:
         return loads(fh.read())
+
+
+def _native():
+    """The C++ fast path, if built (utils/native_lib.py, which itself logs
+    a library that is present but unusable)."""
+    from euromillioner_tpu_torch.utils import native_lib
+
+    return native_lib.get()

@@ -116,7 +116,8 @@ def test_cli_reference_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["reference"], 17),                               # fetching: not ported
+    (["reference", "data.url=http://127.0.0.1:9/results"], 10),  # nothing
+                                                       # listens: FetchError
     (["fetch", "data.url=http://127.0.0.1:9/results"], 10),  # nothing
                                                        # listens: FetchError
     (["train", "--model", "rf", "--html-file", str(GOLDEN),

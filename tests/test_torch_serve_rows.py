@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from euromillioner_tpu.config import Config as JaxConfig
 from euromillioner_tpu.models.wide_deep import WideDeep as JaxWideDeep
 from euromillioner_tpu.serve.session import NNBackend as JaxNNBackend
 from euromillioner_tpu_torch.config import Config, apply_overrides
@@ -185,14 +186,12 @@ def test_fused_profile_has_no_wide_deep_envelope(backend):
 @pytest.mark.parametrize("family", ["gbt", "rf", "mlp", "classic"])
 def test_other_families_refused_by_name(family):
     """What each family still refuses, by name, before a model file or
-    checkpoint is read: the tree families' chunked dispatch
-    (serve.trees.chunk > 0), the mlp's fused profile (no pinned (nn,
-    fused) envelope) and classic at any profile but f32."""
+    checkpoint is read: the mlp's fused profile (no pinned (nn, fused)
+    envelope), and the tree families and classic at any profile but f32
+    (the tree families' chunked dispatch, refused here until it was
+    ported, is held in tests/test_torch_serve_trees.py)."""
     cfg, match = Config(), f"{family} serves f32 only"
-    if family in ("gbt", "rf"):
-        cfg = apply_overrides(cfg, ["serve.trees.chunk=4"])
-        match = "serve.trees.chunk=4 .* is not ported"
-    elif family == "mlp":
+    if family == "mlp":
         with pytest.raises(ConfigError, match="'nn' family.*'fused'"):
             NNBackend(build_mlp((4,), device="cpu"), (10,),
                       precision="fused")
@@ -207,10 +206,18 @@ def test_other_families_refused_by_name(family):
 @pytest.mark.parametrize("knob", ["serve.trees.chunk_threshold=16",
                                   "serve.trees.approx_mean=true"])
 def test_chunked_dispatch_knobs_are_not_accepted(knob):
-    """The chunked dispatch's other knobs are not ported with it: they
-    are unknown fields, never accepted and ignored."""
+    """The chunked dispatch's knobs were unknown fields until it was
+    ported; now each is a field with the JAX package's default that an
+    override sets, and what is not a field of ``serve.trees`` is still
+    not accepted."""
+    key, value = knob.split("=")
+    field = key.rsplit(".", 1)[1]
+    assert getattr(Config().serve.trees, field) == getattr(
+        JaxConfig().serve.trees, field)
+    got = getattr(apply_overrides(Config(), [knob]).serve.trees, field)
+    assert str(got).lower() == value
     with pytest.raises(ValueError, match="unknown field"):
-        apply_overrides(Config(), [knob])
+        apply_overrides(Config(), [f"serve.trees.{field}_x={value}"])
 
 
 def test_lstm_and_unknown_families_are_serve_errors():
