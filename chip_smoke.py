@@ -276,16 +276,34 @@ Phases, each reported on its own lines:
    golden page whose first GET answers 503: one retry, the printed
    boolean and both predictions bit-equal to phase 9's ``--html-file``
    run, timed, K3 launched 4000 times;
-33. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
+33. the AOT program store (runs last, after 29) — AOT_FAMILIES at full
+   width, each cut to one program of its ladder: the f32 MLP, the seeded
+   100M Wide&Deep at bf16 (K4a), the trained flagship's fused padded
+   program (K1) and one f32 rung of its step-scheduler ladder with the
+   rung's gather, the 2048-tree ensemble's chunk program. Cold child
+   processes (one a family, all at once, each with an empty Inductor cache
+   under ``build/``) serve each family from an empty store — every program
+   exported, compiled by AOTInductor, saved and loaded back — then one
+   warm child serves them all from those stores: the seconds to compile
+   each package, first-request-served cold and warm, the load time, zero
+   compiles warm, replies bit-identical to the cold run's, the store-on/off
+   gap (f32 within rtol 1e-5 / atol 1e-6, bf16 inside its envelope), the
+   trees bit-equal to ``predict``, K1 (2 a batch) and K4a (1 a batch, 1 a
+   drift check) launched from inside the loaded packages and those paths
+   against their plain versions' programs on the CPU; then ``aot prewarm``
+   (the trees), ``aot ls|verify`` through the CLI, and a truncated blob: a
+   counted miss, quarantined;
+34. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
    ``serve_http_fused``, K4a's phase 24's ``serve_bf16`` and the int8w
    run's drift oracle, bf16 K1's and K2's ``train_dp`` (phase 26), K4a's
    and K4b's ``train_dp`` and the class forest's ``cli_train_dp`` (phase
    27), every K1/K2 row's ``train_dp_gloo`` (phase 28, summed over the
    ranks), the forest set forms' ``rf_mesh``, every K1/K2 row's
-   ``train_tbptt`` (phase 30, 0), K3's ``reference_fetch`` (phase 32)),
+   ``train_tbptt`` (phase 30, 0), K3's ``reference_fetch`` (phase 32),
+   K1's ``aot_padded_fused`` and K4a's ``aot_serve_bf16`` (phase 33)),
    the ``nvidia-smi`` line,
    and last the ``{"ok": true, "device": ...}`` line. The lines phases
-   22-32 measure carry the card's name and power limit.
+   22-33 measure carry the card's name and power limit.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -296,6 +314,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib
 import io
 import json
 import logging
@@ -6181,6 +6200,413 @@ def phase_native_reference(root: Path, reference: dict) -> int:
     return launches
 
 
+# -- phase 33: the AOT program store ------------------------------------------
+
+# The four program families of the store at full width, each cut to one
+# program of its ladder (a package takes tens of seconds to compile): the
+# f32 MLP (config 1) at bucket 8; the seeded 100M Wide&Deep at bf16, bucket
+# 8 (K4a); the trained flagship's fused padded program at (8 rows, 16
+# steps) (K1); one f32 rung of its step-scheduler ladder (32 slots, block
+# 8) with the rung's finishers' gather; the 2048-tree serve_trees ensemble's
+# chunk program at chunk 256, bucket 32. Each family's requests are sent
+# one at a time, each one micro-batch, so the cold and the warm run cut the
+# same batches.
+AOT_FAMILIES = {
+    "mlp": ("mlp", ["model.compute_dtype=float32", "serve.buckets=8"]),
+    "wide_deep": ("wide_deep", ["serve.precision=bf16", "serve.buckets=8"]),
+    "padded": ("lstm", ["model.compute_dtype=float32",
+                        "serve.precision=fused", "serve.scheduler=batch",
+                        "serve.buckets=8", "serve.seq_buckets=16"]),
+    "ladder": ("lstm", ["model.compute_dtype=float32",
+                        "serve.scheduler=continuous", "serve.max_slots=32",
+                        "serve.step_block=8"]),
+    "trees": ("gbt", ["serve.buckets=32", "serve.trees.chunk=256",
+                      "serve.trees.chunk_threshold=512"]),
+}
+AOT_REQUESTS = 8
+# a phase's processes: the cold ones compile concurrently
+AOT_TIMEOUT_S = 900
+# store on against store off (eager) on the card, f32: the JAX package's NN
+# pin, as the CPU tests hold it (tests/test_torch_aot.py)
+AOT_F32_RTOL = 1e-5
+AOT_F32_ATOL = 1e-6
+
+
+def aot_artifacts(root: Path, flagship: Path) -> dict:
+    """Each family's model: the seeded MLP and Wide&Deep as serving
+    checkpoints, the trained flagship (``flagship``), the 2048-tree
+    ensemble as a model JSON. Returns {family: (model flag, path)}."""
+    from euromillioner_tpu_torch.models.mlp import build_mlp
+    from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
+    from euromillioner_tpu_torch.train.checkpoint import save_checkpoint
+
+    out = root / "build" / "chip_aot"
+    mlp = out / "mlp"
+    save_checkpoint(str(mlp), build_mlp(
+        generator=torch.Generator().manual_seed(SEED), device="cuda"),
+        step=1)
+    wd = out / "wide_deep"
+    model = build_wide_deep(generator=torch.Generator().manual_seed(SEED),
+                            device="cuda")
+    save_checkpoint(str(wd), model, step=1)
+    del model
+    torch.cuda.empty_cache()
+    trees = out / "trees.json"
+    synth_gbt(TREES["trees"], TREES["seed"]).save_model(str(trees))
+    return {"mlp": ("--checkpoint", mlp),
+            "wide_deep": ("--checkpoint", wd),
+            "padded": ("--checkpoint", flagship),
+            "ladder": ("--checkpoint", flagship),
+            "trees": ("--model-file", trees)}
+
+
+def aot_requests(family: str):
+    """The family's requests: 8-row batches (MLP, Wide&Deep), 32-row
+    batches of the ensemble's 8 features, or 4-16-step sequences."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    if family == "mlp":
+        return [rng.normal(size=(8, 10)).astype(np.float32)
+                for _ in range(AOT_REQUESTS)]
+    if family == "wide_deep":
+        rows = bench_rows(8 * AOT_REQUESTS)
+        return [rows[i:i + 8] for i in range(0, len(rows), 8)]
+    if family == "trees":
+        return [rng.normal(size=(TREES["bucket"], TREES["features"])
+                           ).astype(np.float32) for _ in range(3)]
+    return [rng.normal(size=(int(rng.integers(4, 17)), FEATURES)
+                       ).astype(np.float32) for _ in range(AOT_REQUESTS)]
+
+
+def aot_backend(family: str, arg: str, path: str, device="cuda"):
+    """The family's serving backend and config, as ``serve`` loads them."""
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.serve.continuous import \
+        load_recurrent_backend
+    from euromillioner_tpu_torch.serve.session import load_backend
+
+    model_type, overrides = AOT_FAMILIES[family]
+    cfg = apply_overrides(Config(), overrides)
+    if model_type == "lstm":
+        return load_recurrent_backend(cfg, path, device=device), cfg
+    if arg == "--model-file":
+        return load_backend(model_type, None, cfg, device=device,
+                            model_file=path), cfg
+    return load_backend(model_type, path, cfg, device=device), cfg
+
+
+def aot_engine(backend, cfg, store):
+    """The engine ``serve`` builds over ``backend``, with ``store`` (None:
+    eager)."""
+    from euromillioner_tpu_torch.serve.continuous import make_sequence_engine
+    from euromillioner_tpu_torch.serve.engine import make_row_engine
+
+    if backend.family == "lstm":
+        return make_sequence_engine(backend, cfg, aot=store)
+    return make_row_engine(backend, cfg, aot=store)
+
+
+def aot_serve(family: str, backend, cfg, store) -> dict:
+    """One family served from ``store`` (None: eagerly): the milliseconds
+    from the engine's start to its first reply (the model's load
+    excluded), every request's reply, and K1's and K4a's launches while
+    serving them (the engine's warmup excluded)."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.ops.fused_lstm import FUSED_LSTM_FWD
+    from euromillioner_tpu_torch.ops.wide_onehot import WIDE_ONEHOT_FWD
+
+    reqs = aot_requests(family)
+    t0 = time.perf_counter()
+    eng = aot_engine(backend, cfg, store)
+    try:
+        FUSED_LSTM_FWD.launches = WIDE_ONEHOT_FWD.launches = 0
+        t1 = time.perf_counter()
+        replies = [eng.predict(reqs[0])]
+        t2 = time.perf_counter()
+        replies += [eng.predict(r) for r in reqs[1:]]
+        launches = {"K1": FUSED_LSTM_FWD.launches,
+                    "K4a": WIDE_ONEHOT_FWD.launches}
+        stats = eng.stats()
+        cache = getattr(eng, "_exec", None)
+        counts = cache.counts() if cache is not None else None
+        compiled = ({repr(k): v for k, v in cache.compiled.items()}
+                    if cache is not None else {})
+    finally:
+        eng.close()
+    return {"family": family, "first_request_ms": (t2 - t0) * 1e3,
+            "first_reply_ms": (t2 - t1) * 1e3,
+            "replies": np.stack(replies), "launches": launches,
+            "stats": stats, "counts": counts, "compiled": compiled}
+
+
+def aot_worker(role: str, families: list, store_root: str,
+               out_dir: str) -> int:
+    """One process of phase 33: ``cold`` serves each family from an empty
+    store (every program compiled, saved and loaded back), ``warm`` from
+    the store the cold process left; each family's result is saved to
+    ``out_dir/<family>_<role>.pt``. Run in a child process."""
+    from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.serve.aotstore import AotStore
+
+    resolve_device("cuda")
+    spec = json.loads(Path(out_dir, "artifacts.json").read_text())
+    if role == "warm":
+        # a loaded package's first call of a custom op (K1, K4a) imports
+        # torch._dynamo, once a process: timed apart, first
+        t0 = time.perf_counter()
+        importlib.import_module("torch._dynamo")
+        import_s = time.perf_counter() - t0
+        print(f"aot-import: {import_s:.3f}", flush=True)
+        Path(out_dir, "warm_import_s").write_text(f"{import_s:.3f}")
+    for family in families:
+        arg, path = spec[family]
+        t0 = time.perf_counter()
+        backend, cfg = aot_backend(family, arg, path)
+        load_s = time.perf_counter() - t0
+        store = AotStore(str(Path(store_root) / family))
+        res = aot_serve(family, backend, cfg, store)
+        res["load_s"] = load_s
+        if role == "warm":
+            res["eager"] = aot_serve(family, backend, cfg, None)["replies"]
+        if family == "trees":
+            import numpy as np
+
+            res["predict"] = np.stack(
+                [backend.predict(x) for x in aot_requests(family)])
+        print("aot-result: " + json.dumps(
+            {k: v for k, v in res.items()
+             if k in ("family", "first_request_ms", "counts", "launches",
+                      "compiled")}, default=str), flush=True)
+        torch.save(res, Path(out_dir) / f"{family}_{role}.pt")
+    return 0
+
+
+def aot_children(root: Path, role: str, groups: list, store_root: Path,
+                 out: Path, inductor: Path, extra: list | None = None
+                 ) -> None:
+    """Start one ``aot_worker`` child per group of families and one child
+    per command line of ``extra``, all at once, each with a fresh empty
+    Inductor cache of its own; wait for all."""
+    env = dict(os.environ, PYTHONPATH=str(root))
+    argvs = [([sys.executable, "-c", "import sys, chip_smoke as c; "
+               f"sys.exit(c.aot_worker({role!r}, {fams!r}, "
+               f"{str(store_root)!r}, {str(out)!r}))"], fams)
+             for fams in groups]
+    argvs += [(argv, argv[3:5]) for argv in extra or ()]
+    procs = []
+    try:
+        for i, (argv, what) in enumerate(argvs):
+            cache = inductor / f"{role}{i}"
+            shutil.rmtree(cache, ignore_errors=True)
+            log = open(out / f"{role}{i}.log", "w")
+            procs.append((subprocess.Popen(
+                argv, cwd=root,
+                env=dict(env, TORCHINDUCTOR_CACHE_DIR=str(cache)),
+                stdout=log, stderr=subprocess.STDOUT), log, what))
+        deadline = time.monotonic() + AOT_TIMEOUT_S
+        while any(p.poll() is None for p, _l, _f in procs):
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p, log, _f in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    for i, (p, _l, fams) in enumerate(procs):
+        tail = (out / f"{role}{i}.log").read_text().splitlines()[-15:]
+        if p.returncode != 0:
+            print("\n".join(tail))
+        check(p.returncode == 0, f"aot {role} child for {fams} exited "
+              f"{p.returncode}")
+
+
+def phase_aot(root: Path, flagship: Path) -> dict:
+    """The AOT program store at full width on the card (see AOT_FAMILIES):
+    cold children compile each family into a fresh store (concurrently,
+    each with an empty Inductor cache), then a warm child restarts every
+    family from those stores: zero compiles, replies bit-identical to the
+    cold run's, the store-on/off gap, trees bit-equal to ``predict``, K1's
+    and K4a's launches from inside the loaded packages, each path held
+    against its plain version on the CPU. Then ``aot prewarm`` through the
+    CLI, ``aot ls|verify``, and a truncated blob quarantined on the card.
+    Returns K1's and K4a's launches on the warm paths."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import rel_error
+
+    out = root / "build" / "chip_aot"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    print("aot cuts (ladder size only; widths full): the MLP and Wide&Deep "
+          "at bucket 8 of serve.buckets' 8, 32, 128; the padded program at "
+          "8 rows x 16 steps of serve.buckets' 8, 32, 128 x "
+          "serve.seq_buckets' 8, 16, 32, 64; the step ladder's one rung "
+          "(serve.step_block 8, 32 slots); the trees at bucket 32, chunk "
+          f"256 (bench.py's serve_trees); {AOT_REQUESTS} requests a family, "
+          "3 for the trees")
+    spec = aot_artifacts(root, flagship)
+    (out / "artifacts.json").write_text(json.dumps(
+        {k: (a, str(p)) for k, (a, p) in spec.items()}))
+    stores, inductor = out / "stores", out / "inductor"
+    # `aot prewarm` through the CLI (the trees, into a store of its own)
+    # compiles beside the cold children
+    model_type, overrides = AOT_FAMILIES["trees"]
+    prewarm = [sys.executable, "-m", "euromillioner_tpu_torch", "aot",
+               "prewarm", "--model-type", model_type, "--model-file",
+               str(spec["trees"][1]), "--dir", str(out / "cli_store"),
+               *overrides]
+    t0 = time.perf_counter()
+    aot_children(root, "cold", [[f] for f in AOT_FAMILIES], stores, out,
+                 inductor, extra=[prewarm])
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aot_children(root, "warm", [list(AOT_FAMILIES)], stores, out, inductor)
+    warm_s = time.perf_counter() - t0
+    card(f"aot: cold children (one a family, and `aot prewarm`, all at "
+         f"once, empty Inductor caches) {cold_s:.1f} s; the warm child "
+         f"(every family, and each again eagerly) {warm_s:.1f} s, of which "
+         f"{(out / 'warm_import_s').read_text()} s importing torch._dynamo "
+         f"(what a package's first custom-op call imports, once a "
+         f"process; the warm figures below exclude it)")
+    launches = {}
+    for family in AOT_FAMILIES:
+        cold = torch.load(out / f"{family}_cold.pt", weights_only=False)
+        warm = torch.load(out / f"{family}_warm.pt", weights_only=False)
+        for key, (secs, nbytes) in cold["compiled"].items():
+            card(f"aot {family}: compiled {key} in {secs:.3f} s "
+                 f"({nbytes / 2**20:.2f} MB package)")
+        aot_w = warm["stats"]["aot"]
+        card(f"aot {family}: first request served "
+             f"{cold['first_request_ms']:.1f} ms cold (from the engine's "
+             f"start, compiles included) vs {warm['first_request_ms']:.1f} "
+             f"ms warm ({aot_w['hits']} package(s) loaded in "
+             f"{aot_w['load_ms']:.3f} ms); the first reply alone "
+             f"{cold['first_reply_ms']:.3f} / {warm['first_reply_ms']:.3f} "
+             f"ms; the model's load {warm['load_s']:.2f} s")
+        check(cold["counts"]["compiles"] >= 1, f"aot {family}: the cold run "
+              "compiled nothing")
+        check(warm["counts"]["compiles"] == 0, f"aot {family}: the warm run "
+              f"compiled {warm['counts']['compiles']} program(s)")
+        same = np.array_equal(cold["replies"], warm["replies"])
+        gap = rel_error(warm["replies"], warm["eager"])
+        worst = float(np.abs(warm["replies"] - warm["eager"]).max())
+        card(f"aot {family}: warm compiles 0, replies bit-identical to the "
+             f"cold run's {same}; store on vs off (eager) rel {gap:.3e}, "
+             f"max abs {worst:.3e}")
+        check(same, f"aot {family}: warm replies differ from the cold run's")
+        check(bool(np.isfinite(warm["replies"]).all()),
+              f"aot {family}: non-finite replies")
+        if family == "trees":
+            eq = np.array_equal(warm["replies"], warm["predict"])
+            card(f"aot trees: store-on replies bit-equal to predict {eq}")
+            check(eq, "aot trees: replies differ from predict")
+        elif family == "wide_deep":
+            env = warm["stats"]["precision"]["envelope"]
+            check(gap <= env, f"aot wide_deep: gap {gap:.3e} outside the "
+                  f"bf16 envelope {env}")
+        else:
+            check(np.allclose(warm["replies"], warm["eager"],
+                              rtol=AOT_F32_RTOL, atol=AOT_F32_ATOL),
+                  f"aot {family}: store on vs off outside rtol "
+                  f"{AOT_F32_RTOL} / atol {AOT_F32_ATOL}")
+        launches[family] = warm["launches"]
+        print(f"aot {family}: launches while serving from the warm store "
+              f"{json.dumps(warm['launches'])}")
+    # the loaded packages reach the kernels: K1 (2 layers a batch) and K4a
+    # (one a batch, and one per sampled drift check of the f32 oracle)
+    pad = launches["padded"]["K1"]
+    check(pad == LAYERS * AOT_REQUESTS, f"aot padded: K1 launched {pad} "
+          f"times, expected {LAYERS} x {AOT_REQUESTS}")
+    wd = torch.load(out / "wide_deep_warm.pt", weights_only=False)
+    drift = wd["stats"]["precision"]["drift_checks"]
+    k4a = launches["wide_deep"]["K4a"]
+    check(k4a == AOT_REQUESTS + drift, f"aot wide_deep: K4a launched {k4a} "
+          f"times, expected {AOT_REQUESTS} batches + {drift} drift checks")
+    aot_plain(out, spec)
+    aot_cli(out, spec)
+    shutil.rmtree(out, ignore_errors=True)
+    return {"K1": pad, "K4a": k4a}
+
+
+def aot_plain(out: Path, spec: dict) -> None:
+    """The two kernel paths of the warm store against their plain versions:
+    the same program eagerly on the CPU (plain K1, plain K4a) on the same
+    requests."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import rel_error
+
+    for family in ("padded", "wide_deep"):
+        warm = torch.load(out / f"{family}_warm.pt", weights_only=False)
+        arg, path = spec[family]
+        backend, cfg = aot_backend(family, arg, str(path), device="cpu")
+        eng = aot_engine(backend, cfg, None)
+        try:
+            plain = np.stack([eng.predict(r) for r in aot_requests(family)])
+        finally:
+            eng.close()
+        err = rel_error(warm["replies"], plain)
+        tol = (F32_SERVE_TOL if family == "padded"
+               else warm["stats"]["precision"]["envelope"])
+        kernel = "K1" if family == "padded" else "K4a"
+        card(f"aot {family}: loaded packages on the card ({kernel} inside) "
+             f"vs the plain version's program on the CPU: rel {err:.3e} "
+             f"(tol {tol:.0e})")
+        check(err <= tol, f"aot {family}: the card's replies disagree with "
+              "the plain version's")
+        del backend
+
+
+def aot_cli(out: Path, spec: dict) -> None:
+    """What ``aot prewarm`` (the 2048-tree ensemble, into a fresh store,
+    run beside the cold children) printed, ``aot ls`` and ``aot verify``
+    through the CLI, then a truncated blob: a counted miss on the card,
+    quarantined to ``*.bad``."""
+    from euromillioner_tpu_torch import cli
+    from euromillioner_tpu_torch.serve.aotstore import AotStore
+
+    def run(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+        return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    d = out / "cli_store"
+    log = (out / f"cold{len(AOT_FAMILIES)}.log").read_text().splitlines()
+    rep = json.loads([ln for ln in log if ln.startswith('{"dir"')][-1])
+    card(f"aot prewarm (trees, CLI, beside the cold children): "
+         f"{json.dumps(rep)}")
+    check(rep["saved"] == 1 and rep["errors"] == 0, "aot prewarm failed")
+    rc, rep = run("aot", "ls", "--dir", str(d))
+    check(rc == 0 and len(rep["entries"]) == 1, "aot ls")
+    rc, rep = run("aot", "verify", "--dir", str(d))
+    print(f"aot verify: exit {rc}, {json.dumps(rep)}")
+    check(rc == 0 and rep["ok"] == 1, "aot verify")
+    # a truncated blob: the engine's preload misses, counts and quarantines
+    (blob,) = d.glob("*.aot")
+    data = blob.read_bytes()
+    blob.write_bytes(data[:len(data) // 2])
+    from euromillioner_tpu_torch.serve.engine import InferenceEngine
+
+    backend, cfg = aot_backend("trees", *map(str, spec["trees"]))
+    eng = InferenceEngine(backend, buckets=cfg.serve.buckets, warmup=False,
+                          aot=AotStore(str(d)))
+    try:
+        loaded = eng._exec.preload_aot()
+        aot = eng._exec.aot_counts()
+    finally:
+        eng.close()
+    bad = blob.with_name(blob.name + ".bad")
+    print(f"aot truncated blob: loaded {loaded}, store counts "
+          f"{json.dumps(aot)}, quarantined {bad.exists()}")
+    check(loaded == 0 and aot["errors"] == 1 and bad.exists(),
+          "a truncated blob was not a counted, quarantined miss")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6246,6 +6672,10 @@ def main() -> int:
         bench = phase_lstm_bench(k1b, k2b)
         phase_step_bf16(root)
         tbptt = phase_tbptt(root)
+        # phase 33 serves the trained flagship from the AOT store last
+        flagship = root / "build" / "chip_aot_flagship"
+        shutil.rmtree(flagship, ignore_errors=True)
+        shutil.copytree(ckdir, flagship)
         shutil.rmtree(ckdir.parent, ignore_errors=True)
         # the boosters' per-round eval lines: 3,000 lines of stdout
         logging.getLogger("euromillioner_tpu_torch.trees.gbt").setLevel(
@@ -6277,6 +6707,8 @@ def main() -> int:
         dp1_families = phase_train_dp_families(root)
         ranks = phase_ranks_on_one_card(root)
         phase_param_avg(root)
+        aot = phase_aot(root, flagship)
+        shutil.rmtree(flagship, ignore_errors=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6286,7 +6718,7 @@ def main() -> int:
         "serve_bf16_ckpt_int8w": bf16_serve_k1["int8w"],
         "serve_http_fused": http_k1, "replay_fused": replay_k1,
         "train_dp_gloo": ranks["lstm"]["K1.f32"],
-        "train_tbptt": tbptt["K1.f32"]}
+        "train_tbptt": tbptt["K1.f32"], "aot_padded_fused": aot["K1"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {"train": train_k2,
                               "train_dp_gloo": ranks["lstm"]["K2.f32"],
@@ -6315,7 +6747,8 @@ def main() -> int:
                                "serve_bf16": tiers_k4a["bf16"],
                                "serve_int8w_drift_oracle":
                                    tiers_k4a["int8w"],
-                               "train_dp": dp1_families["K4a"]}
+                               "train_dp": dp1_families["K4a"],
+                               "aot_serve_bf16": aot["K4a"]}
     k4a["launches"] = sum(k4a["launches_by_path"].values())
     k4b["launches_by_path"] = {"train": train_k4b,
                                "bench_step": wd_bench["launches"]["K4b"],

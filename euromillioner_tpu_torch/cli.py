@@ -1,5 +1,5 @@
 """CLI: ``python -m euromillioner_tpu_torch fetch|train|predict|reference|serve|
-replay|trace-export|obs-top``.
+replay|trace-export|obs-top|aot``.
 
 The JAX package's subcommands for the ported paths, with the same flags,
 dotted config overrides and exit codes (the error taxonomy's
@@ -34,7 +34,9 @@ seeded in-process engines (``--smoke``), and prints the attainment report;
 ``trace-export`` turns a capture file or metrics JSONL into a replay
 trace; ``obs-top`` prints one summary line per second from a metrics
 JSONL (``--jsonl``), a server's ``/stats`` (``--url``) or several servers'
-``/metrics`` (``--fleet``).
+``/metrics`` (``--fleet``). With ``serve.aot.enabled=true`` ``serve`` runs
+its programs compiled ahead of time from the AOT store (``serve.aot.dir``);
+``aot prewarm|ls|verify|prune`` fills, lists, checks and prunes that store.
 """
 
 from __future__ import annotations
@@ -500,6 +502,15 @@ def cmd_serve(args, cfg: Config) -> int:
     if args.scheduler:
         cfg.serve.scheduler = args.scheduler
     resolve_serve_precision(cfg.serve.precision)
+    # the AOT program store (serve.aot.*): warmup loads the recorded
+    # ladder from disk instead of compiling it
+    from euromillioner_tpu_torch.serve.aotstore import open_store
+
+    aot = open_store(cfg.serve.aot)
+    if aot is not None:
+        n = len(aot.entries())
+        logger.info("serve.aot store at %s (%d entr%s, %.2f MB)", aot.dir,
+                    n, "y" if n == 1 else "ies", aot.total_bytes() / 2**20)
     if args.model_type == "lstm":
         from euromillioner_tpu_torch.serve.continuous import (
             load_recurrent_backend, make_sequence_engine)
@@ -507,7 +518,7 @@ def cmd_serve(args, cfg: Config) -> int:
         backend = load_recurrent_backend(cfg, args.checkpoint,
                                          args.num_features,
                                          device=args.device)
-        engine = make_sequence_engine(backend, cfg)
+        engine = make_sequence_engine(backend, cfg, aot=aot)
     else:
         if cfg.serve.scheduler == "continuous":
             raise ServeError(
@@ -519,7 +530,7 @@ def cmd_serve(args, cfg: Config) -> int:
         backend = load_backend(args.model_type, args.checkpoint, cfg,
                                args.num_features, device=args.device,
                                model_file=args.model_file)
-        engine = make_row_engine(backend, cfg)
+        engine = make_row_engine(backend, cfg, aot=aot)
     try:
         prec = engine.precision_desc
         logger.info("serve.precision=%s (pinned max-rel-error envelope: %s; "
@@ -626,6 +637,76 @@ def _replay_smoke_engines(families, cfg: Config, device) -> dict:
             backend, buckets=(8, 32), max_wait_ms=cfg.serve.max_wait_ms,
             warmup=False, classes=cfg.serve.classes, **obs)
     return engines
+
+
+def cmd_aot(args, cfg: Config) -> int:
+    """``aot``: operate the AOT program store (serve/aotstore.py).
+    ``prewarm`` builds the serving engine ``serve`` would build, with the
+    store, and lets its warmup compile the whole ladder into it (every
+    ``serve.profiles`` entry too); for ``lstm`` the ladder is the step
+    scheduler's unless ``serve.scheduler=batch`` is given, which prewarms
+    the padded (rows, steps) programs. ``ls`` lists the entries,
+    ``verify`` crc- and stamp-checks every blob (quarantining bad ones as
+    a serving load would; exit 1 if any), ``prune`` LRU-prunes to a byte
+    bound. Each prints one JSON line."""
+    from euromillioner_tpu_torch.serve.aotstore import AotStore
+
+    path = args.dir or cfg.serve.aot.dir or os.path.join(os.getcwd(),
+                                                          ".aot_store")
+    store = AotStore(path, max_bytes=cfg.serve.aot.max_bytes)
+    if args.action == "ls":
+        print(json.dumps({"dir": store.dir, "bytes": store.total_bytes(),
+                          "entries": store.entries()}))
+        return 0
+    if args.action == "verify":
+        rep = store.verify()
+        print(json.dumps({"dir": store.dir, **rep}))
+        return 0 if not rep["bad"] else 1
+    if args.action == "prune":
+        cap = (args.max_bytes if args.max_bytes is not None
+               else cfg.serve.aot.max_bytes)
+        removed = store.prune(cap)
+        print(json.dumps({"dir": store.dir, "removed": removed,
+                          "bytes": store.total_bytes(), "max_bytes": cap}))
+        return 0
+    from euromillioner_tpu_torch.core.precision import resolve_serve_precision
+
+    resolve_serve_precision(cfg.serve.precision)
+    cfg.serve.warmup = True  # the warmup is what compiles the ladder
+    t0 = time.perf_counter()
+    if args.model_type == "lstm":
+        from euromillioner_tpu_torch.serve.continuous import (
+            load_recurrent_backend, make_sequence_engine)
+
+        explicit_batch = any(
+            ov.split("=", 1)[0].strip().lstrip("-") == "serve.scheduler"
+            and ov.split("=", 1)[1].strip() == "batch"
+            for ov in args.overrides if "=" in ov)
+        if not explicit_batch:
+            cfg.serve.scheduler = "continuous"
+        backend = load_recurrent_backend(cfg, args.checkpoint,
+                                         args.num_features,
+                                         device=args.device)
+        make_sequence_engine(backend, cfg, aot=store).close()
+    else:
+        from euromillioner_tpu_torch.serve.engine import make_row_engine
+        from euromillioner_tpu_torch.serve.session import load_backend
+
+        backend = load_backend(args.model_type, args.checkpoint, cfg,
+                               args.num_features, device=args.device,
+                               model_file=args.model_file)
+        make_row_engine(backend, cfg, aot=store).close()
+    counts = store.counts()
+    if counts["saves"] == 0 and not store.entries():
+        raise ServeError(
+            f"aot prewarm compiled nothing into {store.dir} — check the "
+            "model artifact and the serve.* ladder")
+    print(json.dumps({"dir": store.dir, "saved": counts["saves"],
+                      "errors": counts["errors"],
+                      "entries": len(store.entries()),
+                      "bytes": store.total_bytes(),
+                      "seconds": round(time.perf_counter() - t0, 3)}))
+    return 0
 
 
 def cmd_replay(args, cfg: Config) -> int:
@@ -879,7 +960,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="source JSONL (serve.obs.capture_path or "
                          "serve.metrics_jsonl output)")
     te.add_argument("--out", required=True, help="trace output path")
-    for s in (fe, tr, pr, rf, sv, ot, rp, te):
+    ao = sub.add_parser(
+        "aot", help="AOT program store ops: prewarm a model's whole "
+                    "serving ladder into the store, list / crc-verify / "
+                    "LRU-prune its entries (serve.aot.* knobs)")
+    ao.add_argument("action", choices=["prewarm", "ls", "verify", "prune"])
+    ao.add_argument("--dir", help="store directory (overrides "
+                                  "serve.aot.dir)")
+    ao.add_argument("--model-type", default="mlp",
+                    choices=["gbt", "rf", "mlp", "lstm", "wide_deep",
+                             "classic"],
+                    help="prewarm: model family (lstm prewarms the step "
+                         "scheduler's (rows, block) ladder; row families "
+                         "the bucket table)")
+    ao.add_argument("--model-file", help="prewarm: model JSON "
+                                         "(gbt, rf, classic)")
+    ao.add_argument("--checkpoint",
+                    help="prewarm: checkpoint dir (latest intact step)")
+    ao.add_argument("--num-features", type=int, default=0,
+                    help="prewarm: input feature count (default: family "
+                         "standard)")
+    ao.add_argument("--max-bytes", type=int, default=None,
+                    help="prune: byte bound (default serve.aot.max_bytes)")
+    ao.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help=f"prewarm: serving device ({device_help})")
+    for s in (fe, tr, pr, rf, sv, ot, rp, te, ao):
         s.add_argument("overrides", nargs="*", default=[],
                        help="config overrides: section.field=value")
     return p
@@ -888,7 +993,7 @@ def build_parser() -> argparse.ArgumentParser:
 _COMMANDS = {"fetch": cmd_fetch, "train": cmd_train, "predict": cmd_predict,
              "reference": cmd_reference, "serve": cmd_serve,
              "replay": cmd_replay, "trace-export": cmd_trace_export,
-             "obs-top": cmd_obs_top}
+             "obs-top": cmd_obs_top, "aot": cmd_aot}
 
 
 def main(argv: list[str] | None = None) -> int:

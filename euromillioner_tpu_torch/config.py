@@ -278,6 +278,31 @@ class PagingConfig:
 
 
 @dataclass
+class AotConfig:
+    """The AOT program store (serve/aotstore.py): serving programs compiled
+    ahead of time with AOTInductor and kept on disk, so a restarted
+    serving process loads its whole (bucket, rows, steps, block, profile)
+    ladder instead of compiling it. Nested under ``serve`` — override as
+    ``serve.aot.field=``. The default (disabled) keeps serving eager, as
+    without the store."""
+
+    # Master switch. On, every serving program is exported with its
+    # parameters as inputs, compiled and kept (crc32-checked EMT1 blobs
+    # keyed by the program's fingerprint and the environment: torch, CUDA,
+    # the card, the CPU, the custom ops and kernel sources — a stale or
+    # foreign entry is a miss, never a load); a warm manifest records
+    # every key ever compiled, and warmup preloads them all. A corrupt
+    # blob falls back to a fresh compile (counted, quarantined: the
+    # serve.aot fault point); a failed compile raises.
+    enabled: bool = False
+    # Store directory. "" = .aot_store under the working directory.
+    dir: str = ""
+    # Size bound: after each save the store LRU-prunes (oldest file mtime
+    # first; loads refresh it) down to this many bytes. 0 = unbounded.
+    max_bytes: int = 1 << 30
+
+
+@dataclass
 class ServeConfig:
     """Serving: the HTTP front end (serve/transport.py), the sequence
     schedulers (serve/continuous.py) and the row engine
@@ -293,8 +318,8 @@ class ServeConfig:
     # In-flight micro-batch window (>= 2 overlaps the next batch's upload
     # with the current batch's compute).
     inflight: int = 2
-    # Accepted so overrides shared with the JAX package parse; an eager
-    # PyTorch program keeps no compiled-executable cache to bound.
+    # Compiled programs an engine keeps in RAM (LRU) under serve.aot; the
+    # eager default keeps none.
     max_executables: int = 16
     # Sequence family (lstm): "batch" coalesces whole sequences into
     # time/row-padded micro-batches; "continuous" schedules at the step
@@ -349,6 +374,8 @@ class ServeConfig:
     budget: BudgetConfig = field(default_factory=BudgetConfig)
     # Step scheduler: paged slot state (serve.paging.*).
     paging: PagingConfig = field(default_factory=PagingConfig)
+    # The AOT program store (serve.aot.*).
+    aot: AotConfig = field(default_factory=AotConfig)
 
 
 @dataclass

@@ -172,14 +172,14 @@ class LSTM(LSTMCell):
         K1 alone without its residual writes. wh runs in x_proj's dtype,
         the peepholes in f32 (the JAX package's ``LSTM.apply``)."""
         from euromillioner_tpu_torch.ops.fused_lstm import (LSTMSequence,
-                                                            lstm_sequence)
+                                                            lstm_sequence_op)
 
         wh = self.wh.to(x_proj.dtype).contiguous()
         peep = self._peep_rows()
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (x_proj, wh, peep)):
             return LSTMSequence.apply(x_proj, wh, peep, self.peepholes)
-        return lstm_sequence(x_proj, wh, peep, self.peepholes)
+        return lstm_sequence_op(x_proj, wh, peep, self.peepholes)
 
     def _peep_rows(self):
         """The kernels' (4, H) f32 peephole operand: rows i, f, o and a

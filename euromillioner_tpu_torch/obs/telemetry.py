@@ -93,6 +93,25 @@ class Emitter:
             self.writer = None
 
 
+def _memo_gauges(gauge, family: str, stats, counts_fn) -> None:
+    """One gauge per stat of ``counts_fn()``'s snapshot; a scrape's reads
+    within 50 ms share one snapshot (one call serves all the stats)."""
+    snap: dict[str, Any] = {"t": -1.0, "counts": {}}
+    lock = threading.Lock()
+
+    def read(stat: str) -> float:
+        now = time.monotonic()
+        with lock:
+            if now - snap["t"] > 0.05:
+                snap["counts"] = counts_fn()
+                snap["t"] = now
+            return snap["counts"].get(stat, 0)
+
+    for stat in stats:
+        gauge.labels(family=family, stat=stat).set_function(
+            lambda s=stat: read(s))
+
+
 class ServeTelemetry:
     """Per-engine metrics registry + trace ring + shared JSONL emitter.
 
@@ -122,6 +141,8 @@ class ServeTelemetry:
                  pages_fn: Callable[[], Mapping[str, float]] | None
                  = None,
                  tree_counts_fn: Callable[[], Mapping[str, float]] | None
+                 = None,
+                 aot_counts_fn: Callable[[], Mapping[str, float]] | None
                  = None):
         self.kind = kind
         self.family = family
@@ -245,25 +266,19 @@ class ServeTelemetry:
                 "serve_tree_chunks_total",
                 "Chunk dispatches of the chunked tree-ensemble path (one "
                 "per chunk per micro-batch)")
-            tg = reg.gauge("serve_trees",
-                           "Chunked-ensemble figures (chunk, n_chunks, "
-                           "chunks, dispatches, chunk_h2d_ms)",
-                           ("family", "stat"))
-            tsnap: dict[str, Any] = {"t": -1.0, "counts": {}}
-            tsnap_lock = threading.Lock()
-
-            def _tree_stat(stat: str) -> float:
-                now = time.monotonic()
-                with tsnap_lock:
-                    if now - tsnap["t"] > 0.05:
-                        tsnap["counts"] = tree_counts_fn()
-                        tsnap["t"] = now
-                    return tsnap["counts"].get(stat, 0)
-
-            for stat in ("chunk", "n_chunks", "chunks", "dispatches",
-                         "chunk_h2d_ms"):
-                tg.labels(family=family, stat=stat).set_function(
-                    lambda s=stat: _tree_stat(s))
+            _memo_gauges(reg.gauge(
+                "serve_trees", "Chunked-ensemble figures (chunk, n_chunks, "
+                "chunks, dispatches, chunk_h2d_ms)", ("family", "stat")),
+                family, ("chunk", "n_chunks", "chunks", "dispatches",
+                         "chunk_h2d_ms"), tree_counts_fn)
+        # the AOT program store (serve.aot): its counters only while a
+        # store is bound, so the default grows no permanently-zero family
+        if aot_counts_fn is not None:
+            _memo_gauges(reg.gauge(
+                "serve_aot", "AOT program store counters (hits, misses, "
+                "saves, errors, load_ms)", ("family", "stat")),
+                family, ("hits", "misses", "saves", "errors", "load_ms"),
+                aot_counts_fn)
         # -- slot-pool (continuous scheduler) extras --------------------
         # kind="slots" — the whole-sequence scheduler is kind="sequence"
         # and must NOT grow permanently-zero step/readback/occupancy

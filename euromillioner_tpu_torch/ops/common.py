@@ -46,13 +46,19 @@ def _nvcc() -> str:
     return path
 
 
+def source_key(source: str) -> str:
+    """The build key of ``csrc/<source>``: 16 hex digits of its bytes and
+    the nvcc flags (a library built from other bytes has another key)."""
+    text = (CSRC / source).read_bytes()
+    return hashlib.sha256(
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+
 def build_library(source: str) -> tuple[Path, str]:
     """``csrc/<source>`` → ``(path of the built .so, nvcc's output)``.
     Reuses a finished build with the same source and flags."""
     src = CSRC / source
-    text = src.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"{src.stem}-{key[:16]}.so"
+    out = BUILD_DIR / f"{src.stem}-{source_key(source)}.so"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / f"{src.stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)

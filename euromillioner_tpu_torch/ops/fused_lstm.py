@@ -450,6 +450,26 @@ def lstm_sequence(x_proj, wh, peep, peepholes: bool = True):
     return _fwd(x_proj, wh, peep, peepholes, residuals=False)[0]
 
 
+@torch.library.custom_op("emtpu::lstm_sequence", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def lstm_sequence_op(x_proj: torch.Tensor, wh: torch.Tensor,
+                     peep: torch.Tensor, peepholes: bool) -> torch.Tensor:
+    """:func:`lstm_sequence` as a torch custom op (``emtpu::lstm_sequence``):
+    the one route from a model to K1 when nothing is differentiated — the
+    eager serving programs and the programs compiled ahead of time
+    (serve/aotstore.py), which keep it as an opaque call. The launch goes
+    through :func:`lstm_sequence`, so ``FUSED_LSTM_FWD.launches`` counts it
+    wherever it runs."""
+    return lstm_sequence(x_proj, wh, peep, peepholes)
+
+
+@lstm_sequence_op.register_fake
+def _lstm_sequence_fake(x_proj, wh, peep, peepholes):
+    # the kernel's output: a fresh contiguous (T, B, H) in x_proj's dtype
+    t, b, h = _check(x_proj, wh, peep)
+    return x_proj.new_empty((t, b, h))
+
+
 def lstm_forward(x_proj, wh, peep, peepholes: bool = True):
     """As :func:`lstm_sequence`, returning ``(hs, cs, gates)`` — the
     residuals the backward pass keeps (the JAX package's ``_fwd``)."""

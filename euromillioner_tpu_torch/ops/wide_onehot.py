@@ -313,6 +313,24 @@ def wide_onehot_fwd(w, ids):
     return out
 
 
+@torch.library.custom_op("emtpu::wide_onehot_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def wide_onehot_fwd_op(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """:func:`wide_onehot_fwd` as a torch custom op
+    (``emtpu::wide_onehot_fwd``): the one route from a model to K4a when
+    nothing is differentiated — the eager serving programs and the programs
+    compiled ahead of time (serve/aotstore.py), which keep it as an opaque
+    call. The launch goes through :func:`wide_onehot_fwd`, so
+    ``WIDE_ONEHOT_FWD.launches`` counts it wherever it runs."""
+    return wide_onehot_fwd(w, ids)
+
+
+@wide_onehot_fwd_op.register_fake
+def _wide_onehot_fwd_fake(w, ids):
+    # the kernel's output: a fresh contiguous (B, E) float32
+    return w.new_empty((ids.shape[0], w.shape[2]), dtype=torch.float32)
+
+
 def _fwd_args(plan: FwdPlan, w, ids, out) -> tuple:
     """K4a's C arguments for one call: the pointers, the shape, the dtype
     code, the plan's fields and the device."""
@@ -374,5 +392,8 @@ class WideOnehotMatmul(torch.autograd.Function):
 
 
 def wide_onehot_matmul(w, ids):
-    """Σ_k onehot(ids[:, k], V) @ w[k] with the kernels' gradient."""
-    return WideOnehotMatmul.apply(w, ids)
+    """Σ_k onehot(ids[:, k], V) @ w[k] with the kernels' gradient: the
+    Function when w is differentiated, else the custom op."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return WideOnehotMatmul.apply(w, ids)
+    return wide_onehot_fwd_op(w, ids)

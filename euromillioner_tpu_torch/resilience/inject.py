@@ -27,8 +27,8 @@ check and immediate return — no allocation, no locking, no logging — so the
 points can live on per-step training and serving paths.
 
 Registered points (grep ``fault_point(`` for ground truth). The JAX
-package's ``serve.aot``, ``serve.shard`` and ``fleet.*`` points come with
-the modules that hold them (ROADMAP queue 1):
+package's ``serve.shard`` and ``fleet.*`` points come with the modules
+that hold them (ROADMAP queue 1):
 
 ========================  ====================================================
 ``fetch.request``         before each HTTP attempt (``data/fetch.py``)
@@ -107,6 +107,11 @@ the modules that hold them (ROADMAP queue 1):
                           the request being admitted — the engine keeps
                           serving and a fault-free rerun is
                           bit-identical
+``serve.aot``             on each AOT store load and save
+                          (serve/aotstore.py); a fire on load is a
+                          counted miss (the program compiles afresh, the
+                          healthy blob stays), on save the entry is
+                          skipped — serving goes on either way
 ``serve.chunk``           before each chunk of the chunked tree-ensemble
                           dispatch (serve/session.py
                           ``_TreeBackend._dispatch_chunked``, only while

@@ -92,13 +92,21 @@ the JAX package has them: ``serve.request``, ``serve.budget``,
 or quantization, whose failure falls the backend back to the f32 programs
 (a fused kernel that fails to build still raises).
 
-Not ported yet (ROADMAP queue 1): the serving mesh and the AOT store.
+The AOT program store (``serve.aot``, serve/aotstore.py): with a store,
+the batch scheduler's (rows, steps) programs (``padded``) and the step
+scheduler's rungs and finishers' gathers (``ladder``) are compiled ahead of
+time from the backend's ``padded_pure`` and ``block_pure`` (the serving
+params as an input) through one executable cache per scheduler, shared with
+its profile children; warmup preloads the warm manifest first, so rungs an
+elastic pool grew into load from disk too. The paged dispatch's row
+gathers and scatters stay eager.
+
+Not ported yet (ROADMAP queue 1): the serving mesh.
 """
 
 from __future__ import annotations
 
 import collections
-import copy
 import heapq
 import itertools
 import math
@@ -138,7 +146,9 @@ from euromillioner_tpu_torch.serve.engine import (DRIFT_EVERY, ClassStats,
                                                   resolve_classes,
                                                   resolve_request_class)
 from euromillioner_tpu_torch.serve.session import (BudgetPolicy,
+                                                   ExecutableCache,
                                                    MemoryLedger,
+                                                   _skeleton,
                                                    admit_queue_bytes)
 from euromillioner_tpu_torch.utils import serialization
 from euromillioner_tpu_torch.utils.errors import (CheckpointError,
@@ -207,9 +217,11 @@ class RecurrentBackend:
     ``serve_dtype`` is what the programs compute in: the compute dtype
     under ``f32``, bfloat16 under ``bf16``, float32 under ``fused`` and
     ``int8w`` (the JAX package's ``sdt``). ``bf16`` and ``int8w`` run on
-    ``serve_params`` (the bf16 cast, or the int8 values and scales); both
-    programs run a private skeleton of the model (its own params on the
-    meta device) on them."""
+    ``serve_params`` (the bf16 cast, or the int8 values and scales): both
+    programs run a private skeleton of the model (its params on the meta
+    device) on them. ``padded_pure(params, x, last_idx)`` and
+    ``block_pure(params, states, x_block, reset)`` are the same programs
+    with the params an input (what the AOT store compiles)."""
 
     family = "lstm"
 
@@ -271,49 +283,70 @@ class RecurrentBackend:
             from euromillioner_tpu_torch.ops.fused_lstm import FUSED_LSTM_FWD
 
             FUSED_LSTM_FWD.build()
-        # the bf16 and int8w tiers run a private skeleton of the model
-        # (its params on the meta device) on serve_params
-        base = (model if self.serve_params is None
-                else copy.deepcopy(model).to("meta"))
-        padded_program = _PaddedProgram(base, fused)
-        block_program = _BlockProgram(base)
+        # ``padded_pure`` and ``block_pure`` run a private skeleton of the
+        # model (its params on the meta device) through functional_call on
+        # the params, an input: what the AOT store compiles
+        # (serve/aotstore.py). The eager programs are the same functions
+        # over the model's own modules under f32 and fused (no rebinding
+        # per call), and over the skeleton on serve_params otherwise
+        skel = _skeleton(model)
+        pure_padded = _PaddedProgram(skel, fused)
+        pure_block = _BlockProgram(skel)
+        own = self.serve_params is None
+        eager_padded = _PaddedProgram(model, fused) if own else pure_padded
+        eager_block = _BlockProgram(model) if own else pure_block
         lock = threading.Lock()  # functional_call swaps the skeleton's params
         quantized = self.precision == "int8w"
         act_q = self._act_quant and quantized
         sdt = self.serve_dtype
         dev = self.device
+        f32 = torch.float32
 
-        def run(program, *args):
-            if self.serve_params is None:
+        def run(program, p, args):
+            if p is None:  # the model's own modules and params
                 return program(*args)
-            params = self.serve_params
             if quantized:  # int8 stays resident, dequantized at each call
-                params = dequantize_int8w(params, torch.float32)
+                p = dequantize_int8w(p, f32)
             with lock:
                 return torch.func.functional_call(
-                    program, {f"model.{k}": v for k, v in params.items()},
-                    args)
+                    program, {f"model.{k}": v for k, v in p.items()}, args)
+
+        def padded_on(program, p, x, last_idx):
+            h = x.to(sdt)
+            if act_q:
+                h = fake_quant_int8(h)
+            return run(program, p, (h, last_idx)).to(f32)
+
+        def block_on(program, p, states, x_block, reset):
+            x = x_block.to(sdt)
+            if act_q:
+                x = fake_quant_int8(x)
+            zero = torch.zeros((), dtype=sdt, device=x.device)
+            carry = [(torch.where(reset, zero, h),
+                      torch.where(reset, zero, c)) for h, c in states]
+            carry, y = run(program, p, (carry, x))
+            return carry, y.to(f32)
+
+        def padded_pure(p, x, last_idx):
+            return padded_on(pure_padded, p, x, last_idx)
+
+        def block_pure(p, states, x_block, reset):
+            return block_on(pure_block, p, states, x_block, reset)
 
         def padded(x, last_idx):
             with torch.inference_mode():
-                h = torch.as_tensor(x, device=dev).to(sdt)
-                if act_q:
-                    h = fake_quant_int8(h)
-                return run(padded_program, h, last_idx).to(torch.float32)
+                return padded_on(eager_padded, self.serve_params,
+                                 torch.as_tensor(x, device=dev), last_idx)
 
         def block(states, x_block, reset):
             with torch.inference_mode():
-                x = x_block.to(sdt)
-                if act_q:
-                    x = fake_quant_int8(x)
-                zero = torch.zeros((), dtype=sdt, device=x.device)
-                carry = [(torch.where(reset, zero, h),
-                          torch.where(reset, zero, c)) for h, c in states]
-                carry, y = run(block_program, carry, x)
-                return carry, y.to(torch.float32)
+                return block_on(eager_block, self.serve_params, states,
+                                x_block, reset)
 
         self.padded_fn = padded
         self.block_fn = block
+        self.padded_pure = padded_pure
+        self.block_pure = block_pure
 
     def serving_params(self) -> dict:
         """The params the serving programs read: ``serve_params``, or the
@@ -658,7 +691,8 @@ class StepScheduler(MetricsSink):
                  paging: PagingPolicy | None = None,
                  metrics_jsonl: str | None = None, obs_enabled: bool = True,
                  trace_capacity: int = 512, slo_ms: Sequence[float] = (),
-                 capture_path: str | None = None):
+                 capture_path: str | None = None, aot=None,
+                 max_executables: int = 16, exec_cache=None):
         if max_slots < 2:
             raise ServeError(f"max_slots must be >= 2, got {max_slots}")
         extra = _extra_profiles(backend, profiles)
@@ -781,6 +815,14 @@ class StepScheduler(MetricsSink):
         self._cls_stats = ClassStats(self.classes)
         self._drift = DriftStats(backend.precision, backend.envelope)
         self._drift_tick = 0
+        # the AOT program store (serve.aot): the ladder's rungs and the
+        # finishers' gather through one executable cache, which the profile
+        # children share; without a store the programs run eagerly
+        self._exec = exec_cache
+        if aot is not None and exec_cache is None:
+            self._exec = _bind_family(aot, "ladder", backend,
+                                      max_executables)
+        self._aot_params = backend.serving_params()
         self.telemetry = ServeTelemetry(
             kind="slots", family=backend.family, profile=backend.precision,
             classes=self.classes, enabled=obs_enabled,
@@ -793,7 +835,9 @@ class StepScheduler(MetricsSink):
             ram_bytes_fn=lambda: self._mem.bytes("ram"),
             disk_bytes_fn=lambda: self._mem.bytes("disk"),
             pages_fn=(self._pages_snapshot if self._paging.enabled
-                      else None))
+                      else None),
+            aot_counts_fn=(self._exec.aot_counts if self._exec is not None
+                           else None))
         tm = self.telemetry
         tm.register_drift(self._drift)
         tm.registry.gauge(
@@ -852,7 +896,8 @@ class StepScheduler(MetricsSink):
                 inflight=inflight, warmup=warmup, start=start,
                 classes=classes, readback_interval_ms=readback_interval_ms,
                 hysteresis=hysteresis, obs_enabled=obs_enabled,
-                trace_capacity=trace_capacity, slo_ms=slo_ms)
+                trace_capacity=trace_capacity, slo_ms=slo_ms,
+                exec_cache=self._exec)
             self._children[p] = child
             tm.extra_registries += (child.telemetry.registry,)
 
@@ -894,17 +939,65 @@ class StepScheduler(MetricsSink):
     def _warmup(self) -> None:
         """Run each rung's block program once at the block's row count,
         then the finisher gather and one read, so the first request pays
-        for no library initialisation or allocator growth."""
-        y = None
+        for no library initialisation or allocator growth. With the AOT
+        store the warm manifest preloads first — every rung an earlier
+        process compiled, those an elastic pool grew into included — and
+        every rung's gather is warmed too."""
+        if self._exec is not None:
+            self._exec.preload_aot()
         rows = self._block_rows
         for k in self.step_blocks:
-            _, y = self.backend.block_fn(
+            _, y = self._block_call(
                 self.backend.init_states(rows),
                 self._put(np.zeros((rows, k, self.backend.feat_dim),
                                    np.float32)),
                 self._put(np.ones((rows, 1), bool)))
-        idx = self._put(np.zeros((1,), np.int64))
-        y[idx, idx].cpu()
+            rows_out = self._gather(y, [0], [0])  # a gather per rung's shape
+        rows_out.cpu()
+
+    def _compiled_block(self, k: int, rows: int | None = None):
+        """The AOT store's block program of one rung: ``(rows, k,
+        profile)``, ``rows`` the block's row count by default."""
+        b = self.backend
+        rows = self._block_rows if rows is None else int(rows)
+        return self._exec.get_or_compile(
+            (rows, int(k), b.precision), b.block_pure, lambda: (
+                self._aot_params, b.init_states(rows),
+                torch.zeros((rows, k, b.feat_dim), device=b.device),
+                torch.zeros((rows, 1), dtype=torch.bool, device=b.device)))
+
+    def _block_call(self, states, x_dev, reset_dev):
+        """One block through the backend's program: eager, or the AOT
+        store's compiled rung."""
+        if self._exec is None:
+            return self.backend.block_fn(states, x_dev, reset_dev)
+        exe = self._compiled_block(x_dev.shape[1], x_dev.shape[0])
+        with torch.inference_mode():
+            carry, y = exe(self._aot_params, states, x_dev, reset_dev)
+        return [tuple(c) for c in carry], y
+
+    def _gather(self, y_dev, slots, subs):
+        """The finishers' output rows ``y_dev[slots, subs]`` on the device.
+        With the AOT store it is a compiled program of the block's shape
+        (``("gather", shape, dtype)``): the lanes pad to the block's rows
+        and the padding is sliced off after."""
+        if self._exec is None:
+            return y_dev[self._put(np.asarray(slots, np.int64)),
+                         self._put(np.asarray(subs, np.int64))]
+        shape = tuple(int(d) for d in y_dev.shape)
+        n = len(slots)
+        lanes = np.zeros((2, shape[0]), np.int64)
+        lanes[0, :n], lanes[1, :n] = slots, subs
+        s_dev, b_dev = self._put(lanes[0]), self._put(lanes[1])
+
+        def gather(y, s, b):
+            return y[s, b]
+
+        key = ("gather", shape, str(y_dev.dtype).removeprefix("torch."))
+        exe = self._exec.get_or_compile(key, gather,
+                                        lambda: (y_dev, s_dev, b_dev))
+        with torch.inference_mode():
+            return exe(y_dev, s_dev, b_dev)[:n]
 
     def _pick_block(self) -> int:
         """This dispatch's block size from the ladder, by load with
@@ -954,6 +1047,8 @@ class StepScheduler(MetricsSink):
                "migrations": self._count("mig_in") + self._count("mig_out")}
         if self._paging.enabled:
             out["pages_live"] = len(self._live)
+        if self._exec is not None:
+            out["aot_hits"] = int(self._exec.aot_counts()["hits"])
         return out
 
     @property
@@ -2204,7 +2299,7 @@ class StepScheduler(MetricsSink):
             # block N+1's copy overlaps block N's compute
             x_dev, reset_dev = self._put(x), self._put(reset)
             t_h2d = time.monotonic()  # upload enqueued (span stamp)
-            states, y_dev = self.backend.block_fn(states, x_dev, reset_dev)
+            states, y_dev = self._block_call(states, x_dev, reset_dev)
             if rows > pool:
                 states = [(h[:pool].clone(), c[:pool].clone())
                           for h, c in states]
@@ -2292,7 +2387,7 @@ class StepScheduler(MetricsSink):
                      for h, c in self._states]
             x_dev, reset_dev = self._put(x), self._put(reset)
             t_h2d = time.monotonic()
-            dense, y_dev = self.backend.block_fn(dense, x_dev, reset_dev)
+            dense, y_dev = self._block_call(dense, x_dev, reset_dev)
             s = g[:n]
             self._states = [(h.index_copy(0, s, dh[:n]),
                              c.index_copy(0, s, dc[:n]))
@@ -2403,9 +2498,8 @@ class StepScheduler(MetricsSink):
         if finished:
             reqs = [req for _s, _b, req in finished]
             try:
-                slots = self._put(np.array([s for s, _b, _r in finished]))
-                subs = self._put(np.array([b for _s, b, _r in finished]))
-                y_sel = y_dev[slots, subs]
+                y_sel = self._gather(y_dev, [s for s, _b, _r in finished],
+                                     [b for _s, b, _r in finished])
             except Exception as e:  # noqa: BLE001 — fail them, keep serving
                 self._fail(reqs, e, "readback")
             else:
@@ -2678,6 +2772,8 @@ class StepScheduler(MetricsSink):
         out["paging"] = paging
         out["p50_step_ms"] = round(percentile(lat, 0.50), 3)
         out["p99_step_ms"] = round(percentile(lat, 0.99), 3)
+        if self._exec is not None:
+            out["aot"] = {"enabled": True, **self._exec.aot_counts()}
         if self._children:
             out["profiles"] = _profiles(self)
         return out
@@ -2745,9 +2841,17 @@ class WholeSequenceScheduler(MetricsSink):
                  profiles: Sequence[str] = (),
                  metrics_jsonl: str | None = None, obs_enabled: bool = True,
                  trace_capacity: int = 512, slo_ms: Sequence[float] = (),
-                 capture_path: str | None = None):
+                 capture_path: str | None = None, aot=None,
+                 max_executables: int = 16, exec_cache=None):
         self.backend = backend
         extra = _extra_profiles(backend, profiles)
+        # the AOT program store (serve.aot): the (rows, steps) programs
+        # through one executable cache the profile children share
+        self._exec = exec_cache
+        if aot is not None and exec_cache is None:
+            self._exec = _bind_family(aot, "padded", backend,
+                                      max_executables)
+        self._aot_params = backend.serving_params()
         self._class_priority = resolve_classes(classes)
         self.classes = tuple(self._class_priority)
         self._cls_stats = ClassStats(self.classes)
@@ -2769,7 +2873,9 @@ class WholeSequenceScheduler(MetricsSink):
             enabled=obs_enabled, trace_capacity=trace_capacity,
             slo_ms=slo_ms, metrics_jsonl=metrics_jsonl,
             capture_path=capture_path,
-            queue_depth_fn=lambda: self._batcher.queue_depth)
+            queue_depth_fn=lambda: self._batcher.queue_depth,
+            aot_counts_fn=(self._exec.aot_counts if self._exec is not None
+                           else None))
         self.telemetry.register_drift(self._drift)
         # row/time fill-ratio sums (this scheduler's two fill figures)
         fills = self.telemetry.registry.counter(
@@ -2793,7 +2899,7 @@ class WholeSequenceScheduler(MetricsSink):
                 time_buckets=time_buckets, max_wait_ms=max_wait_ms,
                 inflight=inflight, warmup=warmup, classes=classes,
                 obs_enabled=obs_enabled, trace_capacity=trace_capacity,
-                slo_ms=slo_ms)
+                slo_ms=slo_ms, exec_cache=self._exec)
             for p in extra}
         for child in self._children.values():
             self.telemetry.extra_registries += (child.telemetry.registry,)
@@ -2806,11 +2912,29 @@ class WholeSequenceScheduler(MetricsSink):
     def warmup(self) -> None:
         """Run every (row bucket, time bucket) program once, so the first
         request pays for no kernel build, allocator growth or library
-        initialisation."""
+        initialisation; with the AOT store the warm manifest preloads
+        first."""
+        if self._exec is not None:
+            self._exec.preload_aot()
         for rb in self.row_buckets:
             for tb in self.time_buckets:
                 x = np.zeros((rb, tb, self.backend.feat_dim), np.float32)
-                self.backend.padded_fn(x, np.zeros((rb,), np.int64)).cpu()
+                self._padded(x, np.zeros((rb,), np.int64)).cpu()
+
+    def _padded(self, x: np.ndarray, last: np.ndarray) -> torch.Tensor:
+        """One padded batch through the backend's program: eager, or the
+        AOT store's compiled program of its ``((rows, steps, F),
+        profile)``."""
+        b = self.backend
+        if self._exec is None:
+            return b.padded_fn(x, last)
+        x_dev = torch.as_tensor(x, device=b.device)
+        last_dev = torch.as_tensor(last, dtype=torch.long, device=b.device)
+        exe = self._exec.get_or_compile(
+            (tuple(x.shape), b.precision), b.padded_pure,
+            lambda: (self._aot_params, x_dev, last_dev))
+        with torch.inference_mode():
+            return exe(self._aot_params, x_dev, last_dev)
 
     @property
     def slo_desc(self) -> dict:
@@ -2820,7 +2944,10 @@ class WholeSequenceScheduler(MetricsSink):
     @property
     def load_desc(self) -> dict:
         """/healthz: constant-time load figures."""
-        return {"queued": self._batcher.queue_depth}
+        out = {"queued": self._batcher.queue_depth}
+        if self._exec is not None:
+            out["aot_hits"] = int(self._exec.aot_counts()["hits"])
+        return out
 
     @property
     def precision_desc(self) -> dict:
@@ -2907,7 +3034,7 @@ class WholeSequenceScheduler(MetricsSink):
             for i, req in enumerate(batch):
                 x[i, :lens[i]] = req.x[0]
                 last[i] = lens[i] - 1
-            y_dev = self.backend.padded_fn(x, last)
+            y_dev = self._padded(x, last)
         except Exception as e:  # noqa: BLE001 — fail the batch, keep serving
             self._fail(batch, e)
             return
@@ -3014,6 +3141,8 @@ class WholeSequenceScheduler(MetricsSink):
         }
         out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
         out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
+        if self._exec is not None:
+            out["aot"] = {"enabled": True, **self._exec.aot_counts()}
         if self._children:
             out["profiles"] = _profiles(self)
         return out
@@ -3035,13 +3164,29 @@ class WholeSequenceScheduler(MetricsSink):
         self.close()
 
 
-def make_sequence_engine(backend: RecurrentBackend, cfg):
+def _bind_family(aot, program: str, backend: RecurrentBackend,
+                 maxsize: int) -> ExecutableCache:
+    """An executable cache over one sequence family of the AOT store
+    (``padded`` or ``ladder``): identity the f32 params' structure; the
+    profile rides in each program's key."""
+    cache = ExecutableCache(maxsize)
+    cache.bind_aot(aot.space(program=program, family=backend.family,
+                             backend_name=backend.name,
+                             params=backend.model.state_dict(),
+                             device=backend.device))
+    return cache
+
+
+def make_sequence_engine(backend: RecurrentBackend, cfg, aot=None):
     """``cfg.serve`` → the configured sequence scheduler ("batch" |
     "continuous"), the step scheduler with ``serve.preempt``,
     ``serve.budget`` and ``serve.paging``; the batch scheduler warns that
-    it has no slots for the first two."""
+    it has no slots for the first two. ``aot`` is an open AOT store
+    (serve/aotstore.py ``open_store``) or None."""
     serve = cfg.serve
     obs = obs_kwargs(serve)
+    if aot is not None:
+        obs.update(aot=aot, max_executables=serve.max_executables)
     if serve.scheduler == "continuous":
         return StepScheduler(
             backend, max_slots=serve.max_slots, step_block=serve.step_block,

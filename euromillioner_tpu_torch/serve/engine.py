@@ -44,8 +44,21 @@ serves chunked streams its chunk tables through this engine's ledger
 ``serve_trees`` gauges appear only then, and a ``chunked_mean`` forest
 is sampled against its whole-forest ``predict``.
 
-Not ported yet: the serving mesh, the AOT store, and chunking of a
-request larger than the largest bucket (refused with a ServeError).
+A request larger than the largest bucket is cut into bucket-sized
+requests, each admitted on its own (its own trace id, one replay event for
+the whole), and the reply joins theirs in order; a cut the batcher refuses
+un-admits itself and the cuts after it (the request counter and the
+budget's queue bytes).
+
+The AOT program store (``serve.aot``, serve/aotstore.py): with a store
+each bucket's program is compiled ahead of time (``row``; a chunked
+ensemble's chunk program, ``tree_chunk``) through one
+:class:`~euromillioner_tpu_torch.serve.session.ExecutableCache` the
+profile children share; warmup preloads the warm manifest first.
+``stats()["aot"]``, ``/healthz`` ``aot_hits`` and the ``serve_aot`` gauges
+appear only then. The f32 drift oracle stays eager.
+
+Not ported yet: the serving mesh.
 """
 
 from __future__ import annotations
@@ -219,6 +232,32 @@ class MetricsSink:
         self.telemetry.emit(record)
 
 
+def _joined(reqs: list[Request]) -> Future:
+    """One future over the cut requests of an oversized submit: their
+    replies joined in order, or the first failure."""
+    outer: Future = Future()
+    pending = [len(reqs)]
+    lock = threading.Lock()
+
+    def done(f: Future) -> None:
+        with lock:
+            if outer.done():
+                return
+            exc = None if f.cancelled() else f.exception()
+            if f.cancelled() or exc is not None:
+                outer.set_exception(exc or ServeError(
+                    "a part of the request was cancelled"))
+                return
+            pending[0] -= 1
+            if pending[0] == 0:
+                outer.set_result(np.concatenate(
+                    [r.future.result() for r in reqs]))
+
+    for r in reqs:
+        r.future.add_done_callback(done)
+    return outer
+
+
 class InferenceEngine(MetricsSink):
     """Dynamic micro-batching over one row backend (``serve.session``'s
     ``NNBackend``, ``GBTBackend``, ``RFBackend`` or ``ClassicBackend``):
@@ -238,7 +277,8 @@ class InferenceEngine(MetricsSink):
                  profiles: Sequence[str] = (), budget=None,
                  metrics_jsonl: str | None = None, obs_enabled: bool = True,
                  trace_capacity: int = 512, slo_ms: Sequence[float] = (),
-                 capture_path: str | None = None):
+                 capture_path: str | None = None, aot=None,
+                 max_executables: int = 16, exec_cache=None):
         self.backend = backend
         # where the JAX package's engine holds its backend (a session);
         # replay's payload_for reads the feature shape there
@@ -286,6 +326,19 @@ class InferenceEngine(MetricsSink):
         if getattr(backend, "chunked", None) is not None:
             backend.attach_ledger(self._mem)
             self._n_chunks = backend.tree_counts()["n_chunks"]
+        # the AOT program store (serve.aot): the programs compiled ahead
+        # of time, through one executable cache that the profile children
+        # share; without a store every program runs eagerly
+        self._exec = exec_cache
+        if aot is not None and exec_cache is None:
+            self._exec = self._bind_aot(aot, max_executables)
+        if self._exec is not None:
+            probe = backend.prepare(np.zeros((1, *self._feat_shape),
+                                             np.float32))
+            self._prep_feat = tuple(probe.shape[1:])
+            self._prep_dtype = probe.dtype
+            self._aot_fn = (None if self._n_chunks
+                            else backend.aot_program(self.precision))
         # the telemetry: registry counters (the stats() store), trace
         # ring, SLO attainment, the shared JSONL emitter
         self.telemetry = ServeTelemetry(
@@ -295,7 +348,9 @@ class InferenceEngine(MetricsSink):
             metrics_jsonl=metrics_jsonl, capture_path=capture_path,
             queue_depth_fn=lambda: self._batcher.queue_depth,
             tree_counts_fn=(backend.tree_counts if self._n_chunks
-                            else None))
+                            else None),
+            aot_counts_fn=(self._exec.aot_counts if self._exec is not None
+                           else None))
         self.telemetry.register_drift(self._drift)
         self._lock = threading.Lock()
         self._latencies: collections.deque = collections.deque(
@@ -319,7 +374,8 @@ class InferenceEngine(MetricsSink):
                     backend, buckets=buckets, max_wait_ms=max_wait_ms,
                     inflight=inflight, warmup=warmup, classes=classes,
                     precision=p, obs_enabled=obs_enabled,
-                    trace_capacity=trace_capacity, slo_ms=slo_ms)
+                    trace_capacity=trace_capacity, slo_ms=slo_ms,
+                    exec_cache=self._exec)
                 self._children[p] = child
                 self.telemetry.extra_registries += (
                     child.telemetry.registry,)
@@ -342,16 +398,74 @@ class InferenceEngine(MetricsSink):
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return upload(x, self.backend.device)
 
+    def _bind_aot(self, aot, maxsize: int):
+        """This engine's executable cache over the store's ``row`` family
+        (identity: the f32 params' structure; the profile rides in each
+        bucket's key), or ``tree_chunk`` for a chunked ensemble (identity:
+        one chunk block and the chunk programs' signature, so a grown
+        ensemble compiles nothing)."""
+        from euromillioner_tpu_torch.serve.session import ExecutableCache
+
+        b = self.backend
+        cache = ExecutableCache(maxsize)
+        if self._n_chunks:
+            blk = {k: torch.from_numpy(v)
+                   for k, v in b.chunked.blocks[0].items()}
+            space = aot.space(program="tree_chunk", family=b.family,
+                              backend_name=f"{b.name}|{b.chunked.signature}",
+                              params=blk, device=b.device)
+        else:
+            space = aot.space(program="row", family=b.family,
+                              backend_name=b.name,
+                              params=b.aot_program("f32")[1],
+                              device=b.device)
+        cache.bind_aot(space)
+        return cache
+
+    def _compiled(self, bucket: int):
+        """The AOT store's program for one bucket of this engine's profile:
+        ``(program, params, tail)``."""
+        fn, params, tail = self._aot_fn
+        shape = (bucket, *self._prep_feat)
+        exe = self._exec.get_or_compile(
+            (shape, self._prep_dtype.str, self.precision), fn,
+            lambda: (params, self._put(np.zeros(shape, self._prep_dtype))))
+        return exe, params, tail
+
+    def _chunk_leaves(self, block: dict, binned: torch.Tensor):
+        """The AOT store's leaf-value program of one chunk block at
+        ``binned``'s rows (chunk-shaped: any block of the ensemble)."""
+        exe = self._exec.get_or_compile(
+            ("chunk", tuple(binned.shape), self._prep_dtype.str),
+            self.backend.chunked.leaves_apply, lambda: (block, binned))
+        return exe(block, binned)
+
+    def _forward(self, x_dev: torch.Tensor, bucket: int,
+                 counted: bool = True):
+        """This engine's program on one padded batch: eager, or the AOT
+        store's compiled program followed by its eager tail."""
+        if self._n_chunks:
+            leaves = self._chunk_leaves if self._exec is not None else None
+            return self.backend.apply(x_dev, counted=counted, leaves=leaves)
+        if self._exec is None:
+            return self._program(x_dev)
+        exe, params, tail = self._compiled(bucket)
+        with torch.inference_mode():
+            y = exe(params, x_dev)
+            return y if tail is None else tail(y)
+
     def warmup(self) -> None:
         """Run every bucket's program once, so the first request pays for
-        no kernel build, allocator growth or library initialisation."""
-        run = self._program
-        if self._n_chunks:  # warmups are no chunk dispatches
-            def run(x):
-                return self.backend.apply(x, counted=False)
+        no kernel build, allocator growth or library initialisation. With
+        the AOT store the warm manifest preloads first, so each bucket's
+        program comes from RAM or disk instead of a compile."""
+        if self._exec is not None:
+            self._exec.preload_aot()
         for b in self.buckets:
             x = np.zeros((b, *self._feat_shape), np.float32)
-            run(self._put(self.backend.prepare(x))).cpu()
+            # warmups are no chunk dispatches
+            self._forward(self._put(self.backend.prepare(x)), b,
+                          counted=False).cpu()
 
     @property
     def slo_desc(self) -> dict:
@@ -363,9 +477,19 @@ class InferenceEngine(MetricsSink):
         """/healthz: constant-time load figures (no percentile sort);
         ``tree_chunks`` only while the chunked tree dispatch is active."""
         out = {"queue_depth": self._batcher.queue_depth}
+        if self._exec is not None:
+            out["aot_hits"] = int(self._exec.aot_counts()["hits"])
         if self._n_chunks:
             out["tree_chunks"] = int(self.backend.tree_counts()["chunks"])
         return out
+
+    def exec_cache_counts(self) -> dict:
+        """The AOT store's RAM tier: compiles, hits, evictions, size and
+        compile_ms (zeros without a store)."""
+        if self._exec is None:
+            return {"compiles": 0, "hits": 0, "evictions": 0, "size": 0,
+                    "compile_ms": 0.0}
+        return self._exec.counts()
 
     @property
     def precision_desc(self) -> dict:
@@ -415,30 +539,40 @@ class InferenceEngine(MetricsSink):
             f: Future = Future()
             f.set_result(np.empty((0,), self.backend.out_dtype))
             return f
-        if len(x) > self.max_batch:
-            raise ServeError(
-                f"request of {len(x)} rows exceeds the largest bucket "
-                f"{self.max_batch} (chunking is not ported yet)")
         tm = self.telemetry
         self._admit_bytes(cls, x.nbytes)
-        req = Request(x=x, priority=prio, cls=cls, span=tm.trace_id(cls))
-        if max_wait_s is not None:
-            # the flush deadline is clamped to the engine's coalescing
-            # ceiling; the SLO deadline is the client's raw ask
-            req.deadline = req.t_submit + max(
-                0.0, min(float(max_wait_s), self._batcher.max_wait_s))
-            req.slo_deadline = req.t_submit + max(0.0, float(max_wait_s))
-        tm.requests.inc()
-        try:
-            self._batcher.submit(req)
-        except Exception:
-            tm.requests.inc(-1)  # rejected, never admitted
-            if self._budget.enabled:
-                self._mem.sub("queue", x.nbytes)
-            raise
-        # captured after admission: a rejected submit is not workload
+        # a request past the largest bucket is cut into bucket-sized
+        # requests, each admitted on its own (its own trace id), and the
+        # reply joins theirs in order
+        reqs = []
+        for i in range(0, len(x), self.max_batch):
+            req = Request(x=x[i:i + self.max_batch], priority=prio, cls=cls,
+                          span=tm.trace_id(cls))
+            if max_wait_s is not None:
+                # the flush deadline is clamped to the engine's coalescing
+                # ceiling; the SLO deadline is the client's raw ask
+                req.deadline = req.t_submit + max(
+                    0.0, min(float(max_wait_s), self._batcher.max_wait_s))
+                req.slo_deadline = req.t_submit + max(0.0,
+                                                      float(max_wait_s))
+            reqs.append(req)
+        tm.requests.inc(len(reqs))
+        for i, req in enumerate(reqs):
+            try:
+                self._batcher.submit(req)
+            except Exception:
+                # un-admit the requests that never reached the batcher
+                tm.requests.inc(-(len(reqs) - i))
+                if self._budget.enabled:
+                    self._mem.sub("queue", sum(r.x.nbytes
+                                               for r in reqs[i:]))
+                raise
+        # captured after admission, one event for the whole request: a
+        # rejected submit is not workload, and replay cuts it again
         tm.capture_request(cls, rows=len(x), deadline_s=max_wait_s)
-        return req.future
+        if len(reqs) == 1:
+            return reqs[0].future
+        return _joined(reqs)
 
     def _admit_bytes(self, cls: str, nbytes: int) -> None:
         """The budget's front door: reserve ``nbytes`` of the ``queue``
@@ -491,7 +625,7 @@ class InferenceEngine(MetricsSink):
             t_put = time.monotonic()
             x_dev = self._put(prepared)
             t_h2d = time.monotonic()
-            y_dev = self._program(x_dev)
+            y_dev = self._forward(x_dev, bucket)
             t_disp = time.monotonic()
             if self._n_chunks:
                 # one chunked batch = n_chunks chunk dispatches
@@ -616,6 +750,9 @@ class InferenceEngine(MetricsSink):
             # chunk size, chunk dispatches, cumulative upload wall: only
             # while the chunked path is active
             out["trees"] = self.backend.tree_counts()
+        if self._exec is not None:
+            # the AOT store's counters: only while a store is bound
+            out["aot"] = {"enabled": True, **self._exec.aot_counts()}
         out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
         out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
         if self._children:
@@ -652,15 +789,17 @@ class InferenceEngine(MetricsSink):
         self.close()
 
 
-def make_row_engine(backend, cfg) -> InferenceEngine:
+def make_row_engine(backend, cfg, aot=None) -> InferenceEngine:
     """``cfg.serve`` → the row engine over ``backend``, its budget
-    included."""
+    included; ``aot`` an open AOT store (serve/aotstore.py
+    ``open_store``) or None."""
     sc = cfg.serve
     return InferenceEngine(backend, buckets=sc.buckets,
                            max_wait_ms=sc.max_wait_ms,
                            inflight=sc.inflight, warmup=sc.warmup,
                            classes=sc.classes, profiles=sc.profiles,
                            budget=BudgetPolicy.from_config(sc.budget),
+                           aot=aot, max_executables=sc.max_executables,
                            **obs_kwargs(sc))
 
 

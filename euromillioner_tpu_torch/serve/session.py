@@ -32,12 +32,21 @@ chunk's tables are uploaded in turn on their own stream while the
 previous chunk computes, so only ~2 chunks of tables are device-resident
 at once (the ``tree_tables`` class of the engine's ledger). The
 ``serve.chunk`` fault point covers each chunk: a fire fails only that
-batch. The JAX package's ``ModelSession`` (executable cache, AOT store,
-mesh placement) has no counterpart: the port's programs run eagerly.
+batch.
+
+The AOT program store (serve/aotstore.py): every backend gives
+``aot_program(profile)`` — its serving program as a function of its
+parameters (an input) and the rows, and the eager tail after it (a tree
+ensemble's ordered leaf sums, votes and transform, so its replies stay
+bit-equal to ``predict``) — and :class:`ExecutableCache` keeps the
+compiled programs an engine serves. The JAX package's ``ModelSession``
+(its bucket table and mesh placement) has no counterpart: the engines
+call the backends directly.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import math
 import threading
@@ -215,12 +224,153 @@ class BudgetPolicy:
         return pol
 
 
+class ExecutableCache:
+    """Lock-guarded bounded LRU of compiled serving programs over one bound
+    program family of the AOT store (the JAX package's ``ExecutableCache``
+    and ``bind_aot``; serve/aotstore.py). Only a bound store puts a program
+    here: without one, every engine runs its programs eagerly.
+
+    :meth:`get_or_compile` returns the program of a key: from RAM, else
+    loaded from the store, else ``fn`` compiled at ``example()``'s inputs,
+    saved back, and served as loaded back from those same bytes — so a
+    cold run and a warm restart run the same code. A failed compile or a
+    package that does not load back raises :class:`ServeError`: nothing
+    is served in its place. Compiles run outside the lock.
+    :meth:`preload_aot` loads the warm manifest's keys, newest first, up
+    to the capacity. ``counts()`` (compiles, hits, evictions, size,
+    compile_ms) and ``aot_counts()`` (the store's hits, misses, saves,
+    errors, load_ms, save_ms) feed ``stats()["aot"]`` and the
+    ``serve_aot`` gauges."""
+
+    def __init__(self, maxsize: int):
+        if maxsize < 1:
+            raise ServeError(
+                f"serve.max_executables must be >= 1, got {maxsize}")
+        self.maxsize = int(maxsize)
+        self._cache: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+        self._hits = 0
+        self._compiles = 0
+        self._evictions = 0
+        self._compile_ms = 0.0
+        self._space = None
+        # key → (seconds to compile, package bytes), in compile order
+        self.compiled: dict = {}
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._cache)
+
+    def bind_aot(self, space) -> None:
+        """Attach the program family's binding to the store."""
+        self._space = space
+
+    def _insert(self, key, exe, *, compiled: bool) -> None:
+        with self._lock:
+            if compiled:
+                self._compiles += 1
+            if key not in self._cache and len(self._cache) >= self.maxsize:
+                self._cache.popitem(last=False)
+                self._evictions += 1
+            self._cache[key] = exe
+            self._cache.move_to_end(key)
+
+    def get_or_compile(self, key, fn: Callable,
+                       example: Callable[[], tuple]):
+        from euromillioner_tpu_torch.serve.aotstore import (compile_program,
+                                                            load_program)
+
+        with self._lock:
+            exe = self._cache.get(key)
+            if exe is not None:
+                self._hits += 1
+                self._cache.move_to_end(key)
+                return exe
+        space = self._space
+        exe = space.load(key)
+        if exe is not None:
+            self._insert(key, exe, compiled=False)
+            return exe
+        t0 = time.perf_counter()
+        try:
+            payload = compile_program(fn, example(), space.compiler)
+            exe = load_program(payload, space.compiler)
+        except Exception as e:  # noqa: BLE001 — never serve eagerly instead
+            raise ServeError(
+                f"serve.aot: compiling the program at {key!r} failed "
+                f"({e!r}); nothing is served in its place") from e
+        ms = (time.perf_counter() - t0) * 1e3
+        logger.info("serve.aot compiled %r in %.1f s (%d bytes)", key,
+                    ms / 1e3, len(payload))
+        self._insert(key, exe, compiled=True)
+        with self._lock:
+            self._compile_ms += ms
+            self.compiled[key] = (ms / 1e3, len(payload))
+        space.save(key, payload)
+        return exe
+
+    def preload_aot(self) -> int:
+        """Load the warm manifest's programs into RAM — every key an
+        earlier process compiled, not only this process's warmup set —
+        newest first and no more than the capacity (the rest stay on disk
+        for a lazy load). A failed load is a counted miss: that key
+        compiles on first use. Returns how many were loaded."""
+        if self._space is None:
+            return 0
+        n = skipped = 0
+        for key in reversed(self._space.manifest_keys()):
+            with self._lock:
+                if key in self._cache:
+                    continue
+                if len(self._cache) >= self.maxsize:
+                    skipped += 1
+                    continue
+            exe = self._space.load(key)
+            if exe is not None:
+                self._insert(key, exe, compiled=False)
+                n += 1
+        if n:
+            logger.info("serve.aot preloaded %d program(s) from the warm "
+                        "manifest%s", n,
+                        f" ({skipped} over the cache's capacity stay on "
+                        "disk)" if skipped else "")
+        return n
+
+    def counts(self) -> dict:
+        """Compile/hit/evict/size counters and the seconds spent compiling
+        (``compile_ms``), one consistent snapshot."""
+        with self._lock:
+            return {"compiles": self._compiles, "hits": self._hits,
+                    "evictions": self._evictions, "size": len(self._cache),
+                    "compile_ms": round(self._compile_ms, 3)}
+
+    def aot_counts(self) -> dict:
+        """The bound space's store counters (``stats()["aot"]``)."""
+        if self._space is None:
+            return {"hits": 0, "misses": 0, "saves": 0, "errors": 0,
+                    "load_ms": 0.0, "save_ms": 0.0}
+        return self._space.counts()
+
+
 def _bind(model: torch.nn.Module, params: dict) -> torch.nn.Module:
     """A private copy of ``model`` whose parameters are the tensors of
     ``params`` (no data is copied): one profile's program runs on it and
     never touches the parameters another thread's program reads."""
     memo = {id(p): torch.nn.Parameter(params[name], requires_grad=False)
             for name, p in model.named_parameters()}
+    return copy.deepcopy(model, memo)
+
+
+def _skeleton(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``model`` whose parameters and buffers live on the meta
+    device: a program compiled ahead of time runs it through
+    ``functional_call`` on parameters passed as inputs, so no weight is
+    copied or baked into the package."""
+    memo = {id(t): torch.nn.Parameter(torch.empty_like(t, device="meta"),
+                                      requires_grad=False)
+            for t in model.parameters()}
+    memo.update({id(t): torch.empty_like(t, device="meta")
+                 for t in model.buffers()})
     return copy.deepcopy(model, memo)
 
 
@@ -354,6 +504,44 @@ class NNBackend:
         self._serve_apply[prof] = fn
         return fn
 
+    def aot_program(self, profile: str) -> tuple[Callable, dict, None]:
+        """``(fn, params, tail)`` of one profile for the AOT store: ``fn(
+        params, x)`` is :meth:`serve_apply`'s program with the profile's
+        params as an input (a meta-device skeleton of the model under
+        ``functional_call``, or ``quantized_apply``; the eager programs
+        call bound copies instead, with no per-call rebinding), and no
+        eager tail."""
+        prof = resolve_serve_precision(profile)
+        params = self.serve_params(prof)
+        if prof in self.fallbacks:
+            prof = "f32"
+        f32 = torch.float32
+        if prof == "int8w":
+            qapply = getattr(self.model, "quantized_apply", None)
+            if qapply is not None:
+                return (lambda p, x: qapply(p, x).to(f32)), params, None
+            skel = _skeleton(self.model)
+
+            def fn(p, x):
+                dense = dequantize_int8w(p, f32)
+                return functional_call(skel, dense, (x,)).to(f32)
+
+            return fn, params, None
+        skel = _skeleton(self.model)
+        dtype = self.compute_dtype
+        if prof == "bf16":
+            dtype = torch.bfloat16
+            if getattr(skel, "compute_dtype", None) is not None:
+                skel.compute_dtype = torch.bfloat16
+        cast = self.cast_inputs
+
+        def fn(p, x):
+            if cast:
+                x = x.to(dtype)
+            return functional_call(skel, p, (x,)).to(f32)
+
+        return fn, params, None
+
     def prepare(self, x) -> np.ndarray:
         return np.asarray(x, np.float32)
 
@@ -400,7 +588,7 @@ class _TreeBackend(_F32Backend):
         self._tree_counts = {"chunks": 0, "dispatches": 0,
                              "chunk_h2d_ms": 0.0}
         if chunked is None:
-            self._params, self._apply, self.prepare = program()
+            self._params, self._leaves, self._tail, self.prepare = program()
             return
         self._params = {}
         self.prepare = chunked.prepare
@@ -423,15 +611,24 @@ class _TreeBackend(_F32Backend):
         return sum(t.numel() * t.element_size()
                    for t in self._params.values())
 
-    def apply(self, binned: torch.Tensor, *, counted: bool = True
-              ) -> torch.Tensor:
+    def apply(self, binned: torch.Tensor, *, counted: bool = True,
+              leaves: Callable | None = None) -> torch.Tensor:
         """The ensemble's replies to ``binned`` on the device; a chunked
         dispatch with ``counted=False`` (an engine's warmup) leaves
-        :meth:`tree_counts` as it was."""
+        :meth:`tree_counts` as it was. ``leaves(tables, binned)`` replaces
+        the eager leaf-value program (the AOT store's compiled one); the
+        sums after it stay eager, in tree order."""
         with torch.inference_mode():
             if self.chunked is not None:
-                return self._dispatch_chunked(binned, counted)
-            return self._apply(self._params, binned)
+                return self._dispatch_chunked(binned, counted, leaves)
+            run = leaves or self._leaves
+            return self._tail(run(self._params, binned))
+
+    def aot_program(self, profile: str = "f32"):
+        """``(fn, params, tail)`` for the AOT store: the whole-ensemble
+        leaf-value program over the tables (an input), and the eager tail
+        that sums, votes or transforms in the whole-ensemble order."""
+        return self._leaves, self._params, self._tail
 
     # -- chunked tree dispatch (serve.trees.chunk) -----------------------
     def attach_ledger(self, mem: MemoryLedger) -> None:
@@ -467,8 +664,8 @@ class _TreeBackend(_F32Backend):
             t.record_stream(compute)  # freed only after compute reads it
         return dev
 
-    def _dispatch_chunked(self, binned: torch.Tensor, counted: bool = True
-                          ) -> torch.Tensor:
+    def _dispatch_chunked(self, binned: torch.Tensor, counted: bool = True,
+                          leaves: Callable | None = None) -> torch.Tensor:
         """One padded micro-batch through the chunk loop (the JAX
         package's ``ModelSession._dispatch_chunked``): the f32 carry
         stays on the device and threads chunk to chunk in the
@@ -498,7 +695,10 @@ class _TreeBackend(_F32Backend):
                     mem.add("tree_tables", bb)
                 if buf.push(dev_blk) is not None and mem is not None:
                     mem.sub("tree_tables", bb)
-                carry = ch.chunk_apply(dev_blk, carry, binned)
+                if leaves is None:
+                    carry = ch.chunk_apply(dev_blk, carry, binned)
+                else:
+                    carry = ch.carry_apply(carry, leaves(dev_blk, binned))
             out = ch.finish_apply(carry)
         finally:
             for _ in buf.drain():
@@ -543,7 +743,7 @@ class GBTBackend(_TreeBackend):
             chunked = booster.chunked_predict_program(
                 len(booster.cuts), chunk, output_margin=output_margin)
             _chunked_log("gbt", chunked)
-        super().__init__(booster, lambda: booster.predict_program(
+        super().__init__(booster, lambda: booster.serving_split(
             len(booster.cuts), output_margin=output_margin), np.float32,
             chunked)
         self.booster = booster
@@ -600,7 +800,7 @@ class RFBackend(_TreeBackend):
                         "reduce, behind the pinned (rf, chunked_mean) "
                         "envelope — NOT bit-pinned to predict()")
                 _chunked_log("rf", chunked)
-        super().__init__(model, lambda: model.predict_program(
+        super().__init__(model, lambda: model.serving_split(
             len(model.cuts)),
             np.int32 if model.classification else np.float32, chunked)
         self.model = model
@@ -623,41 +823,50 @@ class ClassicBackend(_F32Backend):
         from euromillioner_tpu_torch.classic.kmeans import (KMeans,
                                                             assign_program)
         from euromillioner_tpu_torch.classic.linear import _LinearBase
-        from euromillioner_tpu_torch.classic.naive_bayes import GaussianNB
+        from euromillioner_tpu_torch.classic.naive_bayes import (
+            GaussianNB, log_likelihood)
 
         self.name = f"classic:{type(model).__name__}"
         self.model = model
         self.device = model.device
         self.out_dtype = np.int32
         unfit = ServeError("classic model must be fit/loaded before serving")
+        # each model's score program as a function of its tensors
+        # (``_pure(params, x)``, the AOT store's program) and of rows
         if isinstance(model, KMeans):
             if model.centers is None:
                 raise unfit
             self._params = (model.centers,)
             self.feat_shape = (int(model.centers.shape[1]),)
-            self._program = lambda x: assign_program(x, model.centers)
+            self._pure = lambda p, x: assign_program(x, p["0"])
         elif isinstance(model, _LinearBase):
             if model._wb is None:
                 raise unfit
             self._params = tuple(model._wb)
             self.feat_shape = (int(model._wb[0].shape[0]),)
-            self._program = lambda x: model.scores(x).argmax(dim=-1).to(
-                torch.int32)
+            self._pure = lambda p, x: (x @ p["0"] + p["1"]).argmax(
+                dim=-1).to(torch.int32)
         elif isinstance(model, GaussianNB):
             if model._params is None:
                 raise unfit
             self._params = tuple(model._params)
             self.feat_shape = (int(model._params[0].shape[1]),)
-            self._program = lambda x: model.log_likelihood(x).argmax(
-                dim=-1).to(torch.int32)
+            self._pure = lambda p, x: log_likelihood(
+                x, p["0"], p["1"], p["2"]).argmax(dim=-1).to(torch.int32)
         else:
             raise ServeError(
                 f"no classic serving adapter for {type(model).__name__} "
                 "(serve linear models, GaussianNB or KMeans)")
+        self._named = {str(i): t for i, t in enumerate(self._params)}
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self._program(x)
+            return self._pure(self._named, x)
+
+    def aot_program(self, profile: str = "f32"):
+        """``(fn, params, tail)`` for the AOT store: the score program over
+        the model's tensors (an input, keyed ``"0"``, ``"1"``, ...)."""
+        return self._pure, self._named, None
 
     def prepare(self, x) -> np.ndarray:
         return np.asarray(x, np.float32)

@@ -25,9 +25,13 @@ The order each family keeps:
   sequential carry's, so the factory returns None unless the approximate
   mean is asked for.
 
-The JAX package's ``block_specs`` (shape structs for ahead-of-time
-lowering) and ``signature`` (the program's identity in the AOT store)
-have no counterpart: the port runs its programs eagerly.
+Each program is also cut where the AOT store (serve/aotstore.py) compiles
+it: ``leaves_apply`` (each tree's leaf value per row: the routing, exact
+in any program) and ``carry_apply`` (the carry's adds or votes, in tree
+order), which the serving layer runs eagerly so the sums keep their order.
+``signature`` is the chunk programs' identity in the store beside the
+block's shapes (the JAX package's ``signature``); its ``block_specs`` have
+no counterpart: a compile takes example tensors.
 """
 
 from __future__ import annotations
@@ -97,6 +101,13 @@ class ChunkedTreeProgram:
     finish_apply: Callable = field(repr=False)  # (carry,) -> outputs
     init_carry: Callable = field(repr=False)   # (n_rows,) -> np.ndarray
     prepare: Callable = field(repr=False)      # (x,) -> binned rows
+    # chunk_apply cut where the AOT store compiles it: chunk_apply(b, c, x)
+    # is carry_apply(c, leaves_apply(b, x)), op for op
+    leaves_apply: Callable = field(repr=False)  # (block, x) -> (chunk, N)
+    carry_apply: Callable = field(repr=False)   # (carry, values) -> carry
+    # what the leaves program depends on besides the block's shapes: the
+    # identity of its programs in the AOT store
+    signature: str = ""
 
     @property
     def n_chunks(self) -> int:

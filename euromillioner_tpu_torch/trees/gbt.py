@@ -32,9 +32,10 @@ import torch
 from euromillioner_tpu_torch.core.device import resolve_device
 from euromillioner_tpu_torch.train.metrics import eval_line
 from euromillioner_tpu_torch.trees import binning
-from euromillioner_tpu_torch.trees.growth import (accumulate_leaves,
+from euromillioner_tpu_torch.trees.growth import (add_leaf_values,
                                                   grow_level, grow_level_sub,
-                                                  predict_margin, route)
+                                                  predict_margin, route,
+                                                  tree_leaf_values)
 from euromillioner_tpu_torch.trees.objectives import (Objective, get_metric,
                                                       get_objective)
 from euromillioner_tpu_torch.utils.errors import (ConfigError, DataError,
@@ -280,6 +281,32 @@ class Booster:
         return self._program(num_col, *self._resolve_range(iteration_range),
                              output_margin)
 
+    def serving_split(self, num_col: int, output_margin: bool = False):
+        """:meth:`predict_program` cut where the AOT store compiles it:
+        ``(params, leaves, tail, prepare)`` with ``leaves(params, binned)``
+        each tree's leaf value per row (T, N) and ``tail(values)`` the
+        margin summed in tree order and transformed — ``tail(leaves(p,
+        x))`` is ``apply(p, x)`` op for op, so it is bit-equal to
+        :meth:`predict`."""
+        params, _apply, prepare = self.predict_program(
+            num_col, output_margin=output_margin)
+        transform = self.objective.transform
+        base_margin, max_depth = self.base_margin, self.max_depth
+
+        def leaves(p, binned):
+            return tree_leaf_values(binned, p["feature"], p["split_bin"],
+                                    p["is_leaf"], p["leaf_value"],
+                                    max_depth=max_depth)
+
+        def tail(values):
+            margin = torch.full((values.shape[1],), base_margin,
+                                dtype=torch.float32, device=values.device)
+            if values.shape[0]:
+                margin = add_leaf_values(margin, values)
+            return margin if output_margin else transform(margin)
+
+        return params, leaves, tail, prepare
+
     def _program(self, num_col: int, lo: int, hi: int, output_margin: bool):
         if num_col != len(self.cuts):
             raise DataError(f"the booster has {len(self.cuts)} features, "
@@ -341,10 +368,13 @@ class Booster:
             # the same f32 value predict_margin's torch.full starts from
             return np.full(int(n_rows), base_margin, np.float32)
 
+        def leaves_apply(p, binned):
+            return tree_leaf_values(binned, p["feature"], p["split_bin"],
+                                    p["is_leaf"], p["leaf_value"],
+                                    max_depth=max_depth)
+
         def chunk_apply(p, carry, binned):
-            return accumulate_leaves(carry, binned, p["feature"],
-                                     p["split_bin"], p["is_leaf"],
-                                     p["leaf_value"], max_depth=max_depth)
+            return add_leaf_values(carry, leaves_apply(p, binned))
 
         def finish_apply(carry):
             return carry if output_margin else transform(carry)
@@ -352,7 +382,10 @@ class Booster:
         return ChunkedTreeProgram(
             chunk=chunk, n_trees=hi - lo, blocks=blocks,
             chunk_apply=chunk_apply, finish_apply=finish_apply,
-            init_carry=init_carry, prepare=prepare)
+            init_carry=init_carry, prepare=prepare,
+            leaves_apply=leaves_apply, carry_apply=add_leaf_values,
+            signature=f"gbt|depth={max_depth}|{self.objective.name}"
+                      f"|margin={int(bool(output_margin))}")
 
     def predict(self, dmat: DMatrix, output_margin: bool = False,
                 iteration_range: tuple[int, int] | None = None,

@@ -293,20 +293,35 @@ def route(binned, feature, split_bin, is_leaf, *, max_depth: int):
     return node[0] if single else node
 
 
-def accumulate_leaves(margin, binned, features, split_bins, is_leafs,
-                      leaf_values, *, max_depth: int):
-    """``margin`` (N,) f32 plus each tree's leaf value, one add per tree
-    in tree order, as the JAX package's scan over trees does — THE
-    summation order of a margin: the whole-ensemble program and the
-    chunked one (trees/chunked.py) both run it."""
-    if features.shape[0] == 0:
-        return margin
+def tree_leaf_values(binned, features, split_bins, is_leafs, leaf_values,
+                     *, max_depth: int):
+    """Each tree's leaf value for every row: (T, N) from stacked (T,
+    n_nodes) tables — the routing and one gather, exact in any program
+    (the part of a tree program the AOT store compiles)."""
     leaves = route(binned, features, split_bins, is_leafs,
                    max_depth=max_depth)
-    values = leaf_values.gather(1, leaves)
+    return leaf_values.gather(1, leaves)
+
+
+def add_leaf_values(margin, values):
+    """``margin`` (N,) f32 plus each row of ``values`` (T, N), one add per
+    tree in tree order, as the JAX package's scan over trees does — THE
+    summation order of a margin."""
     for t in range(values.shape[0]):
         margin = margin + values[t]
     return margin
+
+
+def accumulate_leaves(margin, binned, features, split_bins, is_leafs,
+                      leaf_values, *, max_depth: int):
+    """``margin`` (N,) f32 plus each tree's leaf value in tree order: the
+    whole-ensemble program and the chunked one (trees/chunked.py) both run
+    it (:func:`tree_leaf_values`, then :func:`add_leaf_values`)."""
+    if features.shape[0] == 0:
+        return margin
+    return add_leaf_values(margin, tree_leaf_values(
+        binned, features, split_bins, is_leafs, leaf_values,
+        max_depth=max_depth))
 
 
 def predict_margin(binned, features, split_bins, is_leafs, leaf_values,

@@ -61,10 +61,12 @@ from euromillioner_tpu_torch.core.device import resolve_device
 from euromillioner_tpu_torch.core.mesh import round_up_multiple
 from euromillioner_tpu_torch.ops.fused_histogram import fused_histogram_sets
 from euromillioner_tpu_torch.trees import binning
-from euromillioner_tpu_torch.trees.growth import (interleave_siblings,
+from euromillioner_tpu_torch.trees.growth import (add_leaf_values,
+                                                  interleave_siblings,
                                                   node_sums, ordered_cumsum,
-                                                  ordered_sum, route,
-                                                  route_one_level)
+                                                  ordered_sum,
+                                                  route_one_level,
+                                                  tree_leaf_values)
 from euromillioner_tpu_torch.utils.errors import (ConfigError, DataError,
                                                   TrainError)
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
@@ -385,6 +387,19 @@ class RandomForestModel:
         ``apply(params, binned)`` is the whole-forest program. Predict runs
         through this split, so engine outputs are bit-identical to direct
         prediction by construction."""
+        params, leaves, tail, prepare = self.serving_split(num_features)
+
+        def apply(p, binned):
+            return tail(leaves(p, binned))
+
+        return params, apply, prepare
+
+    def serving_split(self, num_features: int):
+        """:meth:`predict_program` cut where the AOT store compiles it:
+        ``(params, leaves, tail, prepare)`` with ``leaves(params, binned)``
+        each tree's leaf value per row (T, N) and ``tail(values)`` the
+        votes' argmax (a classifier) or the mean (a regressor);
+        ``apply`` is ``tail(leaves(...))``."""
         if num_features != len(self.cuts):
             raise DataError(f"the forest has {len(self.cuts)} features, "
                             f"got {num_features}")
@@ -397,10 +412,12 @@ class RandomForestModel:
         def prepare(x: np.ndarray) -> np.ndarray:
             return binning.apply_bins(np.asarray(x, np.float32), cuts)
 
-        def apply(p, binned):
-            leaves = route(binned, p["feature"], p["split_bin"],
-                           p["is_leaf"], max_depth=max_depth)
-            preds = p["leaf_value"].gather(1, leaves)          # (T, N)
+        def leaves(p, binned):
+            return tree_leaf_values(binned, p["feature"], p["split_bin"],
+                                    p["is_leaf"], p["leaf_value"],
+                                    max_depth=max_depth)      # (T, N)
+
+        def tail(preds):
             if classification:  # majority vote over trees, per row
                 classes = torch.arange(num_classes, device=preds.device)
                 votes = (preds.long()[..., None] == classes).sum(0)
@@ -409,7 +426,7 @@ class RandomForestModel:
             recip = float(np.float32(1) / np.float32(preds.shape[0]))
             return ordered_sum(preds.t()) * recip
 
-        return params, apply, prepare
+        return params, leaves, tail, prepare
 
     def chunked_predict_program(self, num_features: int, chunk: int,
                                 approx_mean: bool = False):
@@ -450,19 +467,19 @@ class RandomForestModel:
             return binning.apply_bins(np.asarray(x, np.float32), cuts)
 
         def preds(p, binned):
-            leaves = route(binned, p["feature"], p["split_bin"],
-                           p["is_leaf"], max_depth=max_depth)
-            return p["leaf_value"].gather(1, leaves)          # (chunk, N)
+            return tree_leaf_values(binned, p["feature"], p["split_bin"],
+                                    p["is_leaf"], p["leaf_value"],
+                                    max_depth=max_depth)      # (chunk, N)
+
+        signature = (f"rf|depth={max_depth}|classes={num_classes}"
+                     f"|regression={int(regression)}")
 
         if regression:
             def init_carry(n_rows: int) -> np.ndarray:
                 return np.zeros((int(n_rows),), np.float32)
 
             def chunk_apply(p, carry, binned):
-                values = preds(p, binned)
-                for t in range(values.shape[0]):
-                    carry = carry + values[t]
-                return carry
+                return add_leaf_values(carry, preds(p, binned))
 
             # one divide by the TRUE tree count (pad trees added 0.0), as
             # XLA computes it: times the f32 reciprocal of the count
@@ -474,15 +491,19 @@ class RandomForestModel:
             return ChunkedTreeProgram(
                 chunk=chunk, n_trees=n_trees, blocks=blocks,
                 chunk_apply=chunk_apply, finish_apply=finish_apply,
-                init_carry=init_carry, prepare=prepare)
+                init_carry=init_carry, prepare=prepare, leaves_apply=preds,
+                carry_apply=add_leaf_values, signature=signature)
 
         def init_carry(n_rows: int) -> np.ndarray:
             return np.zeros((int(n_rows), num_classes), np.float32)
 
-        def chunk_apply(p, carry, binned):
-            classes = torch.arange(num_classes, device=binned.device)
-            votes = (preds(p, binned).long()[..., None] == classes).sum(0)
+        def add_votes(carry, values):
+            classes = torch.arange(num_classes, device=values.device)
+            votes = (values.long()[..., None] == classes).sum(0)
             return carry + votes.to(torch.float32)
+
+        def chunk_apply(p, carry, binned):
+            return add_votes(carry, preds(p, binned))
 
         def finish_apply(votes):
             # the whole-forest argmax over the same exact counts: ties
@@ -492,7 +513,8 @@ class RandomForestModel:
         return ChunkedTreeProgram(
             chunk=chunk, n_trees=n_trees, blocks=blocks,
             chunk_apply=chunk_apply, finish_apply=finish_apply,
-            init_carry=init_carry, prepare=prepare)
+            init_carry=init_carry, prepare=prepare, leaves_apply=preds,
+            carry_apply=add_votes, signature=signature)
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         x = np.asarray(x, np.float32)

@@ -131,8 +131,9 @@ def test_bad_requests_rejected(backend):
     with _engine(backend, warmup=False) as eng:
         with pytest.raises(ServeError, match="feature shape"):
             eng.submit(np.zeros((2, 10), np.float32))
-        with pytest.raises(ServeError, match="largest bucket"):
-            eng.submit(np.zeros((BUCKET + 1, 11), np.float32))
+        # a request past the largest bucket is cut, not refused (F7)
+        assert eng.predict(np.zeros((BUCKET + 1, 11), np.float32)).shape \
+            == (BUCKET + 1, 7)
         assert eng.predict(np.zeros((0, 11), np.float32)).shape == (0,)
         assert handle_request(eng, {"rows": "abc"})[0] == 400
         assert handle_request(eng, {"rows": [[0.0] * 11],
@@ -251,3 +252,103 @@ def test_gbt_replies_bit_equal_to_predict_at_any_position():
     want = booster.predict(DMatrix(rows))
     assert got.shape == want.shape == (20,)
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.fixture(scope="module")
+def gbt_backend():
+    from euromillioner_tpu_torch.serve.session import GBTBackend
+    from euromillioner_tpu_torch.trees import DMatrix, train
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(300, 6)).astype(np.float32)
+    y = (x[:, 0] + 0.3 * rng.normal(size=300) > 0).astype(np.float32)
+    booster = train({"objective": "binary:logistic", "max_depth": 3,
+                     "device": "cpu"}, DMatrix(x, y), 5, verbose_eval=False)
+    return GBTBackend(booster), x
+
+
+def test_oversized_request_chunks_and_reassembles(gbt_backend, tmp_path):
+    """F7, the JAX package's ``test_oversized_request_chunks_and_
+    reassembles``: 100 rows at buckets (8, 32) are cut into bucket-sized
+    requests, each admitted with its own trace id; the joined reply is
+    bit-equal to ``predict``, at least 4 batches ran and the capture holds
+    one replay event for the whole request."""
+    import json
+
+    backend, x = gbt_backend
+    cap = tmp_path / "cap.jsonl"
+    with InferenceEngine(backend, buckets=(8, 32), max_wait_ms=1.0,
+                         warmup=False, capture_path=str(cap)) as eng:
+        got = eng.predict(x[:100])
+        st = eng.stats()
+        spans = eng.telemetry.trace_snapshot()["spans"]
+    assert np.array_equal(got, backend.predict(x[:100]))
+    assert st["batches"] >= 4 and st["rows"] == 100
+    assert st["requests"] == 4  # 32 + 32 + 32 + 4 rows, one trace id each
+    assert spans == 4
+    events = [json.loads(ln) for ln in cap.read_text().splitlines()
+              if ln.strip()]
+    reqs = [e for e in events if e.get("rows") is not None]
+    assert len(reqs) == 1 and reqs[0]["rows"] == 100
+
+
+def test_oversized_request_unadmits_the_rest_on_a_failed_cut(gbt_backend):
+    """A cut the batcher refuses un-admits itself and every cut after it:
+    the request counter and the budget's queue bytes are given back."""
+    from euromillioner_tpu_torch.serve.session import BudgetPolicy
+
+    backend, x = gbt_backend
+    with InferenceEngine(backend, buckets=(8, 32), max_wait_ms=50.0,
+                         warmup=False,
+                         budget=BudgetPolicy(enabled=True)) as eng:
+        real = eng._batcher.submit
+        calls = []
+
+        def flaky(req):
+            calls.append(req)
+            if len(calls) == 2:
+                raise ServeError("batcher refused the second cut")
+            return real(req)
+
+        eng._batcher.submit = flaky
+        with pytest.raises(ServeError, match="second cut"):
+            eng.submit(x[:100])
+        eng._batcher.submit = real
+        # the first cut was admitted and is served; the other three are not
+        assert int(eng.telemetry.requests.get()) == 1
+        queued = eng._mem.bytes("queue")
+        assert queued in (0, calls[0].x.nbytes)
+        assert eng.predict(x[:3]).shape == (3,)
+    assert eng._mem.bytes("queue") == 0
+
+
+def test_oversized_request_over_http(gbt_backend):
+    """The same 100-row request through ``POST /predict``."""
+    import json
+    import threading
+    import urllib.request
+
+    from euromillioner_tpu_torch.serve.transport import make_server
+
+    backend, x = gbt_backend
+    eng = InferenceEngine(backend, buckets=(8, 32), max_wait_ms=1.0,
+                          warmup=False)
+    server = make_server(eng, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True,
+                              kwargs={"poll_interval": 0.05})
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+        body = json.dumps({"rows": x[:100].tolist()}).encode()
+        req = urllib.request.Request(
+            url, data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            assert resp.status == 200
+            reply = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        eng.close()
+    got = np.asarray(reply["predictions"], np.float32)
+    assert np.array_equal(got, backend.predict(x[:100]))

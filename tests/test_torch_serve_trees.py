@@ -15,10 +15,11 @@ the same synthetic tree tables built into both packages' models:
   ``serve_tree_chunks_total`` / ``serve_trees`` families only while the
   chunked path is active;
 - a ``serve.chunk`` fault fails only its batch.
-The JAX cases on a serving mesh (``serve.mesh``) and on the AOT store
-wait for those parts of the port (ROADMAP queue 1 items 13 and 10). A
-request larger than the largest bucket is refused by the port's row
-engine, so the buckets here hold the 70 rows in one.
+The JAX cases on a serving mesh (``serve.mesh``) wait for that part of
+the port (ROADMAP queue 1 item 13); the AOT store's (``TestChunkAot``)
+are in tests/test_torch_aot.py. The buckets here hold the 70 rows in one,
+so each request is one micro-batch (a larger request would be cut into
+bucket-sized ones).
 """
 
 from __future__ import annotations
