@@ -293,17 +293,34 @@ Phases, each reported on its own lines:
    against their plain versions' programs on the CPU; then ``aot prewarm``
    (the trees), ``aot ls|verify`` through the CLI, and a truncated blob: a
    counted miss, quarantined;
-34. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
+34. the fleet (runs last, on phase 33's warm ladder store and Wide&Deep
+   checkpoint) — two step-scheduler hosts of the trained flagship (f32,
+   32 slots, block 8) behind a FleetRouter: the unfaulted fleet, then a
+   host killed mid-traffic (ejected on stale probes, its sequences
+   re-routed) and a reachable host whose attainment collapses (ejected,
+   its live sequences migrated), every reply bit-equal to the unfaulted
+   fleet's and within F32_SERVE_TOL of the direct apply; two ``serve
+   --scheduler batch serve.precision=fused`` children behind a ``fleet``
+   front-end child, one SIGKILLed mid-traffic: no client request fails,
+   /healthz shows the ejection, K1 counted from the survivor's SIGTERM
+   line; the supervisor over hosts from the warm store: a dead host
+   respawned with 0 compiles and re-admitted by probation, a planned
+   ``restart_host`` and a ``drain_export`` handoff, bit-equal; the 100M
+   Wide&Deep rolled out bf16 → int8w (shadow, canary, full, commit) and a
+   faulted canary rolled back, no failed request (K4a counted); the six
+   ``fleet.*`` fault points fired once each; the phase's seconds;
+35. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
    ``serve_http_fused``, K4a's phase 24's ``serve_bf16`` and the int8w
    run's drift oracle, bf16 K1's and K2's ``train_dp`` (phase 26), K4a's
    and K4b's ``train_dp`` and the class forest's ``cli_train_dp`` (phase
    27), every K1/K2 row's ``train_dp_gloo`` (phase 28, summed over the
    ranks), the forest set forms' ``rf_mesh``, every K1/K2 row's
    ``train_tbptt`` (phase 30, 0), K3's ``reference_fetch`` (phase 32),
-   K1's ``aot_padded_fused`` and K4a's ``aot_serve_bf16`` (phase 33)),
+   K1's ``aot_padded_fused`` and K4a's ``aot_serve_bf16`` (phase 33),
+   K1's ``fleet_http_fused`` and K4a's ``rollout_bf16`` (phase 34)),
    the ``nvidia-smi`` line,
    and last the ``{"ok": true, "device": ...}`` line. The lines phases
-   22-33 measure carry the card's name and power limit.
+   22-34 measure carry the card's name and power limit.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -6424,7 +6441,8 @@ def aot_children(root: Path, role: str, groups: list, store_root: Path,
               f"{p.returncode}")
 
 
-def phase_aot(root: Path, flagship: Path) -> dict:
+def phase_aot(root: Path, flagship: Path, keep: Path | None = None
+              ) -> dict:
     """The AOT program store at full width on the card (see AOT_FAMILIES):
     cold children compile each family into a fresh store (concurrently,
     each with an empty Inductor cache), then a warm child restarts every
@@ -6433,7 +6451,9 @@ def phase_aot(root: Path, flagship: Path) -> dict:
     and K4a's launches from inside the loaded packages, each path held
     against its plain version on the CPU. Then ``aot prewarm`` through the
     CLI, ``aot ls|verify``, and a truncated blob quarantined on the card.
-    Returns K1's and K4a's launches on the warm paths."""
+    ``keep``: the warm ladder store and the Wide&Deep checkpoint move
+    there for phase 34 instead of being removed. Returns K1's and K4a's
+    launches on the warm paths."""
     import numpy as np
 
     from euromillioner_tpu_torch.core.precision import rel_error
@@ -6528,6 +6548,10 @@ def phase_aot(root: Path, flagship: Path) -> dict:
           f"times, expected {AOT_REQUESTS} batches + {drift} drift checks")
     aot_plain(out, spec)
     aot_cli(out, spec)
+    if keep is not None:
+        keep.mkdir(parents=True, exist_ok=True)
+        shutil.move(str(stores / "ladder"), str(keep / "ladder"))
+        shutil.move(str(spec["wide_deep"][1]), str(keep / "wide_deep"))
     shutil.rmtree(out, ignore_errors=True)
     return {"K1": pad, "K4a": k4a}
 
@@ -6605,6 +6629,615 @@ def aot_cli(out: Path, spec: dict) -> None:
           f"{json.dumps(aot)}, quarantined {bad.exists()}")
     check(loaded == 0 and aot["errors"] == 1 and bad.exists(),
           "a truncated blob was not a counted, quarantined miss")
+
+
+# -- phase 34: the fleet ------------------------------------------------------
+
+# The trained flagship behind the fleet (serve/fleet.py, serve/router.py,
+# serve/supervisor.py, serve/rollout.py): every host a step scheduler of
+# the f32 flagship at phase 33's ladder rung (32 slots, block 8), so
+# re-routes and migrations between hosts are held bit-equal; two HTTP
+# ``serve --scheduler batch serve.precision=fused`` children behind a
+# ``fleet`` front end; the supervisor's respawns loaded from phase 33's warm
+# ladder store; the 100M Wide&Deep rolled out from bf16 to int8w.
+FLEET_CONFIG = ["model.compute_dtype=float32", "serve.scheduler=continuous",
+                "serve.max_slots=32", "serve.step_block=8"]
+FLEET_HTTP_HOST = ["--scheduler", "batch", "model.compute_dtype=float32",
+                   "serve.precision=fused", "serve.buckets=8,32",
+                   "serve.seq_buckets=16,128"]
+FLEET_HTTP_SEQUENCES = 96
+FLEET_LONG = {"sequences": 8, "steps": 512}
+# a stage's requests: the canary split is a counter modulo 100, so a
+# stage of 100 puts canary_pct of them on the candidate
+FLEET_WD_BATCHES = 100
+FLEET_CANARY_PCT = 50.0
+# probe rounds are driven by the phase; the loops never fire by themselves
+FLEET_PROBE = {"interval_s": 3600.0, "timeout_s": 5.0, "retries": 1,
+               "jitter_s": 0.0, "eject_stale_probes": 2,
+               "eject_breach_probes": 2, "probation_probes": 2}
+
+
+def fleet_policy():
+    from euromillioner_tpu_torch.serve.fleet import ProbePolicy
+
+    return ProbePolicy(**FLEET_PROBE)
+
+
+def fleet_engine(backend, store=None):
+    """A fleet host's engine: the step scheduler ``serve`` builds with
+    FLEET_CONFIG, eager or over the AOT store ``store``."""
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.serve.continuous import make_sequence_engine
+
+    return make_sequence_engine(backend, apply_overrides(
+        Config(), FLEET_CONFIG), aot=store)
+
+
+def fleet_served(router, seqs, cls: str = "bulk") -> list:
+    return [f.result(timeout=HTTP_WAIT)
+            for f in [router.submit(s, cls=cls) for s in seqs]]
+
+
+def fleet_compare(what: str, got, ref, direct) -> None:
+    """Every reply bit-equal to the unfaulted run's and within
+    F32_SERVE_TOL of the direct apply."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import rel_error
+
+    same = all(np.array_equal(np.asarray(g), np.asarray(r))
+               for g, r in zip(got, ref))
+    err = rel_error(np.stack(got), direct.numpy())
+    print(f"fleet {what}: {len(got)} replies bit-equal to the unfaulted "
+          f"fleet's {same}; rel to the direct apply {err:.3e} (tol "
+          f"{F32_SERVE_TOL:.0e})")
+    check(same, f"fleet {what}: replies differ from the unfaulted fleet's")
+    check(err <= F32_SERVE_TOL, f"fleet {what}: replies disagree with the "
+          "direct apply")
+
+
+def fleet_in_process(backend, model, faults: dict) -> None:
+    """Part 1: two eager hosts behind a FleetRouter. A host killed
+    mid-traffic is ejected on probe staleness and its sequences re-routed;
+    a reachable host whose attainment collapses is ejected and its live
+    sequences migrate (migrate_on_eject); the fleet.probe, fleet.route and
+    fleet.migrate points fire once each. Zero failures, every reply
+    bit-equal to the unfaulted fleet's."""
+    from euromillioner_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                    inject)
+    from euromillioner_tpu_torch.serve.fleet import FleetHost
+    from euromillioner_tpu_torch.serve.router import FleetRouter
+    from euromillioner_tpu_torch.serve.transport import healthz_body
+    from euromillioner_tpu_torch.utils.errors import ServeError
+
+    seqs = http_traffic()
+    longs = governance_traffic(SEED + 34, FLEET_LONG["sequences"],
+                               steps=(FLEET_LONG["steps"],
+                                      FLEET_LONG["steps"] + 1))
+    direct = direct_apply(model, seqs)
+    direct_long = direct_apply(model, longs)
+    engines = [fleet_engine(backend) for _ in range(2)]
+    sick = [False]
+
+    def probe_h0():
+        body = healthz_body(engines[0])
+        if sick[0]:  # the reachable host's attainment collapses
+            body["attainment"] = dict(body["attainment"], interactive=0.1)
+        return body
+
+    def fleet():
+        hosts = [FleetHost("h0", engines[0], probe_fn=probe_h0),
+                 FleetHost("h1", engines[1])]
+        return hosts, FleetRouter(hosts, policy=fleet_policy(), start=False)
+
+    try:
+        hosts, router = fleet()
+        try:
+            t0 = time.perf_counter()
+            ref = fleet_served(router, seqs)
+            ref_s = time.perf_counter() - t0
+            ref_long = fleet_served(router, longs)
+            st = router.stats()
+        finally:
+            router.close(drain_s=5)
+        check(st["failed"] == 0, "the unfaulted fleet failed requests")
+        card(f"fleet in process: {len(seqs)} sequences over 2 hosts of "
+             f"32 slots unfaulted in {ref_s:.2f} s "
+             f"({len(seqs) / ref_s:.1f} sequences/s)")
+        fleet_compare("unfaulted", ref, ref, direct)
+        # a host killed with sequences on it: stale probes eject it and
+        # the router re-routes what it held
+        hosts, router = fleet()
+        try:
+            futs = [router.submit(s, cls="bulk") for s in seqs]
+            held = sum(1 for e in router._ledger.values() if e.host == "h1")
+            hosts[1].kill()
+            router.monitor.probe_once()
+            router.monitor.probe_once()
+            hs = router._states["h1"]
+            check(not hs.admitted and "stale" in hs.ejected_reason,
+                  "the killed host was not ejected as stale")
+            got = [f.result(timeout=HTTP_WAIT) for f in futs]
+            st = router.stats()
+            print(f"fleet kill: h1 held {held} of {len(seqs)} requests "
+                  f"when killed; ejected ({hs.ejected_reason[:40]}); "
+                  f"rerouted {st['rerouted']}, failed {st['failed']}")
+            check(st["failed"] == 0 and st["rerouted"] >= 1,
+                  "the kill failed requests or re-routed none")
+            fleet_compare("host kill", got, ref, direct)
+        finally:
+            router.close(drain_s=5)
+            hosts[1].revive()
+        # a reachable host's attainment collapses: SLO ejection migrates
+        # its live sequences to the other host
+        hosts, router = fleet()
+        try:
+            base = engines[0].telemetry.steps.get()
+            router._states["h1"].admitted = False
+            futs = [router.submit(s, cls="bulk") for s in longs]
+            router._states["h1"].admitted = True
+            wait_until("the long sequences are mid-flight",
+                       lambda: engines[0].telemetry.steps.get() >= base + 4)
+            sick[0] = True
+            router.monitor.probe_once()
+            router.monitor.probe_once()
+            sick[0] = False
+            hs = router._states["h0"]
+            got = [f.result(timeout=HTTP_WAIT) for f in futs]
+            st = router.stats()
+            moved = int(router.telemetry.migrations("eject").get())
+            print(f"fleet slo ejection: h0 ejected ({hs.ejected_reason}); "
+                  f"migrated {moved} of {len(longs)} live sequences, "
+                  f"rerouted {st['rerouted']}, failed {st['failed']}")
+            check(not hs.admitted and "attainment" in hs.ejected_reason,
+                  "the collapsed host was not ejected on attainment")
+            check(moved >= 1 and st["rerouted"] == 0 and st["failed"] == 0,
+                  "the SLO ejection did not migrate its sequences")
+            fleet_compare("slo ejection", got, ref_long, direct_long)
+        finally:
+            router.close(drain_s=5)
+        # fleet.probe, fleet.route and fleet.migrate, once each
+        hosts, router = fleet()
+        try:
+            plan = FaultPlan([
+                FaultSpec("fleet.probe", raises=ServeError, hits=(1,)),
+                FaultSpec("fleet.route", raises=ServeError, hits=(1,)),
+                FaultSpec("fleet.migrate", raises=ServeError, hits=(1,))])
+            with inject(plan):
+                router.monitor.probe_once()
+                check(router._states["h0"].admitted,
+                      "one failed probe ejected a host")
+                got = fleet_served(router, seqs[:8])
+                base = engines[0].telemetry.steps.get()
+                router._states["h1"].admitted = False
+                futs = [router.submit(s, cls="bulk") for s in longs[:2]]
+                router._states["h1"].admitted = True
+                wait_until("the long sequences are mid-flight",
+                           lambda: engines[0].telemetry.steps.get()
+                           >= base + 4)
+                moved = router.migrate_host("h0", reason="drain")
+                got_long = [f.result(timeout=HTTP_WAIT) for f in futs]
+            st = router.stats()
+            for point in ("fleet.probe", "fleet.route", "fleet.migrate"):
+                faults[point] = plan.fired_count(point)
+            print(f"fleet faults in process: fired {json.dumps(faults)}; "
+                  f"rerouted {st['rerouted']}, migrated {moved} (one "
+                  f"migration lost to the fault, its sequence finished "
+                  f"where it was), failed {st['failed']}")
+            check(st["failed"] == 0, "a fleet fault failed a request")
+            fleet_compare("faults", got + got_long,
+                          ref[:8] + ref_long[:2],
+                          torch.cat([direct[:8], direct_long[:2]]))
+        finally:
+            router.close(drain_s=5)
+    finally:
+        for eng in engines:
+            eng.close()
+
+
+def fleet_http_children(root: Path, ckdir: Path) -> tuple:
+    """Part 2's processes, started at once: two ``serve`` hosts and the
+    ``fleet`` front end over them. Returns (procs, logs, urls, front)."""
+    out = root / "build" / "chip_fleet"
+    ports = [free_port() for _ in range(3)]
+    urls = [f"http://127.0.0.1:{p}" for p in ports[:2]]
+    argvs = [[sys.executable, "-m", "euromillioner_tpu_torch", "serve",
+              "--model-type", "lstm", "--checkpoint", str(ckdir),
+              f"serve.port={p}", *FLEET_HTTP_HOST] for p in ports[:2]]
+    argvs.append([sys.executable, "-m", "euromillioner_tpu_torch", "fleet",
+                  "--model-type", "lstm", "--hosts", ",".join(urls),
+                  f"serve.port={ports[2]}",
+                  "serve.fleet.probe_interval_ms=100",
+                  "serve.fleet.probe_timeout_ms=2000",
+                  "serve.fleet.eject_stale_probes=2"])
+    procs, logs = [], []
+    for name, argv in zip(("h0", "h1", "front"), argvs):
+        log = out / f"http_{name}.log"
+        logs.append(log)
+        with open(log, "w") as fh:
+            procs.append(subprocess.Popen(argv, cwd=root, stdout=fh,
+                                          stderr=subprocess.STDOUT))
+    return procs, logs, urls, f"http://127.0.0.1:{ports[2]}"
+
+
+def fleet_http(procs, logs, urls, front, model) -> int:
+    """Part 2: traffic through the front end while one host child is
+    SIGKILLed: no client request fails, the front end's /healthz shows the
+    ejection, fused replies stay within F32_SERVE_TOL of the plain scan
+    (direct apply). Returns K1's launches of the surviving host, read from
+    its SIGTERM shutdown line (a SIGKILLed child reports nothing)."""
+    import signal
+
+    from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
+                                                        rel_error)
+
+    t0 = time.perf_counter()
+    for url, proc, log in zip(urls + [front], procs, logs):
+        wait_until(f"{url} answers /healthz", lambda u=url, p=proc, lg=log:
+                   _answers(u, p, lg))
+    up_s = time.perf_counter() - t0
+    wait_until("the front end admits both hosts", lambda: all(
+        h["admitted"] for h in http_call(front, "/healthz")[1]["fleet"][
+            "hosts"].values()))
+    seqs = http_traffic()[:FLEET_HTTP_SEQUENCES]
+    direct = direct_apply(model, seqs)
+    replies: list = [None] * len(seqs)
+    done = [0]
+
+    def client(c: int) -> None:
+        for i in range(c, len(seqs), HTTP_CLIENTS):
+            status, reply = http_call(front, "/predict",
+                                      {"rows": seqs[i].tolist()})
+            replies[i] = reply["predictions"] if status == 200 else None
+            done[0] += 1
+
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+        running = [pool.submit(client, c) for c in range(HTTP_CLIENTS)]
+        wait_until("a quarter of the traffic answered",
+                   lambda: done[0] >= len(seqs) // 4)
+        procs[1].send_signal(signal.SIGKILL)
+        for r in running:
+            r.result(timeout=HTTP_WAIT)
+    wall = time.perf_counter() - t1
+    wait_until("the front end ejects the killed host", lambda: not http_call(
+        front, "/healthz")[1]["fleet"]["hosts"]["h1"]["admitted"])
+    _, health = http_call(front, "/healthz")
+    _, stats = http_call(front, "/stats")
+    failed = sum(r is None for r in replies)
+    card(f"fleet http: children up in {up_s:.1f} s; {len(seqs)} sequences "
+         f"through the front end in {wall:.2f} s with h1 SIGKILLed after "
+         f"{len(seqs) // 4}; failed {failed}; front end rerouted "
+         f"{stats['rerouted']}; /healthz h1 "
+         f"{json.dumps(health['fleet']['hosts']['h1'])}")
+    check(failed == 0 and stats["failed"] == 0,
+          "fleet http: client requests failed through the host kill")
+    err = rel_error(torch.tensor(replies), direct)
+    env = SERVE_ENVELOPES[("lstm", "fused")]
+    print(f"fleet http fused replies vs the plain scan (direct apply): rel "
+          f"{err:.3e} (envelope {env:.0e}, tol {F32_SERVE_TOL:.0e})")
+    check(err <= F32_SERVE_TOL, "fleet http: fused replies disagree")
+    rcs = []
+    for i in (2, 0):  # the front end first, then the surviving host
+        procs[i].send_signal(signal.SIGTERM)
+        rcs.append(procs[i].wait(timeout=HTTP_WAIT))
+    text = logs[0].read_text()
+    check(rcs == [0, 0] and "shutting down" in text,
+          f"fleet http: SIGTERM exits {rcs}: {text[-2000:]}")
+    line = next(ln for ln in text.splitlines() if "kernel launches: " in ln)
+    k1 = json.loads(line.split("kernel launches: ", 1)[1])[
+        "emt_lstm_fwd_f32"]
+    print(f"fleet http: K1 launches of the surviving host (its SIGTERM "
+          f"line; the SIGKILLed host reports none) {k1}")
+    check(k1 > 0, "fleet http: the surviving host never launched K1")
+    return k1
+
+
+def _answers(url: str, proc, log: Path) -> bool:
+    try:
+        return http_call(url, "/healthz")[0] == 200
+    except OSError:
+        check(proc.poll() is None, f"{url} exited: {log.read_text()[-2000:]}")
+        return False
+
+
+def fleet_supervisor(backend, model, store_dir: Path, faults: dict) -> None:
+    """Part 3: hosts from phase 33's warm ladder store. A killed host is
+    declared dead and respawned warm (0 compiles; a fleet.spawn fire
+    retried) and probation re-admits it; a planned restart_host of a
+    one-host fleet restores its slot holders into the respawned engine;
+    a drain_export handoff restores a host's pool into a fresh engine;
+    a scale decision aborted by fleet.scale. Replies bit-equal to the
+    same store's unfaulted replies."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                    inject)
+    from euromillioner_tpu_torch.serve.aotstore import AotStore
+    from euromillioner_tpu_torch.serve.fleet import FleetHost
+    from euromillioner_tpu_torch.serve.router import FleetRouter
+    from euromillioner_tpu_torch.serve.supervisor import (FleetSupervisor,
+                                                          SupervisorPolicy)
+    from euromillioner_tpu_torch.utils.errors import ServeError
+
+    t0 = time.perf_counter()
+    importlib.import_module("torch._inductor")
+    importlib.import_module("torch._dynamo")
+    card(f"fleet supervisor: importing torch._inductor and torch._dynamo "
+         f"(once a process, before the first package load) "
+         f"{time.perf_counter() - t0:.3f} s")
+    built: list = []
+    spawn_s: list = []
+
+    def spawn(name):
+        t = time.perf_counter()
+        eng = fleet_engine(backend, AotStore(str(store_dir)))
+        spawn_s.append(time.perf_counter() - t)
+        built.append(eng)
+        return eng
+
+    longs = governance_traffic(SEED + 35, FLEET_LONG["sequences"],
+                               steps=(FLEET_LONG["steps"],
+                                      FLEET_LONG["steps"] + 1))
+    direct_long = direct_apply(model, longs)
+    e0, e1 = spawn("h0"), spawn("h1")
+    compiles = [e._exec.counts()["compiles"] for e in (e0, e1)]
+    card(f"fleet supervisor: two hosts from the warm store in "
+         f"{spawn_s[0]:.3f} / {spawn_s[1]:.3f} s, compiles {compiles}")
+    check(compiles == [0, 0], "the warm store's hosts compiled")
+    ref = [f.result(timeout=HTTP_WAIT) for f in
+           [e0.submit(s, cls="bulk") for s in longs]]
+    fleet_compare("warm store unfaulted", ref, ref, direct_long)
+    pol = SupervisorPolicy(interval_s=3600.0, dead_after_probes=2,
+                           spawn_retries=2, spawn_backoff_s=0.001)
+    hosts = [FleetHost("h0", e0), FleetHost("h1", e1)]
+    router = FleetRouter(hosts, policy=fleet_policy(), start=False)
+    sup = FleetSupervisor(router, spawn, pol, start=False)
+    try:
+        hosts[1].kill()
+        for _ in range(4):  # ejected, then past dead_after_probes
+            router.monitor.probe_once()
+        plan = FaultPlan([FaultSpec("fleet.spawn", raises=ServeError,
+                                    hits=(1,))])
+        t1 = time.perf_counter()
+        with inject(plan):
+            sup.tick()
+        respawn_s = time.perf_counter() - t1
+        faults["fleet.spawn"] = plan.fired_count("fleet.spawn")
+        fresh = hosts[1].engine
+        n_compiles = fresh._exec.counts()["compiles"]
+        aot = fresh._exec.aot_counts()
+        card(f"fleet supervisor: dead host respawned in {respawn_s:.3f} s "
+             f"(the engine's build from the warm store {spawn_s[-1]:.3f} s; "
+             f"one fleet.spawn fire retried), compiles {n_compiles}, store "
+             f"hits {aot['hits']}, load {aot['load_ms']:.3f} ms")
+        check(sup.spawns == 1 and sup.spawn_failures == 1,
+              "the dead host was not respawned after one retried fire")
+        check(n_compiles == 0, "the warm respawn compiled")
+        router.monitor.probe_once()
+        router.monitor.probe_once()
+        check(router._states["h1"].admitted,
+              "probation did not re-admit the respawned host")
+        got = fleet_served(router, longs)
+        check(router.stats()["failed"] == 0, "requests failed")
+        fleet_compare("respawned fleet", got, ref, direct_long)
+        # fleet.scale aborts a decision (two idle hosts: scale down)
+        idle = [FleetHost(f"s{i}", e0, probe_fn=lambda: {
+            "ok": True, "healthz_version": 1, "attainment": {},
+            "drift_breaches": 0, "queued": 0, "mean_occupancy": 0.0})
+            for i in range(2)]
+        scale_router = FleetRouter(idle, policy=fleet_policy(), start=False)
+        scaler = FleetSupervisor(scale_router, spawn, SupervisorPolicy(
+            interval_s=3600.0, autoscale=True, scale_hysteresis=1,
+            down_cooldown_s=0.0, dead_after_probes=99), start=False)
+        try:
+            scale_router.monitor.probe_once()
+            plan = FaultPlan([FaultSpec("fleet.scale", raises=ServeError,
+                                        hits=(1,))])
+            with inject(plan):
+                scaler.tick()
+            faults["fleet.scale"] = plan.fired_count("fleet.scale")
+            check(scaler.scale_aborts == 1 and scaler.scale_downs == 0,
+                  "fleet.scale did not abort the decision")
+        finally:
+            scaler.close()
+            scale_router.close(drain_s=0)
+    finally:
+        sup.close()
+        router.close(drain_s=5)
+    # a planned restart of a one-host fleet: the slot holders leave the
+    # old engine as blobs and resume in the respawned one
+    solo = spawn("r0")
+    host = FleetHost("r0", solo)
+    router = FleetRouter([host], policy=fleet_policy(), start=False)
+    sup = FleetSupervisor(router, spawn, pol, start=False)
+    try:
+        futs = [router.submit(s, cls="bulk") for s in longs]
+        wait_until("the long sequences are mid-flight",
+                   lambda: solo.telemetry.steps.get() >= 4)
+        t1 = time.perf_counter()
+        carried = sup.restart_host("r0")
+        restart_s = time.perf_counter() - t1
+        got = [f.result(timeout=HTTP_WAIT) for f in futs]
+        st = router.stats()
+        card(f"fleet supervisor: restart_host carried {carried} of "
+             f"{len(longs)} sequences into the respawned engine in "
+             f"{restart_s:.3f} s (compiles "
+             f"{host.engine._exec.counts()['compiles']}); rerouted "
+             f"{st['rerouted']}, failed {st['failed']}")
+        check(carried == len(longs) and st["rerouted"] == 0
+              and st["failed"] == 0, "the restart did not carry every "
+              "slot holder")
+        fleet_compare("restart_host", got, ref, direct_long)
+    finally:
+        sup.close()
+        router.close(drain_s=5)
+    # the drain_export handoff: a host's pool exported, restored into a
+    # fresh engine by FleetHost.respawn
+    host = FleetHost("d0", spawn("d0"))
+    try:
+        old = host.engine
+        futs = [old.submit(s, cls="bulk") for s in longs]
+        wait_until("the long sequences are mid-flight",
+                   lambda: old.telemetry.steps.get() >= 4)
+        blobs = host.drain_export(reason="respawn")
+        nfuts = host.respawn(spawn("d0"), sequences=blobs)
+        got = [f.result(timeout=HTTP_WAIT) for f in nfuts]
+        print(f"fleet supervisor: drain_export handed {len(blobs)} "
+              f"sequences to the fresh engine")
+        check(len(blobs) == len(longs), "drain_export missed sequences")
+        check({np.asarray(g).tobytes() for g in got}
+              == {np.asarray(r).tobytes() for r in ref},
+              "the drain_export handoff's replies differ")
+    finally:
+        for eng in built:
+            eng.close()
+
+
+def fleet_rollout(wd_ckdir: Path, faults: dict) -> int:
+    """Part 4: the 100M Wide&Deep rolled out from bf16 (v1) to int8w (v2,
+    the same checkpoint) through shadow, canary and full, then committed;
+    a fleet.rollout fire during a later canary rolls back. Zero failed
+    requests; each version's replies inside its envelope of the f32
+    predict, the shadow drift inside the two envelopes' sum. Returns K4a's
+    launches over the rollout's traffic (bf16 batches and the f32 drift
+    oracle's)."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
+                                                        rel_error)
+    from euromillioner_tpu_torch.ops.wide_onehot import WIDE_ONEHOT_FWD
+    from euromillioner_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                    inject)
+    from euromillioner_tpu_torch.serve.engine import InferenceEngine
+    from euromillioner_tpu_torch.serve.rollout import (RolloutEngine,
+                                                       RolloutGates)
+    from euromillioner_tpu_torch.serve.session import load_backend
+    from euromillioner_tpu_torch.utils.errors import ServeError
+
+    t0 = time.perf_counter()
+    backend = load_backend("wide_deep", str(wd_ckdir), apply_overrides(
+        Config(), ["serve.profiles=bf16,int8w"]))
+    load_s = time.perf_counter() - t0
+    env = {p: SERVE_ENVELOPES[("wide_deep", p)] for p in ("bf16", "int8w")}
+    rows = bench_rows(8 * FLEET_WD_BATCHES, seed=34)
+    reqs = [rows[i:i + 8] for i in range(0, len(rows), 8)]
+    oracle = [backend.predict(r) for r in reqs]
+    engines = {p: InferenceEngine(backend, buckets=(8,), precision=p)
+               for p in ("bf16", "int8w")}
+    # the parity gate at the two envelopes' sum (each version is held to
+    # its own against f32 below); the latency and attainment gates off
+    # (min_samples past the traffic): int8w's latency is not under test
+    ro = RolloutEngine(engines["bf16"], "bf16", canary_pct=FLEET_CANARY_PCT,
+                       gates=RolloutGates(max_rel_err=sum(env.values()),
+                                          min_samples=10**6))
+    replies: dict = {}
+    try:
+        ro.stage(engines["int8w"], "int8w")
+        WIDE_ONEHOT_FWD.launches = 0
+        # requests each version took in each stage (the per-version
+        # counters /metrics renders; counted at submit)
+        served = {}
+
+        def taken():
+            return {v: int(ro._req_counter.labels(v).get())
+                    for v in ("bf16", "int8w")}
+
+        for stage in ("shadow", "canary", "full"):
+            before = taken()
+            ro.set_stage(stage)
+            replies[stage] = [ro.predict(r, max_wait_s=HTTP_WAIT)
+                              for r in reqs]
+            served[stage] = {v: n - before[v] for v, n in taken().items()}
+        check(served["canary"]["bf16"] == served["canary"]["int8w"]
+              == len(reqs) * FLEET_CANARY_PCT / 100,
+              f"the canary did not split: {served['canary']}")
+        wait_until("the shadow comparisons land", lambda: ro.stats()[
+            "rollout"]["versions"]["int8w"]["parity"]["checks"] >= len(reqs))
+        st = ro.stats()["rollout"]
+        check(st["stage"] == "full" and st["rollbacks"] == 0,
+              f"the rollout rolled back: {st['rollback_reason']}")
+        ro.commit()
+        k4a = WIDE_ONEHOT_FWD.launches
+        parity = st["versions"]["int8w"]["parity"]
+        errs = {s: max(rel_error(np.asarray(g), o) for g, o in
+                       zip(replies[s], oracle)) for s in replies}
+        card(f"fleet rollout wide_deep (100M, loaded in {load_s:.1f} s): "
+             f"bf16 -> int8w through shadow, canary "
+             f"({FLEET_CANARY_PCT:.0f}%), full, committed; requests per "
+             f"version and stage {json.dumps(served)}; "
+             f"shadow drift max {parity['drift_max']:.3e} (gate "
+             f"{sum(env.values()):.0e}); worst rel to the f32 predict per "
+             f"stage {json.dumps({s: f'{e:.3e}' for s, e in errs.items()})}"
+             f"; K4a launches {k4a}")
+        check(errs["shadow"] <= env["bf16"] and errs["full"] <= env["int8w"]
+              and errs["canary"] <= max(env.values()),
+              "rollout replies outside their envelopes")
+        check(k4a >= len(reqs), "the bf16 version never launched K4a")
+        # a fleet.rollout fire during a canary: rolled back, no failure
+        ro.stage(engines["bf16"], "bf16-again", prestage=False)
+        ro.set_stage("canary")
+        plan = FaultPlan([FaultSpec("fleet.rollout", raises=ServeError,
+                                    hits=(1,))])
+        with inject(plan):
+            got = [ro.predict(r, max_wait_s=HTTP_WAIT) for r in reqs[:4]]
+        faults["fleet.rollout"] = plan.fired_count("fleet.rollout")
+        st = ro.stats()["rollout"]
+        print(f"fleet rollout: fleet.rollout fired {faults['fleet.rollout']}"
+              f" during a canary: stage {st['stage']}, rollbacks "
+              f"{st['rollbacks']} ({st['rollback_reason']}), "
+              f"{len(got)} requests answered")
+        check(st["stage"] == "stable" and st["rollbacks"] == 1
+              and all(np.isfinite(np.asarray(g)).all() for g in got),
+              "the faulted canary did not roll back cleanly")
+    finally:
+        for eng in engines.values():
+            eng.close()
+        del backend
+        torch.cuda.empty_cache()
+    return k4a
+
+
+def phase_fleet(root: Path, flagship: Path, keep: Path) -> dict:
+    """Phase 34: the fleet on the card (see FLEET_CONFIG): the in-process
+    router through a host kill and an SLO ejection, the HTTP front end over
+    two fused ``serve`` children through a SIGKILL (K1), the supervisor's
+    warm respawn, restart and handoff from phase 33's ladder store, the
+    Wide&Deep rollout (K4a), and the fleet.* fault points once each.
+    Returns K1's launches on the HTTP path and K4a's on the rollout."""
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.serve.continuous import \
+        load_recurrent_backend
+
+    t0 = time.perf_counter()
+    out = root / "build" / "chip_fleet"
+    out.mkdir(parents=True, exist_ok=True)
+    procs, logs, urls, front = fleet_http_children(root, flagship)
+    faults: dict = {}
+    try:
+        backend = load_recurrent_backend(
+            apply_overrides(Config(), FLEET_CONFIG), str(flagship),
+            device="cuda")
+        model = backend.model
+        fleet_in_process(backend, model, faults)
+        k1 = fleet_http(procs, logs, urls, front, model)
+        fleet_supervisor(backend, model, keep / "ladder", faults)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    k4a = fleet_rollout(keep / "wide_deep", faults)
+    print(f"fleet fault points fired: {json.dumps(faults, sort_keys=True)}")
+    check(sorted(faults) == ["fleet.migrate", "fleet.probe",
+                             "fleet.rollout", "fleet.route", "fleet.scale",
+                             "fleet.spawn"] and all(
+        n == 1 for n in faults.values()), "a fleet fault point did not "
+        "fire exactly once")
+    shutil.rmtree(out, ignore_errors=True)
+    card(f"fleet: phase 34 took {time.perf_counter() - t0:.1f} s")
+    return {"K1": k1, "K4a": k4a}
 
 
 def main() -> int:
@@ -6707,8 +7340,12 @@ def main() -> int:
         dp1_families = phase_train_dp_families(root)
         ranks = phase_ranks_on_one_card(root)
         phase_param_avg(root)
-        aot = phase_aot(root, flagship)
+        # phase 34 runs on phase 33's warm ladder store and Wide&Deep
+        fleet_keep = root / "build" / "chip_fleet" / "aot"
+        aot = phase_aot(root, flagship, keep=fleet_keep)
+        fleet = phase_fleet(root, flagship, fleet_keep)
         shutil.rmtree(flagship, ignore_errors=True)
+        shutil.rmtree(fleet_keep.parent, ignore_errors=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6718,7 +7355,8 @@ def main() -> int:
         "serve_bf16_ckpt_int8w": bf16_serve_k1["int8w"],
         "serve_http_fused": http_k1, "replay_fused": replay_k1,
         "train_dp_gloo": ranks["lstm"]["K1.f32"],
-        "train_tbptt": tbptt["K1.f32"], "aot_padded_fused": aot["K1"]}
+        "train_tbptt": tbptt["K1.f32"], "aot_padded_fused": aot["K1"],
+        "fleet_http_fused": fleet["K1"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {"train": train_k2,
                               "train_dp_gloo": ranks["lstm"]["K2.f32"],
@@ -6748,7 +7386,8 @@ def main() -> int:
                                "serve_int8w_drift_oracle":
                                    tiers_k4a["int8w"],
                                "train_dp": dp1_families["K4a"],
-                               "aot_serve_bf16": aot["K4a"]}
+                               "aot_serve_bf16": aot["K4a"],
+                               "rollout_bf16": fleet["K4a"]}
     k4a["launches"] = sum(k4a["launches_by_path"].values())
     k4b["launches_by_path"] = {"train": train_k4b,
                                "bench_step": wd_bench["launches"]["K4b"],

@@ -1,5 +1,5 @@
 """CLI: ``python -m euromillioner_tpu_torch fetch|train|predict|reference|serve|
-replay|trace-export|obs-top|aot``.
+fleet|replay|trace-export|obs-top|aot``.
 
 The JAX package's subcommands for the ported paths, with the same flags,
 dotted config overrides and exit codes (the error taxonomy's
@@ -37,6 +37,10 @@ JSONL (``--jsonl``), a server's ``/stats`` (``--url``) or several servers'
 ``/metrics`` (``--fleet``). With ``serve.aot.enabled=true`` ``serve`` runs
 its programs compiled ahead of time from the AOT store (``serve.aot.dir``);
 ``aot prewarm|ls|verify|prune`` fills, lists, checks and prunes that store.
+``fleet`` fronts several ``serve`` processes (``--hosts``) with one router
+that probes their health, ejects and re-admits them and re-routes their
+work (``--smoke N`` over in-process hosts; ``--autoscale`` attaches the
+supervisor; ``--release HOST`` lifts a quarantine on a running front end).
 """
 
 from __future__ import annotations
@@ -795,6 +799,213 @@ def cmd_obs_top(args, cfg: Config) -> int:
                        iterations=1 if args.once else None)
 
 
+def _probe_policy(cfg: Config):
+    """``serve.fleet.*`` → the router's ProbePolicy (the one mapping the
+    fleet command and the tests share)."""
+    from euromillioner_tpu_torch.serve.fleet import ProbePolicy
+
+    fl = cfg.serve.fleet
+    return ProbePolicy(
+        interval_s=fl.probe_interval_ms / 1e3,
+        timeout_s=fl.probe_timeout_ms / 1e3,
+        retries=fl.probe_retries, jitter_s=fl.probe_jitter_ms / 1e3,
+        eject_attainment=fl.eject_attainment,
+        eject_class=fl.eject_class,
+        eject_breach_probes=fl.eject_breach_probes,
+        eject_stale_probes=fl.eject_stale_probes,
+        probation_probes=fl.probation_probes)
+
+
+def _fleet_smoke_hosts(n: int, model_type: str, cfg: Config,
+                       device) -> tuple:
+    """N tiny in-process hosts on ``device`` sharing one model, weights
+    from a seeded ``torch.Generator`` (the ``fleet --smoke`` path: real
+    engines, real probes, no sockets). Returns ``(hosts, make_engine)``:
+    the factory builds one more engine on the same model, the
+    supervisor's ``spawn_fn``."""
+    import torch
+
+    from euromillioner_tpu_torch.serve.fleet import FleetHost
+
+    gen = torch.Generator().manual_seed(0)
+    if model_type == "lstm":
+        from euromillioner_tpu_torch.models.lstm import build_lstm
+        from euromillioner_tpu_torch.serve.continuous import (
+            RecurrentBackend, StepScheduler)
+
+        backend = RecurrentBackend(
+            build_lstm(16, 1, 7, fused="off", generator=gen, device=device),
+            feat_dim=11, compute_dtype=torch.float32)
+
+        def make_engine(name: str):
+            return StepScheduler(backend, max_slots=8, step_block=4,
+                                 classes=cfg.serve.classes,
+                                 slo_ms=cfg.serve.obs.slo_ms)
+    else:
+        from euromillioner_tpu_torch.models.mlp import build_mlp
+        from euromillioner_tpu_torch.serve.engine import InferenceEngine
+        from euromillioner_tpu_torch.serve.session import NNBackend
+
+        backend = NNBackend(
+            build_mlp((16, 16), 1, in_features=9, generator=gen,
+                      device=device), (9,), compute_dtype=torch.float32)
+        warmed = [False]  # one shared model: warm it once
+
+        def make_engine(name: str):
+            eng = InferenceEngine(backend, buckets=(8, 32),
+                                  classes=cfg.serve.classes,
+                                  slo_ms=cfg.serve.obs.slo_ms,
+                                  warmup=not warmed[0])
+            warmed[0] = True
+            return eng
+
+    hosts = [FleetHost(f"h{i}", make_engine(f"h{i}")) for i in range(n)]
+    return hosts, make_engine
+
+
+def _fleet_router(hosts, cfg: Config, policy):
+    """The router over ``hosts`` with the ``serve.fleet.*`` knobs."""
+    from euromillioner_tpu_torch.serve.router import FleetRouter
+
+    fl = cfg.serve.fleet
+    return FleetRouter(hosts, classes=cfg.serve.classes, policy=policy,
+                       slo_ms=cfg.serve.obs.slo_ms,
+                       max_route_attempts=fl.max_route_attempts,
+                       max_pending=fl.max_pending,
+                       migrate_on_eject=fl.migrate.enabled
+                       and fl.migrate.eject,
+                       migrate_export_timeout_s=fl.migrate.
+                       export_timeout_ms / 1e3)
+
+
+def cmd_fleet(args, cfg: Config) -> int:
+    """``fleet``: one front end over N serving hosts (serve/router.py):
+    router-owned admission, per-sequence host affinity, SLO-keyed health
+    ejection with drain and re-route, recovery probation. ``--hosts`` (or
+    ``serve.fleet.hosts``) names ``serve`` processes by URL and the front
+    end answers HTTP on ``serve.host:serve.port`` until SIGTERM or
+    Ctrl-C; ``--smoke N`` routes N synthetic requests over in-process
+    hosts on ``--device`` and exits. ``--autoscale`` attaches the fleet
+    supervisor (serve/supervisor.py); ``--release HOST`` lifts a
+    crash-loop quarantine on a running front end and exits. The port has
+    no compile cache to enable here: eager hosts compile nothing, and
+    ``serve.aot`` stores belong to the hosts."""
+    import dataclasses
+
+    from euromillioner_tpu_torch.serve import transport
+    from euromillioner_tpu_torch.serve.fleet import HttpServeHost
+    from euromillioner_tpu_torch.serve.supervisor import (
+        FleetSupervisor, policy_from_config)
+
+    if args.release:
+        # an operator action against a running front end: no engines
+        import urllib.request
+
+        front = (args.front
+                 or f"http://{cfg.serve.host}:{cfg.serve.port}").rstrip("/")
+        req = urllib.request.Request(
+            front + "/admin/release",
+            data=json.dumps({"host": args.release}).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                body = json.loads(resp.read())
+        except Exception as e:  # noqa: BLE001 — the operator gets why
+            raise ServeError(f"release failed against {front}: {e}")
+        print(json.dumps(body))
+        return 0 if body.get("released") else 1
+
+    policy = _probe_policy(cfg)
+    fl = cfg.serve.fleet
+    sup_policy = policy_from_config(fl.autoscale, fl.migrate)
+    want_supervisor = args.autoscale or fl.autoscale.enabled
+    if args.autoscale and not sup_policy.autoscale:
+        sup_policy = dataclasses.replace(sup_policy, autoscale=True)
+    if args.smoke:
+        from euromillioner_tpu_torch.core.device import resolve_device
+
+        device = resolve_device(args.device)  # no card: fail first
+        hosts, make_engine = _fleet_smoke_hosts(max(1, args.local_hosts),
+                                                args.model_type, cfg, device)
+        router = supervisor = None
+        try:
+            router = _fleet_router(hosts, cfg, policy)
+            if want_supervisor:
+                supervisor = FleetSupervisor(router, make_engine, sup_policy)
+            summary = transport.run_smoke(router, args.smoke)
+            # the JAX CLI's fleet summary: counts, not replies
+            summary.pop("predictions")
+            st = router.stats()
+            summary["fleet"] = {"hosts": st["hosts"],
+                                "rerouted": st["rerouted"],
+                                "failed": st["failed"]}
+            if supervisor is not None:
+                summary["supervisor"] = supervisor.describe()
+            print(json.dumps(summary))
+            return 0 if summary["failed"] == 0 else 1
+        finally:
+            if supervisor is not None:
+                supervisor.close()
+            if router is not None:
+                router.close(drain_s=5.0)
+            for h in hosts:
+                h.engine.close()
+    urls = [u for u in ((args.hosts or "").split(",")
+                        if args.hosts else fl.hosts) if u]
+    if not urls:
+        raise ServeError("fleet needs --hosts (or serve.fleet.hosts=) "
+                         "backend URLs, or --smoke N for the in-process "
+                         "path")
+    kind = "sequence" if args.model_type == "lstm" else "rows"
+    hosts = [HttpServeHost(f"h{i}", url, kind=kind,
+                           timeout_s=fl.probe_timeout_ms / 1e3,
+                           request_timeout_s=fl.request_timeout_ms / 1e3)
+             for i, url in enumerate(urls)]
+    router = supervisor = None
+    try:
+        router = _fleet_router(hosts, cfg, policy)
+        if want_supervisor:
+            # HTTP hosts are other processes this front end cannot start:
+            # the supervisor watches (dead-host detection, quarantine on
+            # /healthz and /metrics) and respawns nothing
+            supervisor = FleetSupervisor(router, None, sup_policy)
+            logger.info("fleet supervisor attached (watch-only over HTTP "
+                        "hosts: lifecycle + quarantine, no spawning)")
+        try:
+            server = transport.make_server(router, cfg.serve.host,
+                                           cfg.serve.port)
+        except OSError as e:
+            raise ServeError(
+                f"cannot bind {cfg.serve.host}:{cfg.serve.port}: {e}")
+        logger.info("fleet front end on http://%s:%d over %d host(s): %s "
+                    "(probe every %.0f ms, eject on %s attainment < %.2f "
+                    "or %d stale probes)", cfg.serve.host,
+                    server.server_address[1], len(urls), urls,
+                    policy.interval_s * 1e3,
+                    policy.eject_class or cfg.serve.classes[0],
+                    policy.eject_attainment, policy.eject_stale_probes)
+
+        def _stop(signum, frame):  # SIGTERM: the same path as Ctrl-C
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _stop)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            logger.info("shutting down; final stats: %s",
+                        json.dumps(router.stats()))
+        finally:
+            server.server_close()
+        return 0
+    finally:
+        if supervisor is not None:
+            supervisor.close()
+        if router is not None:
+            router.close(drain_s=5.0)
+        for h in hosts:
+            h.close()
+
+
 def _log_banner(backend, engine, cfg: Config) -> None:
     """The JAX CLI's serving line for each engine kind."""
     s = cfg.serve
@@ -896,6 +1107,37 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="serving device (default: cuda; the CPU runs only "
                          "when asked for)")
+    fl = sub.add_parser(
+        "fleet", help="front-end router over N serving hosts: admission, "
+                      "per-sequence affinity, SLO-keyed health ejection "
+                      "with drain/re-route, recovery probation "
+                      "(serve.fleet.* knobs)")
+    fl.add_argument("--hosts",
+                    help="comma-separated backend serve URLs (overrides "
+                         "serve.fleet.hosts)")
+    fl.add_argument("--model-type", default="mlp", choices=["mlp", "lstm"],
+                    help="host family: lstm fleets are sequence-kind "
+                         "(whole (steps, F) payloads); also picks the "
+                         "--smoke in-process host family")
+    fl.add_argument("--local-hosts", type=int, default=2,
+                    help="--smoke: number of in-process hosts to build")
+    fl.add_argument("--smoke", type=int, default=0,
+                    help="route N synthetic requests over in-process "
+                         "hosts (no network) and exit")
+    fl.add_argument("--autoscale", action="store_true",
+                    help="attach the self-healing fleet supervisor with "
+                         "autoscaling forced on (serve.fleet.autoscale.* "
+                         "knobs): warm respawn of dead hosts, load-derived "
+                         "host count, crash-loop quarantine")
+    fl.add_argument("--release", metavar="HOST",
+                    help="operator action: lift HOST's crash-loop "
+                         "quarantine on a running fleet front end "
+                         "(POST /admin/release) and exit")
+    fl.add_argument("--front", metavar="URL",
+                    help="--release: the fleet front end URL (default "
+                         "http://serve.host:serve.port)")
+    fl.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help=f"--smoke: the hosts' device ({device_help})")
     ot = sub.add_parser(
         "obs-top", help="one-line-per-second serving summary (rps, "
                         "p50/p99 per class, SLO attainment, occupancy) "
@@ -984,7 +1226,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prune: byte bound (default serve.aot.max_bytes)")
     ao.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help=f"prewarm: serving device ({device_help})")
-    for s in (fe, tr, pr, rf, sv, ot, rp, te, ao):
+    for s in (fe, tr, pr, rf, sv, fl, ot, rp, te, ao):
         s.add_argument("overrides", nargs="*", default=[],
                        help="config overrides: section.field=value")
     return p
@@ -993,7 +1235,8 @@ def build_parser() -> argparse.ArgumentParser:
 _COMMANDS = {"fetch": cmd_fetch, "train": cmd_train, "predict": cmd_predict,
              "reference": cmd_reference, "serve": cmd_serve,
              "replay": cmd_replay, "trace-export": cmd_trace_export,
-             "obs-top": cmd_obs_top, "aot": cmd_aot}
+             "obs-top": cmd_obs_top, "aot": cmd_aot,
+             "fleet": cmd_fleet}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -303,6 +303,120 @@ class AotConfig:
 
 
 @dataclass
+class AutoscaleConfig:
+    """The fleet supervisor (serve/supervisor.py): warm respawn of dead
+    hosts, a load-derived host count with hysteresis and per-direction
+    cooldowns, crash-loop quarantine. Nested under ``serve.fleet`` —
+    override as ``serve.fleet.autoscale.field=``. Disabled (the default),
+    the ``fleet`` command builds no supervisor."""
+
+    # The scaling half; a supervisor attached without it still respawns
+    # dead hosts and quarantines crash loops.
+    enabled: bool = False
+    # Host-count bounds. Scale-up spawns a warm host that enters through
+    # the router's probation; scale-down drains its victim (no new
+    # admissions, in-flight work completes), then retires it.
+    min_hosts: int = 1
+    max_hosts: int = 4
+    # Tick cadence.
+    interval_ms: float = 200.0
+    # Scale up on any of: admission heap depth >= up_pending, mean
+    # admitted-host occupancy >= up_occupancy, recent attainment of the
+    # first class < up_attainment.
+    up_pending: int = 1
+    up_occupancy: float = 0.85
+    up_attainment: float = 0.9
+    # Scale down on all of: empty heap and queues, mean occupancy <=
+    # down_occupancy, more than min_hosts admitted.
+    down_occupancy: float = 0.25
+    # Consecutive ticks wanting one direction before a decision fires,
+    # and each direction's cooldown.
+    scale_hysteresis: int = 2
+    up_cooldown_ms: float = 2000.0
+    down_cooldown_ms: float = 10000.0
+    # An ejected host with no healthy streak for this many probes is
+    # declared dead and respawned.
+    dead_after_probes: int = 8
+    # Spawn attempts per cycle (the fleet.spawn fault point) and the
+    # first backoff; an exhausted cycle is a crash-loop strike.
+    spawn_retries: int = 3
+    spawn_backoff_ms: float = 50.0
+    # This many deaths or exhausted spawn cycles of one host inside
+    # strike_window_s quarantine it until `fleet --release`.
+    quarantine_strikes: int = 3
+    strike_window_s: float = 300.0
+
+
+@dataclass
+class MigrateConfig:
+    """Live migration between fleet hosts (serve/router.py ``migrate``
+    over the step scheduler's export and import): a slot holder's state
+    moves as a stamped, crc-checked blob and resumes bit-identical.
+    Nested under ``serve.fleet`` — override as
+    ``serve.fleet.migrate.field=``."""
+
+    # Off: scale-down waits out sequences, an ejection re-routes from
+    # step 0 and a restart loses its slot holders.
+    enabled: bool = True
+    # Scale-down migrates the victim's slot holders (reason "drain").
+    drain: bool = True
+    # An SLO ejection of a reachable host migrates its live sequences
+    # (reason "eject"); a stale host cannot answer its export surface.
+    eject: bool = True
+    # FleetSupervisor.restart_host migrates to peers and restores the
+    # rest into the fresh engine (reason "respawn").
+    respawn: bool = True
+    # How long the router waits for one export before leaving the
+    # sequence where it runs.
+    export_timeout_ms: float = 30000.0
+
+
+@dataclass
+class FleetConfig:
+    """The serving fleet (serve/fleet.py, serve/router.py,
+    serve/rollout.py): router-owned admission, SLO-keyed ejection,
+    drain and re-route, recovery probation, versioned rollout. Nested
+    under ``serve`` — override as ``serve.fleet.field=``."""
+
+    # Backend host URLs the `fleet` command fronts (comma-separated).
+    # Empty with --smoke: in-process hosts.
+    hosts: tuple[str, ...] = ()
+    # Every host's /healthz is probed each interval, concurrently, with
+    # a per-probe timeout, retries and pre-probe jitter.
+    probe_interval_ms: float = 200.0
+    probe_timeout_ms: float = 1000.0
+    probe_retries: int = 2
+    probe_jitter_ms: float = 10.0
+    # HTTP /predict timeout per route attempt, apart from the probe's: a
+    # request may queue for seconds on a healthy host.
+    request_timeout_ms: float = 30000.0
+    # Eject after eject_breach_probes bodies whose attainment of
+    # eject_class ("" = the first serve.classes entry) is below
+    # eject_attainment, or after eject_stale_probes failed probes.
+    eject_attainment: float = 0.5
+    eject_class: str = ""
+    eject_breach_probes: int = 2
+    eject_stale_probes: int = 3
+    # Healthy probes before an ejected host is re-admitted.
+    probation_probes: int = 3
+    # Dispatch attempts per request across re-routes.
+    max_route_attempts: int = 3
+    # Bound on the admission heap during a fleet-wide outage; past it a
+    # new arrival is shed (fleet_shed_total).
+    max_pending: int = 4096
+    # Versioned rollout (RolloutEngine.from_config): the canary share and
+    # the auto-rollback gates.
+    canary_pct: float = 10.0
+    rollout_max_rel_err: float = 1e-3
+    rollout_max_latency_x: float = 3.0
+    rollout_min_attainment: float = 0.9
+    # The supervisor (serve.fleet.autoscale.*).
+    autoscale: AutoscaleConfig = field(default_factory=AutoscaleConfig)
+    # Live migration (serve.fleet.migrate.*).
+    migrate: MigrateConfig = field(default_factory=MigrateConfig)
+
+
+@dataclass
 class ServeConfig:
     """Serving: the HTTP front end (serve/transport.py), the sequence
     schedulers (serve/continuous.py) and the row engine
@@ -376,6 +490,8 @@ class ServeConfig:
     paging: PagingConfig = field(default_factory=PagingConfig)
     # The AOT program store (serve.aot.*).
     aot: AotConfig = field(default_factory=AotConfig)
+    # The serving fleet (serve.fleet.*).
+    fleet: FleetConfig = field(default_factory=FleetConfig)
 
 
 @dataclass

@@ -27,8 +27,8 @@ check and immediate return — no allocation, no locking, no logging — so the
 points can live on per-step training and serving paths.
 
 Registered points (grep ``fault_point(`` for ground truth). The JAX
-package's ``serve.shard`` and ``fleet.*`` points come with the modules
-that hold them (ROADMAP queue 1):
+package's ``serve.shard`` comes with the sharded serving it covers
+(ROADMAP queue 1):
 
 ========================  ====================================================
 ``fetch.request``         before each HTTP attempt (``data/fetch.py``)
@@ -124,6 +124,33 @@ that hold them (ROADMAP queue 1):
                           open-loop replay loop (obs/replay.py); a
                           fire fails ONLY that event — the clock keeps
                           running
+``fleet.probe``           each health-probe attempt of the router's
+                          probe loop (serve/fleet.py HealthMonitor); a
+                          fire is a failed probe — it counts toward the
+                          staleness ejection and the loop keeps running
+``fleet.route``           each dispatch attempt of the fleet router
+                          (serve/router.py); a fire fails only that
+                          attempt — the request re-routes like any host
+                          failure (up to max_route_attempts)
+``fleet.rollout``         around the candidate submit of the versioned
+                          rollout (serve/rollout.py), shadow and canary;
+                          a fire is a candidate error (a gate breach
+                          rolls back) and the client request completes
+                          on the stable version
+``fleet.spawn``           each host-spawn attempt of the fleet supervisor
+                          (serve/supervisor.py), respawn and scale-up; a
+                          fire fails only that attempt (retried with
+                          backoff; an exhausted cycle is a crash-loop
+                          strike)
+``fleet.scale``           before a committed autoscale decision of the
+                          supervisor; a fire aborts only that decision —
+                          the next tick decides afresh
+``fleet.migrate``         around the ship step of one live migration
+                          (serve/router.py migrate, after the export,
+                          before the destination's import); a fire loses
+                          only that migration — the source re-imports its
+                          blob and the sequence finishes where it was,
+                          bit-identical
 ========================  ====================================================
 
 While a plan is active, every visit and fire also lands in the obs

@@ -955,6 +955,18 @@ class StepScheduler(MetricsSink):
             rows_out = self._gather(y, [0], [0])  # a gather per rung's shape
         rows_out.cpu()
 
+    def warmup(self) -> None:
+        """The construction-time warmup, callable later from any thread
+        and idempotent (the children's too): versioned rollout stages a
+        candidate through it before the traffic shift, so with the AOT
+        store bound the shift compiles nothing and every fresh compile is
+        on disk for the next warm spawn. It runs on fresh states, never
+        the live pool."""
+        with torch.inference_mode():
+            self._warmup()
+        for child in self._children.values():
+            child.warmup()
+
     def _compiled_block(self, k: int, rows: int | None = None):
         """The AOT store's block program of one rung: ``(rows, k,
         profile)``, ``rows`` the block's row count by default."""

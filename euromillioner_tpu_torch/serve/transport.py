@@ -22,12 +22,16 @@ thread, the engine coalesces across threads):
   (one live sequence packed as a migration blob and removed here), or
   ``{"all": true}`` → ``{"blobs": [...]}`` (every live sequence);
 * ``POST /admin/migrate`` ``{"blob": base64}`` → the imported sequence's
-  ``{"predictions": [...], "migrated": true}`` once it finishes.
+  ``{"predictions": [...], "migrated": true}`` once it finishes;
+* ``POST /admin/release`` ``{"host": name}`` → ``{"host": name,
+  "released": bool}``: lifts a fleet supervisor's quarantine of that host
+  (a fleet front end, serve/router.py ``release_host``).
 
 Only the step scheduler has the migration surface (``export_sequence``,
 ``drain_export``, ``import_sequence``); the row engine and the batch
-scheduler answer both admin routes with the JAX handler's 404, and every
-engine answers ``/admin/release`` with it (no fleet supervisor).
+scheduler answer both migration routes with the JAX handler's 404. Only a
+fleet router has ``release_host``: every engine answers ``/admin/release``
+with the 404, a router without a supervisor with a 400 naming that.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ HEALTHZ_VERSION = 1
 
 # the JAX handler's answers where the engine lacks the surface: the
 # migration routes for a row engine or the batch scheduler, the release
-# route always (the fleet supervisor is not ported)
+# route for anything but a fleet router
 _ADMIN_404 = {"/admin/export": "this engine has no live-migration surface",
               "/admin/migrate": "this engine has no live-migration surface",
               "/admin/release": "this endpoint has no fleet supervisor"}
@@ -60,12 +64,24 @@ _ADMIN_404 = {"/admin/export": "this engine has no live-migration surface",
 
 def healthz_body(engine) -> dict:
     """The /healthz JSON: liveness, the SLO classes (and the step-block
-    ladder), the precision profile with its envelope, and constant-time
-    load figures, with the telemetry's health view (attainment per class,
-    drift breaches, span count, uptime) between the last two."""
-    return {"ok": True, "healthz_version": HEALTHZ_VERSION,
-            **engine.slo_desc, **engine.precision_desc,
-            **engine.telemetry.health(), **engine.load_desc}
+    ladder), the precision profile with its envelope, a rollout's
+    ``rollout`` rider (serving version, stage, candidate, rollbacks), and
+    constant-time load figures, with the telemetry's health view
+    (attainment per class, drift breaches, span count, uptime; a fleet
+    router's per-host view) before the load. A part the engine lacks (a
+    router has no precision profile) is left out. Nothing here waits on
+    a dispatcher or the device: a fleet probes it every interval."""
+    body = {"ok": True, "healthz_version": HEALTHZ_VERSION}
+    body.update(getattr(engine, "slo_desc", None) or {})
+    body.update(getattr(engine, "precision_desc", None) or {})
+    rollout = getattr(engine, "rollout_desc", None)
+    if rollout:
+        body["rollout"] = rollout
+    telemetry = getattr(engine, "telemetry", None)
+    if telemetry is not None:
+        body.update(telemetry.health())
+    body.update(getattr(engine, "load_desc", None) or {})
+    return body
 
 
 def handle_request(engine, payload: Any) -> tuple[int, dict]:
@@ -98,7 +114,8 @@ def handle_request(engine, payload: Any) -> tuple[int, dict]:
     profile = payload.get("profile")
     if profile is not None and not isinstance(profile, str):
         return 400, {"error": "profile must be a string (serve.profiles)"}
-    kw = {}
+    # profile is routed only when named: a fleet router has none
+    kw = {} if profile is None else {"profile": profile}
     tag = payload.get("tag")
     if tag is not None:
         if not isinstance(tag, str) or not tag:
@@ -108,8 +125,7 @@ def handle_request(engine, payload: Any) -> tuple[int, dict]:
                                   "engines (nothing to export)"}
         kw["tag"] = tag
     try:
-        pred = engine.predict(x, max_wait_s=max_wait_s, cls=cls,
-                              profile=profile, **kw)
+        pred = engine.predict(x, max_wait_s=max_wait_s, cls=cls, **kw)
     except ServeError as e:
         return 400, {"error": str(e)}
     except Exception as e:  # noqa: BLE001 — engine faults → 500, not crash
@@ -221,6 +237,23 @@ def _admin_migrate(engine, payload: Any) -> tuple[int, dict]:
     return 200, {"predictions": pred.tolist(), "migrated": True}
 
 
+def _admin_release(engine, payload: Any) -> tuple[int, dict]:
+    """``/admin/release``: ``{"host": name}`` lifts the fleet supervisor's
+    quarantine of that host (``{"released": false}`` when it was not
+    quarantined); 404 on an engine without ``release_host``, 400 on a bad
+    body or a router without a supervisor."""
+    release = getattr(engine, "release_host", None)
+    if release is None:
+        return 404, {"error": _ADMIN_404["/admin/release"]}
+    host = payload.get("host") if isinstance(payload, dict) else None
+    if not isinstance(host, str) or not host:
+        return 400, {"error": 'body must be {"host": name}'}
+    try:
+        return 200, {"host": host, "released": bool(release(host))}
+    except ServeError as e:
+        return 400, {"error": str(e)}
+
+
 class _Handler(BaseHTTPRequestHandler):
     engine: Any  # set by make_server on the subclass
 
@@ -279,8 +312,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(*_admin_export(self.engine, payload))
         elif self.path == "/admin/migrate":
             self._reply(*_admin_migrate(self.engine, payload))
-        elif self.path in _ADMIN_404:
-            self._reply(404, {"error": _ADMIN_404[self.path]})
+        elif self.path == "/admin/release":
+            self._reply(*_admin_release(self.engine, payload))
         else:
             self._reply(*handle_request(self.engine, payload))
 

@@ -3,12 +3,15 @@ import_sequence, the EMT1 migration container, ``/admin/export`` and
 ``/admin/migrate``) against the JAX package's: the golden v1 blob decodes
 and its bytes are reproduced, blobs cross between the two packages both
 ways mid-flight, and the port's own bit pin holds — a sequence migrated
-mid-flight replies bit-equal to one never migrated, in f32 and bf16.
-Each behaviour mirrors a test of tests/test_migrate.py (its fleet,
-supervisor and chaos tests wait for the port's fleet and fault points)."""
+mid-flight replies bit-equal to one never migrated, in f32 and bf16. Then
+the fleet's three triggers (scale-down drain, SLO ejection of a reachable
+host, a planned restart), ``fleet.migrate`` chaos and the fleet's
+observability riders. Each behaviour mirrors a test of
+tests/test_migrate.py."""
 
 import base64
 import contextlib
+import dataclasses
 import json
 import pathlib
 import sys
@@ -16,7 +19,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +35,11 @@ from euromillioner_tpu.serve.aotstore import \
 from euromillioner_tpu_torch.models.convert import params_from_jax
 from euromillioner_tpu_torch.models.lstm import build_lstm
 from euromillioner_tpu_torch.models.mlp import build_mlp
+from euromillioner_tpu_torch.resilience import FaultPlan, FaultSpec, inject
+from euromillioner_tpu_torch.serve import (FleetHost, FleetRouter,
+                                           FleetSupervisor, HttpServeHost,
+                                           ProbePolicy, SupervisorPolicy,
+                                           parse_probe)
 from euromillioner_tpu_torch.serve.aotstore import params_fingerprint
 from euromillioner_tpu_torch.serve.continuous import (MIGRATE_VERSION,
                                                       RecurrentBackend,
@@ -504,3 +512,307 @@ def test_healthz_carries_migrations_after_a_move(backend):
     finally:
         src.close()
         dst.close()
+
+
+# -- the fleet's three triggers, its chaos and its observability ---------------
+
+FAST_POLICY = ProbePolicy(interval_s=30.0, timeout_s=2.0, retries=1,
+                          jitter_s=0.0, eject_stale_probes=2,
+                          eject_breach_probes=2, probation_probes=2)
+FAST_SUP = SupervisorPolicy(interval_s=30.0, autoscale=True, min_hosts=1,
+                            dead_after_probes=2, spawn_retries=2,
+                            spawn_backoff_s=0.001)
+# long enough that a sequence is still in its slot when the move lands
+LONG = 1024
+
+
+def _wait_steps(eng, n, timeout_s=WAIT):
+    """Poll until ``eng`` has run ``n`` block substeps: a sequence
+    submitted before is mid-flight (the blobs' headers show pos > 0)."""
+    deadline = time.monotonic() + timeout_s
+    while eng.telemetry.steps.get() < n:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the engine never reached {n} steps")
+        time.sleep(0.002)
+
+
+def _pin_to(router, name, xs, cls="bulk"):
+    """Submit ``xs`` while every other host is unadmitted: placement on
+    ``name`` by construction."""
+    others = [n for n in router._states if n != name]
+    for n in others:
+        router._states[n].admitted = False
+    futs = [router.submit(x, cls=cls) for x in xs]
+    for n in others:
+        router._states[n].admitted = True
+    return futs
+
+
+@contextlib.contextmanager
+def two_host_fleet(backend, **router_kw):
+    e0, e1 = _engine(backend), _engine(backend)
+    router = FleetRouter([FleetHost("h0", e0), FleetHost("h1", e1)],
+                         policy=FAST_POLICY, start=False, **router_kw)
+    try:
+        yield router, e0, e1
+    finally:
+        router.close(drain_s=5)
+        e0.close()
+        e1.close()
+
+
+class TestRouterMigration:
+    def test_scale_down_drain_is_o_blob_ship(self, backend):
+        """Scale-down of the host holding long sequences: the drain has
+        run out right after the migration (nothing waits out a sequence)
+        and every migrated reply is bit-identical, none failed."""
+        with two_host_fleet(backend) as (router, e0, e1):
+            sup = FleetSupervisor(router, lambda name: _engine(backend),
+                                  FAST_SUP, start=False)
+            sup._spawned_names.add("h0")  # the preferred victim
+            try:
+                xs = [_seq(LONG, seed=s) for s in range(2)]
+                futs = _pin_to(router, "h0", xs)
+                _wait_steps(e0, 4)
+                sup._scale_down({"pending": 0, "occupancy": 0.1,
+                                 "attainment": 1.0})
+                assert router.retire_ready("h0")
+                sup._sweep_drains()
+                assert "h0" not in router._states
+                for x, f in zip(xs, futs):
+                    assert np.array_equal(f.result(timeout=WAIT),
+                                          pool_program(backend, x, 4))
+                assert int(router.telemetry.migrations("drain").get()) == 2
+                assert int(router.telemetry.failed.get()) == 0
+                assert _leak_free(e1)
+            finally:
+                sup.close()
+
+    def test_scale_down_without_migrate_waits_out(self, backend):
+        with two_host_fleet(backend) as (router, e0, e1):
+            pol = dataclasses.replace(FAST_SUP, drain_migrate=False)
+            sup = FleetSupervisor(router, lambda name: _engine(backend),
+                                  pol, start=False)
+            sup._spawned_names.add("h0")
+            try:
+                futs = _pin_to(router, "h0", [_seq(LONG, seed=7)])
+                _wait_steps(e0, 2)
+                sup._scale_down({"pending": 0, "occupancy": 0.1,
+                                 "attainment": 1.0})
+                # behind the knob: the drain waits for the sequence
+                assert not router.retire_ready("h0")
+                assert router.telemetry.migrations_total() == 0
+                futs[0].result(timeout=WAIT)
+            finally:
+                sup.close()
+
+    def test_slo_ejection_of_reachable_host_migrates(self, backend):
+        """A reachable host ejected for its attainment moves its live
+        sequences (nothing restarts from step 0) and they finish
+        bit-identical."""
+        with two_host_fleet(backend) as (router, e0, e1):
+            x = _seq(LONG, seed=5)
+            fut = _pin_to(router, "h0", [x])[0]
+            _wait_steps(e0, 2)
+            router.monitor._eject(router._states["h0"],
+                                  "slo: interactive attainment 0.10 < 0.50")
+            assert np.array_equal(fut.result(timeout=WAIT),
+                                  pool_program(backend, x, 4))
+            assert int(router.telemetry.migrations("eject").get()) == 1
+            assert int(router.telemetry.rerouted.get()) == 0
+            assert router._health()["migrations"] == 1
+
+    def test_stale_ejection_still_drains_from_zero(self, backend):
+        with two_host_fleet(backend) as (router, e0, e1):
+            x = _seq(256, seed=6)
+            fut = _pin_to(router, "h0", [x])[0]
+            _wait_steps(e0, 2)
+            router._states["h0"].host.kill()
+            router.monitor._eject(router._states["h0"],
+                                  "stale: 2 failed probes")
+            assert np.array_equal(fut.result(timeout=WAIT),
+                                  pool_program(backend, x, 4))
+            assert router.telemetry.migrations_total() == 0
+            assert int(router.telemetry.rerouted.get()) >= 1
+
+    def test_migrate_on_eject_false_reverts_to_drain(self, backend):
+        with two_host_fleet(backend, migrate_on_eject=False) as (
+                router, e0, e1):
+            fut = _pin_to(router, "h0", [_seq(256, seed=8)])[0]
+            _wait_steps(e0, 2)
+            router.monitor._eject(router._states["h0"],
+                                  "slo: interactive attainment 0.10 < 0.50")
+            fut.result(timeout=WAIT)
+            assert router.telemetry.migrations_total() == 0
+            assert int(router.telemetry.rerouted.get()) >= 1
+
+
+class TestRespawnHandoff:
+    def test_respawn_restores_drain_exported_sequences(self, backend):
+        """A draining host exports its live pool; respawn restores every
+        blob into the fresh engine and the restored futures finish
+        bit-identical."""
+        e0 = _engine(backend)
+        host = FleetHost("h0", e0)
+        e1 = None
+        try:
+            xs = [_seq(LONG, seed=s) for s in range(3)]
+            futs = [host.submit(x, cls="bulk") for x in xs]
+            _wait_steps(e0, 4)
+            blobs = host.drain_export(reason="respawn")
+            assert len(blobs) == 3
+            assert any(unpack_migration(b)[0]["pos"] > 0 for b in blobs)
+            for f in futs:
+                with pytest.raises(ServeError, match="migrated off"):
+                    f.result(timeout=5)
+            assert _leak_free(e0)
+            e1 = _engine(backend)
+            nfuts = host.respawn(e1, sequences=blobs)
+            assert len(nfuts) == 3
+            outs = {np.asarray(f.result(timeout=WAIT)).tobytes()
+                    for f in nfuts}
+            assert outs == {pool_program(backend, x, 4).tobytes()
+                            for x in xs}
+            assert _leak_free(e1)
+        finally:
+            e0.close()
+            if e1 is not None:
+                e1.close()
+
+    def test_supervisor_restart_host_carries_slot_holders(self, backend):
+        with two_host_fleet(backend) as (router, e0, e1):
+            sup = FleetSupervisor(router, lambda name: _engine(backend),
+                                  FAST_SUP, start=False)
+            try:
+                xs = [_seq(LONG, seed=s) for s in range(2)]
+                futs = _pin_to(router, "h0", xs)
+                _wait_steps(e0, 4)
+                assert sup.restart_host("h0") == 2  # both to the peer
+                for x, f in zip(xs, futs):
+                    assert np.array_equal(f.result(timeout=WAIT),
+                                          pool_program(backend, x, 4))
+                assert int(router.telemetry.migrations("respawn")
+                           .get()) == 2
+                assert int(router.telemetry.failed.get()) == 0
+            finally:
+                sup.close()
+
+    def test_single_host_restart_no_duplicated_compute(self, backend):
+        """One host, no peer: restart_host exports the router's entries,
+        restores them into the fresh engine and re-hooks the client
+        futures — the fresh engine admits each sequence once and nothing
+        re-routes from step 0."""
+        e0 = _engine(backend)
+        router = FleetRouter([FleetHost("h0", e0)], policy=FAST_POLICY,
+                             start=False)
+        sup = FleetSupervisor(router, lambda name: _engine(backend),
+                              FAST_SUP, start=False)
+        try:
+            xs = [_seq(LONG, seed=s) for s in range(2)]
+            futs = [router.submit(x, cls="bulk") for x in xs]
+            _wait_steps(e0, 4)
+            assert sup.restart_host("h0") == 2  # both re-hooked
+            for x, f in zip(xs, futs):
+                assert np.array_equal(f.result(timeout=WAIT),
+                                      pool_program(backend, x, 4))
+            fresh = router._states["h0"].host.engine
+            assert fresh is not e0
+            assert int(fresh.telemetry.requests.get()) == 2
+            assert int(router.telemetry.rerouted.get()) == 0
+            assert int(router.telemetry.migrations("respawn").get()) == 2
+            assert int(router.telemetry.failed.get()) == 0
+            assert _leak_free(fresh)
+        finally:
+            sup.close()
+            router.close(drain_s=5)
+            e0.close()
+
+
+class TestMigrateChaos:
+    def test_fault_loses_only_the_inflight_migration(self, backend):
+        """A fired ``fleet.migrate`` loses the migration, not the
+        sequence: the source re-imports its own blob and the sequence
+        finishes where it was, bit-identical, both pools leak-free."""
+        with two_host_fleet(backend) as (router, e0, e1):
+            x = _seq(LONG, seed=11)
+            fut = _pin_to(router, "h0", [x])[0]
+            _wait_steps(e0, 2)
+            plan = FaultPlan([FaultSpec(
+                "fleet.migrate",
+                raises=ServeError("chaos: migration link down"))])
+            with inject(plan):
+                moved = router.migrate_host("h0", reason="drain")
+            assert plan.fired_count("fleet.migrate") == 1
+            assert moved == 0
+            assert np.array_equal(fut.result(timeout=WAIT),
+                                  pool_program(backend, x, 4))
+            assert router.telemetry.migrations_total() == 0
+            assert int(router.telemetry.failed.get()) == 0
+            assert _leak_free(e0) and _leak_free(e1)
+
+
+class TestFleetObservability:
+    def test_probe_view_migrations_tolerant_and_old_bodies_pinned(self):
+        old_body = {"ok": True, "healthz_version": 1,
+                    "attainment": {"interactive": 1.0},
+                    "drift_breaches": 0, "queued": 0}
+        assert parse_probe(old_body).migrations is None
+        assert parse_probe(dict(old_body, migrations=5)).migrations == 5
+
+    def test_fleet_line_renders_mig_nonzero_only(self):
+        from euromillioner_tpu_torch.obs.top import format_fleet_line
+
+        line = format_fleet_line(0.0, {
+            "h0": {"attainment": 1.0, "migrations": 3},
+            "h1": {"attainment": 1.0, "migrations": 0}})
+        assert "mig=3" in line and line.count("mig=") == 1
+
+    def test_http_host_tags_every_submit_and_exports_by_future(self,
+                                                               backend):
+        """HttpServeHost tags each sequence it submits and maps the future
+        back to the tag, so the router's ``export_sequence(hfut)`` reaches
+        a host across HTTP."""
+        src, dst = _engine(backend), _engine(backend)
+        host = None
+        try:
+            with serving(src) as url:
+                host = HttpServeHost("h0", url, kind="sequence",
+                                     timeout_s=30.0)
+                x = _seq(LONG, seed=17)
+                fut = host.submit(x, cls="bulk")
+                _wait_steps(src, 2)
+                blob = host.export_sequence(fut, reason="drain",
+                                            timeout_s=10.0)
+                assert blob is not None
+                assert unpack_migration(blob)[0]["pos"] > 0
+                assert np.array_equal(
+                    dst.import_sequence(blob).result(timeout=WAIT),
+                    pool_program(backend, x, 4))
+                with pytest.raises((ServeError, urllib.error.HTTPError)):
+                    fut.result(timeout=WAIT)
+                # a future submitted elsewhere has no tag: None, no call
+                assert host.export_sequence(Future(), reason="drain",
+                                            timeout_s=5.0) is None
+                base = src.telemetry.steps.get()
+                f2 = host.submit(_seq(8192, seed=18), cls="bulk")
+                _wait_steps(src, base + 1)
+                assert len(host.drain_export(reason="drain")) == 1
+                with pytest.raises((ServeError, urllib.error.HTTPError)):
+                    f2.result(timeout=WAIT)
+                assert _leak_free(src)
+        finally:
+            if host is not None:
+                host.close()
+            dst.close()
+
+    def test_summarize_metrics_picks_up_migration_counters(self):
+        from euromillioner_tpu_torch.obs.top import summarize_metrics
+
+        fleet = {"fleet_migrations_total": [({"reason": "drain"}, 2.0),
+                                            ({"reason": "eject"}, 1.0)],
+                 "serve_requests_completed_total": []}
+        assert summarize_metrics(fleet)["migrations"] == 3
+        host = {"serve_migrations_total": [({"dir": "in"}, 1.0),
+                                           ({"dir": "out"}, 1.0)],
+                "serve_requests_completed_total": []}
+        assert summarize_metrics(host)["migrations"] == 2

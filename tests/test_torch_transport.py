@@ -231,6 +231,48 @@ def test_routes_without_a_surface_are_404s(urls, method, path, error):
         assert (status, body) == (404, {"error": error}), kind
 
 
+def test_admin_release_route_and_cli(gbt, capsys):
+    """``POST /admin/release`` on a fleet front end reaches the supervisor
+    (``{"released": true}`` once, then false), a bad body is a 400, and
+    ``fleet --release HOST --front URL`` is the operator's command over
+    it; a front end without a supervisor answers 400 naming that."""
+    from euromillioner_tpu_torch.cli import main
+    from euromillioner_tpu_torch.serve import (FleetHost, FleetRouter,
+                                               FleetSupervisor, ProbePolicy)
+
+    eng = InferenceEngine(GBTBackend(gbt[0]), buckets=(8,), warmup=False)
+    policy = ProbePolicy(interval_s=30.0)
+    router = FleetRouter([FleetHost("h0", eng)], policy=policy, start=False)
+    sup = FleetSupervisor(router, None, start=False)
+    bare = FleetRouter([FleetHost("h0", eng)], policy=policy, start=False)
+    sup._quarantine("h0", 3, "crash loop")
+    try:
+        with serving(router) as url, serving(bare) as bare_url:
+            _, body = call(url, "/healthz")
+            assert body["supervisor"]["quarantined"] == {"h0": "crash loop"}
+            assert call(url, "/admin/release", {"name": "h0"}) == (
+                400, {"error": 'body must be {"host": name}'})
+            assert main(["fleet", "--release", "h0", "--front", url]) == 0
+            assert json.loads(capsys.readouterr().out.splitlines()[-1]) == {
+                "host": "h0", "released": True}
+            assert "h0" not in call(url, "/healthz")[1]["supervisor"][
+                "quarantined"]
+            assert main(["fleet", "--release", "h0", "--front", url]) == 1
+            status, body = call(bare_url, "/admin/release", {"host": "h0"})
+            assert status == 400 and "no supervisor" in body["error"]
+    finally:
+        sup.close()
+        eng.close()
+
+
+def test_admin_release_without_supervisor_404s(urls):
+    """Every engine (no fleet router) answers a well-formed release with
+    the JAX handler's 404."""
+    for kind in ("continuous", "batch", "gbt"):
+        assert call(urls[kind], "/admin/release", {"host": "h0"}) == (
+            404, {"error": "this endpoint has no fleet supervisor"}), kind
+
+
 @pytest.mark.parametrize("body,error", [
     (b"{not json", "bad JSON body"),
     ({"rows": [[0.0] * FEAT], "class": "premium"},
