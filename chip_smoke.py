@@ -309,7 +309,25 @@ Phases, each reported on its own lines:
    Wide&Deep rolled out bf16 → int8w (shadow, canary, full, commit) and a
    faulted canary rolled back, no failed request (K4a counted); the six
    ``fleet.*`` fault points fired once each; the phase's seconds;
-35. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
+35. the deployment boundary (runs right after 33, before 34; its children
+   start with phase 33's cold ones) — ``export`` through the CLI of the trained
+   flagship (f32, full width, batch 16) and of phase 33's 100M Wide&Deep
+   (bf16, batch 16), each compiled by AOTInductor in a child process beside
+   phase 33's cold children, with the native runner's g++ build in another:
+   the runner's build seconds, each package's compile seconds and size,
+   ``ldd`` of the runner (no ``libpython``); then 24 batches of each through
+   the C++ runner on the card, which launches K1 (exactly 2 a batch) and
+   K4a (exactly 1 a batch) from its own C++ registration and counts them
+   itself, with no call of a CPU implementation; replies bit-equal to the
+   same package loaded in this process (``aoti_load_package``), the
+   flagship within rtol 1e-5 / atol 1e-6 of eager on the card and within
+   F32_SERVE_TOL of the plain versions on the CPU (the elementwise pin
+   printed beside it), Wide&Deep inside its bf16 envelope; a second
+   runner on the same export compiles nothing; ``predict --model-type
+   exported --runtime native`` on the golden CSV: 1705 finite rows, within
+   the envelope of ``--runtime torch``; the runner's load, first-reply and
+   median batch milliseconds beside the in-process package's and eager's;
+36. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
    ``serve_http_fused``, K4a's phase 24's ``serve_bf16`` and the int8w
    run's drift oracle, bf16 K1's and K2's ``train_dp`` (phase 26), K4a's
    and K4b's ``train_dp`` and the class forest's ``cli_train_dp`` (phase
@@ -317,10 +335,11 @@ Phases, each reported on its own lines:
    ranks), the forest set forms' ``rf_mesh``, every K1/K2 row's
    ``train_tbptt`` (phase 30, 0), K3's ``reference_fetch`` (phase 32),
    K1's ``aot_padded_fused`` and K4a's ``aot_serve_bf16`` (phase 33),
-   K1's ``fleet_http_fused`` and K4a's ``rollout_bf16`` (phase 34)),
-   the ``nvidia-smi`` line,
+   K1's ``fleet_http_fused`` and K4a's ``rollout_bf16`` (phase 34), K1's
+   ``export_native`` and K4a's ``export_native_bf16``, counted by the
+   runner process (phase 35)), the ``nvidia-smi`` line,
    and last the ``{"ok": true, "device": ...}`` line. The lines phases
-   22-34 measure carry the card's name and power limit.
+   22-35 measure carry the card's name and power limit.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -6441,8 +6460,8 @@ def aot_children(root: Path, role: str, groups: list, store_root: Path,
               f"{p.returncode}")
 
 
-def phase_aot(root: Path, flagship: Path, keep: Path | None = None
-              ) -> dict:
+def phase_aot(root: Path, flagship: Path, keep: Path | None = None,
+              beside=None) -> dict:
     """The AOT program store at full width on the card (see AOT_FAMILIES):
     cold children compile each family into a fresh store (concurrently,
     each with an empty Inductor cache), then a warm child restarts every
@@ -6452,8 +6471,9 @@ def phase_aot(root: Path, flagship: Path, keep: Path | None = None
     against its plain version on the CPU. Then ``aot prewarm`` through the
     CLI, ``aot ls|verify``, and a truncated blob quarantined on the card.
     ``keep``: the warm ladder store and the Wide&Deep checkpoint move
-    there for phase 34 instead of being removed. Returns K1's and K4a's
-    launches on the warm paths."""
+    there for phase 34 instead of being removed. ``beside(spec)``: more
+    command lines to run with the cold children (phase 35's). Returns K1's
+    and K4a's launches on the warm paths."""
     import numpy as np
 
     from euromillioner_tpu_torch.core.precision import rel_error
@@ -6481,7 +6501,7 @@ def phase_aot(root: Path, flagship: Path, keep: Path | None = None
                *overrides]
     t0 = time.perf_counter()
     aot_children(root, "cold", [[f] for f in AOT_FAMILIES], stores, out,
-                 inductor, extra=[prewarm])
+                 inductor, extra=[prewarm, *(beside(spec) if beside else [])])
     cold_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     aot_children(root, "warm", [list(AOT_FAMILIES)], stores, out, inductor)
@@ -7240,6 +7260,302 @@ def phase_fleet(root: Path, flagship: Path, keep: Path) -> dict:
     return {"K1": k1, "K4a": k4a}
 
 
+# -- phase 35: the deployment boundary -------------------------------------
+
+# ``export`` → the C++ runner (core/export.py, core/native_runner.py): the
+# trained flagship at full width in f32 (K1 twice a batch) and phase 33's
+# seeded 100M Wide&Deep at its bf16 compute dtype (K4a once a batch), each
+# exported at batch 16 and compiled by AOTInductor in a child started with
+# phase 33's cold children (and the runner's g++ build in another), then
+# served EXPORT_REQUESTS batches by the runner on the card.
+EXPORT_BATCH = 16
+EXPORT_REQUESTS = 24
+# batches also run by the plain versions on the CPU
+EXPORT_PLAIN = 4
+EXPORTS = {"flagship": ("lstm", ["model.compute_dtype=float32"]),
+           "wide_deep": ("wide_deep", [])}
+# the export's f32 replies against eager on the card: the JAX package's NN
+# pin, as phase 33 holds its packages. Against the plain versions on the
+# CPU (other summation orders through 64 recurrent steps of trained
+# weights: 2.602e-06 of the scale on an H100, past this pin's atol) the
+# card-vs-CPU pin F32_SERVE_TOL holds, as phase 33's aot_plain
+EXPORT_F32_RTOL = 1e-5
+EXPORT_F32_ATOL = 1e-6
+
+
+def export_children(root: Path, flagship: Path, out: Path,
+                    spec: dict) -> list:
+    """Phase 35's children, started beside phase 33's cold ones (one
+    ``export_worker`` a model, one ``runner_worker``): their command
+    lines."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    cks = {"flagship": flagship, "wide_deep": spec["wide_deep"][1]}
+    code = "import sys, chip_smoke as c; sys.exit(c.{}(*sys.argv[2:]))"
+    argvs = [[sys.executable, "-c", code.format("export_worker"), "export",
+              name, str(cks[name]), str(out / name)] for name in EXPORTS]
+    argvs.append([sys.executable, "-c", code.format("runner_worker"),
+                  "runner", str(out)])
+    return argvs
+
+
+def export_worker(name: str, ck: str, out: str) -> int:
+    """``export`` of one EXPORTS model through the CLI, then its
+    AOTInductor package compiled for the card (``core/export.
+    native_package``); the seconds and the size to ``out/built.json``. Run
+    in a child process."""
+    from euromillioner_tpu_torch import cli
+    from euromillioner_tpu_torch.core import export as ex
+    from euromillioner_tpu_torch.core.device import resolve_device
+
+    resolve_device("cuda")
+    model, flags = EXPORTS[name]
+    t0 = time.perf_counter()
+    rc = cli.main(["export", "--model", model, "--checkpoint", ck,
+                   "--output", out, "--batch", str(EXPORT_BATCH), *flags])
+    if rc:
+        return rc
+    export_s = time.perf_counter() - t0
+    path, compile_s = ex.native_package(out, "cuda")
+    Path(out, "built.json").write_text(json.dumps({
+        "export_s": export_s, "compile_s": compile_s,
+        "package_mb": path.stat().st_size / 2**20}))
+    return 0
+
+
+def runner_worker(out: str) -> int:
+    """The native runner built for this torch (``ensure_built``); its
+    path and the seconds to ``out/runner.json``. Run in a child process."""
+    from euromillioner_tpu_torch.core import native_runner as nr
+
+    t0 = time.perf_counter()
+    exe = nr.ensure_built()
+    Path(out, "runner.json").write_text(json.dumps({
+        "runner": str(exe), "build_s": time.perf_counter() - t0}))
+    return 0
+
+
+def export_requests(name: str) -> list:
+    """EXPORT_REQUESTS batches of EXPORT_BATCH: the flagship's 64-step
+    windows of 11 features, or bench.py's Wide&Deep rows."""
+    import numpy as np
+
+    if name == "wide_deep":
+        rows = bench_rows(EXPORT_BATCH * EXPORT_REQUESTS)
+        return [rows[i:i + EXPORT_BATCH]
+                for i in range(0, len(rows), EXPORT_BATCH)]
+    rng = np.random.default_rng(SEED)
+    return [rng.normal(size=(EXPORT_BATCH, SEQ_LEN, FEATURES)
+                       ).astype(np.float32) for _ in range(EXPORT_REQUESTS)]
+
+
+def export_forward(name: str, ck: Path, device: str):
+    """The model of ``ck`` as ``export`` wraps it, rebuilt on ``device``;
+    on the CPU every LSTM layer runs K1's plain version (fused="on")."""
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.core.export import ModelForward
+    from euromillioner_tpu_torch.models.registry import restore_for_inference
+    from euromillioner_tpu_torch.nn.recurrent import LSTM
+
+    model, flags = EXPORTS[name]
+    cfg = apply_overrides(Config(), [f"model.name={model}", *flags])
+    net, dtype, _shape, _ck = restore_for_inference(cfg, str(ck),
+                                                    device=device)
+    if device == "cpu":
+        for layer in net.modules():
+            if isinstance(layer, LSTM):
+                layer.fused = "on"
+    return ModelForward(net.eval(), dtype)
+
+
+def float_rows(text: str) -> list:
+    """The lines of ``text`` that are whitespace-separated numbers (a
+    prediction row each), as lists of floats; log lines are skipped."""
+    rows = []
+    for ln in text.splitlines():
+        try:
+            row = [float(v) for v in ln.split()]
+        except ValueError:
+            continue
+        if row:
+            rows.append(row)
+    return rows
+
+
+def timed_replies(call, reqs) -> tuple[list, float, float]:
+    """Each request's reply (host arrays) through ``call``: the replies,
+    the first one's milliseconds and the median of the rest (host clock;
+    each reply ends on the host, so the card has finished)."""
+    import numpy as np
+
+    replies, ms = [], []
+    for r in reqs:
+        t0 = time.perf_counter()
+        out = call(r)
+        replies.append(np.asarray(out))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return replies, ms[0], statistics.median(ms[1:])
+
+
+def phase_export(root: Path, out: Path, checkpoints: dict) -> dict:
+    """Phase 35 on the card (see EXPORTS): the runner's build and ``ldd``;
+    each package's compile seconds and size; EXPORT_REQUESTS batches
+    through the C++ runner with K1 (2 a batch) and K4a (1 a batch) counted
+    by the runner itself and no call of a CPU implementation; replies
+    bit-equal to the same package loaded in this process, f32 within the NN
+    pin of eager on the card and within F32_SERVE_TOL of the plain versions
+    on the CPU, bf16 inside its envelope; a second runner compiling nothing; ``predict
+    --model-type exported --runtime native`` on the golden CSV against
+    ``--runtime torch``. Returns the runner's K1 and K4a launches."""
+    import numpy as np
+
+    from euromillioner_tpu_torch import cli
+    from euromillioner_tpu_torch.core import export as ex
+    from euromillioner_tpu_torch.core.precision import (SERVE_ENVELOPES,
+                                                        rel_error)
+
+    t0 = time.perf_counter()
+    print(f"export cuts: none (the flagship f32 at full width, the 100M "
+          f"Wide&Deep at bf16, batch {EXPORT_BATCH}, {EXPORT_REQUESTS} "
+          f"batches each)")
+    built = json.loads((out / "runner.json").read_text())
+    card(f"export: the native runner built in {built['build_s']:.1f} s "
+         f"(g++ against torch's headers, no nvcc; beside phase 33's cold "
+         f"children)")
+    ldd = subprocess.run(["ldd", built["runner"]], capture_output=True,
+                         text=True, timeout=60).stdout
+    libs = sorted({ln.split()[0] for ln in ldd.splitlines() if ln.strip()})
+    print(f"export: ldd {Path(built['runner']).name}: {' '.join(libs)}")
+    check("libpython" not in ldd, "the native runner links libpython")
+    check("libtorch_cuda" in ldd, "the native runner does not link "
+          "libtorch_cuda")
+    launches = {}
+    for name, (model, _flags) in EXPORTS.items():
+        d = out / name
+        info = json.loads((d / "built.json").read_text())
+        card(f"export {name}: torch.export {info['export_s']:.1f} s; the "
+             f"AOTInductor package compiled on the card's host in "
+             f"{info['compile_s']:.1f} s (beside phase 33's cold children), "
+             f"{info['package_mb']:.1f} MB")
+        reqs = export_requests(name)
+        with ex.ExportedRunner(str(d), "native", "cuda") as run:
+            check(run.compile_s is None, f"export {name}: the phase's "
+                  "runner compiled its package again")
+            native, first_ms, med_ms = timed_replies(
+                lambda r: run(r)[0], reqs)
+            stats = run.runner.stats()
+            package = run.package
+        with ex.ExportedRunner(str(d), "native", "cuda") as second:
+            check(second.compile_s is None, f"export {name}: a second "
+                  "runner compiled")
+            again = second(reqs[0])[0]
+        check(np.array_equal(again, native[0]), f"export {name}: a second "
+              "runner replied otherwise")
+        print(f"export {name}: the runner's own stats {json.dumps(stats)}")
+        want = {"lstm_sequence": LAYERS * len(reqs) if model == "lstm"
+                else 0, "wide_onehot_fwd": len(reqs)
+                if model == "wide_deep" else 0}
+        check(stats["launches"] == want, f"export {name}: the runner "
+              f"launched {stats['launches']}, expected {want}")
+        check(not any(stats["cpu_calls"].values()), f"export {name}: a CPU "
+              f"implementation was called on the card {stats['cpu_calls']}")
+        launches[name] = stats["launches"]
+        # the same package in this process (torch._inductor's import, once
+        # a process, timed apart)
+        t1 = time.perf_counter()
+        from torch._inductor import aoti_load_package
+
+        import_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        pkg = aoti_load_package(str(package))
+        load_ms = (time.perf_counter() - t1) * 1e3
+
+        def in_process(r, fn=pkg):
+            o = fn(torch.from_numpy(r).cuda())
+            return (o[0] if isinstance(o, (list, tuple)) else o).cpu()
+
+        inproc, in_first, in_med = timed_replies(in_process, reqs)
+        same = all(np.array_equal(a, b) for a, b in zip(native, inproc))
+        card(f"export {name}: runner replies bit-equal to the package in "
+             f"this process: {same}")
+        check(same, f"export {name}: the runner's replies differ from the "
+              "same package run in Python")
+        del pkg
+        fwd = export_forward(name, checkpoints[name], "cuda")
+        with torch.no_grad():
+            eager, _e_first, e_med = timed_replies(
+                lambda r: fwd(torch.from_numpy(r).cuda()).cpu(), reqs)
+        del fwd
+        cpu = export_forward(name, checkpoints[name], "cpu")
+        with torch.no_grad():
+            plain = [cpu(torch.from_numpy(r)).numpy()
+                     for r in reqs[:EXPORT_PLAIN]]
+        del cpu
+        torch.cuda.empty_cache()
+        got, got_plain = np.stack(native), np.stack(native[:EXPORT_PLAIN])
+        e_gap, p_gap = (rel_error(got, np.stack(eager)),
+                        rel_error(got_plain, np.stack(plain)))
+        card(f"export {name}: runner vs eager on the card rel {e_gap:.3e}, "
+             f"vs the plain versions on the CPU rel {p_gap:.3e}")
+        if model == "wide_deep":
+            env = SERVE_ENVELOPES[("wide_deep", "bf16")]
+            check(e_gap <= env and p_gap <= env, f"export {name}: outside "
+                  f"the bf16 envelope {env}")
+        else:
+            close = np.allclose(got_plain, np.stack(plain),
+                                rtol=EXPORT_F32_RTOL, atol=EXPORT_F32_ATOL)
+            worst = float(np.abs(got_plain - np.stack(plain)).max())
+            print(f"export {name}: vs the plain versions max abs {worst:.3e}"
+                  f", within rtol {EXPORT_F32_RTOL} / atol {EXPORT_F32_ATOL} "
+                  f"{close} (held to F32_SERVE_TOL {F32_SERVE_TOL:.0e} of "
+                  f"the scale, as phase 33 holds its packages)")
+            check(np.allclose(got, np.stack(eager), rtol=EXPORT_F32_RTOL,
+                              atol=EXPORT_F32_ATOL),
+                  f"export {name}: runner vs eager outside rtol "
+                  f"{EXPORT_F32_RTOL} / atol {EXPORT_F32_ATOL}")
+            check(p_gap <= F32_SERVE_TOL, f"export {name}: runner vs the "
+                  f"plain versions rel {p_gap:.3e} > {F32_SERVE_TOL:.0e}")
+        check(bool(np.isfinite(got).all()), f"export {name}: non-finite "
+              "replies")
+        card(f"export {name}: the runner loads its package in "
+             f"{stats['load_ms']:.1f} ms, first reply {first_ms:.2f} ms, "
+             f"median {med_ms:.3f} ms a batch (host clock: the pipe and "
+             f"both copies included); the package in this process loads in "
+             f"{load_ms:.1f} ms (after {import_s:.1f} s importing "
+             f"torch._inductor), first {in_first:.2f} ms, median "
+             f"{in_med:.3f} ms; eager median {e_med:.3f} ms")
+    # the CLI on the golden CSV, both runtimes
+    csv = out / "draws.csv"
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(cli.main(["fetch", "--html-file", str(root / GOLDEN_HTML),
+                        "--output", str(csv)]) == 0, "fetch for predict")
+    lines = {}
+    for runtime in ("native", "torch"):
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["predict", "--model-type", "exported",
+                           "--model-file", str(out / "wide_deep"), "--csv",
+                           str(csv), "--runtime", runtime])
+        secs = time.perf_counter() - t1
+        check(rc == 0, f"predict --runtime {runtime} exited {rc}")
+        rows = float_rows(buf.getvalue())
+        lines[runtime] = np.array(rows, np.float32)
+        card(f"export: predict --model-type exported --runtime {runtime} "
+             f"(wide_deep) printed {len(rows)} lines in {secs:.1f} s")
+    got = lines["native"]
+    env = SERVE_ENVELOPES[("wide_deep", "bf16")]
+    gap = rel_error(got, lines["torch"])
+    print(f"export: predict native vs torch rel {gap:.3e} (envelope {env})")
+    check(got.shape == (1705, OUTPUTS) and bool(np.isfinite(got).all()),
+          f"predict --runtime native gave {got.shape}, not 1705 finite rows")
+    check(gap <= env, "predict: native and torch runtimes disagree")
+    shutil.rmtree(out, ignore_errors=True)
+    card(f"export: phase 35 took {time.perf_counter() - t0:.1f} s")
+    return {"K1": launches["flagship"]["lstm_sequence"],
+            "K4a": launches["wide_deep"]["wide_onehot_fwd"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7342,7 +7658,15 @@ def main() -> int:
         phase_param_avg(root)
         # phase 34 runs on phase 33's warm ladder store and Wide&Deep
         fleet_keep = root / "build" / "chip_fleet" / "aot"
-        aot = phase_aot(root, flagship, keep=fleet_keep)
+        # phase 35's exports and the runner's build run beside phase 33's
+        # cold children
+        export_out = root / "build" / "chip_export"
+        aot = phase_aot(root, flagship, keep=fleet_keep,
+                        beside=lambda spec: export_children(
+                            root, flagship, export_out, spec))
+        # phase 35 before 34, which removes the Wide&Deep checkpoint
+        export = phase_export(root, export_out, {
+            "flagship": flagship, "wide_deep": fleet_keep / "wide_deep"})
         fleet = phase_fleet(root, flagship, fleet_keep)
         shutil.rmtree(flagship, ignore_errors=True)
         shutil.rmtree(fleet_keep.parent, ignore_errors=True)
@@ -7356,7 +7680,7 @@ def main() -> int:
         "serve_http_fused": http_k1, "replay_fused": replay_k1,
         "train_dp_gloo": ranks["lstm"]["K1.f32"],
         "train_tbptt": tbptt["K1.f32"], "aot_padded_fused": aot["K1"],
-        "fleet_http_fused": fleet["K1"]}
+        "fleet_http_fused": fleet["K1"], "export_native": export["K1"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {"train": train_k2,
                               "train_dp_gloo": ranks["lstm"]["K2.f32"],
@@ -7387,7 +7711,8 @@ def main() -> int:
                                    tiers_k4a["int8w"],
                                "train_dp": dp1_families["K4a"],
                                "aot_serve_bf16": aot["K4a"],
-                               "rollout_bf16": fleet["K4a"]}
+                               "rollout_bf16": fleet["K4a"],
+                               "export_native_bf16": export["K4a"]}
     k4a["launches"] = sum(k4a["launches_by_path"].values())
     k4b["launches_by_path"] = {"train": train_k4b,
                                "bench_step": wd_bench["launches"]["K4b"],

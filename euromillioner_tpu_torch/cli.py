@@ -1,5 +1,5 @@
-"""CLI: ``python -m euromillioner_tpu_torch fetch|train|predict|reference|serve|
-fleet|replay|trace-export|obs-top|aot``.
+"""CLI: ``python -m euromillioner_tpu_torch fetch|train|predict|export|reference|
+serve|fleet|replay|trace-export|obs-top|aot``.
 
 The JAX package's subcommands for the ported paths, with the same flags,
 dotted config overrides and exit codes (the error taxonomy's
@@ -10,6 +10,9 @@ booster or a random forest (``--save`` writes its model JSON;
 Wide&Deep (``--save`` writes the TrainState); ``train --model lstm
 --tbptt`` trains the LSTM by truncated BPTT over the whole draw history;
 ``predict --model-type gbt|rf`` predicts with a saved model JSON;
+``export`` writes a trained mlp, lstm or wide_deep checkpoint as a
+torch.export program and ``predict --model-type exported --runtime
+torch|native`` runs it through torch or the C++ runner;
 ``reference`` runs the Main.java pipeline; ``serve --model-type gbt|rf|classic`` serves a model
 JSON (``--model-file``) and ``serve --model-type mlp|lstm|wide_deep`` a
 checkpoint, the neural families at ``serve.precision=f32|bf16|int8w``
@@ -459,24 +462,80 @@ def _train_tbptt(args, cfg: Config) -> int:
     return 0
 
 
+def cmd_export(args, cfg: Config) -> int:
+    """Export a trained neural checkpoint as a torch.export program
+    (core/export.py) runnable by torch OR by the C++ runner — the
+    ModelSerializer→native-runtime deployment path of the reference
+    stack."""
+    import torch
+
+    from euromillioner_tpu_torch.core.export import ModelForward, export_model
+    from euromillioner_tpu_torch.models.registry import restore_for_inference
+
+    cfg.model.name = args.model
+    model, compute_dtype, in_shape, ck = restore_for_inference(
+        cfg, args.checkpoint, args.num_features, device=args.device)
+    model.eval()
+    example = torch.zeros((args.batch, *in_shape), dtype=torch.float32,
+                          device=next(model.parameters()).device)
+    export_model(ModelForward(model, compute_dtype), (example,), args.output,
+                 meta={"model": args.model, "in_shape": list(in_shape),
+                       "batch": args.batch, "checkpoint": ck})
+    print(args.output)
+    return 0
+
+
 def cmd_predict(args, cfg: Config) -> int:
-    """Predict with a saved GBT or random-forest model JSON on a CSV of
-    featurized rows; one value per line."""
+    """Predict with a saved GBT or random-forest model JSON, or an export
+    directory (``--model-type exported``), on a CSV of featurized rows; one
+    value per line (an export's row of outputs on one line)."""
     from euromillioner_tpu_torch.data.csvio import read_csv
     from euromillioner_tpu_torch.trees import (Booster, DMatrix,
                                                RandomForestModel)
 
+    x, _, _ = read_csv(args.csv, label_column=(
+        cfg.data.label_column if args.has_label else None))
+    if args.model_type == "exported":
+        # one line per row: a row's outputs side by side
+        for row in _predict_exported(args, x).reshape(len(x), -1):
+            print(" ".join(str(v) for v in row))
+        return 0
     if args.model_type == "gbt":
         model = Booster.load_model(args.model_file, device=args.device)
+        pred = model.predict(DMatrix(x))
     else:
         model = RandomForestModel.load_model(args.model_file,
                                              device=args.device)
-    x, _, _ = read_csv(args.csv, label_column=(
-        cfg.data.label_column if args.has_label else None))
-    pred = model.predict(DMatrix(x) if args.model_type == "gbt" else x)
+        pred = model.predict(x)
     for v in np.asarray(pred).reshape(-1):
         print(v)
     return 0
+
+
+def _predict_exported(args, x: np.ndarray) -> np.ndarray:
+    """Run an export (cmd_export) over CSV rows. The program has a fixed
+    batch size; rows are zero-padded to a multiple and run in batches —
+    through torch, or through the C++ runner (``--runtime native``)."""
+    from euromillioner_tpu_torch.core import export as ex
+
+    n = len(x)
+    if n == 0:
+        raise SystemExit(f"{args.csv} has no data rows")
+    outs = []
+    with ex.ExportedRunner(args.model_file, args.runtime,
+                           args.device) as run:
+        (bshape, _dt), = run.manifest["in_specs"]
+        batch = bshape[0]
+        feat_shape = tuple(bshape[1:])
+        if x.shape[1:] != feat_shape:
+            raise SystemExit(
+                f"CSV rows have shape {x.shape[1:]}, artifact wants "
+                f"{feat_shape} (exported with --num-features?)")
+        pad = (-n) % batch
+        xp = np.concatenate([x, np.zeros((pad, *x.shape[1:]), x.dtype)])
+        for i in range(0, len(xp), batch):
+            outs.append(run(xp[i:i + batch].astype(np.float32))[0])
+    return np.concatenate(outs)[:n]
 
 
 def cmd_reference(args, cfg: Config) -> int:
@@ -1070,13 +1129,35 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help=f"training device ({device_help})")
     pr = sub.add_parser("predict", help="predict with a saved model")
-    pr.add_argument("--model-type", default="gbt", choices=["gbt", "rf"])
-    pr.add_argument("--model-file", required=True, help="model JSON")
+    pr.add_argument("--model-type", default="gbt",
+                    choices=["gbt", "rf", "exported"])
+    pr.add_argument("--model-file", required=True,
+                    help="model JSON (gbt, rf) or export dir (exported)")
     pr.add_argument("--csv", required=True)
     pr.add_argument("--has-label", action="store_true",
                     help="the CSV still holds the label column")
+    pr.add_argument("--runtime", default="torch", choices=["torch", "native"],
+                    help="exported: run the program through torch in this "
+                         "process (in place of the JAX package's jax "
+                         "runtime: the port has no JAX) or through the C++ "
+                         "runner")
     pr.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                    help=f"prediction device ({device_help})")
+                    help=f"prediction device ({device_help}); an export "
+                         f"runs on the device it was exported for")
+    ex = sub.add_parser(
+        "export", help="export a trained NN checkpoint as a torch.export "
+                       "program, for predict --model-type exported")
+    ex.add_argument("--model", default="mlp",
+                    choices=["mlp", "lstm", "wide_deep"])
+    ex.add_argument("--checkpoint", required=True,
+                    help="checkpoint dir (latest step is used)")
+    ex.add_argument("--output", required=True, help="export directory")
+    ex.add_argument("--batch", type=int, default=16,
+                    help="example batch size baked into the artifact")
+    ex.add_argument("--num-features", type=int, default=0,
+                    help="input feature count (default: family standard)")
+    ex.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help=f"the device the program runs on ({device_help})")
     rf = sub.add_parser("reference",
                         help="run the full Main.java-equivalent pipeline")
     rf.add_argument("--html-file",
@@ -1226,13 +1307,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prune: byte bound (default serve.aot.max_bytes)")
     ao.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help=f"prewarm: serving device ({device_help})")
-    for s in (fe, tr, pr, rf, sv, fl, ot, rp, te, ao):
+    for s in (fe, tr, pr, ex, rf, sv, fl, ot, rp, te, ao):
         s.add_argument("overrides", nargs="*", default=[],
                        help="config overrides: section.field=value")
     return p
 
 
 _COMMANDS = {"fetch": cmd_fetch, "train": cmd_train, "predict": cmd_predict,
+             "export": cmd_export,
              "reference": cmd_reference, "serve": cmd_serve,
              "replay": cmd_replay, "trace-export": cmd_trace_export,
              "obs-top": cmd_obs_top, "aot": cmd_aot,
