@@ -146,7 +146,10 @@ Phases, each reported on its own lines:
    where the batch has several tiles), at bench.py's batch also
    with the L2 flushed and K4a under each of its ways (``FWD_WAYS``),
    beside the plain versions', the library yardsticks' (``embedding_bag``,
-   ``index_add_``) and the bounds;
+   ``index_add_``) and the bounds; then both again at the tensor-parallel
+   shard widths of phase 36 (E = 520 and 260, each shard a table of its
+   own) at B=64 and 8192 in both dtypes: held to the plain versions,
+   timed beside them, the library yardsticks and the bounds;
 14. serve Wide&Deep — the 100M model with seeded random weights, saved as
    a TrainState checkpoint and served through the CLI (``serve
    --model-type wide_deep --smoke 32``): no failed request, K4a launched
@@ -327,7 +330,30 @@ Phases, each reported on its own lines:
    exported --runtime native`` on the golden CSV: 1705 finite rows, within
    the envelope of ``--runtime torch``; the runner's load, first-reply and
    median batch milliseconds beside the in-process package's and eager's;
-36. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
+36. parallelism (runs after 34, on the trained flagship) — TP-2: the 100M
+   Wide&Deep at ``mesh.data=1 mesh.model=2`` on two rank processes sharing
+   the card over gloo at B=8192, the wide table split by columns (K4a/K4b
+   launched once a step each, on each rank's 520-wide shard): 3 SGD steps
+   with f32 towers, the joined params within rtol 2e-5 / atol 2e-6 of one
+   process's from the same params; 3 timed Adam steps with bf16 towers,
+   each rank's ms/step beside one process's. SP-2: the full-width flagship
+   (T=64, f32, B=64, two microbatches) at ``mesh.seq=2`` on the pipelined
+   chunk scan: its output within 1e-5 and its gradients within atol 2e-5 /
+   rtol 2e-4 of one process's scan, ms/step beside it, K1/K2 0. Sharded
+   serving in this process on meshes laid on the one card (``devices=``
+   naming card 0 more than once): the trained flagship's step scheduler on
+   2x1 (32 slots, 64 sequences of ``http_traffic()``) bit-equal to the
+   block program at a shard's 16 rows and to the unsharded 16-slot
+   scheduler, within F32_SERVE_TOL of the direct apply (its agreement
+   with the unsharded 32-slot scheduler printed: on the card a product
+   rounds otherwise at another row count), stats ``mesh == "2x1"``, K1/K2
+   0; the 100M Wide&Deep row engine on 1x2 and 1x4 at f32 (elementwise
+   max rel, the JAX pin) and bf16 (max|diff| / max|ref|, the serving
+   envelope's measure) within 1e-2 of one device, K4a counted per model
+   shard at widths 520 and 260; one ``serve.shard`` fault fails one batch and the session
+   serves on; ``serve ... serve.mesh=2,1`` on the one card exits 17; the
+   phase's seconds;
+37. the ``kernels`` JSON line (K1's ``launches_by_path`` holds phase 4a's
    ``serve_http_fused``, K4a's phase 24's ``serve_bf16`` and the int8w
    run's drift oracle, bf16 K1's and K2's ``train_dp`` (phase 26), K4a's
    and K4b's ``train_dp`` and the class forest's ``cli_train_dp`` (phase
@@ -337,9 +363,12 @@ Phases, each reported on its own lines:
    K1's ``aot_padded_fused`` and K4a's ``aot_serve_bf16`` (phase 33),
    K1's ``fleet_http_fused`` and K4a's ``rollout_bf16`` (phase 34), K1's
    ``export_native`` and K4a's ``export_native_bf16``, counted by the
-   runner process (phase 35)), the ``nvidia-smi`` line,
+   runner process (phase 35), K4a's and K4b's ``tp_train``, K4a's
+   ``serve_mesh``, K1's and K2's ``train_sp`` and K1's ``serve_mesh_step``
+   (phase 36, the last three 0); K4a's and K4b's ``shard_widths``: phase
+   13's times at widths 520 and 260), the ``nvidia-smi`` line,
    and last the ``{"ok": true, "device": ...}`` line. The lines phases
-   22-35 measure carry the card's name and power limit.
+   22-36 measure carry the card's name and power limit.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
@@ -4439,6 +4468,87 @@ def phase_k4() -> tuple[dict, dict]:
             entry("wide_onehot_dw", "dw", 97))
 
 
+# K4a/K4b at the tensor-parallel shard widths of the 100M table (phase
+# 36): E/2 = 520 (TP-2 training, serving on 1x2) and E/4 = 260 (serving on
+# 1x4), each shard a table of its own; at the training batch and bench.py's
+# B=8192, in both dtypes. Held to the plain versions at K4_TOL, reruns
+# bit-identical, and timed with their bounds and library yardsticks.
+K4_SHARD_SHAPES = tuple((b, 21, 4096, e) for e in (520, 260)
+                        for b in (64, 8192))
+
+
+def phase_k4_shards() -> dict:
+    """Phase 13 at the shard widths (K4_SHARD_SHAPES): per kernel, each
+    (width, batch, dtype)'s per-call time, plain version's and library
+    yardstick's times, bound and launch plan."""
+    from euromillioner_tpu_torch.ops import wide_onehot as K
+
+    failures, timed = [], {"fwd": {}, "dw": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, k, v, e in K4_SHARD_SHAPES:
+            w, ids, dh = k4_inputs(b, k, v, e, dtype)
+            fplan = K.fwd_plan(dtype, b, k, v, e)
+            dplan = K.dw_plan(dtype, b, k, v, e)
+            want_f = K.wide_onehot_fwd_reference(w, ids)
+            scale_f = K.wide_onehot_fwd_reference(w.abs(), ids)
+            want_d = K.wide_onehot_dw_reference(ids.cpu(), dh.cpu(), v)
+            scale_d = K.wide_onehot_dw_reference(ids.cpu(),
+                                                 dh.cpu().float().abs(), v)
+            fwd = [K.wide_onehot_fwd(w, ids) for _ in range(3)]
+            dw = [K.wide_onehot_dw(ids, dh, v) for _ in range(3)]
+            torch.cuda.synchronize()
+            errs = {}
+            for key, runs, want, scale in (
+                    ("fwd", fwd, want_f, scale_f),
+                    ("dw", dw, want_d.float().cuda(), scale_d.cuda())):
+                err = (runs[0].double() - want.double()).abs()
+                rel = (err / scale.double().clamp_min(1e-30)).max().item()
+                same = all(torch.equal(runs[0], r) for r in runs[1:])
+                errs[key] = (err.max().item(), rel, same,
+                             torch.equal(runs[0].float(), want.float()))
+                if rel > K4_TOL or not same:
+                    failures.append(f"{key} at {(b, k, v, e)} {dtype}")
+            flat = ids.long() + torch.arange(k, device="cuda") * v
+            table = w.view(k * v, e)
+            src = dh.float()[:, None, :].expand(b, k, e).reshape(b * k, e)
+            idx = flat.reshape(-1)
+            times = {
+                "fwd": (time_ms(lambda: K.wide_onehot_fwd(w, ids)),
+                        time_ms(lambda: K.wide_onehot_fwd_reference(w, ids)),
+                        time_ms(lambda: torch.nn.functional.embedding_bag(
+                            flat, table, mode="sum"))),
+                "dw": (time_ms(lambda: K.wide_onehot_dw(ids, dh, v)),
+                       time_ms(lambda: K.wide_onehot_dw_reference(ids, dh,
+                                                                  v)),
+                       time_ms(lambda: torch.zeros(
+                           (k * v, e), device="cuda").index_add_(
+                           0, idx, src).to(dtype)))}
+            bounds = k4_bound_ms(ids, w, dh)
+            dt = str(dtype)[6:]
+            for name, key, plan in (("K4a", "fwd", fplan),
+                                    ("K4b", "dw", dplan)):
+                ms, plain, lib = times[key]
+                bytes_ms, ops_ms = bounds[key]
+                abs_err, rel, same, exact = errs[key]
+                timed[key][f"{e} B={b} {dt}"] = {
+                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": ("bytes" if bytes_ms > ops_ms
+                                 else "operations"),
+                    "max_abs_err": abs_err}
+                card(f"{name} shard width E={e} B={b} {dt}: plan "
+                     f"{plan._asdict()}; max_abs={abs_err:.3e} "
+                     f"rel_to_scale={rel:.3e} (tol {K4_TOL:.0e}), bit-equal "
+                     f"to plain {exact}, reruns identical {same}; kernel "
+                     f"{ms:.4f} ms per call, plain {plain:.4f} ms, library "
+                     f"{lib:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+                     f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})")
+            del w, ids, dh, fwd, dw, want_f, scale_f, want_d, scale_d, src
+            torch.cuda.empty_cache()
+    check(not failures, "K4 at the shard widths: " + "; ".join(failures))
+    return timed
+
+
 def wd_cli(argv: list[str]) -> tuple[int, str]:
     """One in-process CLI call; (exit code, its stdout)."""
     from euromillioner_tpu_torch import cli
@@ -7556,6 +7666,551 @@ def phase_export(root: Path, out: Path, checkpoints: dict) -> dict:
             "K4a": launches["wide_deep"]["wide_onehot_fwd"]}
 
 
+# -- phase 36: the rest of parallelism ---------------------------------------
+
+# Tensor parallelism over ``model`` and sequence parallelism over ``seq``
+# on PAR_RANKS rank processes sharing the one card over gloo (NCCL
+# refuses two ranks on one device), then mesh-sharded serving in this
+# process on meshes laid on the one card through ``devices=``. TP-2: the
+# 100M Wide&Deep at B=8192, the wide table split by columns (K4a/K4b at
+# its 520-wide shard). SP-2: the flagship at full width, T=64, B=64, two
+# microbatches, on the pipelined chunk scan (K1/K2: 0).
+PAR_RANKS = 2
+PAR_WD_BATCH = 8192
+# TP parity: PAR_TP_STEPS SGD steps with f32 towers against one process
+# from the same params, at the JAX package's TP pin (tests/test_dist.py)
+PAR_TP_STEPS = 3
+PAR_TP_LR = 1e-3
+TP_RTOL, TP_ATOL = 2e-5, 2e-6
+# TP timing: PAR_TIMED_STEPS Adam steps with bf16 towers after one untimed
+PAR_TIMED_STEPS = 3
+# SP-2: the flagship's output and gradients against one process's scan at
+# the JAX package's SP pins (tests/test_seq_parallel.py)
+PAR_SP = {"batch": 64, "n_micro": 2}
+SP_FWD_TOL = 1e-5
+SP_GRAD_ATOL, SP_GRAD_RTOL = 2e-5, 2e-4
+# how long the ranks may wait on each other, and each part in all
+PAR_GROUP_TIMEOUT_S = 300.0
+PAR_PART_TIMEOUT_S = 400.0
+# sharded serving: the trained flagship's step scheduler on 2x1
+# (PAR_SLOTS slots, block 8) over the first PAR_SEQUENCES of
+# http_traffic(); the 100M Wide&Deep row engine on 1x2 and 1x4 at
+# PAR_WD_ROWS-row batches, PAR_WD_BATCHES of them a mesh and profile,
+# within the model-parallel envelope of the one-device engine
+PAR_SLOTS = 32
+PAR_SEQUENCES = 64
+PAR_WD_ROWS = 64
+PAR_WD_BATCHES = 4
+PAR_MP_ENVELOPE = 1e-2
+
+
+def par_wide_deep(dtype):
+    """The seeded 100M Wide&Deep on the card, towers in ``dtype``."""
+    from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
+
+    return build_wide_deep(compute_dtype=dtype, device="cuda",
+                           generator=torch.Generator().manual_seed(SEED + 5))
+
+
+def par_wd_batches(n: int):
+    """``n`` host batches of bench.py's rows (B=PAR_WD_BATCH) with seeded
+    targets."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.data.dataset import Batch
+
+    out = []
+    for i in range(n):
+        x = bench_rows(PAR_WD_BATCH, seed=i)
+        y = np.random.default_rng(100 + i).normal(
+            size=(PAR_WD_BATCH, OUTPUTS)).astype(np.float32)
+        out.append(Batch(x=x, y=y, mask=np.ones(PAR_WD_BATCH, np.float32)))
+    return out
+
+
+def par_steps(trainer, state, batches, sync=True):
+    """``state`` through one train step a batch; (state, ms a step)."""
+    torch.cuda.synchronize()
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, trainer._place(b))
+        float(loss)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, times
+
+
+def par_close(got: dict, ref: dict, rtol: float, atol: float) -> dict:
+    """Per leaf the largest |got - ref| beyond ``atol + rtol·|ref|`` (0
+    when every element is within) and the max abs difference."""
+    out = {}
+    for k, r in ref.items():
+        g = got[k].double()
+        r = r.double().to(g.device)
+        diff = (g - r).abs()
+        out[k] = (float((diff - (atol + rtol * r.abs())).clamp_min(0).max()),
+                  float(diff.max()))
+    return out
+
+
+def par_tp(mesh, rank: int) -> dict:
+    """TP-2 on this rank: rank 0 first runs the one-process reference (the
+    others wait), then every rank trains the split model: PAR_TP_STEPS SGD
+    steps in f32 (K4a/K4b counted; the joined params against the
+    reference on rank 0), and Adam steps in bf16, timed."""
+    import torch.distributed as dist
+
+    from euromillioner_tpu_torch.core.precision import PARITY, Precision
+    from euromillioner_tpu_torch.dist.sharded import DistributedTrainer
+    from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
+                                                         WIDE_ONEHOT_FWD)
+    from euromillioner_tpu_torch.train.optim import adam, sgd
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    batches = par_wd_batches(PAR_TP_STEPS + 1 + PAR_TIMED_STEPS)
+    sgd_b, adam_b = batches[:PAR_TP_STEPS], batches[PAR_TP_STEPS:]
+    bf16 = Precision(compute_dtype=torch.bfloat16)
+    res: dict = {}
+    ref = None
+    if rank == 0:
+        plain = Trainer(par_wide_deep(torch.float32), sgd(PAR_TP_LR),
+                        precision=PARITY)
+        state, _ = par_steps(plain, plain.init_state(), sgd_b)
+        ref = {k: v.detach() for k, v in state.params.items()}
+        del plain, state
+        plain = Trainer(par_wide_deep(torch.bfloat16), adam(1e-3),
+                        precision=bf16)
+        state, times = par_steps(plain, plain.init_state(), adam_b)
+        res["one_process_ms"] = times[1:]
+        del plain, state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    tp = DistributedTrainer(par_wide_deep(torch.float32), sgd(PAR_TP_LR),
+                            precision=PARITY, mesh=mesh)
+    state = tp.init_state()
+    res["shard"] = {k: tuple(v.shape) for k, v in state.params.items()}
+    res["dims"] = dict(tp._dims)
+    WIDE_ONEHOT_FWD.launches = WIDE_ONEHOT_DW.launches = 0
+    state, times = par_steps(tp, state, sgd_b)
+    res["sgd"] = {"K4a": WIDE_ONEHOT_FWD.launches,
+                  "K4b": WIDE_ONEHOT_DW.launches, "ms": times}
+    full = tp.global_state(state).params
+    if ref is not None:
+        res["errors"] = par_close(full, ref, TP_RTOL, TP_ATOL)
+    del tp, state, full, ref
+    torch.cuda.empty_cache()
+    tp = DistributedTrainer(par_wide_deep(torch.bfloat16), adam(1e-3),
+                            precision=bf16, mesh=mesh)
+    WIDE_ONEHOT_FWD.launches = WIDE_ONEHOT_DW.launches = 0
+    _, times = par_steps(tp, tp.init_state(), adam_b)
+    res["adam"] = {"K4a": WIDE_ONEHOT_FWD.launches,
+                   "K4b": WIDE_ONEHOT_DW.launches, "ms": times[1:]}
+    return res
+
+
+def par_flagship():
+    from euromillioner_tpu_torch.models.lstm import build_lstm
+
+    return build_lstm(HIDDEN, LAYERS, OUTPUTS, in_features=FEATURES,
+                      fused="off", device="cuda",
+                      generator=torch.Generator().manual_seed(SEED + 13))
+
+
+def par_sp_batch():
+    import numpy as np
+
+    from euromillioner_tpu_torch.data.dataset import Batch
+
+    rng = np.random.default_rng(SEED + 13)
+    b = PAR_SP["batch"]
+    return Batch(x=rng.normal(size=(b, SEQ_LEN, FEATURES)).astype(np.float32),
+                 y=rng.normal(size=(b, OUTPUTS)).astype(np.float32),
+                 mask=np.ones(b, np.float32))
+
+
+def par_grads(trainer, state, batch):
+    """(output, loss, gradients) of one step, the gradients as the update
+    sees them (reduced over the ranks)."""
+    placed = trainer._place(batch)
+    params = {k: v.detach().requires_grad_()
+              for k, v in state.params.items()}
+    loss = trainer._loss(params, placed, None)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    grads, loss = trainer._reduce(grads, loss.detach())
+    out = trainer._predict(state.params, placed.x)
+    return out, float(loss), grads
+
+
+def par_sp(mesh, rank: int) -> dict:
+    """SP-2 on this rank: rank 0 first runs one process's scan (output,
+    gradients, ms a step), then both ranks the pipelined one; K1/K2
+    counted (0 expected)."""
+    import torch.distributed as dist
+
+    from euromillioner_tpu_torch.core.precision import PARITY
+    from euromillioner_tpu_torch.dist.sharded import DistributedTrainer
+    from euromillioner_tpu_torch.train.optim import sgd
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    batch = par_sp_batch()
+    res: dict = {}
+    ref = None
+    if rank == 0:
+        plain = Trainer(par_flagship(), sgd(PAR_TP_LR), precision=PARITY)
+        state = plain.init_state()
+        ref = par_grads(plain, state, batch)
+        _, times = par_steps(plain, state, [batch] * (PAR_TIMED_STEPS + 1))
+        res["one_process_ms"] = times[1:]
+        del plain, state
+    dist.barrier()
+    sp = DistributedTrainer(par_flagship(), sgd(PAR_TP_LR), precision=PARITY,
+                            mesh=mesh, shard_sequence=True,
+                            n_micro=PAR_SP["n_micro"])
+    state = sp.init_state()
+    reset_lstm_counts()
+    out, loss, grads = par_grads(sp, state, batch)
+    _, times = par_steps(sp, state, [batch] * (PAR_TIMED_STEPS + 1))
+    res["counts"] = lstm_counts()
+    res["ms"] = times[1:]
+    if ref is not None:
+        r_out, r_loss, r_grads = ref
+        res["out"] = par_close({"out": out}, {"out": r_out}, SP_FWD_TOL,
+                               SP_FWD_TOL)["out"]
+        res["loss"] = (loss, r_loss)
+        res["grads"] = par_close(grads, r_grads, SP_GRAD_RTOL, SP_GRAD_ATOL)
+    return res
+
+
+def par_worker(part: str, rank: int, world: int, address: str,
+               out_dir: str) -> int:
+    """One rank of phase 36's ``part`` (``tp``: mesh 1x2x1, ``sp``:
+    1x1x2), both ranks on card 0 over gloo; saves its results to
+    ``out_dir/{part}{rank}.pt``. Run by ``phase_parallel`` in a child
+    process."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from euromillioner_tpu_torch.core.device import resolve_device
+    from euromillioner_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from euromillioner_tpu_torch.ops.fused_lstm import FUSED_LSTM_FWD
+    from euromillioner_tpu_torch.ops.wide_onehot import (WIDE_ONEHOT_DW,
+                                                         WIDE_ONEHOT_FWD)
+
+    resolve_device("cuda")
+    torch.cuda.set_device(0)
+    for k in (FUSED_LSTM_FWD, WIDE_ONEHOT_FWD, WIDE_ONEHOT_DW):
+        k.build()  # loads the libraries the parent built
+    dist.init_process_group("gloo", init_method=f"tcp://{address}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=PAR_GROUP_TIMEOUT_S))
+    try:
+        spec = (MeshSpec(data=1, model=world) if part == "tp"
+                else MeshSpec(data=1, seq=world))
+        mesh = build_mesh(spec, device="cuda")
+        res = (par_tp if part == "tp" else par_sp)(mesh, rank)
+        torch.save(res, Path(out_dir) / f"{part}{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def par_ranks(root: Path, part: str, out: Path) -> list:
+    """PAR_RANKS ``par_worker`` children of ``part`` (killed in
+    ``finally``); their results in rank order."""
+    address = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = []
+    try:
+        for rank in range(PAR_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke as c; "
+                 f"sys.exit(c.par_worker({part!r}, {rank}, {PAR_RANKS}, "
+                 f"{address!r}, {str(out)!r}))"], cwd=root, env=env))
+        deadline = time.monotonic() + PAR_PART_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    check(codes == [0] * PAR_RANKS, f"phase 36 {part}: the ranks exited "
+          f"{codes}")
+    return [torch.load(out / f"{part}{r}.pt", weights_only=False)
+            for r in range(PAR_RANKS)]
+
+
+def par_worst(errors: dict) -> tuple[str, float, float]:
+    k = max(errors, key=lambda n: (errors[n][0], errors[n][1]))
+    return k, errors[k][0], max(e[1] for e in errors.values())
+
+
+def par_report_tp(ranks: list) -> dict:
+    """TP-2's checks and lines; K4a/K4b launches summed over the ranks."""
+    e = 1040
+    for r, res in enumerate(ranks):
+        width = res["shard"]["wide_table"][1]
+        print(f"TP-2 rank {r}: wide_table shard {res['shard']['wide_table']}"
+              f", split dims {json.dumps(res['dims'], sort_keys=True)}; SGD "
+              f"f32 K4a {res['sgd']['K4a']} K4b {res['sgd']['K4b']}, Adam "
+              f"bf16 K4a {res['adam']['K4a']} K4b {res['adam']['K4b']}")
+        check(width == e // PAR_RANKS, f"TP-2 rank {r}: the table shard is "
+              f"{width} wide")
+        for part, n in (("sgd", PAR_TP_STEPS), ("adam", 1 + PAR_TIMED_STEPS)):
+            check(res[part]["K4a"] == res[part]["K4b"] == n,
+                  f"TP-2 rank {r} {part}: K4a/K4b launched "
+                  f"{res[part]['K4a']}/{res[part]['K4b']} times, not {n}")
+    k, beyond, worst_abs = par_worst(ranks[0]["errors"])
+    print(f"TP-2 parity: {PAR_TP_STEPS} SGD steps (f32 towers, B="
+          f"{PAR_WD_BATCH}) joined against one process: worst leaf {k}, "
+          f"{beyond:.3e} beyond rtol {TP_RTOL:.0e} / atol {TP_ATOL:.0e}; "
+          f"max abs {worst_abs:.3e}")
+    check(beyond == 0.0, f"TP-2: {k} differs from one process by "
+          f"{beyond:.3e} beyond the pin")
+    one = statistics.median(ranks[0]["one_process_ms"])
+    per = [statistics.median(r["adam"]["ms"]) for r in ranks]
+    card(f"TP-2 timing: Adam, bf16 towers, B={PAR_WD_BATCH}: ranks "
+         f"{', '.join(f'{m:.3f}' for m in per)} ms/step (two ranks on one "
+         f"card over gloo) beside one process's {one:.3f} ms/step")
+    return {"K4a": sum(r["sgd"]["K4a"] + r["adam"]["K4a"] for r in ranks),
+            "K4b": sum(r["sgd"]["K4b"] + r["adam"]["K4b"] for r in ranks),
+            "ms": per, "one_process_ms": one}
+
+
+def par_report_sp(ranks: list) -> dict:
+    res0 = ranks[0]
+    beyond, out_abs = res0["out"]
+    k, g_beyond, g_abs = par_worst(res0["grads"])
+    print(f"SP-2: the flagship (H={HIDDEN}, T={SEQ_LEN}, f32, B="
+          f"{PAR_SP['batch']}, {PAR_SP['n_micro']} microbatches) on the "
+          f"pipelined scan against one process's scan: output {beyond:.3e} "
+          f"beyond {SP_FWD_TOL:.0e} (max abs {out_abs:.3e}); loss "
+          f"{res0['loss'][0]:.8f} vs {res0['loss'][1]:.8f}; gradients: "
+          f"worst {k} {g_beyond:.3e} beyond atol {SP_GRAD_ATOL:.0e} / rtol "
+          f"{SP_GRAD_RTOL:.0e} (max abs {g_abs:.3e}); launches per rank "
+          f"{[r['counts'] for r in ranks]}")
+    check(beyond == 0.0 and g_beyond == 0.0, "SP-2 differs from one "
+          "process's scan beyond the pins")
+    check(all(n == 0 for r in ranks for n in r["counts"].values()),
+          "SP-2 launched K1 or K2")
+    one = statistics.median(res0["one_process_ms"])
+    per = [statistics.median(r["ms"]) for r in ranks]
+    card(f"SP-2 timing: SGD f32 steps: ranks "
+         f"{', '.join(f'{m:.3f}' for m in per)} ms/step beside one "
+         f"process's scan {one:.3f} ms/step")
+    return {"K1": 0, "K2": 0, "ms": per, "one_process_ms": one}
+
+
+def par_serve_flagship(flagship: Path, devices: list) -> dict:
+    """The trained flagship's step scheduler on a 2x1 mesh laid on the
+    card: bit-equal to the block program at a shard's rows and to the
+    unsharded scheduler whose program runs at those rows, within
+    F32_SERVE_TOL of the direct apply; beside it the unsharded scheduler
+    at PAR_SLOTS (on the card a product rounds otherwise at another row
+    count: printed, not pinned); stats carry the mesh; K1/K2 0."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.config import Config, apply_overrides
+    from euromillioner_tpu_torch.core.precision import rel_error
+    from euromillioner_tpu_torch.serve.continuous import (
+        StepScheduler, load_recurrent_backend)
+    from euromillioner_tpu_torch.serve.session import build_serving_mesh
+
+    backend = load_recurrent_backend(
+        apply_overrides(Config(), ["model.compute_dtype=float32"]),
+        str(flagship), device="cuda")
+    seqs = http_traffic()[:PAR_SEQUENCES]
+    mesh = build_serving_mesh((2, 1), devices=devices)
+    rows = PAR_SLOTS // 2
+
+    def served(**kw):
+        with StepScheduler(backend, step_block=8, **kw) as sched:
+            t0 = time.perf_counter()
+            got = [f.result(timeout=HTTP_WAIT)
+                   for f in [sched.submit(s) for s in seqs]]
+            return got, time.perf_counter() - t0, sched.stats()
+
+    whole, whole_s, _ = served(max_slots=PAR_SLOTS)
+    same_rows, same_s, _ = served(max_slots=rows)
+    reset_lstm_counts()
+    got, wall, st = served(max_slots=PAR_SLOTS, mesh=mesh)
+    counts = lstm_counts()
+    oracle = []
+    with torch.inference_mode():
+        for i in range(0, len(seqs), rows):
+            group = seqs[i:i + rows]
+            t = max(len(s) for s in group)
+            x = np.zeros((rows, t, FEATURES), np.float32)
+            for j, s in enumerate(group):
+                x[j, :len(s)] = s
+            _, y = backend.block_fn(
+                backend.init_states(rows), torch.from_numpy(x).cuda(),
+                torch.ones((rows, 1), dtype=torch.bool, device="cuda"))
+            y = y.cpu().numpy()
+            oracle += [y[j, len(s) - 1] for j, s in enumerate(group)]
+    same_block = all(np.array_equal(g, w) for g, w in zip(got, oracle))
+    same_sched = all(np.array_equal(g, w) for g, w in zip(got, same_rows))
+    same_whole = sum(np.array_equal(g, w) for g, w in zip(got, whole))
+    err = rel_error(np.stack(got), direct_apply(backend.model, seqs).numpy())
+    card(f"sharded step scheduler 2x1 (devices {[str(d) for d in devices]}),"
+         f" {PAR_SLOTS} slots, {len(seqs)} sequences: {wall:.3f} s (the "
+         f"unsharded {PAR_SLOTS}-slot pool {whole_s:.3f} s, {rows}-slot "
+         f"{same_s:.3f} s); bit-equal to the block program at {rows} rows "
+         f"{same_block} and to the unsharded {rows}-slot scheduler "
+         f"{same_sched}; {same_whole}/{len(seqs)} replies bit-equal to the "
+         f"unsharded {PAR_SLOTS}-slot scheduler (rel "
+         f"{rel_error(np.stack(got), np.stack(whole)):.3e}); rel to the "
+         f"direct apply {err:.3e} (tol {F32_SERVE_TOL:.0e}); stats mesh "
+         f"{st['mesh']}, failed {st['failed']}; launches {counts}")
+    check(same_block and same_sched, "the sharded step scheduler's replies "
+          "differ from the program at a shard's rows")
+    check(err <= F32_SERVE_TOL and st["mesh"] == "2x1"
+          and st["failed"] == 0, "the sharded step scheduler disagrees")
+    check(all(n == 0 for n in counts.values()), "the sharded step "
+          "scheduler launched K1 or K2")
+    return counts
+
+
+def par_serve_wd(devices: list) -> dict:
+    """The 100M Wide&Deep (f32 towers) on 1x2 and 1x4 meshes laid on the
+    card at the f32 and bf16 profiles, against the one-device engine
+    within PAR_MP_ENVELOPE; K4a counted per model shard, each at the
+    shard's width; one ``serve.shard`` fault fails one batch and the
+    session serves on."""
+    import numpy as np
+
+    from euromillioner_tpu_torch.core.precision import rel_error
+    from euromillioner_tpu_torch.ops.wide_onehot import WIDE_ONEHOT_FWD
+    from euromillioner_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                    inject)
+    from euromillioner_tpu_torch.serve.engine import InferenceEngine
+    from euromillioner_tpu_torch.serve.session import (ModelSession,
+                                                       NNBackend,
+                                                       build_serving_mesh)
+
+    model = par_wide_deep(torch.float32)
+    rows = [bench_rows(PAR_WD_ROWS, seed=50 + i)
+            for i in range(PAR_WD_BATCHES)]
+    k4a = 0
+    for prof in ("f32", "bf16"):
+        base = NNBackend(model, (11,), compute_dtype=torch.float32,
+                         precision=prof)
+        with InferenceEngine(base, buckets=(PAR_WD_ROWS,), warmup=False,
+                             max_wait_ms=1.0) as eng:
+            want = [eng.predict(r) for r in rows]
+        for axes in ((1, 2), (1, 4)):
+            mesh = build_serving_mesh(axes, devices=devices)
+            backend = NNBackend(model, (11,), compute_dtype=torch.float32,
+                                precision=prof, mesh=mesh)
+            placed, dims = backend.placed_params(prof)
+            widths = [placed[0][j]["wide_table"].shape[1]
+                      for j in range(axes[1])]
+            WIDE_ONEHOT_FWD.launches = 0
+            t0 = time.perf_counter()
+            with InferenceEngine(ModelSession(backend, mesh=mesh),
+                                 buckets=(PAR_WD_ROWS,), warmup=False,
+                                 max_wait_ms=1.0) as eng:
+                got = [eng.predict(r) for r in rows]
+                st = eng.stats()
+            wall = (time.perf_counter() - t0) * 1e3 / len(rows)
+            n = WIDE_ONEHOT_FWD.launches
+            k4a += n
+            elem = max(float(np.max(np.abs(g - w) / np.maximum(np.abs(w),
+                                                               1e-6)))
+                       for g, w in zip(got, want))
+            scale = rel_error(np.concatenate(got), np.concatenate(want))
+            # f32: the JAX pin's elementwise max rel; bf16 rounds outputs
+            # near zero to a few ulps of their own size, so there the
+            # serving envelope's measure, max|diff| / max|ref|, holds
+            err = elem if prof == "f32" else scale
+            card(f"Wide&Deep {prof} on {axes[0]}x{axes[1]}: table shards "
+                 f"{widths} wide (split dims wide_table "
+                 f"{dims['wide_table']}, head "
+                 f"{dims['deep.3_Dense.kernel']}); K4a {n} launches for "
+                 f"{len(rows)} batches; against the one-device engine: "
+                 f"elementwise max rel {elem:.3e}, max|diff|/max|ref| "
+                 f"{scale:.3e} (the {'first' if prof == 'f32' else 'second'}"
+                 f" held to {PAR_MP_ENVELOPE:.0e}); {wall:.3f} ms a batch; "
+                 f"stats mesh {st['mesh']}")
+            check(widths == [1040 // axes[1]] * axes[1], "a table shard "
+                  "has another width")
+            # a bf16 engine checks its first batch against the f32 program
+            want_n = (len(rows) + (prof != "f32")) * axes[1]
+            check(n == want_n, f"K4a launched {n} times on {axes} "
+                  f"{prof}, not {want_n}")
+            check(err <= PAR_MP_ENVELOPE, f"Wide&Deep {prof} on {axes} "
+                  f"leaves the envelope: {err:.3e}")
+        del base, backend, placed
+        torch.cuda.empty_cache()
+    mesh = build_serving_mesh((1, 2), devices=devices)
+    backend = NNBackend(model, (11,), compute_dtype=torch.float32, mesh=mesh)
+    WIDE_ONEHOT_FWD.launches = 0
+    plan = FaultPlan([FaultSpec(point="serve.shard", raises=RuntimeError,
+                                hits=(2,))])
+    with inject(plan):
+        with InferenceEngine(ModelSession(backend, mesh=mesh),
+                             buckets=(PAR_WD_ROWS,), warmup=False,
+                             max_wait_ms=1.0) as eng:
+            ok1 = eng.predict(rows[0])
+            failed = False
+            try:
+                eng.predict(rows[0])
+            except RuntimeError as e:
+                failed = "injected fault" in str(e)
+            ok3 = eng.predict(rows[0])
+            st = eng.stats()
+    print(f"serve.shard fault on 1x2: fired "
+          f"{plan.fired_count('serve.shard')}, the batch failed {failed}, "
+          f"errors {st['errors']}, the session served on bit-equal "
+          f"{np.array_equal(ok1, ok3)}")
+    check(failed and plan.fired_count("serve.shard") == 1
+          and st["errors"] == 1 and np.array_equal(ok1, ok3),
+          "the serve.shard fault was not survived")
+    return {"K4a": k4a + WIDE_ONEHOT_FWD.launches}
+
+
+def par_cli_refuses(root: Path) -> None:
+    """``serve ... serve.mesh=2,1`` on the one card: the JAX ConfigError
+    (exit 17) before any restore."""
+    from euromillioner_tpu_torch import cli
+
+    rc = cli.main(["serve", "--model-type", "mlp", "--checkpoint",
+                   str(root / "build" / "chip_smoke" / "absent"),
+                   "serve.mesh=2,1"])
+    print(f"serve serve.mesh=2,1 on {torch.cuda.device_count()} card(s): "
+          f"exit {rc}")
+    check(rc == 17, f"serve with a mesh the card cannot hold exited {rc}")
+
+
+def phase_parallel(root: Path, flagship: Path) -> dict:
+    """Phase 36: TP-2 training of the 100M Wide&Deep and SP-2 training of
+    the full-width flagship on rank processes sharing the card over gloo,
+    then sharded serving in this process (the flagship's step scheduler on
+    2x1, Wide&Deep's row engine on 1x2 and 1x4, a serve.shard fault) and
+    the CLI's refusal of a mesh the card cannot hold. Returns the kernels'
+    launches by path."""
+    t0 = time.perf_counter()
+    out = root / "build" / "chip_smoke" / "parallel"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    tp = par_report_tp(par_ranks(root, "tp", out))
+    sp = par_report_sp(par_ranks(root, "sp", out))
+    devices = [torch.device("cuda", 0)] * 4
+    serve_counts = par_serve_flagship(flagship, devices)
+    wd = par_serve_wd(devices)
+    par_cli_refuses(root)
+    shutil.rmtree(out, ignore_errors=True)
+    card(f"parallel: phase 36 took {time.perf_counter() - t0:.1f} s")
+    return {"tp": tp, "sp": sp, "serve_step": serve_counts,
+            "serve_mesh_k4a": wd["K4a"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7643,6 +8298,7 @@ def main() -> int:
         phase_chunked_trees(root)
         WIDE_ONEHOT_DW.build()  # loads the library K4a's build made
         k4a, k4b = phase_k4()
+        k4_shards = phase_k4_shards()
         serve_k4a, wd_ckdir = phase_wd_serve(root)
         train_k4a, train_k4b = phase_wd_train(root)
         wd_bench = phase_wd_bench((k4a, k4b))
@@ -7668,6 +8324,7 @@ def main() -> int:
         export = phase_export(root, export_out, {
             "flagship": flagship, "wide_deep": fleet_keep / "wide_deep"})
         fleet = phase_fleet(root, flagship, fleet_keep)
+        par = phase_parallel(root, flagship)
         shutil.rmtree(flagship, ignore_errors=True)
         shutil.rmtree(fleet_keep.parent, ignore_errors=True)
     except SmokeFailure as e:
@@ -7680,11 +8337,14 @@ def main() -> int:
         "serve_http_fused": http_k1, "replay_fused": replay_k1,
         "train_dp_gloo": ranks["lstm"]["K1.f32"],
         "train_tbptt": tbptt["K1.f32"], "aot_padded_fused": aot["K1"],
-        "fleet_http_fused": fleet["K1"], "export_native": export["K1"]}
+        "fleet_http_fused": fleet["K1"], "export_native": export["K1"],
+        "train_sp": par["sp"]["K1"],
+        "serve_mesh_step": par["serve_step"]["K1.f32"]}
     k1["launches"] = sum(k1["launches_by_path"].values())
     k2["launches_by_path"] = {"train": train_k2,
                               "train_dp_gloo": ranks["lstm"]["K2.f32"],
-                              "train_tbptt": tbptt["K2.f32"]}
+                              "train_tbptt": tbptt["K2.f32"],
+                              "train_sp": par["sp"]["K2"]}
     k2["launches"] = sum(k2["launches_by_path"].values())
     k1b["launches_by_path"] = {"train": bf16_train["K1.bf16"],
                                "bench_step": bench["K1.bf16"],
@@ -7712,11 +8372,14 @@ def main() -> int:
                                "train_dp": dp1_families["K4a"],
                                "aot_serve_bf16": aot["K4a"],
                                "rollout_bf16": fleet["K4a"],
-                               "export_native_bf16": export["K4a"]}
+                               "export_native_bf16": export["K4a"],
+                               "tp_train": par["tp"]["K4a"],
+                               "serve_mesh": par["serve_mesh_k4a"]}
     k4a["launches"] = sum(k4a["launches_by_path"].values())
     k4b["launches_by_path"] = {"train": train_k4b,
                                "bench_step": wd_bench["launches"]["K4b"],
-                               "train_dp": dp1_families["K4b"]}
+                               "train_dp": dp1_families["K4b"],
+                               "tp_train": par["tp"]["K4b"]}
     k4b["launches"] = sum(k4b["launches_by_path"].values())
     rf_cls["launches_by_path"] = dict(rf_cls_k3,
                                       cli_train_dp=dp1_families["K3.sets"],
@@ -7725,6 +8388,8 @@ def main() -> int:
     rf_reg["launches_by_path"] = dict(rf_reg_k3,
                                       rf_mesh=ranks["rf"]["regressor"])
     rf_reg["launches"] = sum(rf_reg["launches_by_path"].values())
+    k4a["shard_widths"] = k4_shards["fwd"]
+    k4b["shard_widths"] = k4_shards["dw"]
     print(json.dumps({"kernels": [k1, k2, k1b, k2b, k3, k4a, k4b, rf_cls,
                                   rf_reg]}))
     print(f"nvidia-smi: {smi}")

@@ -120,18 +120,23 @@ def cmd_fetch(args, cfg: Config) -> int:
 def cmd_train(args, cfg: Config) -> int:
     """Train a booster (``--model gbt``, the default), a random forest or
     a neural family with the {train, test} watches, then save it
-    (``--save``); ``--distributed`` over a data-parallel group."""
+    (``--save``); ``--distributed`` over a (data, model, seq) mesh."""
     tbptt = args.model == "lstm" and args.tbptt
     if not args.distributed:
         if tbptt:
             return _train_tbptt(args, cfg)
         return (_train_gbt(args, cfg) if args.model == "gbt"
                 else _train_model(args, cfg, None))
-    from euromillioner_tpu_torch.core.mesh import MeshSpec, require_data_only
+    from euromillioner_tpu_torch.core.mesh import MeshSpec
 
     spec = MeshSpec.from_config(cfg.mesh)
-    require_data_only(spec)
     if tbptt:
+        # the JAX CLI builds the mesh (a mesh its devices do not cover
+        # fails, exit 15), then trains on one device
+        from euromillioner_tpu_torch.core.device import resolve_device
+        from euromillioner_tpu_torch.core.mesh import local_device_count
+
+        spec.resolve(local_device_count(resolve_device(args.device)))
         logger.warning("--tbptt trains as one single-device program; "
                        "mesh ignored")
         return _train_tbptt(args, cfg)
@@ -176,7 +181,9 @@ def _free_port() -> int:
 def _launch_local_ranks(args, cfg: Config, spec) -> int:
     """No coordinator configured: one rank per local device (the visible
     cards, or ``EUROMILLIONER_CPU_DEVICES`` under ``--device cpu``), the
-    JAX CLI's "mesh spans this process's devices". A group of one runs in
+    JAX CLI's "mesh spans this process's devices": ``data·model·seq``
+    ranks, which the mesh lays out as ``build_mesh`` does. A group of one
+    runs in
     this process; more ranks run as child processes of this command line
     with the group's variables set, joined in ``finally``. The first rank
     to fail ends the run with its exit code (the others are stopped); a
@@ -297,8 +304,10 @@ def _train_nn(args, cfg: Config, mesh) -> int:
     TrainState (``--save`` or ``train.checkpoint_dir``): the LSTM on
     sliding windows of the draw history, Wide&Deep on each full 11-column
     row predicting the next draw's balls, the MLP on the 10 label-dropped
-    features predicting the label column. Data-parallel over ``mesh``
-    when given (every rank saves its shard)."""
+    features predicting the label column. Over ``mesh`` when given:
+    data-parallel, tensor-parallel over ``model`` per the model's rules,
+    and the LSTM sequence-parallel over ``seq`` (every rank saves the
+    global leaves)."""
     import torch
 
     from euromillioner_tpu_torch.core.device import resolve_device
@@ -306,7 +315,6 @@ def _train_nn(args, cfg: Config, mesh) -> int:
     from euromillioner_tpu_torch.data.dataset import Dataset
     from euromillioner_tpu_torch.models.lstm import make_sequences
     from euromillioner_tpu_torch.models.registry import build_model
-    from euromillioner_tpu_torch.train.checkpoint import save_checkpoint
     from euromillioner_tpu_torch.train.optim import from_train_config
     from euromillioner_tpu_torch.train.trainer import Trainer
 
@@ -331,8 +339,9 @@ def _train_nn(args, cfg: Config, mesh) -> int:
     if mesh is not None:
         from euromillioner_tpu_torch.dist.sharded import DistributedTrainer
 
-        trainer = DistributedTrainer(model, from_train_config(cfg.train),
-                                     mesh=mesh, **kw)
+        trainer = DistributedTrainer(
+            model, from_train_config(cfg.train), mesh=mesh,
+            shard_sequence=args.model == "lstm" and mesh.seq > 1, **kw)
     else:
         trainer = Trainer(model, from_train_config(cfg.train), **kw)
     state = trainer.fit(
@@ -344,9 +353,8 @@ def _train_nn(args, cfg: Config, mesh) -> int:
         checkpoint_dir=cfg.train.checkpoint_dir or None,
         checkpoint_every=cfg.train.checkpoint_every)
     if args.save or cfg.train.checkpoint_dir:
-        out = save_checkpoint(args.save or cfg.train.checkpoint_dir, state,
-                              step=cfg.train.epochs,
-                              group=mesh.group if mesh is not None else None)
+        out = trainer.save_checkpoint(args.save or cfg.train.checkpoint_dir,
+                                      state, step=cfg.train.epochs)
         logger.info("saved checkpoint to %s", out)
     return 0
 
@@ -564,7 +572,16 @@ def cmd_serve(args, cfg: Config) -> int:
 
     if args.scheduler:
         cfg.serve.scheduler = args.scheduler
+    # serve.mesh=(data, model) and serve.precision: validated here
+    # (ConfigError, exit 17) before any restore work; (1, 1) builds no
+    # mesh. The mesh counts the visible cards (EUROMILLIONER_CPU_DEVICES
+    # logical devices under --device cpu)
+    from euromillioner_tpu_torch.serve.session import build_serving_mesh
+
     resolve_serve_precision(cfg.serve.precision)
+    mesh = build_serving_mesh(cfg.serve.mesh, device=args.device)
+    if mesh is not None:
+        logger.info("serving mesh: %s", mesh.shape)
     # the AOT program store (serve.aot.*): warmup loads the recorded
     # ladder from disk instead of compiling it
     from euromillioner_tpu_torch.serve.aotstore import open_store
@@ -581,7 +598,7 @@ def cmd_serve(args, cfg: Config) -> int:
         backend = load_recurrent_backend(cfg, args.checkpoint,
                                          args.num_features,
                                          device=args.device)
-        engine = make_sequence_engine(backend, cfg, aot=aot)
+        engine = make_sequence_engine(backend, cfg, aot=aot, mesh=mesh)
     else:
         if cfg.serve.scheduler == "continuous":
             raise ServeError(
@@ -593,7 +610,7 @@ def cmd_serve(args, cfg: Config) -> int:
         backend = load_backend(args.model_type, args.checkpoint, cfg,
                                args.num_features, device=args.device,
                                model_file=args.model_file)
-        engine = make_row_engine(backend, cfg, aot=aot)
+        engine = make_row_engine(backend, cfg, aot=aot, mesh=mesh)
     try:
         prec = engine.precision_desc
         logger.info("serve.precision=%s (pinned max-rel-error envelope: %s; "

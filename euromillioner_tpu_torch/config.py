@@ -473,6 +473,14 @@ class ServeConfig:
     # Accepted and validated (>= 2) so commands shared with the JAX
     # package mean the same; an eager loop has no unroll to tune.
     fused_unroll: int = 8
+    # Serving device mesh as (data, model) axis sizes (serve/session.py
+    # ``build_serving_mesh``): ``data`` shards micro-batch rows and the
+    # step scheduler's slot pool (bit-identical to one device), ``model``
+    # splits Wide&Deep's parameters per its sharding rules (within a
+    # pinned rel-error envelope). (1, 1), the default, builds no mesh;
+    # data*model must divide the device count. Bucket and slot tables
+    # round UP to multiples of the data axis (logged once).
+    mesh: tuple[int, int] = (1, 1)
     # Run every (row bucket, time bucket) program once before serving.
     warmup: bool = True
     # Per-micro-batch / per-step observability records (queue depth, fill
@@ -497,8 +505,9 @@ class ServeConfig:
 @dataclass
 class MeshConfig:
     """Device mesh axes (the JAX package's ``MeshConfig``, same fields and
-    defaults); adapt via ``core.mesh.MeshSpec.from_config``. Only the
-    ``data`` axis is ported: ``model`` and ``seq`` above 1 are refused."""
+    defaults); adapt via ``core.mesh.MeshSpec.from_config``: ``data``
+    shards batches, ``model`` parameters (tensor parallelism), ``seq``
+    the LSTM's time dim (sequence parallelism)."""
 
     data: int = -1                      # -1 → all devices
     model: int = 1

@@ -1,4 +1,4 @@
-"""Collectives over the data-parallel group (the JAX package's
+"""Collectives over the mesh's groups (the JAX package's
 ``dist/collectives.py``), written for one process per worker.
 
 There a "stacked" tree carries a leading worker axis sharded over the
@@ -12,6 +12,18 @@ Only ``all_reduce`` and ``broadcast`` are used, the collectives gloo runs
 on CUDA tensors too (it has no ``all_gather`` for them): a gather is an
 ``all_reduce`` of a zero buffer holding each rank's rows in its own
 place, exact in any summation order.
+
+Tensor and sequence parallelism (``dist/sharded.py``,
+``dist/seq_parallel.py``) run their collectives inside autograd, each a
+``torch.autograd.Function`` whose backward is the collective's transpose
+(:func:`model_all_reduce`, :func:`model_copy`, :func:`model_gather`,
+:func:`carry_handoff`, :func:`broadcast_from`). A model group computes
+what follows a gather or an all-reduce alike on every rank, so those two
+pass the replicated gradient straight back (a gather keeps its own
+block). :class:`RankComm` and :class:`DeviceComm` give a tensor-parallel
+forward one vocabulary over per-shard lists: one rank's shard over its
+process group (training), or every shard of a serving mesh's row in one
+process (serving, no gradients).
 
 ``psum_stacked``, ``pmean_stacked`` and ``tree_aggregate`` first check
 that every rank's slice has the same leaves, shapes and dtypes (one small
@@ -167,3 +179,202 @@ def all_reduce_grads(grads: dict[str, torch.Tensor], mesh: Mesh,
         g.copy_(v.view(g.shape))
     return grads, [v.view(e.shape).to(e.dtype)
                    for v, e in zip(views[len(grads):], extra)]
+
+
+# -- tensor parallelism over the model group ---------------------------------
+
+def _reduced(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``t`` summed over ``group``, in float32 where ``t`` is
+    narrower (then cast back)."""
+    buf = t.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.dtype)
+
+
+def _zero_gather(t: torch.Tensor, dim: int, index: int, size: int, group
+                 ) -> torch.Tensor:
+    """Every rank's ``t`` laid side by side along ``dim`` in group order:
+    an all-reduce of a zero buffer holding this rank's block in its place
+    (exact in any summation order; gloo has no all-gather on CUDA)."""
+    shape = list(t.shape)
+    width = shape[dim]
+    shape[dim] = width * size
+    buf = t.new_zeros(shape, dtype=torch.float32)
+    buf.narrow(dim, index * width, width).copy_(t)
+    dist.all_reduce(buf, group=group)
+    return buf.to(t.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Forward: the sum of the group's partials. Backward: the replicated
+    gradient of the sum is each partial's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _reduced(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """Forward: the identity on a replicated input about to be used
+    shard-locally. Backward: the sum of the shards' partial gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the shards joined along ``dim``. Backward: this rank's
+    block of the replicated gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, index, size, group):
+        ctx.dim, ctx.index, ctx.width = dim, index, x.shape[dim]
+        return _zero_gather(x.contiguous(), dim, index, size, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.width,
+                         ctx.width).contiguous(), None, None, None, None)
+
+
+def model_all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of the model group's partials ``x`` (a row-parallel
+    product's), on every rank."""
+    return _AllReduce.apply(x, mesh.model_group)
+
+
+def model_copy(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` (replicated over the model group) as the input of a
+    shard-local product: its gradient is summed over the group."""
+    return _Copy.apply(x, mesh.model_group)
+
+
+def model_gather(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The model group's shards of a leaf or activation joined along
+    ``dim`` (this rank's block keeps its gradient)."""
+    return _Gather.apply(x, dim, mesh.model_rank, mesh.model,
+                         mesh.model_group)
+
+
+class RankComm:
+    """One rank's view of a tensor-parallel forward: each per-shard list
+    holds this rank's shard alone, and the collectives run over its model
+    group inside autograd."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.shards = (mesh.model_rank,)
+        self.size = mesh.model
+
+    def all_reduce(self, xs: list) -> list:
+        return [model_all_reduce(xs[0], self.mesh)]
+
+    def copy(self, xs: list) -> list:
+        return [model_copy(xs[0], self.mesh)]
+
+    def gather(self, xs: list, dim: int) -> list:
+        return [model_gather(xs[0], self.mesh, dim)]
+
+
+class DeviceComm:
+    """Every model shard of one serving-mesh row in this process:
+    ``devices[j]`` holds shard ``j``. An all-reduce adds the partials in
+    shard order on shard 0's device and hands the sum to every device; a
+    gather joins the shards there the same way. No gradients."""
+
+    def __init__(self, devices):
+        self.devices = tuple(devices)
+        self.shards = tuple(range(len(self.devices)))
+        self.size = len(self.devices)
+
+    def _spread(self, t: torch.Tensor) -> list:
+        return [t if t.device == d else t.to(d, non_blocking=True)
+                for d in self.devices]
+
+    def all_reduce(self, xs: list) -> list:
+        head = self.devices[0]
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x.to(head, non_blocking=True)
+        return self._spread(total)
+
+    def copy(self, xs: list) -> list:
+        return list(xs)
+
+    def gather(self, xs: list, dim: int) -> list:
+        head = self.devices[0]
+        return self._spread(torch.cat([x.to(head, non_blocking=True)
+                                       for x in xs], dim=dim))
+
+
+# -- sequence parallelism over the seq group ---------------------------------
+
+class _Handoff(torch.autograd.Function):
+    """Forward: (h, c) sent from seq rank k arrives at k + 1 (zeros at
+    rank 0: the leftmost chunk's initial carry). Backward: the gradient of
+    what rank k + 1 received goes back to rank k (the transpose of the
+    JAX package's ``ppermute`` chain)."""
+
+    @staticmethod
+    def forward(ctx, h, c, index, size, group):
+        ctx.index, ctx.size, ctx.group = index, size, group
+        buf = h.new_zeros((size, 2, *h.shape), dtype=torch.float32)
+        buf[index, 0] = h
+        buf[index, 1] = c
+        dist.all_reduce(buf, group=group)
+        if index == 0:
+            return torch.zeros_like(h), torch.zeros_like(c)
+        return buf[index - 1, 0].to(h.dtype), buf[index - 1, 1].to(c.dtype)
+
+    @staticmethod
+    def backward(ctx, gh, gc):
+        i, n = ctx.index, ctx.size
+        buf = gh.new_zeros((n, 2, *gh.shape), dtype=torch.float32)
+        if i > 0:  # what rank 0 received came from no one
+            buf[i, 0] = gh
+            buf[i, 1] = gc
+        dist.all_reduce(buf, group=ctx.group)
+        if i == n - 1:
+            return (torch.zeros_like(gh), torch.zeros_like(gc),
+                    None, None, None)
+        return (buf[i + 1, 0].to(gh.dtype), buf[i + 1, 1].to(gc.dtype),
+                None, None, None)
+
+
+def carry_handoff(h: torch.Tensor, c: torch.Tensor, mesh: Mesh):
+    """The LSTM carry ``(h, c)`` this seq rank sends to the next, and the
+    one it receives from the previous (zeros on the first): one
+    all-reduce over the seq group each way."""
+    return _Handoff.apply(h, c, mesh.seq_rank, mesh.seq, mesh.seq_group)
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    """Forward: ``src``'s tensor on every rank of ``group``. Backward: the
+    ranks' gradients summed, delivered to ``src`` (zeros elsewhere)."""
+
+    @staticmethod
+    def forward(ctx, x, index, src, group):
+        ctx.mine, ctx.group = index == src, group
+        out = x.to(torch.float32, copy=True).contiguous()
+        dist.broadcast(out, group=group, group_src=src)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _reduced(g, ctx.group)
+        return (g if ctx.mine else torch.zeros_like(g)), None, None, None
+
+
+def broadcast_from(x: torch.Tensor, mesh: Mesh, src: int) -> torch.Tensor:
+    """Seq rank ``src``'s ``x`` on every rank of the seq group."""
+    return _BroadcastFrom.apply(x, mesh.seq_rank, src, mesh.seq_group)

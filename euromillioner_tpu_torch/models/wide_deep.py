@@ -42,7 +42,7 @@ from euromillioner_tpu_torch.core.precision import (INT8_Q, INT8_SCALE,
                                                     dequantize_leaf,
                                                     is_quantized)
 from euromillioner_tpu_torch.nn import initializers as init
-from euromillioner_tpu_torch.nn.layers import Dense, dense
+from euromillioner_tpu_torch.nn.layers import Dense, dense, tp_dense_stack
 from euromillioner_tpu_torch.nn.module import Module, Sequential
 from euromillioner_tpu_torch.ops.wide_onehot import (check_table_dtype,
                                                      wide_onehot_matmul)
@@ -178,39 +178,97 @@ class WideDeep(Module):
         date_cross = dow[..., None] * self.ball_vocab + balls    # (B, 7)
         return balls, pairs, date_cross
 
-    def apply(self, x, *, train=False, generator=None):
-        dtype = self.compute_dtype
-        lead = x.shape[:-1]
-        x = x.reshape(-1, x.shape[-1])
-        dev = x.device
-        singles, pairs, date_cross = self._cross_ids(x)
-        # wide tower: the pairs family through the kernels, on a view of
-        # the cast table's pair slab; singles and dow×ball gathered in f32
-        wt = self.wide_table.to(dtype)
+    def _wide_h32(self, wt, singles, pairs, date_cross):
+        """The wide rows' f32 sum ``h32`` (B, E) over ``wt``, the cast
+        table (or a column shard of it): the pairs family through the
+        kernels on a view of the pair slab, singles and dow×ball gathered
+        in f32."""
         e = wt.shape[1]
         s_end = _N_BALLS * self.ball_vocab
         p_end = s_end + _N_PAIRS * self.pair_vocab
         h32 = wide_onehot_matmul(
             wt[s_end:p_end].view(_N_PAIRS, self.pair_vocab, e), pairs)
-        pos = torch.arange(_N_BALLS, dtype=torch.int32, device=dev)
+        pos = torch.arange(_N_BALLS, dtype=torch.int32, device=wt.device)
         small_ids = torch.cat(
             [singles + pos * self.ball_vocab,
              s_end + date_cross + pos * self.date_vocab], dim=1)
         w_small = torch.cat([wt[:s_end], wt[p_end:]]).float()
-        h32 = h32 + F.embedding(small_ids, w_small).sum(dim=1)
-        h = h32.to(dtype)
-        wide = h @ self.wide_proj.to(dtype) + self.wide_bias.to(dtype)
-        # deep tower: embeddings → concat → MLP
-        ball_e = _lookup(self.ball_embed, singles, dtype)     # (B, 7, emb)
+        return h32 + F.embedding(small_ids, w_small).sum(dim=1)
+
+    def _deep_in(self, x, singles, ball_embed, field_embed, dtype):
+        """The deep tower's input: ball-slot and date-field embeddings,
+        concatenated."""
+        ball_e = _lookup(ball_embed, singles, dtype)          # (B, 7, emb)
         raw = self._raw_fields(x)
         field_es = [
-            _lookup(self.field_embed[str(i)],
-                    torch.clamp(raw[..., i], 0, v - 1), dtype)
+            _lookup(field_embed[i], torch.clamp(raw[..., i], 0, v - 1),
+                    dtype)
             for i, v in enumerate(_FIELD_VOCABS)]
-        deep_in = torch.cat([ball_e.reshape(x.shape[0], -1)] + field_es,
-                            dim=-1)
+        return torch.cat([ball_e.reshape(x.shape[0], -1)] + field_es,
+                         dim=-1)
+
+    def apply(self, x, *, train=False, generator=None):
+        dtype = self.compute_dtype
+        lead = x.shape[:-1]
+        x = x.reshape(-1, x.shape[-1])
+        singles, pairs, date_cross = self._cross_ids(x)
+        h = self._wide_h32(self.wide_table.to(dtype), singles, pairs,
+                           date_cross).to(dtype)
+        wide = h @ self.wide_proj.to(dtype) + self.wide_bias.to(dtype)
+        deep_in = self._deep_in(
+            x, singles, self.ball_embed,
+            [self.field_embed[str(i)] for i in range(len(_FIELD_VOCABS))],
+            dtype)
         deep = self.deep.apply(deep_in, train=train, generator=generator)
         return (wide + deep).reshape(*lead, self.out_dim)
+
+    def tp_apply(self, params: list, xs: list, comm, dims: dict, *,
+                 train=False, generator=None) -> list:
+        """The forward under tensor parallelism over ``model`` (the layout
+        of :meth:`sharding_rules`), over per-shard lists
+        (``dist/collectives.py`` ``RankComm`` for a training rank,
+        ``DeviceComm`` for a serving mesh's row): ``params[j]`` is shard
+        ``comm.shards[j]``'s state dict, ``dims`` the dim each leaf is
+        split on (None: whole), ``xs`` the same rows on every shard.
+
+        The wide tower runs on each shard's columns of the table (K4a at
+        the shard's width; K4b writes only the shard's gradient), times
+        its row block of ``wide_proj``, and one all-reduce adds the
+        (B, out_dim) partials. The embeddings are joined whole where
+        split, and the deep MLP runs column- or row-parallel as its
+        kernels are split (``nn/layers.tp_dense_stack``). A leaf the
+        rules could not split is used whole. Returns the replicated
+        output on each shard."""
+        dtype = self.compute_dtype
+        lead = xs[0].shape[:-1]
+        xs = [x.reshape(-1, x.shape[-1]) for x in xs]
+        ids = [self._cross_ids(x) for x in xs]
+
+        def whole(name):
+            leaves = [p[name] for p in params]
+            dim = dims.get(name)
+            return leaves if dim is None else comm.gather(leaves, dim)
+
+        if dims.get("wide_table") == 1 and dims.get("wide_proj") == 0:
+            tables, projs = ([p["wide_table"] for p in params],
+                             [p["wide_proj"] for p in params])
+        else:
+            tables, projs = whole("wide_table"), whole("wide_proj")
+        parts = [self._wide_h32(t.to(dtype), s, pr, dc).to(dtype)
+                 @ w.to(dtype)
+                 for t, w, (s, pr, dc) in zip(tables, projs, ids)]
+        if tables[0].shape[1] != self.wide_embed_dim:
+            parts = comm.all_reduce(parts)
+        wides = [w + p["wide_bias"].to(dtype) for w, p in zip(parts, params)]
+        balls = whole("ball_embed")
+        fields = [whole(f"field_embed.{i}")
+                  for i in range(len(_FIELD_VOCABS))]
+        deep_in = [self._deep_in(x, i[0], b, [f[j] for f in fields], dtype)
+                   for j, (x, i, b) in enumerate(zip(xs, ids, balls))]
+        deeps = tp_dense_stack(self.deep.named_layers(), params, dims,
+                               deep_in, comm, prefix="deep.")
+        return [(w + d).reshape(*lead, self.out_dim)
+                for w, d in zip(wides, deeps)]
 
     def _raw_fields(self, x):
         """The date fields' ids (year mod 64), unclipped, as int32."""
@@ -270,6 +328,26 @@ class WideDeep(Module):
         exact."""
         return ["wide_table", "wide_proj", "ball_embed", "field_embed",
                 "kernel"]
+
+    @staticmethod
+    def sharding_rules():
+        """Tensor-parallel rules for ``core.mesh.shard_params`` (the JAX
+        package's): the wide table and the ball embeddings split their
+        width, ``wide_proj`` the matching rows (it contracts the split
+        width), the MLP kernels their output dim, all over ``model``. A
+        kernel whose output dim does not divide the axis (the
+        ``out_dim``-wide head) falls back to row-parallel over its input
+        dim. Used by tensor-parallel training and by mesh-sharded serving
+        (serve/session.py)."""
+        from euromillioner_tpu_torch.core.mesh import P
+
+        return [
+            ("wide_table", P(None, "model")),
+            ("wide_proj", P("model", None)),
+            ("ball_embed", P(None, "model")),
+            ("field_embed", P(None, None)),
+            ("kernel", (P(None, "model"), P("model", None))),
+        ]
 
 
 def build_wide_deep(target_params: int = 100_000_000, *,

@@ -56,6 +56,67 @@ def dense(x, kernel, bias, activation: str = "identity"):
     return _ACTIVATIONS[activation](y)
 
 
+def tp_dense_stack(layers, params: list, dims: dict, xs: list, comm,
+                   prefix: str = "") -> list:
+    """A chain of :class:`Dense` layers (``(name, layer)`` pairs) under
+    tensor parallelism, over per-shard lists (``dist/collectives.py``
+    ``RankComm`` / ``DeviceComm``): ``params[j]`` holds shard
+    ``comm.shards[j]``'s leaves under ``prefix + name + ".kernel"`` and
+    ``".bias"``, ``dims`` the dim each leaf is split on over ``model``
+    (None: whole on every shard), ``xs`` the replicated input on each
+    shard. A kernel split on its output dim runs column-parallel (each
+    shard its own columns, joined only where a later layer needs them
+    whole); one split on its input dim runs row-parallel (partial
+    products, then one all-reduce); a whole kernel runs replicated.
+    Returns the replicated output on each shard."""
+    local = False  # xs hold each shard's own columns
+
+    def whole(xs):
+        return comm.gather(xs, -1) if local else xs
+
+    for name, layer in layers:
+        kname, bname = f"{prefix}{name}.kernel", f"{prefix}{name}.bias"
+        dim = dims.get(kname)
+        act = _ACTIVATIONS[layer.activation]
+        if dim == 1:
+            xs = comm.copy(whole(xs))
+            bs = [p[bname] for p in params] if layer.use_bias else None
+            if bs is not None and dims.get(bname) is None:
+                bs = [shard_block(b, 0, j, comm.size)
+                      for b, j in zip(comm.copy(bs), comm.shards)]
+            ys = []
+            for i, (p, x) in enumerate(zip(params, xs)):
+                y = x @ p[kname].to(x.dtype)
+                if bs is not None:
+                    y = y + bs[i].to(x.dtype)
+                ys.append(y)
+            if layer.activation == "softmax":
+                xs, local = [act(y) for y in comm.gather(ys, -1)], False
+            else:
+                xs, local = [act(y) for y in ys], True
+        elif dim == 0:
+            if not local:
+                xs = [shard_block(x, -1, j, comm.size)
+                      for x, j in zip(comm.copy(xs), comm.shards)]
+            ys = comm.all_reduce([x @ p[kname].to(x.dtype)
+                                  for p, x in zip(params, xs)])
+            if layer.use_bias:
+                ys = [y + p[bname].to(y.dtype) for p, y in zip(params, ys)]
+            xs, local = [act(y) for y in ys], False
+        else:
+            xs = whole(xs)
+            xs = [dense(x, p[kname], p[bname] if layer.use_bias else None,
+                        layer.activation) for p, x in zip(params, xs)]
+            local = False
+    return whole(xs)
+
+
+def shard_block(x, dim: int, index: int, size: int):
+    """Block ``index`` of ``size`` equal blocks of ``x`` along ``dim``."""
+    width = x.shape[dim] // size
+    return x.narrow(dim, index * width, width)
+
+
 class Embedding(Module):
     """Integer ids → vectors; ``table`` is (vocab, dim), drawn from
     N(0, 0.01²) as in the JAX package."""

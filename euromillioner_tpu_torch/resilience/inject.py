@@ -26,9 +26,8 @@ Zero-cost when disabled: :func:`fault_point` is a module-global ``None``
 check and immediate return — no allocation, no locking, no logging — so the
 points can live on per-step training and serving paths.
 
-Registered points (grep ``fault_point(`` for ground truth). The JAX
-package's ``serve.shard`` comes with the sharded serving it covers
-(ROADMAP queue 1):
+Registered points (grep ``fault_point(`` for ground truth), the JAX
+package's 31:
 
 ========================  ====================================================
 ``fetch.request``         before each HTTP attempt (``data/fetch.py``)
@@ -77,6 +76,13 @@ package's ``serve.shard`` comes with the sharded serving it covers
                           victim (its future carries the exception) —
                           the slot is freed, the pool keeps serving,
                           and a fault-free rerun is bit-identical
+``serve.shard``           before a meshed session's or step scheduler's
+                          per-shard upload of a micro-batch or block
+                          (serve/session.py ``ModelSession.put_rows``,
+                          serve/continuous.py, only with ``serve.mesh``);
+                          a fire fails ONLY that batch (the step
+                          scheduler: the slot-holding sequences, and the
+                          pool rebuilds) and serving goes on
 ``serve.resize``          before an elastic slot-pool resize commits
                           (serve/continuous.py); a fire aborts ONLY
                           that resize — the pool keeps serving at its

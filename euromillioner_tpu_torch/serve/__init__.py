@@ -1,7 +1,8 @@
 """Serving: micro-batcher, the row engine, the step and whole-sequence
 schedulers with the step scheduler's governance policies, their backends,
-the memory ledger, the HTTP transport, and the fleet above them (hosts
-with health probing, the router, versioned rollout, the supervisor)."""
+the serving mesh (``build_serving_mesh``, ``ModelSession``), the memory
+ledger, the HTTP transport, and the fleet above them (hosts with health
+probing, the router, versioned rollout, the supervisor)."""
 
 from euromillioner_tpu_torch.serve.continuous import (
     MIGRATE_VERSION, PagingPolicy, PreemptPolicy, RecurrentBackend,
@@ -15,7 +16,9 @@ from euromillioner_tpu_torch.serve.rollout import (RolloutEngine,
                                                    RolloutGates)
 from euromillioner_tpu_torch.serve.router import FleetRouter
 from euromillioner_tpu_torch.serve.session import (BudgetPolicy,
-                                                   MemoryLedger, NNBackend,
+                                                   MemoryLedger, ModelSession,
+                                                   NNBackend,
+                                                   build_serving_mesh,
                                                    load_backend)
 from euromillioner_tpu_torch.serve.supervisor import (FleetSupervisor,
                                                       SupervisorPolicy,
@@ -23,10 +26,10 @@ from euromillioner_tpu_torch.serve.supervisor import (FleetSupervisor,
 
 __all__ = ["BudgetPolicy", "FleetHost", "FleetRouter", "FleetSupervisor",
            "HttpServeHost", "InferenceEngine", "MIGRATE_VERSION",
-           "MemoryLedger", "NNBackend", "PagingPolicy", "PreemptPolicy",
+           "MemoryLedger", "ModelSession", "NNBackend", "PagingPolicy", "PreemptPolicy",
            "ProbePolicy", "RecurrentBackend", "RolloutEngine",
            "RolloutGates", "StepScheduler", "SupervisorPolicy",
-           "WholeSequenceScheduler", "load_backend",
+           "WholeSequenceScheduler", "build_serving_mesh", "load_backend",
            "load_recurrent_backend", "make_row_engine",
            "make_sequence_engine", "parse_probe", "policy_from_config",
            "unpack_migration"]

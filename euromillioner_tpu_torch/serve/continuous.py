@@ -101,7 +101,20 @@ its profile children; warmup preloads the warm manifest first, so rungs an
 elastic pool grew into load from disk too. The paged dispatch's row
 gathers and scatters stay eager.
 
-Not ported yet (ROADMAP queue 1): the serving mesh.
+The serving mesh (``serve.mesh``, serve/session.py
+``build_serving_mesh``): the step scheduler shards its slot pool over the
+``data`` axis. ``max_slots`` rounds up to a multiple of the axis (logged
+once) and each block's slots split into equal shards, each run on its
+data shard's device and stream through the backend's block program on a
+copy of the params placed there; the shards' carry and outputs join on
+shard 0's device, where the pool's state stays between blocks. The
+per-slot program is the unsharded one, so replies stay bit-identical.
+The ``serve.shard`` fault point sits before each block's upload: a fault
+fails the slot-holding sequences only and the pool is rebuilt, as a
+``serve.step`` fault. ``stats()`` and every step record carry ``mesh``
+(and the records ``shard_put_ms``). A model axis above 1 replicates
+compute (warned), paging refuses a mesh, a meshed pool is not bound to
+the AOT store, and the batch scheduler logs and ignores the mesh.
 """
 
 from __future__ import annotations
@@ -122,6 +135,8 @@ import numpy as np
 import torch
 
 from euromillioner_tpu_torch.core.device import resolve_device, upload
+from euromillioner_tpu_torch.core.mesh import (AXIS_DATA, AXIS_MODEL,
+                                               mesh_desc, round_up_multiple)
 from euromillioner_tpu_torch.core.precision import (cast_floats,
                                                     dequantize_int8w,
                                                     fake_quant_int8,
@@ -148,7 +163,7 @@ from euromillioner_tpu_torch.serve.engine import (DRIFT_EVERY, ClassStats,
 from euromillioner_tpu_torch.serve.session import (BudgetPolicy,
                                                    ExecutableCache,
                                                    MemoryLedger,
-                                                   _skeleton,
+                                                   ShardedRows, _skeleton,
                                                    admit_queue_bytes)
 from euromillioner_tpu_torch.utils import serialization
 from euromillioner_tpu_torch.utils.errors import (CheckpointError,
@@ -692,7 +707,7 @@ class StepScheduler(MetricsSink):
                  metrics_jsonl: str | None = None, obs_enabled: bool = True,
                  trace_capacity: int = 512, slo_ms: Sequence[float] = (),
                  capture_path: str | None = None, aot=None,
-                 max_executables: int = 16, exec_cache=None):
+                 max_executables: int = 16, exec_cache=None, mesh=None):
         if max_slots < 2:
             raise ServeError(f"max_slots must be >= 2, got {max_slots}")
         extra = _extra_profiles(backend, profiles)
@@ -711,6 +726,29 @@ class StepScheduler(MetricsSink):
         self._class_priority = resolve_classes(classes)
         self.classes = tuple(self._class_priority)
         self.backend = backend
+        self.mesh = mesh
+        self._data_size = 1
+        if mesh is not None:
+            self._data_size = mesh.shape[AXIS_DATA]
+            if mesh.shape[AXIS_MODEL] > 1:
+                # slot-pool sharding is data-parallel only: a model axis
+                # would just replicate every step across it
+                logger.warning(
+                    "continuous scheduler shards slots over the data "
+                    "axis only; mesh model axis %d replicates compute — "
+                    "use serve.mesh=%d,1 instead", mesh.shape[AXIS_MODEL],
+                    self._data_size)
+            if max_slots % self._data_size:
+                new_slots = round_up_multiple(max_slots, self._data_size)
+                logger.info("serve.mesh data axis %d: max_slots %d "
+                            "rounded up to %d", self._data_size, max_slots,
+                            new_slots)
+                max_slots = new_slots
+            self._shards = ShardedRows(mesh)
+            params = backend.serving_params()
+            self._shard_params = [
+                {k: v.to(d) for k, v in params.items()}
+                for d in self._shards.devices]
         self.max_slots = max_slots
         self.step_blocks = ladder
         self.hysteresis = hysteresis
@@ -723,6 +761,9 @@ class StepScheduler(MetricsSink):
         if self._preempt.enabled or self._preempt.elastic:
             self._preempt.validate()
         self._min_slots = self._preempt.min_slots
+        if self._data_size > 1:
+            self._min_slots = round_up_multiple(self._min_slots,
+                                                self._data_size)
         if self._preempt.elastic and self._min_slots > max_slots:
             raise ServeError(
                 f"serve.preempt.min_slots ({self._min_slots}) exceeds "
@@ -739,6 +780,11 @@ class StepScheduler(MetricsSink):
         self._pages = self._max_live = 0
         if self._paging.enabled:
             self._paging.validate()
+            if mesh is not None:
+                raise ServeError(
+                    "serve.paging is single-device for now (the page "
+                    "gather/scatter is not mesh-aware); use "
+                    "serve.mesh=1,1 or serve.paging.enabled=false")
             if self._preempt.elastic:
                 raise ServeError(
                     "serve.paging needs a fixed page store; "
@@ -819,7 +865,10 @@ class StepScheduler(MetricsSink):
         # finishers' gather through one executable cache, which the profile
         # children share; without a store the programs run eagerly
         self._exec = exec_cache
-        if aot is not None and exec_cache is None:
+        if mesh is not None and aot is not None:
+            logger.info("serve.aot: meshed slot-pool executables are not "
+                        "persisted (RAM tier only)")
+        elif aot is not None and exec_cache is None:
             self._exec = _bind_family(aot, "ladder", backend,
                                       max_executables)
         self._aot_params = backend.serving_params()
@@ -897,7 +946,7 @@ class StepScheduler(MetricsSink):
                 classes=classes, readback_interval_ms=readback_interval_ms,
                 hysteresis=hysteresis, obs_enabled=obs_enabled,
                 trace_capacity=trace_capacity, slo_ms=slo_ms,
-                exec_cache=self._exec)
+                exec_cache=self._exec, mesh=mesh)
             self._children[p] = child
             tm.extra_registries += (child.telemetry.registry,)
 
@@ -905,6 +954,11 @@ class StepScheduler(MetricsSink):
     def children(self) -> dict:
         """The child schedulers, by the extra profile each serves."""
         return dict(self._children)
+
+    @property
+    def mesh_desc(self) -> str | None:
+        """Serving-mesh shape (``"4x1"``) or None, surfaced in /healthz."""
+        return None if self.mesh is None else mesh_desc(self.mesh)
 
     @property
     def step_block(self) -> int:
@@ -980,13 +1034,42 @@ class StepScheduler(MetricsSink):
 
     def _block_call(self, states, x_dev, reset_dev):
         """One block through the backend's program: eager, or the AOT
-        store's compiled rung."""
+        store's compiled rung, or sharded over the mesh's data axis."""
+        if self.mesh is not None:
+            return self._block_sharded(states, x_dev, reset_dev)
         if self._exec is None:
             return self.backend.block_fn(states, x_dev, reset_dev)
         exe = self._compiled_block(x_dev.shape[1], x_dev.shape[0])
         with torch.inference_mode():
             carry, y = exe(self._aot_params, states, x_dev, reset_dev)
         return [tuple(c) for c in carry], y
+
+    def _block_sharded(self, states, xs, resets):
+        """One block with its slots split over the data shards: each shard
+        runs the block program on its slots' carry and rows, on its device
+        and stream; the carry and outputs join in slot order on the pool's
+        device. ``xs``/``resets`` are ``ShardedRows.put``'s lists or whole
+        device tensors (the warmup's)."""
+        rows = states[0][0].shape[0]
+        share = rows // self._data_size
+        head = states[0][0].device
+        carries, ys = [], []
+        for i, dev in enumerate(self._shards.devices):
+            sl = slice(i * share, (i + 1) * share)
+            with self._shards.stream(i):
+                st = [(h[sl].to(dev), c[sl].to(dev)) for h, c in states]
+                x = xs[i] if isinstance(xs, list) else xs[sl].to(dev)
+                r = (resets[i] if isinstance(resets, list)
+                     else resets[sl].to(dev))
+                carry, y = self.backend.block_pure(self._shard_params[i],
+                                                   st, x, r)
+            carries.append(carry)
+            ys.append(y)
+        join = self._shards.join
+        new = [(join([c[li][0] for c in carries], head),
+                join([c[li][1] for c in carries], head))
+               for li in range(len(states))]
+        return new, join(ys, head)
 
     def _gather(self, y_dev, slots, subs):
         """The finishers' output rows ``y_dev[slots, subs]`` on the device.
@@ -2169,6 +2252,8 @@ class StepScheduler(MetricsSink):
             self._resize_streak = 0
             target = (min(self.max_slots, self.pool_slots * 2) if want > 0
                       else max(self._min_slots, self.pool_slots // 2))
+        if self._data_size > 1:
+            target = round_up_multiple(target, self._data_size)
         target = max(self._min_slots, min(self.max_slots, target))
         if target != self.pool_slots:
             self._resize(target)
@@ -2309,7 +2394,13 @@ class StepScheduler(MetricsSink):
                           for h, c in states]
             # the upload and the block are enqueued, not waited for:
             # block N+1's copy overlaps block N's compute
-            x_dev, reset_dev = self._put(x), self._put(reset)
+            if self.mesh is not None:
+                fault_point("serve.shard", rows=self.max_slots,
+                            mesh=self.mesh_desc)
+            t_put = time.perf_counter()
+            put = self._shards.put if self.mesh is not None else self._put
+            x_dev, reset_dev = put(x), put(reset)
+            put_ms = (time.perf_counter() - t_put) * 1e3
             t_h2d = time.monotonic()  # upload enqueued (span stamp)
             states, y_dev = self._block_call(states, x_dev, reset_dev)
             if rows > pool:
@@ -2341,7 +2432,7 @@ class StepScheduler(MetricsSink):
                 self._free.append(slot)
         self._count_step(active / pool, k)
         done = self._buffer.push((finished, active, admitted, k, t0,
-                                  y_dev, pool))
+                                  y_dev, pool, put_ms))
         if done is not None:
             self._complete(done)
 
@@ -2425,7 +2516,7 @@ class StepScheduler(MetricsSink):
                     self._free_row(req)
         self._count_step(active / pool, k)
         done = self._buffer.push((finished, active, admitted, k, t0, y_dev,
-                                  pool))
+                                  pool, 0.0))
         if done is not None:
             self._complete(done)
 
@@ -2505,7 +2596,7 @@ class StepScheduler(MetricsSink):
         """Retire one in-flight block: gather its finishers' output rows
         on the device (no host transfer) into the staging buffer, then
         flush it if due."""
-        finished, active, admitted, k, t0, y_dev, pool = item
+        finished, active, admitted, k, t0, y_dev, pool, put_ms = item
         tm = self.telemetry
         if finished:
             reqs = [req for _s, _b, req in finished]
@@ -2540,6 +2631,9 @@ class StepScheduler(MetricsSink):
             rec["trace_ids"] = [req.span.trace_id
                                 for _s, _b, req in finished
                                 if req.span is not None]
+        if self.mesh is not None:
+            rec["mesh"] = self.mesh_desc
+            rec["shard_put_ms"] = round(put_ms, 3)
         self._observe(rec)
         self._flush_readback()
 
@@ -2786,6 +2880,8 @@ class StepScheduler(MetricsSink):
         out["p99_step_ms"] = round(percentile(lat, 0.99), 3)
         if self._exec is not None:
             out["aot"] = {"enabled": True, **self._exec.aot_counts()}
+        if self.mesh is not None:
+            out["mesh"] = self.mesh_desc
         if self._children:
             out["profiles"] = _profiles(self)
         return out
@@ -3189,12 +3285,15 @@ def _bind_family(aot, program: str, backend: RecurrentBackend,
     return cache
 
 
-def make_sequence_engine(backend: RecurrentBackend, cfg, aot=None):
+def make_sequence_engine(backend: RecurrentBackend, cfg, aot=None,
+                         mesh=None):
     """``cfg.serve`` → the configured sequence scheduler ("batch" |
     "continuous"), the step scheduler with ``serve.preempt``,
     ``serve.budget`` and ``serve.paging``; the batch scheduler warns that
     it has no slots for the first two. ``aot`` is an open AOT store
-    (serve/aotstore.py ``open_store``) or None."""
+    (serve/aotstore.py ``open_store``) or None; ``mesh``
+    (serve/session.build_serving_mesh) shards the step scheduler's slot
+    pool, and the whole-sequence scheduler logs and ignores it."""
     serve = cfg.serve
     obs = obs_kwargs(serve)
     if aot is not None:
@@ -3208,8 +3307,13 @@ def make_sequence_engine(backend: RecurrentBackend, cfg, aot=None):
             profiles=serve.profiles,
             preempt=PreemptPolicy.from_config(serve.preempt),
             budget=BudgetPolicy.from_config(serve.budget),
-            paging=PagingPolicy.from_config(serve.paging), **obs)
+            paging=PagingPolicy.from_config(serve.paging), mesh=mesh,
+            **obs)
     if serve.scheduler == "batch":
+        if mesh is not None:
+            logger.warning("serve.scheduler=batch is single-device; "
+                           "serve.mesh ignored (use scheduler=continuous "
+                           "for the sharded slot pool)")
         if serve.preempt.enabled or serve.preempt.elastic:
             logger.warning("serve.preempt needs the slot pool; the "
                            "batch scheduler has no slots to preempt — "

@@ -58,7 +58,14 @@ profile children share; warmup preloads the warm manifest first.
 ``stats()["aot"]``, ``/healthz`` ``aot_hits`` and the ``serve_aot`` gauges
 appear only then. The f32 drift oracle stays eager.
 
-Not ported yet: the serving mesh.
+The serving mesh (``serve.mesh``): an engine over a meshed
+:class:`~euromillioner_tpu_torch.serve.session.ModelSession` rounds its
+bucket table up to multiples of the data axis, uploads each batch's rows
+shard by shard (``session.put_rows``: the ``serve.shard`` fault point
+fails that batch only) and runs the session's meshed program; ``stats()``,
+``/healthz`` and every batch record carry ``mesh`` (``"<data>x<model>"``),
+and the records the upload's wall time, ``shard_put_ms``. A meshed session
+is not bound to the AOT store.
 """
 
 from __future__ import annotations
@@ -279,10 +286,23 @@ class InferenceEngine(MetricsSink):
                  trace_capacity: int = 512, slo_ms: Sequence[float] = (),
                  capture_path: str | None = None, aot=None,
                  max_executables: int = 16, exec_cache=None):
+        from euromillioner_tpu_torch.serve.session import ModelSession
+
+        if isinstance(backend, ModelSession) and backend.mesh is None:
+            # a session without a mesh is its backend
+            precision = precision or backend.precision
+            aot = aot if aot is not None else backend.aot
+            backend = backend.backend
         self.backend = backend
+        self._meshed = isinstance(backend, ModelSession)
         # where the JAX package's engine holds its backend (a session);
         # replay's payload_for reads the feature shape there
-        self.session = SimpleNamespace(backend=backend)
+        self.session = (backend if self._meshed
+                        else SimpleNamespace(backend=backend))
+        if self._meshed and aot is not None:
+            logger.info("serve.aot: meshed session executables are not "
+                        "persisted (RAM tier only)")
+            aot = None
         self.precision = (resolve_serve_precision(precision) if precision
                           else backend.precision)
         self.envelope = serve_envelope(backend.family, self.precision)
@@ -304,7 +324,8 @@ class InferenceEngine(MetricsSink):
         self._cls_stats = ClassStats(self.classes)
         self._drift = DriftStats(self.precision, self.envelope)
         self._n_dispatched = 0  # dispatcher thread only
-        self.buckets = validate_buckets(buckets)
+        self.buckets = (backend.round_buckets(buckets) if self._meshed
+                        else validate_buckets(buckets))
         self.max_batch = self.buckets[-1]
         if inflight < 1:
             raise ServeError(f"inflight must be >= 1, got {inflight}")
@@ -371,7 +392,7 @@ class InferenceEngine(MetricsSink):
             # in the parent's /metrics
             for p in extra:
                 child = InferenceEngine(
-                    backend, buckets=buckets, max_wait_ms=max_wait_ms,
+                    backend, buckets=self.buckets, max_wait_ms=max_wait_ms,
                     inflight=inflight, warmup=warmup, classes=classes,
                     precision=p, obs_enabled=obs_enabled,
                     trace_capacity=trace_capacity, slo_ms=slo_ms,
@@ -395,7 +416,14 @@ class InferenceEngine(MetricsSink):
         own = getattr(self.backend, "serve_param_bytes", None)
         return own if own is not None else param_bytes(self._serve_params)
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
+    @property
+    def mesh_desc(self) -> str | None:
+        """``"<data>x<model>"`` of a meshed session, else None."""
+        return self.backend.mesh_desc if self._meshed else None
+
+    def _put(self, x: np.ndarray, warm: bool = False):
+        if self._meshed:
+            return self.backend.put_rows(x, fault=not warm)
         return upload(x, self.backend.device)
 
     def _bind_aot(self, aot, maxsize: int):
@@ -464,7 +492,7 @@ class InferenceEngine(MetricsSink):
         for b in self.buckets:
             x = np.zeros((b, *self._feat_shape), np.float32)
             # warmups are no chunk dispatches
-            self._forward(self._put(self.backend.prepare(x)), b,
+            self._forward(self._put(self.backend.prepare(x), warm=True), b,
                           counted=False).cpu()
 
     @property
@@ -714,6 +742,9 @@ class InferenceEngine(MetricsSink):
             rec["precision"] = self.precision
             if drift is not None:
                 rec["drift"] = round(drift, 8)
+        if self._meshed:
+            rec["mesh"] = self.mesh_desc
+            rec["shard_put_ms"] = round((t_h2d - t_put) * 1e3, 3)
         self._observe(rec)
 
     # -- introspection / lifecycle --------------------------------------
@@ -753,6 +784,8 @@ class InferenceEngine(MetricsSink):
         if self._exec is not None:
             # the AOT store's counters: only while a store is bound
             out["aot"] = {"enabled": True, **self._exec.aot_counts()}
+        if self._meshed:
+            out["mesh"] = self.mesh_desc
         out["p50_ms"] = round(percentile(lat, 0.50) * 1e3, 3)
         out["p99_ms"] = round(percentile(lat, 0.99) * 1e3, 3)
         if self._children:
@@ -789,11 +822,16 @@ class InferenceEngine(MetricsSink):
         self.close()
 
 
-def make_row_engine(backend, cfg, aot=None) -> InferenceEngine:
+def make_row_engine(backend, cfg, aot=None, mesh=None) -> InferenceEngine:
     """``cfg.serve`` → the row engine over ``backend``, its budget
     included; ``aot`` an open AOT store (serve/aotstore.py
-    ``open_store``) or None."""
+    ``open_store``) or None; ``mesh`` a serving mesh
+    (session.build_serving_mesh) or None."""
     sc = cfg.serve
+    if mesh is not None:
+        from euromillioner_tpu_torch.serve.session import ModelSession
+
+        backend = ModelSession(backend, mesh=mesh)
     return InferenceEngine(backend, buckets=sc.buckets,
                            max_wait_ms=sc.max_wait_ms,
                            inflight=sc.inflight, warmup=sc.warmup,

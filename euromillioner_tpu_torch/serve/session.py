@@ -39,14 +39,32 @@ The AOT program store (serve/aotstore.py): every backend gives
 parameters (an input) and the rows, and the eager tail after it (a tree
 ensemble's ordered leaf sums, votes and transform, so its replies stay
 bit-equal to ``predict``) — and :class:`ExecutableCache` keeps the
-compiled programs an engine serves. The JAX package's ``ModelSession``
-(its bucket table and mesh placement) has no counterpart: the engines
-call the backends directly.
+compiled programs an engine serves.
+
+Mesh-sharded serving (``serve.mesh = (data, model)``;
+:func:`build_serving_mesh`): a :class:`ModelSession` over a serving mesh
+serves the whole mesh from this process. Each micro-batch's rows split
+over the ``data`` axis, each shard uploaded to its own device on its own
+stream (the ``serve.shard`` fault point sits before the upload) and run
+there through the backend's program on a copy of the params placed on
+that device, so replies stay bit-identical to one device; the shards'
+replies join on shard 0's device. A ``model`` axis above 1 places the
+params per the model's ``sharding_rules`` (Wide&Deep: each of a row's
+devices holds its shard of the wide table, embeddings and kernels) and
+runs the model's ``tp_apply``: K4a on each shard's columns, the
+(B, out_dim) partials added in model-index order on the row's first
+device; a family without rules replicates, with the JAX warning. Bucket
+tables round up to multiples of the data axis (logged once). Chunked
+tree dispatch shards rows over ``data`` only (a ConfigError for a model
+axis), and a meshed session is not bound to the AOT store. Without a
+mesh a session is its backend: the engines serve it byte-for-byte as
+they serve the backend.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import math
 import threading
@@ -59,7 +77,13 @@ import torch
 from torch.func import functional_call
 
 from euromillioner_tpu_torch.config import Config
-from euromillioner_tpu_torch.core.device import upload
+from euromillioner_tpu_torch.core.device import resolve_device, upload
+from euromillioner_tpu_torch.core.mesh import (AXIS_DATA, AXIS_MODEL,
+                                               cpu_device_count, mesh_desc,
+                                               model_dims,
+                                               round_up_multiple,
+                                               serving_mesh, shard_leaf,
+                                               shard_specs)
 from euromillioner_tpu_torch.core.precision import (cast_floats,
                                                     dequantize_int8w,
                                                     quantize_int8w,
@@ -67,6 +91,7 @@ from euromillioner_tpu_torch.core.precision import (cast_floats,
                                                     serve_envelope)
 from euromillioner_tpu_torch.core.prefetch import DoubleBuffer
 from euromillioner_tpu_torch.resilience import fault_point
+from euromillioner_tpu_torch.serve.batcher import validate_buckets
 from euromillioner_tpu_torch.utils.errors import ConfigError, ServeError
 from euromillioner_tpu_torch.utils.logging_utils import get_logger
 
@@ -396,7 +421,7 @@ class NNBackend:
 
     def __init__(self, model, feat_shape: tuple[int, ...],
                  compute_dtype=None, precision: str = "f32",
-                 profiles=()):
+                 profiles=(), mesh=None):
         self.name = f"nn:{type(model).__name__}"
         self.model = model.requires_grad_(False)
         self.family = ("wide_deep" if type(model).__name__ == "WideDeep"
@@ -438,6 +463,36 @@ class NNBackend:
                     self.envelope = 0.0
                 continue
             self.serve_apply(prof)
+        # the serving mesh (serve.mesh): the f32 params placed on it here,
+        # at restore; a ModelSession on this mesh serves this placement
+        self.mesh = mesh
+        self._placed: dict[str, tuple] = {}
+        if mesh is not None:
+            self.placed_params("f32")
+
+    def sharding_rules(self) -> list:
+        """Tensor-parallel rules delegated to the model (e.g.
+        ``WideDeep.sharding_rules``); families without one replicate."""
+        fn = getattr(self.model, "sharding_rules", None)
+        return list(fn()) if fn is not None else []
+
+    def placed_params(self, profile: str, mesh=None) -> tuple:
+        """``(placed, dims)`` of one profile on ``mesh`` (default: this
+        backend's): ``placed[i][j]`` the state dict on data shard ``i``'s
+        model shard ``j``'s device, split per :meth:`sharding_rules` over
+        ``model``, and ``dims`` the dim each leaf is split on. The int8w
+        tree's marker dicts match no rule path: it replicates. Built once
+        per profile on the backend's own mesh."""
+        mesh = mesh or self.mesh
+        prof = resolve_serve_precision(profile)
+        own = mesh is self.mesh
+        if own and prof in self._placed:
+            return self._placed[prof]
+        rules = self.sharding_rules() if prof != "int8w" else []
+        out = _place_params(self.serve_params(prof), mesh, rules)
+        if own:
+            self._placed[prof] = out
+        return out
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
@@ -599,8 +654,9 @@ class _TreeBackend(_F32Backend):
             {k: (torch.from_numpy(a).pin_memory() if cuda
                  else torch.from_numpy(a)) for k, a in blk.items()}
             for blk in chunked.blocks]
-        self._copy_stream = (torch.cuda.Stream(self.device) if cuda
-                             else None)
+        # one upload stream per device a dispatch runs on (a meshed
+        # session's shards each run the chunk loop on their own device)
+        self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
 
     @property
     def serve_param_bytes(self) -> int:
@@ -648,18 +704,21 @@ class _TreeBackend(_F32Backend):
                     "chunk_h2d_ms": round(
                         self._tree_counts["chunk_h2d_ms"], 3)}
 
-    def _upload(self, blk: dict) -> dict:
-        """One block's tables on the device. On CUDA the copies run on
-        the upload stream, so the next block crosses while the compute
-        stream still runs the current chunk; the compute stream waits
-        for them before it reads the block."""
-        if self._copy_stream is None:
+    def _upload(self, blk: dict, device: torch.device) -> dict:
+        """One block's tables on ``device``. On CUDA the copies run on
+        that device's upload stream, so the next block crosses while the
+        compute stream still runs the current chunk; the compute stream
+        waits for them before it reads the block."""
+        if device.type != "cuda":
             return blk
-        compute = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            dev = {k: v.to(self.device, non_blocking=True)
+        stream = self._copy_streams.get(device)
+        if stream is None:
+            stream = self._copy_streams[device] = torch.cuda.Stream(device)
+        compute = torch.cuda.current_stream(device)
+        with torch.cuda.stream(stream):
+            dev = {k: v.to(device, non_blocking=True)
                    for k, v in blk.items()}
-        compute.wait_stream(self._copy_stream)
+        compute.wait_stream(stream)
         for t in dev.values():
             t.record_stream(compute)  # freed only after compute reads it
         return dev
@@ -679,7 +738,7 @@ class _TreeBackend(_F32Backend):
         and the window's accounting unwound)."""
         ch = self.chunked
         mem, bb = self._ledger, ch.block_bytes
-        carry = upload(ch.init_carry(binned.shape[0]), self.device)
+        carry = upload(ch.init_carry(binned.shape[0]), binned.device)
         h2d_ms = 0.0
         buf = DoubleBuffer(depth=1)
         try:
@@ -687,7 +746,7 @@ class _TreeBackend(_F32Backend):
                 fault_point("serve.chunk", chunk=i, chunks=ch.n_chunks,
                             rows=int(binned.shape[0]))
                 t1 = time.perf_counter()
-                dev_blk = self._upload(blk)
+                dev_blk = self._upload(blk, binned.device)
                 h2d_ms += (time.perf_counter() - t1) * 1e3
                 # accounted and in the window BEFORE the chunk runs: if it
                 # raises, the drain below still unwinds this block
@@ -873,6 +932,320 @@ class ClassicBackend(_F32Backend):
 
     def predict(self, x) -> np.ndarray:
         return self.model.predict(np.asarray(x, np.float32))
+
+
+# -- the serving mesh ---------------------------------------------------------
+
+def serving_devices(device=None) -> list:
+    """The devices a serving mesh may take: the visible cards on
+    ``cuda`` (the default), ``EUROMILLIONER_CPU_DEVICES`` logical devices
+    (default 1) on the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")] * (cpu_device_count() or 1)
+
+
+def build_serving_mesh(mesh_axes, devices=None, device=None):
+    """``serve.mesh`` (data, model) → a serving mesh
+    (``core.mesh.ServingMesh``), or None for the 1×1 default (the
+    single-device path, untouched). Bad axis tuples are a
+    :class:`ConfigError` before any program runs. ``data·model`` must
+    divide the device count (the mesh takes the first ``data·model``):
+    ``devices`` when given (a list may name one device more than once),
+    else :func:`serving_devices` of ``device``."""
+    try:
+        axes = tuple(int(a) for a in mesh_axes)
+    except (TypeError, ValueError):
+        # the "2x1" typo lands here (every log prints meshes that way):
+        # keep it on the ConfigError front door
+        raise ConfigError(
+            f"serve.mesh must be integer (data, model) axis sizes, got "
+            f"{mesh_axes!r} (e.g. serve.mesh=4,1)") from None
+    if len(axes) == 1:
+        axes = (axes[0], 1)
+    if len(axes) != 2:
+        raise ConfigError(
+            f"serve.mesh must be (data, model) axis sizes, got {mesh_axes!r}")
+    data, model = axes
+    if data < 1 or model < 1:
+        raise ConfigError(
+            f"serve.mesh axis sizes must be >= 1, got {data}x{model}")
+    if (data, model) == (1, 1):
+        return None
+    devs = list(devices) if devices is not None else serving_devices(device)
+    need = data * model
+    if need > len(devs) or len(devs) % need:
+        raise ConfigError(
+            f"serve.mesh={data}x{model} needs {need} device(s), which must "
+            f"divide the {len(devs)} available — adjust serve.mesh or the "
+            f"device count (e.g. EUROMILLIONER_CPU_DEVICES on the CPU)")
+    return serving_mesh(data, model, devs)
+
+
+def _to_device(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, dev) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev, non_blocking=True)
+    return tree
+
+
+def _place_params(params: dict, mesh, rules) -> tuple:
+    """Place one backend's state dict on the serving mesh: ``(placed,
+    dims)``, ``placed[i][j]`` on ``mesh.devices[i][j]``. Split per
+    ``rules`` over ``model`` when that axis is > 1 (``shard_params``
+    semantics: a leaf no candidate divides replicates, with a warning),
+    whole on every device otherwise."""
+    model_axis = mesh.shape[AXIS_MODEL]
+    flat = {k: v for k, v in params.items()}
+    specs = {}
+    if model_axis > 1:
+        if rules:
+            specs = shard_specs(
+                {k: v for k, v in flat.items()
+                 if isinstance(v, torch.Tensor)}, mesh, rules)
+        else:
+            # a model axis with no partition rules replicates every param
+            # and every step
+            logger.warning(
+                "mesh model axis %d but this backend has no sharding rules; "
+                "params replicate (no tensor parallelism) — use "
+                "serve.mesh=<data>,1 for this family", model_axis)
+    dims = model_dims(specs)
+    placed, cache = [], {}
+    for i, row in enumerate(mesh.devices):
+        line = []
+        for j, dev in enumerate(row):
+            key = (j if specs else 0, str(dev))
+            if key not in cache:
+                cache[key] = {
+                    k: (_to_device(shard_leaf(v, specs[k], mesh.at(i, j)),
+                                   dev) if k in specs
+                        else _to_device(v, dev))
+                    for k, v in flat.items()}
+            line.append(cache[key])
+        placed.append(line)
+    return placed, dims
+
+
+class ShardedRows:
+    """The data shards of a serving mesh as one process drives them: each
+    shard's device (its row's first) and, on CUDA, its own stream. Rows
+    split into equal shards in shard order and join back on a head
+    device once every shard's stream is done with them."""
+
+    def __init__(self, mesh):
+        self.devices = [row[0] for row in mesh.devices]
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                        for d in self.devices]
+
+    def stream(self, i: int):
+        """Shard ``i``'s stream as the current one (nothing on the CPU)."""
+        s = self.streams[i]
+        return (torch.cuda.stream(s) if s is not None
+                else contextlib.nullcontext())
+
+    def put(self, x) -> list:
+        """Each shard's rows of host rows ``x`` on its device and stream."""
+        share = len(x) // len(self.devices)
+        out = []
+        for i, dev in enumerate(self.devices):
+            with self.stream(i):
+                out.append(upload(x[i * share:(i + 1) * share], dev))
+        return out
+
+    def join(self, parts: list, head: torch.device) -> torch.Tensor:
+        """``parts`` in shard order, concatenated on ``head``."""
+        if head.type == "cuda":
+            cur = torch.cuda.current_stream(head)
+            for s in self.streams:
+                if s is not None:
+                    cur.wait_stream(s)
+            for t in parts:
+                if t.device == head:
+                    t.record_stream(cur)
+        return torch.cat([t.to(head, non_blocking=True) for t in parts])
+
+
+class ModelSession:
+    """Serving state for one model over a serving mesh (the JAX package's
+    ``ModelSession``), in the backend's own interface so the row engine
+    serves it as it serves a backend. Without ``mesh`` it is the backend
+    (the engine unwraps it).
+
+    With ``mesh`` the params are placed on every device once (the
+    backend's own placement when it was restored onto this mesh, else a
+    session copy, the backend's params staying the parity oracle).
+    :meth:`put_rows` passes the ``serve.shard`` fault point and uploads
+    each data shard's rows to its device on its own stream;
+    :meth:`serve_apply` gives the program of one profile over such shards:
+    each runs the backend's program on its device (a model axis: the
+    model's ``tp_apply`` over the row's model shards), and the replies
+    join on shard 0's device. ``max_executables`` is the JAX package's
+    argument, accepted: a meshed session's programs run eagerly, so it
+    compiles and caches none."""
+
+    def __init__(self, backend, max_executables: int = 16, mesh=None,
+                 precision: str | None = None, aot=None):
+        self.backend = backend
+        self.mesh = mesh
+        self.family = getattr(backend, "family", backend.name)
+        backend_prof = getattr(backend, "precision", "f32")
+        self.precision = (resolve_serve_precision(precision)
+                          if precision else backend_prof)
+        self.envelope = serve_envelope(self.family, self.precision)
+        if (self.precision not in ("f32", backend_prof)
+                and not isinstance(backend, NNBackend)):
+            raise ConfigError(
+                f"serve.precision={self.precision} needs a neural "
+                f"backend; the {self.family} family serves f32 only")
+        self.chunked = getattr(backend, "chunked", None)
+        self.aot = aot
+        self._programs: dict[str, Callable] = {}
+        self._lock = threading.Lock()
+        if mesh is None:
+            return
+        if self.chunked is not None and mesh.shape[AXIS_MODEL] > 1:
+            raise ConfigError(
+                "serve.trees.chunk shards rows over the data axis only "
+                "(chunk tables replicate; a model axis > 1 has nothing to "
+                "hold); use serve.mesh=N,1 or serve.trees.chunk=0 for this "
+                "session")
+        if aot is not None:
+            logger.info("serve.aot: meshed session executables are not "
+                        "persisted (RAM tier only)")
+            self.aot = None
+        self._shards = ShardedRows(mesh)
+        if isinstance(backend, NNBackend):
+            backend.placed_params(self.precision, mesh)
+
+    # -- the backend's interface ------------------------------------------
+    def __getattr__(self, name):
+        # what the session does not define is the backend's
+        return getattr(self.__dict__["backend"], name)
+
+    @property
+    def compiled_count(self) -> int:
+        """Programs compiled for this session: a meshed session runs its
+        programs eagerly."""
+        return 0
+
+    @property
+    def data_axis_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[AXIS_DATA]
+
+    @property
+    def mesh_desc(self) -> str | None:
+        """``"<data>x<model>"`` for observability, None off-mesh."""
+        return None if self.mesh is None else mesh_desc(self.mesh)
+
+    @property
+    def device(self) -> torch.device:
+        return (self.backend.device if self.mesh is None
+                else self.mesh.primary)
+
+    def round_buckets(self, buckets) -> tuple[int, ...]:
+        """Validate a bucket table and round each bucket up to a multiple
+        of the data axis (each shard takes an equal share of the rows);
+        logged once when that changes the table."""
+        buckets = validate_buckets(buckets)
+        d = self.data_axis_size
+        if d <= 1:
+            return buckets
+        rounded = tuple(sorted({round_up_multiple(b, d) for b in buckets}))
+        if rounded != buckets:
+            logger.info("serve.mesh data axis %d: bucket table %s rounded "
+                        "up to %s", d, buckets, rounded)
+        return rounded
+
+    def put_rows(self, prepared: np.ndarray, fault: bool = True) -> list:
+        """Each data shard's rows of a prepared batch on its device, on its
+        own stream; the ``serve.shard`` fault point first (not on a
+        warmup)."""
+        if fault:
+            fault_point("serve.shard", rows=len(prepared),
+                        mesh=self.mesh_desc)
+        return self._shards.put(prepared)
+
+    def serve_params(self, profile: str):
+        if self.mesh is None:
+            return self.backend.serve_params(profile)
+        if isinstance(self.backend, NNBackend):
+            return self.backend.placed_params(profile, self.mesh)[0]
+        return self.backend.serve_params(profile)
+
+    def serve_apply(self, profile: str) -> Callable:
+        """The program of one profile: over a backend's device tensor
+        without a mesh, over :meth:`put_rows`' shards with one."""
+        if self.mesh is None:
+            return self.backend.serve_apply(profile)
+        prof = resolve_serve_precision(profile)
+        with self._lock:
+            fn = self._programs.get(prof)
+            if fn is None:
+                fn = self._programs[prof] = self._meshed(prof)
+        return fn
+
+    def apply(self, xs, *, counted: bool = True, leaves=None):
+        """The f32 oracle program (a chunked ensemble's chunk loop)."""
+        if self.mesh is None:
+            if self.chunked is not None:
+                return self.backend.apply(xs, counted=counted, leaves=leaves)
+            return self.backend.apply(xs)
+        if self.chunked is not None:
+            ys = []
+            for i, x in enumerate(xs):
+                with self._shards.stream(i):
+                    # one batch counts once, whatever its shards
+                    ys.append(self.backend.apply(
+                        x, counted=counted and i == 0))
+            return self._shards.join(ys, self.mesh.primary)
+        return self.serve_apply("f32")(xs)
+
+    def _meshed(self, prof: str) -> Callable:
+        """The meshed program of one profile."""
+        b = self.backend
+        if self.chunked is not None:
+            return self.apply
+        if isinstance(b, NNBackend):
+            placed, dims = b.placed_params(prof, self.mesh)
+        else:
+            placed = [[_to_device(b.aot_program(prof)[1], row[0])]
+                      for row in self.mesh.devices]
+            dims = {}
+        fn, _params, tail = b.aot_program(prof)
+        split = any(d is not None for d in dims.values())
+        if split:
+            skel = _skeleton(b.model)
+            if prof == "bf16":
+                skel.compute_dtype = torch.bfloat16
+            from euromillioner_tpu_torch.dist.collectives import DeviceComm
+
+            comms = [DeviceComm(row) for row in self.mesh.devices]
+
+            def shard_fn(i, x):
+                xs = [x if x.device == d else x.to(d, non_blocking=True)
+                      for d in self.mesh.devices[i]]
+                return skel.tp_apply(placed[i], xs, comms[i],
+                                     dims)[0].to(torch.float32)
+        else:
+            def shard_fn(i, x):
+                y = fn(placed[i][0], x)
+                return y if tail is None else tail(y)
+
+        def run(xs: list) -> torch.Tensor:
+            ys = []
+            with self._lock, torch.inference_mode():
+                for i, x in enumerate(xs):
+                    with self._shards.stream(i):
+                        ys.append(shard_fn(i, x))
+            return self._shards.join(ys, self.mesh.primary)
+
+        return run
 
 
 def _load_tree_backend(model_type: str, model_file: str | None, cfg: Config,

@@ -63,7 +63,8 @@ _ADMIN_404 = {"/admin/export": "this engine has no live-migration surface",
 
 
 def healthz_body(engine) -> dict:
-    """The /healthz JSON: liveness, the SLO classes (and the step-block
+    """The /healthz JSON: liveness, the serving mesh (``"<data>x<model>"``,
+    only on a mesh), the SLO classes (and the step-block
     ladder), the precision profile with its envelope, a rollout's
     ``rollout`` rider (serving version, stage, candidate, rollbacks), and
     constant-time load figures, with the telemetry's health view
@@ -72,6 +73,9 @@ def healthz_body(engine) -> dict:
     router has no precision profile) is left out. Nothing here waits on
     a dispatcher or the device: a fleet probes it every interval."""
     body = {"ok": True, "healthz_version": HEALTHZ_VERSION}
+    mesh = getattr(engine, "mesh_desc", None)
+    if mesh:
+        body["mesh"] = mesh  # liveness says what is alive: the mesh
     body.update(getattr(engine, "slo_desc", None) or {})
     body.update(getattr(engine, "precision_desc", None) or {})
     rollout = getattr(engine, "rollout_desc", None)

@@ -126,6 +126,20 @@ class Trainer:
         ``n_rows`` rows."""
         return METRICS[metric](pred, y, mask)
 
+    def _saved_state(self, state: TrainState) -> TrainState:
+        """The state a checkpoint holds (a sharded trainer's joins its
+        leaves whole)."""
+        return state
+
+    def save_checkpoint(self, directory: str, state: TrainState, *,
+                        step: int) -> str:
+        """Write ``state`` as ``directory/step_{step:08d}/`` (every process
+        of this trainer's group calls it); returns the path."""
+        from euromillioner_tpu_torch.train.checkpoint import save_checkpoint
+
+        return save_checkpoint(directory, self._saved_state(state),
+                               step=step, group=self._group)
+
     # -- state ----------------------------------------------------------
     def init_state(self, params: Mapping[str, torch.Tensor] | None = None
                    ) -> TrainState:
@@ -293,10 +307,7 @@ class Trainer:
             periodic = (checkpoint_dir and checkpoint_every
                         and (epoch + 1) % checkpoint_every == 0)
             if periodic or (checkpoint_dir and preempt):
-                from euromillioner_tpu_torch.train.checkpoint import save_checkpoint
-
-                save_checkpoint(checkpoint_dir, state, step=epoch + 1,
-                                group=self._group)
+                self.save_checkpoint(checkpoint_dir, state, step=epoch + 1)
             if preempt:
                 self.preempted = True
                 self._logger.warning(

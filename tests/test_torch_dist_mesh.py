@@ -1,9 +1,9 @@
 """The port's mesh, bootstrap, failure detection and ``train
 --distributed`` front door against the JAX package's: ``MeshSpec.resolve``
 over a table of cases, ``mesh.*`` overrides, the environment that
-``initialize`` reads, the refusal of the ``model`` and ``seq`` axes, the
-heartbeat and restart supervisor, and the CLI on the CPU — a group of one
-in this process (bit-equal to the plain trainer), two ranks as child
+``initialize`` reads, the ``model`` and ``seq`` axes resolving as there,
+the heartbeat and restart supervisor, and the CLI on the CPU — a group of
+one in this process (bit-equal to the plain trainer), two ranks as child
 processes, gbt's warning and a failing rank's exit code.
 """
 
@@ -25,8 +25,7 @@ from euromillioner_tpu.utils import errors as jax_errors
 from euromillioner_tpu_torch import cli
 from euromillioner_tpu_torch.config import Config, apply_overrides
 from euromillioner_tpu_torch.core.mesh import (Mesh, MeshSpec, build_mesh,
-                                               mesh_desc, require_data_only,
-                                               round_up_multiple)
+                                               mesh_desc, round_up_multiple)
 from euromillioner_tpu_torch.dist import bootstrap, failure
 from euromillioner_tpu_torch.utils.errors import (ConfigError,
                                                   DistributedError,
@@ -77,10 +76,11 @@ def test_mesh_overrides_parse_as_in_jax():
 
 
 @pytest.mark.parametrize("spec", [(-1, 2, 1), (-1, 1, 2), (1, -1, 1)])
-def test_model_and_seq_axes_are_refused_naming_the_later_slice(spec):
-    with pytest.raises(ConfigError, match="later slice") as e:
-        require_data_only(MeshSpec(*spec))
-    assert e.value.exit_code == 17
+def test_model_and_seq_axes_resolve_as_in_jax(spec):
+    """The specs that were refused before the model and seq axes were
+    ported now resolve to the JAX package's sizes, on 8 devices and on 4."""
+    for n in (8, 4):
+        assert MeshSpec(*spec).resolve(n) == JaxMeshSpec(*spec).resolve(n)
 
 
 def test_mesh_helpers():
@@ -148,7 +148,7 @@ def test_group_of_one_from_the_environment(monkeypatch):
         monkeypatch.setenv("EUROMILLIONER_CPU_DEVICES", "2")
         with pytest.raises(DistributedError, match="1 ranks"):
             build_mesh(MeshSpec(), device="cpu")
-        with pytest.raises(ConfigError):
+        with pytest.raises(DistributedError, match="1 ranks"):
             build_mesh(MeshSpec(model=2), device="cpu")
     finally:
         bootstrap.shutdown()
@@ -198,8 +198,8 @@ def test_run_with_restart_as_in_jax():
 # -- the CLI ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("extra,env,rc", [
-    (["mesh.model=2"], {}, 17),
-    (["mesh.seq=2"], {}, 17),
+    (["mesh.model=2"], {}, 15),
+    (["mesh.seq=2"], {}, 15),
     (["--auto-coordinator"], {}, 17),
     (["mesh.data=3"], {"EUROMILLIONER_CPU_DEVICES": "2"}, 15),
     ([], {"EUROMILLIONER_CPU_DEVICES": "two"}, 2),

@@ -636,8 +636,8 @@ def test_a_failed_kernel_build_is_not_hidden(monkeypatch):
 # -- the fault-point audit ----------------------------------------------------
 
 # the JAX package's points whose modules the port has not taken yet, each
-# queued in ROADMAP queue 1 under the item that ports it
-WAITING = {"serve.shard"}                                     # item 13
+# queued in ROADMAP queue 1 under the item that ports it: none is left
+WAITING: set[str] = set()
 _POINT = re.compile(r'fault_point\(\s*"([a-z_.]+)"')
 
 
@@ -654,7 +654,7 @@ def test_every_port_fault_point_is_spoken_in_a_port_test():
                    for p in (ROOT / "tests").glob("test_torch_*.py"))
     missing = sorted(n for n in port if f'"{n}"' not in text)
     assert not missing, missing
-    assert len(port) == 30
+    assert len(port) == 31
 
 
 def test_every_jax_fault_point_is_ported_or_waiting():

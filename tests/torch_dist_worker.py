@@ -9,8 +9,12 @@ rank still alive in ``finally``, and raises with the ranks' output when
 one fails. Ranks import torch and the port only, never jax.
 
 Case sets: ``train`` (collectives, the data-parallel trainer on the MLP,
-the LSTM and Wide&Deep, its errors, parameter averaging, checkpoints) and
-``forest`` (the row-sharded random forest).
+the LSTM and Wide&Deep, its errors, parameter averaging, checkpoints),
+``forest`` (the row-sharded random forest), ``tp`` (tensor parallelism
+over ``model``: the MLP, the LSTM and Wide&Deep, sharded checkpoints) and
+``seq`` (sequence parallelism over ``seq``: the pipelined chunk scan and
+its gradients, the flagship trained on it). ``inputs["mesh"]`` names the
+(data, model, seq) mesh, default ``(world, 1, 1)``.
 """
 
 from __future__ import annotations
@@ -320,6 +324,142 @@ def cases_forest(mesh, inputs, out):
     out["rows"] = (rows.start, rows.stop, n)
 
 
+def _fit_global(trainer, params, ds, epochs, batch_size):
+    state = _fit(trainer, params, ds, epochs, batch_size)
+    return state, _np(trainer.global_state(state).params)
+
+
+def cases_tp(mesh, inputs, out):
+    import torch
+
+    from euromillioner_tpu_torch.core.precision import PARITY
+    from euromillioner_tpu_torch.data.dataset import Dataset
+    from euromillioner_tpu_torch.dist import DistributedTrainer
+    from euromillioner_tpu_torch.models.convert import params_from_jax
+    from euromillioner_tpu_torch.models.lstm import build_lstm
+    from euromillioner_tpu_torch.models.mlp import build_mlp
+    from euromillioner_tpu_torch.models.wide_deep import build_wide_deep
+    from euromillioner_tpu_torch.train.optim import sgd
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    # the MLP: 3 epochs of SGD, the JAX package's TP pin
+    spec = inputs["mlp"]
+    ds = Dataset(*spec["data"])
+    params = params_from_jax(spec["params"], device="cpu")
+
+    def mlp():
+        return build_mlp(tuple(spec["hidden"]), out_dim=1,
+                         in_features=spec["features"], device="cpu")
+
+    dt = DistributedTrainer(mlp(), sgd(spec["lr"]), mesh=mesh,
+                            precision=PARITY)
+    state, full = _fit_global(dt, params, ds, spec["epochs"], spec["batch"])
+    out["mlp"] = {"params": full,
+                  "local": {k: tuple(v.shape)
+                            for k, v in state.params.items()},
+                  "dims": dict(dt._dims),
+                  "eval": dt.evaluate(state.params, ds, spec["batch"]),
+                  "predict": dt.predict(state.params, ds, spec["batch"])}
+    # the sharded checkpoint: saved global, restored onto the mesh
+    path = dt.save_checkpoint(inputs["ckpt_out"], state, step=3)
+    back = dt.restore_state(path, dt.init_state(params))
+    out["ckpt"] = {"before": _np(state.params), "after": _np(back.params),
+                   "opt_before": _np(state.opt_state),
+                   "opt_after": _np(back.opt_state),
+                   "step": int(back.step)}
+
+    # the LSTM: its layers' shards gathered whole, against one process
+    lspec = inputs["lstm"]
+    lds = Dataset(*lspec["data"])
+
+    def lstm():
+        return build_lstm(lspec["hidden"], lspec["layers"], 7, fused="off",
+                          device="cpu")
+
+    lp = lstm().state_dict()
+    tl = DistributedTrainer(lstm(), sgd(lspec["lr"]), mesh=mesh,
+                            precision=PARITY)
+    _, full = _fit_global(tl, lp, lds, 1, lspec["batch"])
+    plain = Trainer(lstm(), sgd(lspec["lr"]), precision=PARITY)
+    out["lstm"] = {"tp": full, "plain": _np(_fit(plain, lp, lds, 1,
+                                                 lspec["batch"]).params),
+                   "dims": dict(tl._dims)}
+
+    # Wide&Deep: one SGD step with f32 towers, its own TP layout
+    wspec = inputs["wide_deep"]
+    wds = Dataset(*wspec["data"])
+    wparams = params_from_jax(wspec["params"], device="cpu")
+    tw = DistributedTrainer(
+        build_wide_deep(device="cpu", compute_dtype=torch.float32,
+                        **wspec["kw"]),
+        sgd(wspec["lr"]), mesh=mesh, precision=PARITY)
+    wstate = tw.init_state(wparams)
+    batch = next(wds.batches(wspec["batch"]))
+    wstate, loss = tw.train_step(wstate, tw._place(batch))
+    out["wide_deep"] = {"params": _np(tw.global_state(wstate).params),
+                        "loss": float(loss), "dims": dict(tw._dims),
+                        "local": {k: tuple(v.shape)
+                                  for k, v in wstate.params.items()}}
+
+
+def cases_seq(mesh, inputs, out):
+    import dataclasses
+
+    import torch
+
+    from euromillioner_tpu_torch.core.precision import PARITY
+    from euromillioner_tpu_torch.data.dataset import Dataset
+    from euromillioner_tpu_torch.dist import (DistributedTrainer,
+                                              seq_parallel_forward)
+    from euromillioner_tpu_torch.dist.collectives import all_reduce_tree
+    from euromillioner_tpu_torch.models.convert import params_from_jax
+    from euromillioner_tpu_torch.models.lstm import (build_lstm,
+                                                     build_tbptt_lstm)
+    from euromillioner_tpu_torch.train.optim import sgd
+    from euromillioner_tpu_torch.train.trainer import Trainer
+
+    spec = inputs["tbptt"]
+    model = build_tbptt_lstm(hidden=spec["hidden"], num_layers=2,
+                             out_dim=spec["out"],
+                             in_features=spec["features"], device="cpu")
+    params = params_from_jax(spec["params"], device="cpu")
+    x = torch.from_numpy(spec["x"])
+    y = torch.from_numpy(spec["y"])
+    for n_micro in spec["n_micro"]:
+        with torch.no_grad():
+            out[f"forward_{n_micro}"] = _np(seq_parallel_forward(
+                mesh, model, params, x, n_micro=n_micro))
+    # gradients: each rank's share of the mean, summed over every rank
+    b, t = x.shape[0] // mesh.data, x.shape[1] // mesh.seq
+    yl = y[mesh.rank * b:(mesh.rank + 1) * b,
+           mesh.seq_rank * t:(mesh.seq_rank + 1) * t]
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    local = seq_parallel_forward(mesh, model, p, x)
+    loss = ((local - yl) ** 2).sum() / y.numel()
+    grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    out["grads"] = _np(all_reduce_tree(
+        grads, dataclasses.replace(mesh, group=None)))
+    out["block"] = (mesh.rank, mesh.seq_rank)
+
+    # the flagship on the pipelined scan against one process's scan
+    fspec = inputs["flagship"]
+    fds = Dataset(*fspec["data"])
+
+    def flagship():
+        return build_lstm(fspec["hidden"], 2, 7, fused="off", device="cpu")
+
+    fp = flagship().state_dict()
+    dt = DistributedTrainer(flagship(), sgd(fspec["lr"]), mesh=mesh,
+                            precision=PARITY, shard_sequence=True)
+    state = _fit(dt, fp, fds, fspec["epochs"], fspec["batch"])
+    plain = Trainer(flagship(), sgd(fspec["lr"]), precision=PARITY)
+    ps = _fit(plain, fp, fds, fspec["epochs"], fspec["batch"])
+    out["flagship"] = {
+        "sp": _np(state.params), "plain": _np(ps.params),
+        "eval": dt.evaluate(state.params, fds, fspec["batch"]),
+        "plain_eval": plain.evaluate(ps.params, fds, fspec["batch"])}
+
+
 def main(argv: list[str]) -> int:
     cases, rank, world, address, out_dir = argv
     rank, world = int(rank), int(world)
@@ -334,11 +474,13 @@ def main(argv: list[str]) -> int:
     bootstrap.initialize(address, world, rank, device="cpu",
                          timeout_s=GROUP_TIMEOUT_S)
     try:
-        mesh = build_mesh(MeshSpec(data=world), device="cpu")
         inputs = torch.load(out_dir / "inputs.pt", weights_only=False)
+        data, model, seq = inputs.get("mesh", (world, 1, 1))
+        mesh = build_mesh(MeshSpec(data=data, model=model, seq=seq),
+                          device="cpu")
         out: dict = {}
-        {"train": cases_train, "forest": cases_forest}[cases](mesh, inputs,
-                                                              out)
+        {"train": cases_train, "forest": cases_forest, "tp": cases_tp,
+         "seq": cases_seq}[cases](mesh, inputs, out)
         torch.save(out, out_dir / f"rank{rank}.pt")
     except Exception:
         traceback.print_exc()
